@@ -1,0 +1,554 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``tinychatengine_tpu_torch``) on one
+NVIDIA GPU. Run from the root of a checkout: ``python3 chip_smoke.py``.
+
+Phases (any failure ends the run with a non-zero exit code):
+
+1. device: requires CUDA; prints the card's name and power limit;
+2. build: compiles every kernel under ``tinychatengine_tpu_torch/csrc``
+   with nvcc, one process per source, all at once;
+3. kernels: each kernel against its plain PyTorch version on the card at
+   llama3_8b's main-path shapes, with the stated tolerance, and timed
+   beside its plain version, one PyTorch library call and its bound;
+4. main path: llama3_8b W4A8 at full width (all 32 layers, random packed
+   weights from a seed) through ``Engine.generate_device`` (64-token
+   prompt, 256 greedy tokens with repeat_penalty 1.1 over the last 64) and
+   a 2048-token prefill; every kernel's launch count must rise; a 2-layer
+   cut of the same model must agree with the plain path on the CPU;
+5. real weights: ``assets/bytellama_5m`` greedy goldens and perplexity
+   budgets (fp < 3.5, w4a16 <= +3 %, w4a8 <= +4 %) on the card, w4a8 also
+   over 64-token windows, where it runs the W4A8 kernel.
+
+The line before the last is ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {...}}``. ``--kernels-only`` stops after phase 3.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_S = 3.35e12   # H100 SXM HBM3
+BF16_FLOP_S = 989e12    # dense bf16 tensor-core peak
+INT8_OP_S = 1979e12     # dense int8 tensor-core peak
+MAT_TOL = 1e-2          # matmuls: max |kernel - plain| <= MAT_TOL * max |plain|
+ATTN_RTOL = 2.0 ** -6   # attention, element by element: see attn_err
+ATTN_TOL_TEXT = "2^-6 * (|plain| + max|plain| of the row)"
+CUT_TOL = 5e-2          # 2-layer llama3_8b cut: GPU kernels vs CPU plain
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def attn_err(got: torch.Tensor, want: torch.Tensor, d: int):
+    """Holds an attention output to its plain version element by element:
+    |got - want| <= ATTN_RTOL * (|want| + max |want| over the same head's
+    row of ``d`` values). The kernels round the probabilities to bf16
+    before dividing by their sum, the plain versions after, and both round
+    the output to bf16: they differ by a few bf16 steps (2^-8 relative) of
+    the element or of its row. A key tile left out or a mask one key off
+    moves whole rows by more. Returns (max |got - want|, the largest share
+    of its limit that an element takes); a case passes at a share <= 1."""
+    g, w = got.float().reshape(-1, d), want.float().reshape(-1, d)
+    diff = (g - w).abs()
+    limit = ATTN_RTOL * (w.abs() + w.abs().amax(dim=1, keepdim=True))
+    return float(diff.max()), float((diff / limit).max())
+
+
+def bound(bytes_moved: float, ops: float, op_rate: float):
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_S, ops / op_rate
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _events():
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+
+def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean time of one eager call, by CUDA events over ``iters`` calls
+    launched back to back: device time, or the host's launch time where that
+    is longer (small shapes)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0, t1 = _events()
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Mean device time of one call: ``iters`` calls captured in a CUDA
+    graph and replayed, so host launch costs drop out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture (library init)
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    t0, t1 = _events()
+    t0.record()
+    g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    del g
+    return t0.elapsed_time(t1) / iters
+
+
+def check_kernels(gen):
+    """Phase 3: every kernel against its plain version at the main path's
+    shapes, timed. Returns one row per case."""
+    from tinychatengine_tpu_torch.ops import attention as att
+    from tinychatengine_tpu_torch.ops import int4_matmul as im
+    from tinychatengine_tpu_torch.ops.ref import dequantize_int4
+    dev = torch.device("cuda")
+    cases = []
+
+    def add(kernel, case, err, share, tol, run, iters, plain_ms, lib,
+            bytes_moved, ops, rate):
+        bms, by = bound(bytes_moved, ops, rate)
+        row = dict(kernel=kernel, case=case, max_abs_err=err, err_share=share,
+                   tol=tol, ms=graph_ms(run, iters),
+                   eager_ms=time_ms(run, iters), plain_ms=plain_ms,
+                   library_ms=graph_ms(lib, iters), bound_ms=bms, bound_by=by)
+        cases.append(row)
+        log(json.dumps(row))
+        if not share <= 1.0:
+            raise SystemExit(f"{kernel} {case}: error {err} takes {share:.3f} "
+                             f"of its tolerance ({tol})")
+
+    # ---- int4 matmuls: weights stacked over enough layers that a timing
+    # loop cycling through them does not run out of the 50 MB L2
+    shapes = {"qkv": (4096, 6144), "wo": (4096, 4096),
+              "gate_up": (4096, 28672), "down": (14336, 4096),
+              "lm_head": (4096, 129024)}
+    for name, (k, n) in shapes.items():
+        n_layers = max(2, -(-200_000_000 // (k * n // 2)))
+        packed = torch.randint(0, 256, (n_layers, k // 2, n), dtype=torch.uint8,
+                               device=dev, generator=gen)
+        scales = ((torch.rand((n_layers, k // 128, n), device=dev,
+                              generator=gen) + 0.5) * 0.005).to(torch.bfloat16)
+        w_lib = dequantize_int4(packed[0], scales[0], 128, torch.bfloat16)
+        runs = [("int4_matmul_a8", im.int4_matmul_a8, im.int4_matmul_a8_plain,
+                 m, INT8_OP_S) for m in (1, 64)]
+        if name != "lm_head":
+            runs.append(("int4_matmul", im.int4_matmul, im.int4_matmul_plain,
+                         2048, BF16_FLOP_S))
+        for kernel, fn, plain, m, rate in runs:
+            x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
+            err = share = 0.0
+            for li in (0, n_layers - 1):  # stacked layer_idx
+                y = fn(x, packed, scales, 128, layer_idx=li).float()
+                ref = plain(x, packed, scales, 128, layer_idx=li).float()
+                e = float((y - ref).abs().max())
+                err = max(err, e)
+                share = max(share, e / (MAT_TOL * float(ref.abs().max())))
+            it = 5 if m == 2048 else 50
+            state = {"li": 0}
+
+            def run():
+                state["li"] = (state["li"] + 1) % n_layers
+                fn(x, packed, scales, 128, layer_idx=state["li"])
+            plain_ms = time_ms(lambda: plain(x, packed, scales, 128,
+                                             layer_idx=0), 3 if m == 2048 else 10)
+            bytes_moved = m * k * 2 + k * n // 2 + (k // 128) * n * 2 + m * n * 2
+            add(kernel, f"{name} M={m} K={k} N={n}", err, share,
+                f"{MAT_TOL} * max|plain|", run, it, plain_ms, lambda: torch.matmul(x, w_lib), bytes_moved,
+                2.0 * m * n * k, rate)
+        del packed, scales, w_lib
+        torch.cuda.empty_cache()
+
+    # ---- attention over a 32-layer stacked cache (B=1, Hkv=8, S=2048)
+    L, S = 32, 2048
+    for d, hq, hkv in ((128, 32, 8), (64, 32, 8)):
+        ck = torch.randn((L, 1, hkv, S, d), device=dev, generator=gen).to(torch.bfloat16)
+        cv = torch.randn((L, 1, hkv, S, d), device=dev, generator=gen).to(torch.bfloat16)
+        g = hq // hkv
+        for length in ((1, 65, 320, 2047) if d == 128 else (65, 2047)):
+            q = torch.randn((1, hq, d), device=dev, generator=gen).to(torch.bfloat16)
+            err = share = 0.0
+            for li in (0, L - 1):
+                y = att.flash_decode(q, ck, cv, li, length)
+                ref = att.flash_decode_plain(q, ck, cv, li, length)
+                e, sh = attn_err(y, ref, d)
+                err, share = max(err, e), max(share, sh)
+            state = {"li": 0}
+
+            def run():
+                state["li"] = (state["li"] + 1) % L
+                att.flash_decode(q, ck, cv, state["li"], length)
+            plain_ms = time_ms(lambda: att.flash_decode_plain(q, ck, cv, 0, length), 10)
+            kr = ck[0, :, :, :length].repeat_interleave(g, dim=1)
+            vr = cv[0, :, :, :length].repeat_interleave(g, dim=1)
+            add("flash_decode", f"B=1 Hq={hq} Hkv={hkv} D={d} length={length}",
+                err, share, ATTN_TOL_TEXT, run, 64, plain_ms,
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q[:, :, None], kr, vr),
+                2 * hq * d * 2 + 2 * hkv * length * d * 2, 4.0 * hq * length * d,
+                BF16_FLOP_S)
+        for s, start in ((2048, 0), (64, S - 64)):
+            if d == 64 and s == 64:
+                continue
+            length = start + s
+            q = torch.randn((1, s, hq, d), device=dev, generator=gen).to(torch.bfloat16)
+            err = share = 0.0
+            for li in (0, L - 1):
+                y = att.flash_prefill(q, ck, cv, li, start, length)
+                ref = att.flash_prefill_plain(q, ck, cv, li, start, length)
+                assert not torch.isnan(y).any(), "NaN in flash_prefill output"
+                e, sh = attn_err(y, ref, d)
+                err, share = max(err, e), max(share, sh)
+            it = 5 if s == 2048 else 50
+            state = {"li": 0}
+
+            def run():
+                state["li"] = (state["li"] + 1) % L
+                att.flash_prefill(q, ck, cv, state["li"], start, length)
+            plain_ms = time_ms(lambda: att.flash_prefill_plain(
+                q, ck, cv, 0, start, length), 3)
+            kr = ck[0, :, :, :length].repeat_interleave(g, dim=1)
+            vr = cv[0, :, :, :length].repeat_interleave(g, dim=1)
+            qt = q.transpose(1, 2)
+            mask = (torch.arange(length, device=dev)[None, :]
+                    <= start + torch.arange(s, device=dev)[:, None])
+            pairs = sum(min(start + r + 1, length) for r in range(s))
+            add("flash_prefill", f"B=1 S={s} start={start} Hq={hq} Hkv={hkv} D={d}",
+                err, share, ATTN_TOL_TEXT, run, it, plain_ms,
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kr, vr, attn_mask=mask),
+                2 * s * hq * d * 2 + 2 * hkv * length * d * 2,
+                4.0 * hq * pairs * d, BF16_FLOP_S)
+        del ck, cv
+        torch.cuda.empty_cache()
+    return cases
+
+
+def main_path(model="llama3_8b", dev="cuda", long_len=2048):
+    """Phase 4: ``model`` W4A8 at full width through the Engine. Returns
+    (launches of the run, launches of one decode step, metrics). The
+    arguments shrink the run for a rehearsal on the CPU (tests)."""
+    from tinychatengine_tpu_torch.core.config import (GenerationConfig,
+                                                      QuantConfig,
+                                                      get_model_config)
+    from tinychatengine_tpu_torch.generation import kv_cache as kvc
+    from tinychatengine_tpu_torch.generation import sampling
+    from tinychatengine_tpu_torch.generation.engine import Engine
+    from tinychatengine_tpu_torch.models import llama
+    from tinychatengine_tpu_torch.ops import _build
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    cfg = get_model_config(model)
+    qcfg = QuantConfig(scheme="w4a8", group_size=128)
+    t0 = time.perf_counter()
+    params = llama.init_random_params(cfg, qcfg, seed=0, fast=True,
+                                      device=dev)
+    sync()
+    log(f"{model} w4a8 random init: {time.perf_counter() - t0:.1f} s")
+    eng = Engine(params, cfg, qcfg, batch=1, max_len=long_len, device=dev)
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab_size, (1, 64))
+    long_prompt = rng.integers(0, cfg.vocab_size, (1, long_len))
+    gcfg = GenerationConfig(temp=0.0, n_predict=256, repeat_penalty=1.1,
+                            repeat_last_n=64)
+
+    def gen_s(n):
+        sync()
+        t = time.perf_counter()
+        toks = eng.generate_device(prompt, gcfg, n_tokens=n)
+        out = toks.cpu()
+        return time.perf_counter() - t, out
+
+    def prefill_s():
+        cache = eng.new_cache()
+        sync()
+        t = time.perf_counter()
+        logits, cache = eng.prefill(long_prompt, cache)
+        sync()
+        return time.perf_counter() - t, logits, cache
+
+    def ttft_s():
+        cache = eng.new_cache()
+        sync()
+        t = time.perf_counter()
+        logits, _ = eng.prefill(prompt, cache)
+        state = sampling.SamplerState.init(0, 1, 5.0, dev)
+        tok, _ = sampling.sample(logits, state, gcfg, None)
+        tok.cpu()
+        return time.perf_counter() - t
+
+    gen_s(2)  # warm-up: allocator, library loads
+    prefill_s()
+    _build.reset_launches()
+    t1, _ = gen_s(1)
+    t256, toks = gen_s(256)
+    ttft = ttft_s()
+    t_pre, logits, cache = prefill_s()
+    launches = dict(_build.LAUNCHES)
+    log("main-path launches:", json.dumps(launches))
+    if dev == "cuda" and not all(launches[k] > 0 for k in _build.KERNELS):
+        raise SystemExit(f"a kernel was never launched on the main path: {launches}")
+    if toks.shape != (1, 256) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.vocab_size:
+        raise SystemExit(f"bad decode tokens {toks.shape}")
+    if logits.shape != (1, cfg.vocab_size) or not torch.isfinite(logits).all() \
+            or cache.length != long_len:
+        raise SystemExit("bad long-prompt prefill output")
+
+    with torch.inference_mode():  # launches of one decode step
+        cache1 = eng.new_cache()
+        eng.prefill(prompt, cache1)
+        _build.reset_launches()
+        llama.forward(params, cfg, torch.tensor([[1]], device=dev), cache1, 64)
+    per_step = dict(_build.LAUNCHES)
+
+    decode_tok_s = 255 / (t256 - t1)
+    metrics = dict(decode_tok_s=decode_tok_s, ttft_ms=ttft * 1e3,
+                   prefill_tok_s=long_len / t_pre, gen256_s=t256, gen1_s=t1,
+                   prefill_s=t_pre)
+    if dev == "cuda":
+        metrics["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        metrics.update(decode_profile(params, cfg, eng, prompt, gcfg,
+                                      1e3 / decode_tok_s))
+    log("main-path metrics:", json.dumps(metrics))
+
+    # a 2-layer cut at full width: kernels on the card against the plain
+    # path on the CPU, 64-token prefill then 2 decode steps
+    cut = dataclasses.replace(cfg, num_layers=2)
+
+    def sliced(p, where):
+        lyr = p.layers
+
+        def sl(t):
+            return None if t is None else t[:2].to(where)
+
+        def lin(x):
+            return type(x)(**{f: sl(getattr(x, f)) for f in ("packed", "scales", "bias")})
+        return llama.LlamaParams(
+            embed=p.embed.to(where),
+            layers=llama.LlamaLayerParams(
+                input_norm=sl(lyr.input_norm), wqkv=lin(lyr.wqkv), wo=lin(lyr.wo),
+                post_norm=sl(lyr.post_norm), wgate_up=lin(lyr.wgate_up),
+                down=lin(lyr.down)),
+            final_norm=p.final_norm.to(where),
+            lm_head=type(p.lm_head)(packed=p.lm_head.packed.to(where),
+                                    scales=p.lm_head.scales.to(where)),
+            rope_cos=p.rope_cos[:256].to(where),
+            rope_sin=p.rope_sin[:256].to(where))
+
+    outs = {}
+    with torch.inference_mode():
+        for where in (dev, "cpu"):
+            p = sliced(params, where)
+            cache_c = kvc.init_cache(2, 1, 128, cfg.num_kv_heads, cfg.head_dim,
+                                     device=where)
+            ids = torch.as_tensor(prompt, device=where)
+            seq = [llama.forward(p, cut, ids, cache_c, 0)[0].float().cpu()]
+            for step, t in enumerate((11, 22)):
+                seq.append(llama.forward(p, cut, torch.tensor([[t]], device=where),
+                                         cache_c, 64 + step)[0].float().cpu())
+            outs[where] = seq
+    errs = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(outs[dev], outs["cpu"])]
+    log(f"2-layer cut, kernels vs CPU plain: max |diff| / max |ref| = "
+        f"{max(errs):.3e} (tol {CUT_TOL})")
+    if not max(errs) <= CUT_TOL:
+        raise SystemExit("2-layer cut disagrees with the plain path")
+    del params, eng
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return launches, per_step, metrics
+
+
+def decode_profile(params, cfg, eng, prompt, gcfg, step_ms: float,
+                   steps: int = 16) -> dict:
+    """Device time of the decode steps by kernel, from a torch.profiler
+    trace of ``steps`` steps; the busy share divides it by the unprofiled
+    step time ``step_ms``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tinychatengine_tpu_torch.generation import sampling
+    from tinychatengine_tpu_torch.models import llama
+    with torch.inference_mode():
+        cache = eng.new_cache()
+        logits, _ = eng.prefill(prompt, cache)
+        state = sampling.SamplerState.init(0, 1, 5.0, "cuda")
+        last = torch.full((1, 64), -1, dtype=torch.long, device="cuda")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(steps):
+                tok, state = sampling.sample(logits, state, gcfg, last)
+                last = torch.cat([last[:, 1:], tok[:, None].long()], dim=1)
+                logits, _ = llama.forward(params, cfg, tok[:, None].long(),
+                                          cache, 64 + i)
+            torch.cuda.synchronize()
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = re.split(r"[<(]", e.name.replace(
+                "(anonymous namespace)::", "").replace("void ", ""))[0][:60]
+            by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
+    busy_ms = sum(by_name.values()) / 1e3 / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    for name, us in top:
+        log(f"  decode step device time {us / 1e3 / steps:8.4f} ms  {name}")
+    if busy_ms == 0.0:
+        log("  decode profile: no device time traced (not measured)")
+        return {}
+    return dict(decode_device_ms_per_step=busy_ms,
+                decode_busy_share=busy_ms / step_ms)
+
+
+def real_weights(dev="cuda"):
+    """Phase 5: bytellama_5m goldens and perplexity budgets on the card."""
+    from tinychatengine_tpu_torch.core.config import (GenerationConfig,
+                                                      QuantConfig,
+                                                      get_model_config)
+    from tinychatengine_tpu_torch.generation.engine import Engine
+    from tinychatengine_tpu_torch.models import llama
+    from tinychatengine_tpu_torch.ops import _build
+    from tinychatengine_tpu_torch.tokenizers.byte_fallback import ByteTokenizer
+    from tinychatengine_tpu_torch.tools.checkpoint import load_checkpoint
+    from tinychatengine_tpu_torch.tools.convert import requantize_llama
+    from tinychatengine_tpu_torch.tools.perplexity import perplexity
+
+    ckpt = ROOT / "assets" / "bytellama_5m"
+    cfg = get_model_config("bytellama_5m")
+    params, qcfg = load_checkpoint(str(ckpt), cfg, device=dev)
+    tok = ByteTokenizer()
+    eng = Engine(params, cfg, QuantConfig(scheme="fp"), batch=1,
+                 max_len=cfg.max_sqlen, device=dev)
+    golds = [json.loads((ROOT / "tests/golden/bytellama_greedy.json").read_text())]
+    golds += json.loads((ROOT / "tests/golden/bytellama_goldens.json").read_text())
+    for gold in golds:
+        g = GenerationConfig(temp=0.0, n_predict=gold["n_predict"],
+                             repeat_penalty=1.0, repeat_last_n=1)
+        got = eng.generate(np.asarray(tok.encode(gold["prompt"]))[None], g).tokens[0]
+        want = gold["token_ids"]
+        match = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                     min(len(got), len(want)))
+        log(f"golden {gold['prompt'][:24]!r}: {match}/{len(want)} tokens match")
+        if match < 16:
+            raise SystemExit("golden transcript diverged within 16 tokens")
+
+    ids = np.asarray(tok.encode((ckpt / "eval_sample.txt").read_text(
+        encoding="utf-8")), np.int64)[:6144]
+    ppl = {"fp": perplexity(llama.forward, params, cfg, ids, 512, 256)}
+    for scheme in ("w4a16", "w4a8"):
+        qp = requantize_llama(params, QuantConfig(scheme=scheme, group_size=128))
+        ppl[scheme] = perplexity(llama.forward, qp, cfg, ids, 512, 256)
+    # 512-token windows put M above A8_MAX_ROWS, so the w4a8 model ran the
+    # W4A16 kernel there (as in the JAX package); 64-token windows keep
+    # M <= 100 and score it through the W4A8 kernel
+    ppl["fp_w64"] = perplexity(llama.forward, params, cfg, ids, 64, 32)
+    _build.reset_launches()
+    ppl["w4a8_w64"] = perplexity(llama.forward, qp, cfg, ids, 64, 32)
+    a8 = dict(_build.LAUNCHES)
+    log("bytellama_5m ppl on 6144 tokens:", json.dumps(ppl))
+    log("w4a8 64-token windows, launches:", json.dumps(a8))
+    if dev == "cuda" and not (a8["int4_matmul_a8"] > 0
+                              and a8["int4_matmul"] == 0):
+        raise SystemExit("w4a8 64-token windows did not run the W4A8 kernel")
+    if not (ppl["fp"] < 3.5 and ppl["w4a16"] <= ppl["fp"] * 1.03
+            and ppl["w4a8"] <= ppl["fp"] * 1.04
+            and ppl["w4a8_w64"] <= ppl["fp_w64"] * 1.04):
+        raise SystemExit("perplexity outside the ACCURACY.md budgets")
+    return ppl
+
+
+SUMMARY = {  # kernel -> (source, TPU kernel it replaces, summary case)
+    "int4_matmul": ("tinychatengine_tpu_torch/csrc/int4_matmul.cu",
+                    "tinychatengine_tpu/ops/int4_matmul.py:409",
+                    "gate_up M=2048 K=4096 N=28672"),
+    "int4_matmul_a8": ("tinychatengine_tpu_torch/csrc/int4_matmul_a8.cu",
+                       "tinychatengine_tpu/ops/int4_matmul.py:930",
+                       "gate_up M=1 K=4096 N=28672"),
+    "flash_decode": ("tinychatengine_tpu_torch/csrc/flash_decode.cu",
+                     "tinychatengine_tpu/ops/attention.py:204",
+                     "B=1 Hq=32 Hkv=8 D=128 length=320"),
+    "flash_prefill": ("tinychatengine_tpu_torch/csrc/flash_prefill.cu",
+                      "tinychatengine_tpu/ops/attention.py:549",
+                      "B=1 S=2048 start=0 Hq=32 Hkv=8 D=128"),
+}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the kernel checks (no main path)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from tinychatengine_tpu_torch.ops import _build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    log(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"build: {time.perf_counter() - t0:.1f} s")
+    for name, text in _build.BUILD_LOG.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = check_kernels(gen)
+    if args.kernels_only:
+        return 0
+    launches, per_step, metrics = main_path()
+    real_weights()
+
+    rows = []
+    for name in _build.KERNELS:
+        source, replaces, case = SUMMARY[name]
+        mine = [c for c in cases if c["kernel"] == name]
+        row = next(c for c in mine if c["case"].startswith(case))
+        rows.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches[name], launches_per_decode_step=per_step[name],
+            max_abs_err=max(c["max_abs_err"] for c in mine), case=row["case"],
+            ms=row["ms"], eager_ms=row["eager_ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"]))
+    log(f"main path on {smi}: decode {metrics['decode_tok_s']:.2f} tok/s, "
+        f"TTFT {metrics['ttft_ms']:.1f} ms, prefill "
+        f"{metrics['prefill_tok_s']:.1f} tok/s")
+    log(smi)
+    log(json.dumps({"kernels": rows}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,85 @@
+"""The port's CUDA kernels against their plain versions at small shapes,
+on the card. Marked ``gpu``; each test skips without a CUDA device. This
+file imports neither jax nor the JAX package, so it also runs where those
+are absent (the machine with the card):
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py -m gpu
+
+(from the root of the checkout, which puts ``chip_smoke`` on the path)
+
+(``chip_smoke.py`` makes the same checks at full size.)"""
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import attn_err
+from tinychatengine_tpu_torch.ops import _build
+from tinychatengine_tpu_torch.ops import attention as att
+from tinychatengine_tpu_torch.ops import int4_matmul as im
+from tinychatengine_tpu_torch.ops.linear import quantized_linear
+
+pytestmark = pytest.mark.gpu
+
+# max |kernel - plain| <= MAT_TOL * max |plain|: the plain versions round
+# the dequantized weights (W4A16) to bf16 and sum in another order
+MAT_TOL = 1e-2
+# attention: chip_smoke.attn_err, element by element, 2^-6 of the element
+# plus its row's largest value (the plain versions normalise before the bf16
+# cast of the probabilities, the kernels after it)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _bf16(rng, shape, dev):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                            ).to(dev).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("k,scale_dtype", [(512, "bf16"), (1152, "f32")])
+@pytest.mark.parametrize("m", [1, 7, 130])
+def test_int4_kernels_match_plain(cuda, k, scale_dtype, m):
+    rng = np.random.default_rng(m)
+    lins = [quantized_linear(rng.standard_normal((256, k)).astype(np.float32)
+                             * 0.02, 128, scale_dtype) for _ in range(2)]
+    packed = torch.stack([p.packed for p in lins]).to(cuda)
+    scales = torch.stack([p.scales for p in lins]).to(cuda)
+    x = _bf16(rng, (m, k), cuda)
+    _build.reset_launches()
+    for fn, plain in ((im.int4_matmul, im.int4_matmul_plain),
+                      (im.int4_matmul_a8, im.int4_matmul_a8_plain)):
+        got = fn(x, packed, scales, 128, layer_idx=1).float()
+        want = plain(x, packed, scales, 128, layer_idx=1).float()
+        torch.cuda.synchronize()
+        assert (got - want).abs().max() <= MAT_TOL * want.abs().max()
+    assert _build.LAUNCHES["int4_matmul"] == _build.LAUNCHES["int4_matmul_a8"] == 1
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_attention_kernels_match_plain(cuda, d):
+    rng = np.random.default_rng(d)
+    k = _bf16(rng, (2, 2, 2, 256, d), cuda)
+    v = _bf16(rng, (2, 2, 2, 256, d), cuda)
+    q = _bf16(rng, (2, 8, d), cuda)
+    lengths = torch.tensor([5, 256], dtype=torch.int32, device=cuda)
+    for window in (None, 100):
+        got = att.flash_decode(q, k, v, 1, lengths, window=window).float()
+        want = att.flash_decode_plain(q, k, v, 1, lengths,
+                                      window=window).float()
+        assert attn_err(got, want, d)[1] <= 1.0
+    qp = _bf16(rng, (2, 70, 8, d), cuda)
+    starts = torch.tensor([0, 100], dtype=torch.int32, device=cuda)
+    for start, length in ((100, 160), (starts, starts + 60)):
+        got = att.flash_prefill(qp, k, v, 0, start, length).float()
+        want = att.flash_prefill_plain(qp, k, v, 0, start, length).float()
+        assert not torch.isnan(got).any()
+        assert attn_err(got, want, d)[1] <= 1.0
+    with pytest.raises(NotImplementedError):
+        att.flash_decode(q, k.to(torch.int8), v.to(torch.int8), 0, 5,
+                         torch.ones(k.shape[:-1], device=cuda),
+                         torch.ones(k.shape[:-1], device=cuda))

@@ -1,0 +1,226 @@
+"""The port's Engine, sampling and perplexity on the CPU: the bytellama_5m
+fp goldens token-exact, the device loop against the host loop, chunked
+prefill, and sampling against the JAX package on the same logits."""
+
+import json
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tinychatengine_tpu.core.config import GenerationConfig as JGen
+from tinychatengine_tpu.generation import sampling as jsmp
+from tinychatengine_tpu_torch.core.config import (GenerationConfig,
+                                                  ModelConfig, QuantConfig,
+                                                  get_model_config)
+from tinychatengine_tpu_torch.generation import sampling as tsmp
+from tinychatengine_tpu_torch.generation.engine import Engine, _bucket
+from tinychatengine_tpu_torch.models import llama
+from tinychatengine_tpu_torch.tokenizers.byte_fallback import ByteTokenizer
+from tinychatengine_tpu_torch.tools.checkpoint import load_checkpoint
+from tinychatengine_tpu_torch.tools.perplexity import perplexity
+
+REPO = Path(__file__).resolve().parent.parent
+CKPT = REPO / "assets" / "bytellama_5m"
+GOLDEN = REPO / "tests" / "golden"
+TINY = ModelConfig(name="tiny", family="llama", num_heads=4, num_kv_heads=2,
+                   num_layers=2, max_sqlen=128, embed_dim=256,
+                   hidden_dim=512, vocab_size=512, rms_norm_eps=1e-5)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs in parallel workers: one intra-op thread per worker
+    keeps torch's many small CPU ops from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
+@pytest.fixture(scope="module")
+def trained():
+    if not (CKPT / "meta.json").exists():
+        pytest.skip("trained checkpoint not present")
+    cfg = get_model_config("bytellama_5m")
+    params, _ = load_checkpoint(str(CKPT), cfg, device="cpu")
+    return cfg, params
+
+
+@pytest.fixture(scope="module")
+def tiny_engine():
+    params = llama.init_random_params(TINY, QuantConfig(scheme="w4a8"),
+                                      seed=0, device="cpu")
+    return Engine(params, TINY, QuantConfig(scheme="w4a8"), device="cpu")
+
+
+@pytest.mark.parametrize("golden", ["bytellama_greedy.json",
+                                    "bytellama_goldens.json"])
+def test_fp_goldens_token_exact(trained, golden):
+    """The committed JAX greedy transcripts, with the settings of the JAX
+    package's tests/test_accuracy.py."""
+    cfg, params = trained
+    golds = json.loads((GOLDEN / golden).read_text())
+    golds = golds if isinstance(golds, list) else [golds]
+    eng = Engine(params, cfg, QuantConfig(scheme="fp"), batch=1,
+                 max_len=cfg.max_sqlen, device="cpu")
+    tok = ByteTokenizer()
+    for gold in golds:
+        ids = np.asarray(tok.encode(gold["prompt"]))[None, :]
+        g = GenerationConfig(temp=0.0, n_predict=gold["n_predict"],
+                             repeat_penalty=1.0, repeat_last_n=1)
+        got = eng.generate(ids, g).tokens[0]
+        assert got == gold["token_ids"], tok.decode(got)
+
+
+@pytest.mark.parametrize("penalty", [1.0, 1.1])
+def test_device_loop_equals_host_loop(tiny_engine, penalty):
+    g = GenerationConfig(temp=0.0, n_predict=12, repeat_penalty=penalty,
+                         repeat_last_n=8)
+    prompt = [[3, 1, 4, 1, 5, 9, 2, 6]]
+    host = tiny_engine.generate(prompt, g).tokens[0]
+    dev = tiny_engine.generate_device(prompt, g)
+    assert dev.shape == (1, 12) and dev.dtype == torch.int32
+    assert dev[0].tolist() == host
+
+
+def test_chunked_prefill_matches_single_shot(tiny_engine, monkeypatch):
+    prompt = np.arange(1, 41)[None] % 500
+    single, cache1 = tiny_engine.prefill(prompt, tiny_engine.new_cache())
+    monkeypatch.setattr(Engine, "CHUNK", 16)
+    chunked, cache2 = tiny_engine.prefill(prompt, tiny_engine.new_cache())
+    assert cache1.length == cache2.length == 40
+    # chunks see the same keys; only the bucket padding of the last chunk
+    # differs, which causality keeps out of the real rows: bf16 noise only
+    np.testing.assert_allclose(chunked.numpy(), single.numpy(), atol=3e-2,
+                               rtol=3e-2)
+
+
+def test_stop_token_streaming_and_bucket(tiny_engine):
+    assert _bucket(1) == 16 and _bucket(17) == 32
+    g = GenerationConfig(temp=0.0, n_predict=10)
+    first = tiny_engine.generate([[1, 2, 3]], g).tokens[0]
+    stopped = tiny_engine.generate([[1, 2, 3]], g,
+                                   stop_token_ids=[first[2]]).tokens[0]
+    assert stopped == first[:first.index(first[2]) + 1]
+    seen = []
+    streamed = tiny_engine.generate(
+        [[1, 2, 3]], g, on_token=lambda t: seen.append(t) or len(seen) < 4)
+    assert seen == first[:4] == streamed.tokens[0]
+
+
+def test_chip_smoke_phases_rehearse_on_cpu(trained):
+    """chip_smoke.py's main-path and real-weights phases, run on the CPU at
+    bytellama_5m's size (the card runs llama3_8b): control flow, shapes,
+    the 2-layer cut check, goldens and ppl budgets."""
+    import chip_smoke
+
+    launches, per_step, metrics = chip_smoke.main_path(
+        model="bytellama_5m", dev="cpu", long_len=512)
+    # the CPU takes the plain versions: no kernel launches
+    assert not any(launches.values()) and not any(per_step.values())
+    assert metrics["decode_tok_s"] > 0
+    ppl = chip_smoke.real_weights(dev="cpu")
+    assert ppl["fp"] < 3.5
+
+
+def test_perplexity_matches_jax(trained):
+    """Same windows and masking as the JAX harness on 1024 eval tokens."""
+    from tinychatengine_tpu.core.config import get_model_config as jget
+    from tinychatengine_tpu.models import llama as jllama
+    from tinychatengine_tpu.tools.checkpoint import load_checkpoint as jload
+    from tinychatengine_tpu.tools.perplexity import perplexity as jppl
+    cfg, params = trained
+    text = (CKPT / "eval_sample.txt").read_text(encoding="utf-8")
+    ids = np.asarray(ByteTokenizer().encode(text))[:1024]
+    got = perplexity(llama.forward, params, cfg, ids, 512, 256)
+    jparams, _ = jload(str(CKPT), jget("bytellama_5m"))
+    want = jppl(jllama.forward, jparams, jget("bytellama_5m"), ids, 512, 256)
+    assert got < 3.5
+    assert abs(got - want) / want < 2e-3  # bf16 noise on a mean of 1023 nll
+
+
+# ---- sampling: same logits on both sides ----------------------------------
+
+def _logits(seed, b=3, v=200):
+    x = np.random.default_rng(seed).standard_normal((b, v)).astype(np.float32)
+    return x * 3, jnp.asarray(x * 3), torch.from_numpy(x * 3)
+
+
+def _kept(masked) -> np.ndarray:
+    return np.asarray(masked) > -1e29
+
+
+@pytest.mark.parametrize("name,arg", [("top_k_mask", 20), ("top_p_mask", 0.8),
+                                      ("tail_free_mask", 0.9),
+                                      ("typical_mask", 0.7)])
+def test_truncation_masks_keep_the_jax_sets(name, arg):
+    _, jl, tl = _logits(0)
+    want = _kept(getattr(jsmp, name)(jl, arg))
+    got = _kept(getattr(tsmp, name)(tl, arg).numpy())
+    np.testing.assert_array_equal(got, want)
+
+
+def test_penalties_match_jax():
+    _, jl, tl = _logits(1)
+    last = np.random.default_rng(2).integers(-1, 200, (3, 16))
+    jlast, tlast = jnp.asarray(last, jnp.int32), torch.from_numpy(last)
+    np.testing.assert_allclose(
+        tsmp.apply_repetition_penalty(tl, tlast, 1.3).numpy(),
+        np.asarray(jsmp.apply_repetition_penalty(jl, jlast, 1.3)), rtol=1e-6)
+    np.testing.assert_allclose(
+        tsmp.apply_frequency_presence(tl, tlast, 0.4, 0.2).numpy(),
+        np.asarray(jsmp.apply_frequency_presence(jl, jlast, 0.4, 0.2)),
+        rtol=1e-6, atol=1e-6)
+
+
+def test_greedy_penalized_matches_jax_with_ties():
+    rng = np.random.default_rng(3)
+    for trial in range(30):
+        x = np.round(rng.standard_normal((2, 64)) * 2).astype(np.float32)
+        last = rng.integers(-1, 64, (2, 8))
+        for rp, af, ap in ((1.3, 0.0, 0.0), (1.0, 0.5, 0.2), (2.0, 0.0, 0.0),
+                           (0.5, 0.0, 0.0)):
+            kw = dict(temp=0.0, repeat_penalty=rp, frequency_penalty=af,
+                      presence_penalty=ap)
+            want = jsmp.greedy_penalized(jnp.asarray(x),
+                                         jnp.asarray(last, jnp.int32),
+                                         JGen(**kw))
+            got = tsmp.greedy_penalized(torch.from_numpy(x),
+                                        torch.from_numpy(last),
+                                        GenerationConfig(**kw))
+            assert got.tolist() == np.asarray(want).tolist(), (trial, kw)
+
+
+def test_sample_pipeline_draws_from_the_kept_set():
+    """The RNG streams differ, so a sampled path is held to JAX's kept set:
+    every draw lies in it, and greedy is exact."""
+    _, jl, tl = _logits(4, b=2, v=100)
+    g = GenerationConfig(temp=0.7, top_k=10, top_p=0.9, repeat_penalty=1.0)
+    kept = _kept(jsmp.top_p_mask(jsmp.top_k_mask(jl, 10), 0.9))
+    state = tsmp.SamplerState.init(7, 2, g.mirostat_tau)
+    seen = set()
+    for _ in range(50):
+        tok, state = tsmp.sample(tl, state, g)
+        for row, t in enumerate(tok.tolist()):
+            assert kept[row, t]
+            seen.add((row, t))
+    assert len(seen) > 2
+    jtok, _ = jsmp.sample(jl, jsmp.SamplerState.init(0, 2, 5.0),
+                          JGen(temp=0.0))
+    ttok, _ = tsmp.sample(tl, state, GenerationConfig(temp=0.0))
+    assert ttok.tolist() == np.asarray(jtok).tolist()
+
+
+@pytest.mark.parametrize("version", [1, 2])
+def test_mirostat_updates_mu(version):
+    _, _, tl = _logits(5, b=2, v=300)
+    g = GenerationConfig(temp=1.0, mirostat=version, mirostat_tau=5.0,
+                         mirostat_eta=0.1)
+    state = tsmp.SamplerState.init(0, 2, 5.0)
+    tok, state2 = tsmp.sample(tl, state, g)
+    assert tok.shape == (2,) and (tok >= 0).all() and (tok < 300).all()
+    assert not torch.equal(state2.mu, torch.full((2,), 10.0))

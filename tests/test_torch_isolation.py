@@ -1,0 +1,76 @@
+"""The PyTorch/CUDA port stands alone: it imports without JAX (the machine
+with the card has none) and names nothing of the JAX package."""
+
+import ast
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "tinychatengine_tpu_torch"
+JAX_PKG = "tinychatengine_tpu"
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        [str(PORT)], prefix="tinychatengine_tpu_torch."))
+
+
+def test_every_port_module_imports_without_jax():
+    mods = ["tinychatengine_tpu_torch"] + _port_modules()
+    assert "tinychatengine_tpu_torch.generation.engine" in mods
+    code = ("import sys\n"
+            "for name in ('jax', 'jaxlib', 'ml_dtypes', 'tinychatengine_tpu'):\n"
+            "    sys.modules[name] = None\n"
+            "import importlib\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(encoding="utf-8"))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
+                         [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_package_import(path):
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in (JAX_PKG, "jax", "jaxlib", "ml_dtypes"), \
+            f"{path.relative_to(REPO)} imports {name}"
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Engine, init_random_params, load_checkpoint and init_cache without
+    device= raise when no CUDA device is present; they never fall back to
+    the CPU."""
+    from tinychatengine_tpu_torch.core.config import (QuantConfig,
+                                                      get_model_config)
+    from tinychatengine_tpu_torch.generation import kv_cache
+    from tinychatengine_tpu_torch.generation.engine import Engine
+    from tinychatengine_tpu_torch.models import llama
+    from tinychatengine_tpu_torch.tools.checkpoint import load_checkpoint
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_model_config("bytellama_5m")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(None, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        llama.init_random_params(cfg, QuantConfig(scheme="w4a8"), seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_checkpoint(str(REPO / "assets" / "bytellama_5m"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kv_cache.init_cache(1, 1, 16, 1, 64)

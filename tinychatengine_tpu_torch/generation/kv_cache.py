@@ -1,0 +1,100 @@
+"""KV cache: one preallocated stacked buffer per K and V (counterpart of the
+JAX package's ``generation/kv_cache.py``).
+
+Layout [num_layers, batch, num_kv_heads, max_len, head_dim], the layout the
+attention kernels read. Writes are IN PLACE: ``update_layer`` assigns into
+the buffers and ``advance`` bumps ``length`` on the same object, which both
+return for the JAX package's calling style. ``length`` is a host int (the
+host always knows how many positions it has written).
+
+bf16 (default) or int8 storage; int8 keeps a per-(head, position) absmax
+scale in [L, B, H_kv, max_len] f32 beside the codes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from tinychatengine_tpu_torch.core.device import resolve_device
+from tinychatengine_tpu_torch.ops.attention import read_cache_layer
+
+
+@dataclasses.dataclass
+class KVCache:
+    k: torch.Tensor  # [L, B, H_kv, S_max, D] (bf16 or int8)
+    v: torch.Tensor
+    length: int = 0  # number of valid positions
+    k_scale: Optional[torch.Tensor] = None  # [L, B, H_kv, S_max] f32 (int8)
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[3]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+
+def init_cache(num_layers: int, batch: int, max_len: int, num_kv_heads: int,
+               head_dim: int, dtype=torch.bfloat16, quantized: bool = False,
+               device=None) -> KVCache:
+    """Zeroed cache on ``device``; ``None`` means the card (raises without
+    one), as for the port's other entry points."""
+    device = resolve_device(device)
+    shape = (num_layers, batch, num_kv_heads, max_len, head_dim)
+    if quantized:
+        return KVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.ones(shape[:-1], dtype=torch.float32, device=device),
+            v_scale=torch.ones(shape[:-1], dtype=torch.float32, device=device))
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _quantize_kv(x: torch.Tensor):
+    """Per (head, position) symmetric int8: scale = absmax/127 over D.
+    x [B, H, S, D] → (int8 codes, f32 scales [B, H, S])."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale), -128, 127).to(torch.int8)
+    return q, scale[..., 0]
+
+
+def update_layer(cache: KVCache, layer_k: torch.Tensor, layer_v: torch.Tensor,
+                 layer_idx: int, start: int) -> KVCache:
+    """Write new K/V [B, S_new, H_kv, D] into layer ``layer_idx`` at
+    position ``start`` (in place). Positions past max_len are dropped: they
+    can only be bucket padding beyond the cache. Does not advance
+    ``length``."""
+    n = min(layer_k.shape[1], cache.max_len - start)
+    k = layer_k[:, :n].transpose(1, 2)  # [B, H, n, D]
+    v = layer_v[:, :n].transpose(1, 2)
+    sl = slice(start, start + n)
+    if cache.quantized:
+        qk, sk = _quantize_kv(k)
+        qv, sv = _quantize_kv(v)
+        cache.k[layer_idx, :, :, sl] = qk
+        cache.v[layer_idx, :, :, sl] = qv
+        cache.k_scale[layer_idx, :, :, sl] = sk
+        cache.v_scale[layer_idx, :, :, sl] = sv
+    else:
+        cache.k[layer_idx, :, :, sl] = k.to(cache.k.dtype)
+        cache.v[layer_idx, :, :, sl] = v.to(cache.v.dtype)
+    return cache
+
+
+def read_layer(cache: KVCache, layer_idx: int):
+    """Full-length K/V [B, H_kv, S_max, D] of one layer, int8 dequantized to
+    bf16; positions past ``length`` must be masked by the consumer."""
+    return read_cache_layer(cache.k, cache.v, layer_idx, cache.k_scale,
+                            cache.v_scale)
+
+
+def advance(cache: KVCache, n: int) -> KVCache:
+    cache.length += int(n)
+    return cache

@@ -1,0 +1,233 @@
+"""LLaMA-family decoder, single device (counterpart of the JAX package's
+``models/llama.py``; no tensor, sequence or pipeline parallelism, no paged
+cache, no fused-decode branch).
+
+Parameters are dataclasses of tensors with every layer leaf stacked [L, ...]
+as in the JAX package; the forward walks the layers in a Python loop and
+hands ``layer_idx`` to the kernels, which read the layer straight from the
+stacked buffers. q/k/v and gate/up are fused column-wise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from tinychatengine_tpu_torch.core.config import ModelConfig, QuantConfig
+from tinychatengine_tpu_torch.core.device import resolve_device
+from tinychatengine_tpu_torch.generation import kv_cache as kvc
+from tinychatengine_tpu_torch.ops import ref
+from tinychatengine_tpu_torch.ops.attention import flash_decode, flash_prefill
+from tinychatengine_tpu_torch.ops.linear import (
+    DenseLinear,
+    Int4A8Linear,
+    Int4Linear,
+    apply_linear,
+    fuse_linears,
+    random_int4_linear,
+    random_int4_linear_fast,
+)
+from tinychatengine_tpu_torch.quant.packing import from_bf16_bits
+
+LMHEAD_PAD = 2048  # lm_head N padded to a multiple of this; the forward
+# slices the logits back to vocab_size
+
+
+def lmhead_padded(v: int) -> int:
+    return ((v + LMHEAD_PAD - 1) // LMHEAD_PAD) * LMHEAD_PAD
+
+
+@dataclasses.dataclass
+class LlamaLayerParams:
+    """All decoder layers, every leaf stacked [L, ...]."""
+
+    input_norm: torch.Tensor  # [L, E]
+    wqkv: object              # E -> (Hq + 2*Hkv)*D
+    wo: object                # Hq*D -> E
+    post_norm: torch.Tensor   # [L, E]
+    wgate_up: object          # E -> 2F (SiLU gate | up)
+    down: object              # F -> E
+
+
+@dataclasses.dataclass
+class LlamaParams:
+    embed: torch.Tensor       # [V, E]
+    layers: LlamaLayerParams
+    final_norm: torch.Tensor  # [E]
+    lm_head: object           # E -> V (N possibly padded, see lmhead_padded)
+    rope_cos: torch.Tensor    # [max_pos, D] f32
+    rope_sin: torch.Tensor
+
+
+def forward(params: LlamaParams, cfg: ModelConfig, input_ids: torch.Tensor,
+            cache: kvc.KVCache, start: int, full_logits: bool = False,
+            true_len: Optional[int] = None):
+    """One forward pass (prefill S > 1 or decode S = 1), writing the new
+    K/V into ``cache`` in place.
+
+    input_ids [B, S] int; start: number of cached tokens (host int).
+    true_len: for a prompt right-padded to a bucket, its unpadded length:
+    the cache advances by true_len and the last-position logits are taken
+    at true_len - 1. Returns (logits [B, V] f32 of the last position, or
+    [B, S, V] with full_logits, and the cache)."""
+    b, s = input_ids.shape
+    dev = params.embed.device
+    if s == 1 and start >= cache.max_len:
+        raise ValueError(f"KV cache full: position {start} >= max_len "
+                         f"{cache.max_len}")
+    # bucket padding may reach past the cache; real rows never do, so the
+    # attention length is capped there
+    kv_len = min(start + s, cache.max_len)
+    x = params.embed[input_ids.to(dev)].to(torch.bfloat16)
+    positions = (start + torch.arange(s, device=dev)).expand(b, s)
+    # the JAX gather clamps out-of-range indices; so does this one (only
+    # bucket padding past the table can reach it)
+    rope_pos = positions.clamp(max=params.rope_cos.shape[0] - 1)
+    cos = params.rope_cos[rope_pos].float()  # [B, S, D]
+    sin = params.rope_sin[rope_pos].float()
+
+    lyr = params.layers
+    d = cfg.head_dim
+    ratio = cfg.num_heads // cfg.num_kv_heads
+    win = cfg.sliding_window
+    for li in range(cfg.num_layers):
+        h = ref.rms_norm_ref(x, lyr.input_norm[li], cfg.rms_norm_eps)
+        qkv = apply_linear(lyr.wqkv, h, layer_idx=li)
+        hkv = qkv.shape[-1] // (d * (ratio + 2))
+        hq = ratio * hkv
+        q = qkv[..., :hq * d].reshape(b, s, hq, d)
+        k = qkv[..., hq * d:(hq + hkv) * d].reshape(b, s, hkv, d)
+        v = qkv[..., (hq + hkv) * d:].reshape(b, s, hkv, d)
+        q, k = ref.apply_rotary(q, k, cos, sin)
+        kvc.update_layer(cache, k, v, li, start)
+        if s == 1:
+            attn = flash_decode(q[:, 0], cache.k, cache.v, li, start + 1,
+                                cache.k_scale, cache.v_scale,
+                                window=win).reshape(b, 1, hq * d)
+        else:
+            attn = flash_prefill(q, cache.k, cache.v, li, start, kv_len,
+                                 cache.k_scale, cache.v_scale, window=win)
+        x = x + apply_linear(lyr.wo, attn.to(x.dtype), layer_idx=li)
+        h2 = ref.rms_norm_ref(x, lyr.post_norm[li], cfg.rms_norm_eps)
+        gu = apply_linear(lyr.wgate_up, h2, layer_idx=li)
+        f = gu.shape[-1] // 2
+        act = (ref.silu_ref(gu[..., :f].float())
+               * gu[..., f:].float()).to(x.dtype)
+        x = x + apply_linear(lyr.down, act, layer_idx=li)
+
+    n_new = s if true_len is None else int(true_len)
+    kvc.advance(cache, n_new)
+    if not full_logits:
+        x = x[:, n_new - 1:n_new]  # the lm_head runs on the last real position
+    x = ref.rms_norm_ref(x, params.final_norm, cfg.rms_norm_eps)
+    logits = apply_linear(params.lm_head, x).float()[..., :cfg.vocab_size]
+    return (logits if full_logits else logits[:, 0]), cache
+
+
+def _to_torch(a) -> torch.Tensor:
+    """numpy (bf16 from ml_dtypes arrives as a 2-byte void kind and is read
+    as bf16 bits) or torch → torch, on the CPU."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return from_bf16_bits(a.view(np.uint16))
+    return torch.from_numpy(np.array(a, copy=True, order="C"))
+
+
+def params_from_numpy(flat: dict, cfg: ModelConfig, qcfg: QuantConfig,
+                      device=None) -> LlamaParams:
+    """The port's parameters from the flat tree-path-keyed dict of the
+    checkpoint format (``layers/wqkv/packed``, ``lm_head/scales``, ...).
+    A linear with a ``weight`` leaf is dense; one with ``packed``/``scales``
+    is int4, as W4A8 when ``qcfg.scheme == "w4a8"``."""
+    dev = resolve_device(device)
+
+    def leaf(key):
+        return _to_torch(flat[key]).to(dev)
+
+    def lin(prefix):
+        bias = leaf(f"{prefix}/bias") if f"{prefix}/bias" in flat else None
+        if f"{prefix}/weight" in flat:
+            return DenseLinear(weight=leaf(f"{prefix}/weight"), bias=bias)
+        cls = Int4A8Linear if qcfg.scheme == "w4a8" else Int4Linear
+        return cls(packed=leaf(f"{prefix}/packed"),
+                   scales=leaf(f"{prefix}/scales"), bias=bias)
+
+    return LlamaParams(
+        embed=leaf("embed"),
+        layers=LlamaLayerParams(
+            input_norm=leaf("layers/input_norm"), wqkv=lin("layers/wqkv"),
+            wo=lin("layers/wo"), post_norm=leaf("layers/post_norm"),
+            wgate_up=lin("layers/wgate_up"), down=lin("layers/down")),
+        final_norm=leaf("final_norm"),
+        lm_head=lin("lm_head"),
+        rope_cos=leaf("rope_cos"), rope_sin=leaf("rope_sin"))
+
+
+def init_random_params(cfg: ModelConfig, qcfg: QuantConfig, seed: int = 0,
+                       max_pos: Optional[int] = None, fast: bool = False,
+                       device=None) -> LlamaParams:
+    """Random weights in the right structure (benchmarks and tests).
+    fast=True makes packed bytes and scales directly on the device from a
+    seeded ``torch.Generator`` (layout-only fidelity, for full-size models);
+    otherwise weights are drawn on the host with numpy and quantized."""
+    dev = resolve_device(device)
+    e, f, v = cfg.embed_dim, cfg.hidden_dim, cfg.vocab_size
+    hq, hkv, d, nl = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    quant = qcfg.scheme in ("w4a16", "w4a8")
+
+    def as_kind(p):
+        return Int4A8Linear(p.packed, p.scales, p.bias) \
+            if qcfg.scheme == "w4a8" else p
+
+    def lin(k, n, n_layers=None):
+        if quant and fast:
+            return as_kind(random_int4_linear_fast(
+                gen, k, n, qcfg.group_size, scale_dtype=qcfg.scale_dtype,
+                device=dev, n_layers=n_layers))
+        count = 1 if n_layers is None else n_layers
+        if quant:
+            ps = [random_int4_linear(rng, k, n, qcfg.group_size,
+                                     scale_dtype=qcfg.scale_dtype, device=dev)
+                  for _ in range(count)]
+            p = Int4Linear(torch.stack([p.packed for p in ps]),
+                           torch.stack([p.scales for p in ps]))
+        else:
+            w = torch.from_numpy(rng.standard_normal((count, k, n),
+                                                     dtype=np.float32) * 0.02)
+            p = DenseLinear(weight=w.to(torch.bfloat16).to(dev))
+        if n_layers is None:
+            p = dataclasses.replace(
+                p, **{fl.name: getattr(p, fl.name)[0]
+                      for fl in dataclasses.fields(p)
+                      if getattr(p, fl.name) is not None})
+        return as_kind(p) if quant else p
+
+    ones = torch.ones((nl, e), dtype=torch.bfloat16, device=dev)
+    layers = LlamaLayerParams(
+        input_norm=ones.clone(),
+        wqkv=fuse_linears([lin(e, hq * d, nl), lin(e, hkv * d, nl),
+                           lin(e, hkv * d, nl)]),
+        wo=lin(hq * d, e, nl),
+        post_norm=ones.clone(),
+        wgate_up=fuse_linears([lin(e, f, nl), lin(e, f, nl)]),
+        down=lin(f, e, nl))
+    cos, sin = ref.make_rope_cache(d, max_pos or cfg.max_sqlen,
+                                   cfg.rope_theta, device=dev)
+    if fast:
+        embed = (torch.randn((v, e), generator=gen, device=dev) * 0.02
+                 ).to(torch.bfloat16)
+    else:
+        embed = torch.from_numpy(rng.standard_normal((v, e)) * 0.02
+                                 ).to(torch.bfloat16).to(dev)
+    return LlamaParams(
+        embed=embed, layers=layers,
+        final_norm=torch.ones((e,), dtype=torch.bfloat16, device=dev),
+        lm_head=lin(e, lmhead_padded(v)),
+        rope_cos=cos, rope_sin=sin)

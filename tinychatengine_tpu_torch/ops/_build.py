@@ -1,0 +1,112 @@
+"""Build the CUDA kernels under ``csrc/`` with ``nvcc`` and load them.
+
+Each ``csrc/<name>.cu`` is one shared library with a plain C interface,
+compiled at first use for ``sm_90a`` into ``build/tce_torch/`` at the root
+of the checkout (listed in ``.gitignore``) under a name keyed by a hash of
+its source and flags, and loaded with ``ctypes``. ``build_all`` starts one
+``nvcc`` per source at once and waits for all of them. Every C entry point
+returns ``cudaGetLastError()`` after its launch; ``check`` raises on a
+non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tce_torch"
+KERNELS = ("int4_matmul", "int4_matmul_a8", "flash_decode", "flash_prefill")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_FNS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+BUILD_LOG: dict[str, str] = {}  # name -> nvcc's output (ptxas register use)
+
+# launches per kernel: each wrapper adds one where it launches its kernel
+LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"):
+        p = Path(cand) / "bin" / "nvcc"
+        if cand and p.exists():
+            return str(p)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only "
+                           "where the CUDA toolkit is installed")
+    return found
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256()
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    for common in sorted(CSRC.glob("*.cuh")):
+        h.update(common.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names=KERNELS) -> dict[str, Path]:
+    """Compile every named kernel that is not built yet, one ``nvcc``
+    process per source, all started together. Returns name -> library."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    targets = {n: _target(n) for n in names}
+    procs = {}
+    for n, out in targets.items():
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{n}.cu")]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True),
+                    tmp, out)
+    errors = []
+    for n, (proc, tmp, out) in procs.items():
+        stdout, stderr = proc.communicate()
+        BUILD_LOG[n] = stdout + stderr
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {n}.cu:\n{stdout}{stderr}")
+            continue
+        os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return targets
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build_all((name,))[name]))
+        _LIBS[name] = lib
+    return lib
+
+
+def bind(name: str, fn: str, argtypes) -> ctypes._CFuncPtr:
+    """C entry point ``fn`` of kernel ``name`` with its argument types set
+    (``c_void_p`` for pointers and the stream, so no pointer is cut)."""
+    f = _FNS.get((name, fn))
+    if f is None:
+        f = getattr(load(name), fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+        _FNS[(name, fn)] = f
+    return f
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {code}")

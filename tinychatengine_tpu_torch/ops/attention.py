@@ -1,0 +1,200 @@
+"""Attention over the layer-stacked KV cache: ``flash_decode`` (one query
+position) and ``flash_prefill`` (a causal prompt chunk), with their plain
+PyTorch versions.
+
+Counterpart of the JAX package's ``ops/attention.py``. The kernels are
+``csrc/flash_decode.cu`` and ``csrc/flash_prefill.cu``: fp32 online softmax,
+probabilities rounded to bf16 before the PV product, and only the valid key
+range visited (so the TPU path's ``ctx_cap`` is accepted and ignored). They
+take a bf16 cache; the int8 cache (per-position scales) runs through the
+plain versions only, and a CUDA call with it raises ``NotImplementedError``.
+
+The plain versions have ``attention_xla``'s semantics and cast points:
+dense masked scores in f32, softmax, probabilities cast to the cache's
+dtype, PV in f32, result in q.dtype.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tinychatengine_tpu_torch.ops import _build
+
+NEG_INF = -1e30
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def attention_plain(q, cache_k, cache_v, positions, kv_valid_len,
+                    window: int | None = None) -> torch.Tensor:
+    """Dense masked GQA attention (``attention_xla``).
+
+    q [B, S, Hq, D]; cache_k/v [B, Hkv, S_max, D] (bf16, dequantized);
+    positions [B, S] absolute query positions; kv_valid_len int or [B].
+    Returns [B, S, Hq*D] in q.dtype."""
+    b, s, hq, d = q.shape
+    hkv, smax = cache_k.shape[1], cache_k.shape[2]
+    groups = hq // hkv
+    qh = q.permute(0, 2, 1, 3).reshape(b, hkv, groups, s, d)
+    logits = torch.einsum("bhgsd,bhtd->bhgst", qh.float(),
+                          cache_k.float()) * (1.0 / d ** 0.5)
+    col = torch.arange(smax, device=q.device)
+    valid = torch.as_tensor(kv_valid_len, device=q.device).reshape(-1, 1, 1)
+    pos = positions[:, :, None]
+    allowed = (col[None, None, :] <= pos) & (col[None, None, :] < valid)
+    if window is not None:
+        allowed = allowed & (col[None, None, :] > pos - window)
+    logits = torch.where(allowed[:, None, None], logits,
+                         torch.tensor(NEG_INF, device=q.device))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgst,bhtd->bhgsd", probs.to(cache_v.dtype).float(),
+                       cache_v.float())
+    return (out.to(q.dtype).reshape(b, hq, s, d).permute(0, 2, 1, 3)
+            .reshape(b, s, hq * d))
+
+
+def read_cache_layer(cache_k, cache_v, layer_idx, k_scale, v_scale):
+    """One layer's [B, Hkv, S_max, D] views, int8 dequantized to bf16."""
+    k, v = cache_k[layer_idx], cache_v[layer_idx]
+    if k_scale is not None:
+        k = (k.float() * k_scale[layer_idx][..., None]).to(torch.bfloat16)
+        v = (v.float() * v_scale[layer_idx][..., None]).to(torch.bfloat16)
+    return k, v
+
+
+def _per_batch(value, b: int, device) -> torch.Tensor:
+    return torch.as_tensor(value, dtype=torch.int64,
+                           device=device).reshape(-1).expand(b)
+
+
+def flash_decode_plain(q, cache_k, cache_v, layer_idx, lengths, k_scale=None,
+                       v_scale=None, *, window: int | None = None
+                       ) -> torch.Tensor:
+    """q [B, Hq, D] at position lengths[b] - 1 against one cache layer."""
+    b, hq, d = q.shape
+    ck, cv = read_cache_layer(cache_k, cache_v, layer_idx, k_scale, v_scale)
+    ln = _per_batch(lengths, b, q.device)
+    out = attention_plain(q[:, None], ck, cv, (ln - 1)[:, None], ln, window)
+    return out.reshape(b, hq, d)
+
+
+def flash_prefill_plain(q, cache_k, cache_v, layer_idx, start, length,
+                        k_scale=None, v_scale=None, *,
+                        window: int | None = None) -> torch.Tensor:
+    """q [B, S, Hq, D] at positions start..start+S-1 (start int or [B])
+    against one cache layer that already holds the chunk."""
+    b, s = q.shape[:2]
+    ck, cv = read_cache_layer(cache_k, cache_v, layer_idx, k_scale, v_scale)
+    st = _per_batch(start, b, q.device)
+    positions = st[:, None] + torch.arange(s, device=q.device)[None, :]
+    return attention_plain(q, ck, cv, positions, length, window)
+
+
+def _lengths_arg(value, b: int, device, smax: int):
+    """(device pointer, scalar) for an int or a [B] int32 CUDA tensor
+    (a tensor's values are the caller's to keep within [0, smax])."""
+    if isinstance(value, torch.Tensor):
+        if value.dtype != torch.int32 or value.device != device \
+                or value.numel() != b or not value.is_contiguous():
+            raise ValueError("per-batch lengths/starts must be a contiguous "
+                             f"int32 [B={b}] tensor on {device}")
+        return value.data_ptr(), 0
+    if not 0 <= int(value) <= smax:
+        raise ValueError(f"position {int(value)} outside the cache (S={smax})")
+    return None, int(value)
+
+
+def _check_cache(q, cache_k, cache_v, k_scale, d):
+    if k_scale is not None:
+        raise NotImplementedError(
+            "int8 KV cache has no CUDA kernel yet; use a bf16 cache")
+    if not (cache_k.is_cuda and cache_v.is_cuda
+            and cache_k.device == q.device == cache_v.device):
+        raise ValueError("q and the cache must lie on one CUDA device")
+    if cache_k.dtype != torch.bfloat16 or cache_v.dtype != torch.bfloat16 \
+            or not (cache_k.is_contiguous() and cache_v.is_contiguous()):
+        raise ValueError("cache must be contiguous bf16 [L, B, Hkv, S, D]")
+    if d not in (64, 128):
+        raise ValueError(f"kernel needs head_dim 64 or 128, got {d}")
+    if cache_k.dim() != 5 or cache_v.shape != cache_k.shape:
+        raise ValueError("cache k and v must both be [L, B, Hkv, S, D]")
+
+
+def _layer_ptr(cache, layer_idx) -> int:
+    if not 0 <= int(layer_idx) < cache.shape[0]:
+        raise ValueError(f"layer_idx {layer_idx} outside [0, {cache.shape[0]})")
+    per_layer = cache[0].numel() * cache.element_size()
+    return cache.data_ptr() + int(layer_idx) * per_layer
+
+
+def flash_decode(q, cache_k, cache_v, layer_idx, lengths, k_scale=None,
+                 v_scale=None, *, sm_scale: float | None = None,
+                 window: int | None = None, ctx_cap: int | None = None
+                 ) -> torch.Tensor:
+    """Single-step attention: q [B, Hq, D] against the stacked cache
+    [L, B, Hkv, S_max, D]; keys at positions < lengths[b] (int or int32
+    [B]) take part, and with ``window`` only the last ``window`` of them.
+    Returns [B, Hq, D] in q.dtype. CUDA: ``csrc/flash_decode.cu``; CPU:
+    ``flash_decode_plain``. ``ctx_cap`` is accepted and ignored."""
+    del ctx_cap  # the kernel's loop already stops at lengths[b]
+    if not q.is_cuda:
+        return flash_decode_plain(q, cache_k, cache_v, layer_idx, lengths,
+                                  k_scale, v_scale, window=window)
+    b, hq, d = q.shape
+    _check_cache(q, cache_k, cache_v, k_scale, d)
+    _, bc, hkv, smax, dc = cache_k.shape
+    if bc != b or dc != d or hq % hkv or hq // hkv > 8:
+        raise ValueError(f"q {tuple(q.shape)} does not fit cache "
+                         f"{tuple(cache_k.shape)} (kernel takes Hq/Hkv <= 8)")
+    len_ptr, len_scalar = _lengths_arg(lengths, b, q.device, smax)
+    qb = q.to(torch.bfloat16).contiguous()
+    out = torch.empty_like(qb)
+    fn = _build.bind("flash_decode", "tce_flash_decode",
+                     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _F, _P])
+    _build.check(fn(qb.data_ptr(), _layer_ptr(cache_k, layer_idx),
+                    _layer_ptr(cache_v, layer_idx), out.data_ptr(), b, hq, hkv,
+                    smax, d, len_ptr, len_scalar, window or 0,
+                    sm_scale or 1.0 / d ** 0.5,
+                    torch.cuda.current_stream(q.device).cuda_stream),
+                 "flash_decode")
+    _build.LAUNCHES["flash_decode"] += 1
+    return out.to(q.dtype)
+
+
+def flash_prefill(q, cache_k, cache_v, layer_idx, start, length,
+                  k_scale=None, v_scale=None, *,
+                  sm_scale: float | None = None,
+                  window: int | None = None) -> torch.Tensor:
+    """Causal attention for a prompt chunk q [B, S, Hq, D] at positions
+    start..start+S-1 against the stacked cache, which already holds the
+    chunk. start/length: int or int32 [B]; length is the valid KV length.
+    Key ``col`` is allowed for query position ``qpos`` iff
+    col < min(qpos + 1, length) (and col > qpos - window), so rows past the
+    true length attend to the whole prefix and never give NaN.
+    Returns [B, S, Hq*D] in q.dtype. CUDA: ``csrc/flash_prefill.cu``;
+    CPU: ``flash_prefill_plain``."""
+    if not q.is_cuda:
+        return flash_prefill_plain(q, cache_k, cache_v, layer_idx, start,
+                                   length, k_scale, v_scale, window=window)
+    b, s, hq, d = q.shape
+    _check_cache(q, cache_k, cache_v, k_scale, d)
+    _, bc, hkv, smax, dc = cache_k.shape
+    if bc != b or dc != d or hq % hkv:
+        raise ValueError(f"q {tuple(q.shape)} does not fit cache "
+                         f"{tuple(cache_k.shape)}")
+    st_ptr, st_scalar = _lengths_arg(start, b, q.device, smax)
+    len_ptr, len_scalar = _lengths_arg(length, b, q.device, smax)
+    qb = q.to(torch.bfloat16).contiguous()
+    out = torch.empty((b, s, hq * d), dtype=torch.bfloat16, device=q.device)
+    fn = _build.bind("flash_prefill", "tce_flash_prefill",
+                     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I,
+                      _I, _F, _P])
+    _build.check(fn(qb.data_ptr(), _layer_ptr(cache_k, layer_idx),
+                    _layer_ptr(cache_v, layer_idx), out.data_ptr(), b, s, hq,
+                    hkv, smax, d, st_ptr, st_scalar, len_ptr, len_scalar,
+                    window or 0, sm_scale or 1.0 / d ** 0.5,
+                    torch.cuda.current_stream(q.device).cuda_stream),
+                 "flash_prefill")
+    _build.LAUNCHES["flash_prefill"] += 1
+    return out.to(q.dtype)

@@ -1,0 +1,75 @@
+"""Plain PyTorch reference ops (counterpart of the JAX package's ops/ref.py).
+
+Same cast points as the JAX versions: fp32 islands for norms and RoPE,
+results back in the input dtype.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tinychatengine_tpu_torch.quant.packing import PLANE
+
+ZERO_POINT = 8
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """QM_TPU packed weights [IC//2, OC] uint8 → int8 codes [IC, OC] in
+    [0, 15] (K-major)."""
+    icp, oc = packed.shape
+    assert icp % PLANE == 0, f"packed K/2={icp} must be a multiple of {PLANE}"
+    p = packed.reshape(icp // PLANE, PLANE, oc)
+    lo = (p & 0x0F).to(torch.int8)
+    hi = ((p >> 4) & 0x0F).to(torch.int8)
+    return torch.stack([lo, hi], dim=1).reshape(icp * 2, oc)
+
+
+def dequantize_int4(packed: torch.Tensor, scales: torch.Tensor,
+                    group_size: int, dtype=torch.bfloat16) -> torch.Tensor:
+    """QM_TPU weights → [IC, OC] in ``dtype``: (q - 8) * d, computed in f32."""
+    codes = unpack_int4(packed)
+    ic, oc = codes.shape
+    w = (codes - ZERO_POINT).to(torch.float32)
+    w = (w.reshape(ic // group_size, group_size, oc)
+         * scales[:, None, :].to(torch.float32))
+    return w.reshape(ic, oc).to(dtype)
+
+
+def rms_norm_ref(x: torch.Tensor, weight: torch.Tensor,
+                 eps: float) -> torch.Tensor:
+    """LlamaRMSNorm with fp32 accumulation."""
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * weight.to(torch.float32)).to(x.dtype)
+
+
+def apply_rotary(q: torch.Tensor, k: torch.Tensor, cos_sel: torch.Tensor,
+                 sin_sel: torch.Tensor):
+    """Rotate-half RoPE with pre-gathered cos/sin [B, S, D]."""
+    c = cos_sel[:, :, None, :].to(torch.float32)
+    s = sin_sel[:, :, None, :].to(torch.float32)
+
+    def rot(x):
+        xf = x.to(torch.float32)
+        d = x.shape[-1]
+        x1, x2 = xf[..., : d // 2], xf[..., d // 2:]
+        rotated = torch.cat([-x2, x1], dim=-1)
+        return (xf * c + rotated * s).to(x.dtype)
+
+    return rot(q), rot(k)
+
+
+def make_rope_cache(head_dim: int, max_pos: int, theta: float = 10000.0,
+                    device=None):
+    """cos/sin tables [max_pos, head_dim] f32."""
+    inv_freq = 1.0 / (theta ** (torch.arange(
+        0, head_dim, 2, dtype=torch.float32, device=device) / head_dim))
+    t = torch.arange(max_pos, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, inv_freq)
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return torch.cos(emb), torch.sin(emb)
+
+
+def silu_ref(x: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.silu(x)

@@ -8,16 +8,26 @@ Phases (any failure ends the run with a non-zero exit code):
 2. build: compiles every kernel under ``tinychatengine_tpu_torch/csrc``
    with nvcc, one process per source, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   llama3_8b's main-path shapes, with the stated tolerance, and timed
-   beside its plain version, one PyTorch library call and its bound;
+   llama3_8b's main-path and serving shapes (B = 8 slots, ragged lengths,
+   a shuffled page table), with the stated tolerance, and timed beside its
+   plain version, one PyTorch library call and its bound; paged and dense
+   decode of the same keys must be bit-identical;
 4. main path: llama3_8b W4A8 at full width (all 32 layers, random packed
    weights from a seed) through ``Engine.generate_device`` (64-token
    prompt, 256 greedy tokens with repeat_penalty 1.1 over the last 64) and
-   a 2048-token prefill; every kernel's launch count must rise; a 2-layer
-   cut of the same model must agree with the plain path on the CPU;
-5. real weights: ``assets/bytellama_5m`` greedy goldens and perplexity
+   a 2048-token prefill; each of the path's four kernels must launch; a
+   2-layer cut of the same model must agree with the plain path on the CPU;
+5. serving: the same model at full width through ``ServingEngine``
+   (scripts/bench_serving.py's load: 8 slots, 24 requests of 32-320
+   prompt tokens, 128 new tokens each, three sampling configs), once with
+   the dense slot cache and once paged; every request must finish at its
+   length, ``flash_decode_paged`` must launch in the paged run only, and
+   no plain version of a ported kernel may run on the card;
+6. real weights: ``assets/bytellama_5m`` greedy goldens and perplexity
    budgets (fp < 3.5, w4a16 <= +3 %, w4a8 <= +4 %) on the card, w4a8 also
-   over 64-token windows, where it runs the W4A8 kernel.
+   over 64-token windows, where it runs the W4A8 kernel; then the goldens
+   through ``ServingEngine`` (2 slots, dense and paged, fp and w4a8): fp
+   keeps the card's golden threshold, w4a8 paged equals w4a8 dense.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. ``--kernels-only`` stops after phase 3.
@@ -26,6 +36,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import re
@@ -45,6 +56,10 @@ MAT_TOL = 1e-2          # matmuls: max |kernel - plain| <= MAT_TOL * max |plain|
 ATTN_RTOL = 2.0 ** -6   # attention, element by element: see attn_err
 ATTN_TOL_TEXT = "2^-6 * (|plain| + max|plain| of the row)"
 CUT_TOL = 5e-2          # 2-layer llama3_8b cut: GPU kernels vs CPU plain
+# the main path's kernels (Engine, phase 4); serving (phase 5) adds
+# flash_decode_paged
+ENGINE_KERNELS = ("int4_matmul", "int4_matmul_a8", "flash_decode",
+                  "flash_prefill")
 
 
 def log(*a):
@@ -151,8 +166,9 @@ def check_kernels(gen):
         scales = ((torch.rand((n_layers, k // 128, n), device=dev,
                               generator=gen) + 0.5) * 0.005).to(torch.bfloat16)
         w_lib = dequantize_int4(packed[0], scales[0], 128, torch.bfloat16)
+        # M = 1: Engine decode; 8: serving decode over 8 slots; 64: prompt
         runs = [("int4_matmul_a8", im.int4_matmul_a8, im.int4_matmul_a8_plain,
-                 m, INT8_OP_S) for m in (1, 64)]
+                 m, INT8_OP_S) for m in (1, 8, 64)]
         if name != "lm_head":
             runs.append(("int4_matmul", im.int4_matmul, im.int4_matmul_plain,
                          2048, BF16_FLOP_S))
@@ -242,7 +258,124 @@ def check_kernels(gen):
                 4.0 * hq * pairs * d, BF16_FLOP_S)
         del ck, cv
         torch.cuda.empty_cache()
+    check_serving_kernels(gen, add)
     return cases
+
+
+SERVING_LENGTHS = (1, 37, 128, 129, 320, 700, 1500, 2047)
+
+
+def check_serving_kernels(gen, add):
+    """Decode attention at the serving shapes: 8 slots with ragged lengths,
+    dense (``flash_decode``) and paged (``flash_decode_paged``, a shuffled
+    page table), on the same keys, over a 32-layer stack."""
+    from tinychatengine_tpu_torch.ops import attention as att
+    dev = torch.device("cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    L, S, B = 32, 2048, len(SERVING_LENGTHS)
+    lengths = torch.tensor(SERVING_LENGTHS, dtype=torch.int32, device=dev)
+    for d, hq, hkv, p, windows in ((128, 32, 8, 128, (None, 256)),
+                                   (64, 32, 8, 16, (None,))):
+        mp = S // p
+        ck = torch.randn((L, B, hkv, S, d), device=dev, generator=gen).to(torch.bfloat16)
+        cv = torch.randn((L, B, hkv, S, d), device=dev, generator=gen).to(torch.bfloat16)
+        # the same keys in a page pool: page 0 dead, the rest shuffled
+        n_pages = B * mp + 1
+        table = (torch.randperm(B * mp, device=dev, generator=gen) + 1
+                 ).to(torch.int32).reshape(B, mp)
+
+        def paged(c):
+            pool = torch.zeros((L, n_pages, hkv, p, d), dtype=c.dtype, device=dev)
+            pool[:, table.reshape(-1).long()] = c.reshape(
+                L, B, hkv, mp, p, d).transpose(2, 3).reshape(L, B * mp, hkv, p, d)
+            return pool
+        pk, pv = paged(ck), paged(cv)
+        q = torch.randn((B, hq, d), device=dev, generator=gen).to(torch.bfloat16)
+        for window in windows:
+            kept = [min(n, window or n) for n in SERVING_LENGTHS]
+            kv_bytes = 2 * hkv * sum(kept) * d * 2
+            io_bytes = 2 * B * hq * d * 2 + 4 * B
+            ops = 4.0 * hq * sum(kept) * d
+            col = torch.arange(S, device=dev)
+            lo = (lengths - window).clamp(min=0) if window else 0 * lengths
+            mask = ((col[None] < lengths[:, None]) & (col[None] >= lo[:, None])
+                    )[:, None, None, :]
+            tag = (f"B={B} Hq={hq} Hkv={hkv} D={d} ragged"
+                   + (f" window={window}" if window else ""))
+            for kernel in ("flash_decode", "flash_decode_paged"):
+                if kernel == "flash_decode":
+                    def call(li, q=q, window=window):
+                        return att.flash_decode(q, ck, cv, li, lengths, window=window)
+
+                    def plain(li, q=q, window=window):
+                        return att.flash_decode_plain(q, ck, cv, li, lengths,
+                                                      window=window)
+
+                    def lib(q=q, mask=mask):
+                        return sdpa(q[:, :, None], ck[0], cv[0], attn_mask=mask,
+                                    enable_gqa=True)
+                    extra, case = 0, tag
+                else:
+                    def call(li, q=q, window=window):
+                        return att.flash_decode_paged(q, pk, pv, li, lengths,
+                                                      table, window=window)
+
+                    def plain(li, q=q, window=window):
+                        return att.flash_decode_paged_plain(
+                            q, pk, pv, li, lengths, table, window=window)
+
+                    def lib(q=q, mask=mask):  # gather the pages, then SDPA
+                        k, v = att.gather_pages(pk, pv, 0, table)
+                        return sdpa(q[:, :, None], k, v, attn_mask=mask,
+                                    enable_gqa=True)
+                    extra = 4 * sum(-(-n // p) for n in SERVING_LENGTHS)
+                    case = tag.replace(" ragged", f" P={p} ragged")
+                err = share = 0.0
+                for li in (0, L - 1):
+                    e, sh = attn_err(call(li), plain(li), d)
+                    err, share = max(err, e), max(share, sh)
+                state = {"li": 0}
+
+                def run(call=call):
+                    state["li"] = (state["li"] + 1) % L
+                    call(state["li"])
+                plain_ms = time_ms(lambda plain=plain: plain(0), 5)
+                add(kernel, case, err, share, ATTN_TOL_TEXT, run, 32, plain_ms,
+                    lib, io_bytes + kv_bytes + extra, ops, BF16_FLOP_S)
+            same = all(torch.equal(att.flash_decode(q, ck, cv, li, lengths,
+                                                    window=window),
+                                   att.flash_decode_paged(q, pk, pv, li, lengths,
+                                                          table, window=window))
+                       for li in (0, L - 1))
+            log(f"paged == dense decode, bit for bit ({tag}): {same}")
+            if not same:
+                raise SystemExit("paged and dense decode of the same keys differ")
+        del ck, cv, pk, pv
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Counts the calls of the ported kernels' plain versions while open (on
+    the card a wrapper launches its kernel or raises: the counts must stay
+    0)."""
+    from tinychatengine_tpu_torch.ops import attention as att
+    from tinychatengine_tpu_torch.ops import int4_matmul as im
+    names = [(att, "flash_decode_plain"), (att, "flash_prefill_plain"),
+             (att, "flash_decode_paged_plain"), (im, "int4_matmul_plain"),
+             (im, "int4_matmul_a8_plain")]
+    counts = dict.fromkeys((n for _, n in names), 0)
+    saved = [(mod, n, getattr(mod, n)) for mod, n in names]
+    for mod, n, fn in saved:
+        def counted(*a, _fn=fn, _n=n, **kw):
+            counts[_n] += 1
+            return _fn(*a, **kw)
+        setattr(mod, n, counted)
+    try:
+        yield counts
+    finally:
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
 
 
 def main_path(model="llama3_8b", dev="cuda", long_len=2048):
@@ -307,7 +440,7 @@ def main_path(model="llama3_8b", dev="cuda", long_len=2048):
     t_pre, logits, cache = prefill_s()
     launches = dict(_build.LAUNCHES)
     log("main-path launches:", json.dumps(launches))
-    if dev == "cuda" and not all(launches[k] > 0 for k in _build.KERNELS):
+    if dev == "cuda" and not all(launches[k] > 0 for k in ENGINE_KERNELS):
         raise SystemExit(f"a kernel was never launched on the main path: {launches}")
     if toks.shape != (1, 256) or int(toks.min()) < 0 \
             or int(toks.max()) >= cfg.vocab_size:
@@ -381,12 +514,216 @@ def main_path(model="llama3_8b", dev="cuda", long_len=2048):
     return launches, per_step, metrics
 
 
+def serving_load(srv, cfg, n_requests: int, n_predict: int, seed: int = 0):
+    """scripts/bench_serving.py's load: prompts of 32-320 tokens from
+    ``default_rng(seed)``, the engine's greedy config and two sampled
+    configs in turn."""
+    from tinychatengine_tpu_torch.core.config import GenerationConfig
+    rng = np.random.default_rng(seed)
+    variants = [
+        None,
+        GenerationConfig(temp=1.0, top_p=0.9, n_predict=n_predict,
+                         repeat_penalty=1.1, repeat_last_n=64, seed=11),
+        GenerationConfig(temp=0.7, top_k=40, n_predict=n_predict,
+                         repeat_penalty=1.0, repeat_last_n=1, seed=12)]
+    reqs = []
+    for i in range(n_requests):
+        ids = rng.integers(100, cfg.vocab_size - 100,
+                           int(rng.integers(32, 320)))
+        reqs.append(srv.submit(ids, n_predict=n_predict,
+                               gcfg=variants[i % len(variants)]))
+    return reqs
+
+
+def serving_path(model="llama3_8b", dev="cuda", n_requests=24, n_predict=128,
+                 max_len=2048):
+    """Phase 5: ``model`` W4A8 at full width through ServingEngine, dense
+    then paged (n_pages the dense-equivalent capacity), each after a
+    2-request warm-up. Returns {mode: metrics and launches}. The arguments
+    shrink the run for a rehearsal on the CPU (tests)."""
+    from tinychatengine_tpu_torch.core.config import (GenerationConfig,
+                                                      QuantConfig,
+                                                      get_model_config)
+    from tinychatengine_tpu_torch.models import llama
+    from tinychatengine_tpu_torch.ops import _build
+    from tinychatengine_tpu_torch.runtime.serving import ServingEngine
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    cfg = get_model_config(model)
+    qcfg = QuantConfig(scheme="w4a8", group_size=128)
+    params = llama.init_random_params(cfg, qcfg, seed=0, max_pos=max_len,
+                                      fast=True, device=dev)
+    gcfg = GenerationConfig(temp=0.0, n_predict=n_predict, repeat_penalty=1.1,
+                            repeat_last_n=64, seed=0)
+    out, greedy = {}, {}
+    for mode in ("dense", "paged"):
+        srv = ServingEngine(params, cfg, qcfg, slots=8, max_len=max_len,
+                            gcfg=gcfg, admission_chunk=512, tick_batch=16,
+                            paged=mode == "paged", device=dev)
+        serving_load(srv, cfg, 2, n_predict, seed=1)  # warm-up
+        srv.run()
+        srv.done.clear()
+        for k in srv.tick_stats:
+            srv.tick_stats[k] = 0
+        with plain_calls() as plain:
+            sync()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            reqs = serving_load(srv, cfg, n_requests, n_predict)
+            srv.run()
+            sync()
+            wall = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES)
+        ttft = sorted(r.first_token_t - r.submit_t for r in reqs)
+        total = sum(len(r.output_ids) for r in reqs)
+        ticks = srv.tick_stats["burst_ticks"] + srv.tick_stats["single_ticks"]
+        m = dict(tok_s=total / wall, wall_s=wall, tokens=total,
+                 ttft_p50_s=ttft[len(ttft) // 2],
+                 ttft_p95_s=ttft[int(len(ttft) * 0.95)],
+                 decode_ticks=ticks, tick_stats=dict(srv.tick_stats),
+                 launches=launches, plain_calls=dict(plain))
+        if dev == "cuda":
+            m["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"serving {mode}:", json.dumps(m))
+        bad = [r.request_id for r in reqs
+               if r.finish_reason != "length" or len(r.output_ids) != n_predict]
+        if bad:
+            raise SystemExit(f"serving {mode}: requests {bad} did not finish "
+                             "at their length")
+        if dev == "cuda":  # the CPU rehearsal runs the plain versions
+            if any(plain.values()):
+                raise SystemExit(f"serving {mode}: plain versions ran: {plain}")
+            # each mode's decode attention kernel runs, the other one never
+            ran, idle = (("flash_decode_paged", "flash_decode") if mode == "paged"
+                         else ("flash_decode", "flash_decode_paged"))
+            if launches[idle] or not all(
+                    launches[k] > 0 for k in ("int4_matmul_a8", "flash_prefill", ran)):
+                raise SystemExit(f"serving {mode}: wrong kernels ran: {launches}")
+        greedy[mode] = [r.output_ids for r in reqs if r.gcfg is None]
+        if dev == "cuda":
+            m.update(burst_profile(srv, cfg))
+            log(f"serving {mode} burst profile:", json.dumps(m["burst"]))
+        out[mode] = m
+        del srv
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    same = sum(a == b for a, b in zip(greedy["dense"], greedy["paged"]))
+    out["greedy_dense_eq_paged"] = [same, len(greedy["dense"])]
+    log(f"serving: {same} of {len(greedy['dense'])} greedy requests agree "
+        "token for token, dense vs paged")
+    del params
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def real_weights_serving(dev="cuda"):
+    """Phase 6b: the bytellama_5m goldens through ServingEngine (2 slots),
+    dense and paged, fp and w4a8. Returns {config: tokens matched}."""
+    from tinychatengine_tpu_torch.core.config import (GenerationConfig,
+                                                      QuantConfig,
+                                                      get_model_config)
+    from tinychatengine_tpu_torch.ops import _build
+    from tinychatengine_tpu_torch.runtime.serving import ServingEngine
+    from tinychatengine_tpu_torch.tokenizers.byte_fallback import ByteTokenizer
+    from tinychatengine_tpu_torch.tools.checkpoint import load_checkpoint
+    from tinychatengine_tpu_torch.tools.convert import requantize_llama
+
+    cfg = get_model_config("bytellama_5m")
+    fp, _ = load_checkpoint(str(ROOT / "assets" / "bytellama_5m"), cfg,
+                            device=dev)
+    golds = [json.loads((ROOT / "tests/golden/bytellama_greedy.json").read_text())]
+    golds += json.loads((ROOT / "tests/golden/bytellama_goldens.json").read_text())
+    tok = ByteTokenizer()
+    g = GenerationConfig(temp=0.0, n_predict=48, repeat_penalty=1.0,
+                         repeat_last_n=1)
+    outs, matched = {}, {}
+    for scheme in ("fp", "w4a8"):
+        qcfg = QuantConfig(scheme=scheme, group_size=128)
+        params = fp if scheme == "fp" else requantize_llama(fp, qcfg)
+        for mode in ("dense", "paged"):
+            srv = ServingEngine(params, cfg, qcfg, slots=2, max_len=cfg.max_sqlen,
+                                gcfg=g, paged=mode == "paged", page_size=16,
+                                device=dev)
+            with plain_calls() as plain:
+                _build.reset_launches()
+                reqs = [srv.submit(tok.encode(gd["prompt"])) for gd in golds]
+                srv.run()
+                launches = dict(_build.LAUNCHES)
+            key = f"{scheme} {mode}"
+            outs[key] = [r.output_ids for r in reqs]
+            matched[key] = [next((i for i, (a, b) in enumerate(
+                zip(r.output_ids, gd["token_ids"])) if a != b), len(gd["token_ids"]))
+                for r, gd in zip(reqs, golds)]
+            log(f"bytellama_5m serving {key}: golden tokens matched "
+                f"{matched[key]}; launches {json.dumps(launches)}")
+            if dev == "cuda" and (any(plain.values()) or (
+                    mode == "paged") != (launches["flash_decode_paged"] > 0)):
+                raise SystemExit(f"bytellama_5m serving {key}: plain calls "
+                                 f"{plain}, launches {launches}")
+            if scheme == "fp" and min(matched[key]) < 16:
+                raise SystemExit(f"bytellama_5m serving {key} diverged from "
+                                 "a golden within 16 tokens")
+    if outs["w4a8 paged"] != outs["w4a8 dense"]:
+        raise SystemExit("bytellama_5m w4a8: paged serving differs from dense")
+    return matched
+
+
+def device_ms_by_kernel(prof) -> dict:
+    """Device time (ms) by kernel name from a torch.profiler run."""
+    from torch.autograd import DeviceType
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = re.split(r"[<(]", e.name.replace(
+                "(anonymous namespace)::", "").replace("void ", ""))[0][:60]
+            by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return by_name
+
+
+def burst_profile(srv, cfg, n_ticks: int = 16) -> dict:
+    """One decode burst of ``n_ticks`` ticks over 8 busy slots: wall and
+    device time per tick (torch.profiler), timed once without and once
+    with the profiler. Returns {"burst": {...}}."""
+    from torch.profiler import ProfilerActivity, profile
+    # each request: its first token, a burst in the admitting step, then
+    # the timed burst and the profiled burst
+    serving_load(srv, cfg, srv.n_slots, 3 * n_ticks + 8, seed=2)
+    while srv.queue or srv._pending is not None:
+        srv.step()  # admissions (and the bursts that follow them)
+
+    def burst():
+        torch.cuda.synchronize()
+        ticks0 = srv.tick_stats["burst_ticks"]
+        t = time.perf_counter()
+        srv.step()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, srv.tick_stats["burst_ticks"] - ticks0
+
+    wall, ticks = burst()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, ticks_p = burst()
+    srv.run()
+    srv.done.clear()
+    by_name = device_ms_by_kernel(prof)
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    if ticks != n_ticks or ticks_p != n_ticks or busy == 0.0:
+        return {"burst": {"ticks": [ticks, ticks_p], "device_ms": busy,
+                          "note": "not measured"}}
+    return {"burst": dict(
+        ticks=ticks, tick_wall_ms=wall * 1e3 / ticks,
+        tick_device_ms=busy / ticks_p,
+        busy_share=busy / ticks_p / (wall * 1e3 / ticks),
+        top_kernels_ms_per_tick={k: v / ticks_p for k, v in top})}
+
+
 def decode_profile(params, cfg, eng, prompt, gcfg, step_ms: float,
                    steps: int = 16) -> dict:
     """Device time of the decode steps by kernel, from a torch.profiler
     trace of ``steps`` steps; the busy share divides it by the unprofiled
     step time ``step_ms``."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from tinychatengine_tpu_torch.generation import sampling
@@ -405,16 +742,11 @@ def decode_profile(params, cfg, eng, prompt, gcfg, step_ms: float,
                 logits, _ = llama.forward(params, cfg, tok[:, None].long(),
                                           cache, 64 + i)
             torch.cuda.synchronize()
-    by_name: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = re.split(r"[<(]", e.name.replace(
-                "(anonymous namespace)::", "").replace("void ", ""))[0][:60]
-            by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
-    busy_ms = sum(by_name.values()) / 1e3 / steps
+    by_name = device_ms_by_kernel(prof)
+    busy_ms = sum(by_name.values()) / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    for name, us in top:
-        log(f"  decode step device time {us / 1e3 / steps:8.4f} ms  {name}")
+    for name, ms in top:
+        log(f"  decode step device time {ms / steps:8.4f} ms  {name}")
     if busy_ms == 0.0:
         log("  decode profile: no device time traced (not measured)")
         return {}
@@ -423,7 +755,7 @@ def decode_profile(params, cfg, eng, prompt, gcfg, step_ms: float,
 
 
 def real_weights(dev="cuda"):
-    """Phase 5: bytellama_5m goldens and perplexity budgets on the card."""
+    """Phase 6: bytellama_5m goldens and perplexity budgets on the card."""
     from tinychatengine_tpu_torch.core.config import (GenerationConfig,
                                                       QuantConfig,
                                                       get_model_config)
@@ -492,6 +824,9 @@ SUMMARY = {  # kernel -> (source, TPU kernel it replaces, summary case)
     "flash_prefill": ("tinychatengine_tpu_torch/csrc/flash_prefill.cu",
                       "tinychatengine_tpu/ops/attention.py:549",
                       "B=1 S=2048 start=0 Hq=32 Hkv=8 D=128"),
+    "flash_decode_paged": ("tinychatengine_tpu_torch/csrc/flash_decode_paged.cu",
+                           "tinychatengine_tpu/ops/attention.py:375",
+                           "B=8 Hq=32 Hkv=8 D=128 P=128 ragged"),
 }
 
 
@@ -526,16 +861,29 @@ def main(argv=None) -> int:
     if args.kernels_only:
         return 0
     launches, per_step, metrics = main_path()
+    serving = serving_path()
     real_weights()
+    real_weights_serving()
 
     rows = []
+    paged = serving["paged"]
     for name in _build.KERNELS:
         source, replaces, case = SUMMARY[name]
         mine = [c for c in cases if c["kernel"] == name]
-        row = next(c for c in mine if c["case"].startswith(case))
+        row = next(c for c in mine if c["case"] == case
+                   or c["case"].startswith(case + " "))
+        by_path = {"engine": launches[name],
+                   "serving_dense": serving["dense"]["launches"][name],
+                   "serving_paged": paged["launches"][name]}
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], launches_per_decode_step=per_step[name],
+            # the count of the path whose kernel it is: phase 4's Engine
+            # path, or phase 5's paged serving run for the paged kernel
+            launches=paged["launches"][name] if name == "flash_decode_paged"
+            else launches[name], launches_by_path=by_path,
+            launches_per_decode_step=per_step[name],
+            launches_per_serving_tick=paged["launches"][name]
+            / paged["decode_ticks"],
             max_abs_err=max(c["max_abs_err"] for c in mine), case=row["case"],
             ms=row["ms"], eager_ms=row["eager_ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"],
@@ -543,6 +891,11 @@ def main(argv=None) -> int:
     log(f"main path on {smi}: decode {metrics['decode_tok_s']:.2f} tok/s, "
         f"TTFT {metrics['ttft_ms']:.1f} ms, prefill "
         f"{metrics['prefill_tok_s']:.1f} tok/s")
+    for mode in ("dense", "paged"):
+        m = serving[mode]
+        log(f"serving {mode} on {smi}: {m['tok_s']:.1f} tok/s, TTFT p50 "
+            f"{m['ttft_p50_s']:.3f} s p95 {m['ttft_p95_s']:.3f} s, "
+            f"ticks {json.dumps(m['tick_stats'])}")
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -83,3 +83,46 @@ def test_attention_kernels_match_plain(cuda, d):
         att.flash_decode(q, k.to(torch.int8), v.to(torch.int8), 0, 5,
                          torch.ones(k.shape[:-1], device=cuda),
                          torch.ones(k.shape[:-1], device=cuda))
+
+
+@pytest.mark.parametrize("d,p", [(128, 128), (128, 16), (64, 16), (64, 64)])
+def test_paged_decode_kernel_matches_plain(cuda, d, p):
+    """flash_decode_paged on a shuffled page table with ragged lengths (a
+    row of length 0 gives zeros), with and without a window; and paged
+    against dense decode of the same keys, which visit the same tiles in
+    the same order: bit-identical outputs."""
+    rng = np.random.default_rng(d + p)
+    b, hq, hkv, max_len = 4, 8, 2, 320
+    mp = -(-max_len // p)
+    n_pages = b * mp + 1
+    table = torch.from_numpy(
+        rng.permutation(n_pages)[:b * mp].reshape(b, mp).astype(np.int32)
+    ).to(cuda)
+    pk = _bf16(rng, (2, n_pages, hkv, p, d), cuda)
+    pv = _bf16(rng, (2, n_pages, hkv, p, d), cuda)
+    q = _bf16(rng, (b, hq, d), cuda)
+    lengths = torch.tensor([1, 37, p + 1, max_len], dtype=torch.int32,
+                           device=cuda)
+    _build.reset_launches()
+    for window in (None, 100):
+        got = att.flash_decode_paged(q, pk, pv, 1, lengths, table,
+                                     window=window).float()
+        want = att.flash_decode_paged_plain(q, pk, pv, 1, lengths, table,
+                                            window=window).float()
+        torch.cuda.synchronize()
+        assert attn_err(got, want, d)[1] <= 1.0
+    assert _build.LAUNCHES["flash_decode_paged"] == 2
+    # the same keys as a dense [L, B, Hkv, S, D] cache
+    ck, cv = (torch.stack([att.gather_pages(pk, pv, li, table)[i]
+                           for li in range(2)]) for i in (0, 1))
+    dense = att.flash_decode(q, ck.contiguous(), cv.contiguous(), 1, lengths)
+    paged = att.flash_decode_paged(q, pk, pv, 1, lengths, table)
+    assert torch.equal(dense, paged)
+    zero = att.flash_decode_paged(q, pk, pv, 1, torch.zeros_like(lengths),
+                                  table)
+    assert torch.equal(zero, torch.zeros_like(zero))
+    with pytest.raises(NotImplementedError):
+        att.flash_decode_paged(q, pk.to(torch.int8), pv.to(torch.int8), 0,
+                               lengths, table,
+                               torch.ones(pk.shape[:-1], device=cuda),
+                               torch.ones(pk.shape[:-1], device=cuda))

@@ -87,6 +87,36 @@ def test_device_loop_equals_host_loop(tiny_engine, penalty):
     assert dev[0].tolist() == host
 
 
+def test_generate_device_with_a_filled_cache_matches_jax():
+    """With a caller's cache that already holds a longer prompt, both
+    packages prefill the new prompt at position 0 and decode from its
+    length: the same tokens as each other and as a fresh cache."""
+    from tinychatengine_tpu.core.config import ModelConfig as JModelConfig
+    from tinychatengine_tpu.core.config import QuantConfig as JQuantConfig
+    from tinychatengine_tpu.generation.engine import Engine as JEngine
+    from tinychatengine_tpu.models import llama as jllama
+    from tinychatengine_tpu.tools import checkpoint as jckpt
+    jcfg = JModelConfig(**{f: getattr(TINY, f) for f in (
+        "name", "family", "num_heads", "num_kv_heads", "num_layers",
+        "max_sqlen", "embed_dim", "hidden_dim", "vocab_size",
+        "rms_norm_eps")})
+    jp = jllama.init_random_params(jcfg, JQuantConfig(scheme="fp"), seed=5)
+    params = llama.params_from_numpy(jckpt._flatten(jp)[0], TINY,
+                                     QuantConfig(scheme="fp"), device="cpu")
+    old = np.arange(3, 43)[None] % 500          # 40 tokens already cached
+    prompt = np.array([[9, 8, 7, 6, 5, 4, 3]])
+    jeng = JEngine(jp, jcfg, JQuantConfig(scheme="fp"), batch=1)
+    eng = Engine(params, TINY, QuantConfig(scheme="fp"), device="cpu")
+    jg, g = JGen(temp=0.0, n_predict=8), GenerationConfig(temp=0.0,
+                                                          n_predict=8)
+    _, jcache = jeng.prefill(old, jeng.new_cache())
+    _, cache = eng.prefill(old, eng.new_cache())
+    want = np.asarray(jeng.generate_device(prompt, jg, cache=jcache))
+    got = eng.generate_device(prompt, g, cache=cache)
+    assert got.tolist() == want.tolist()
+    assert got.tolist() == eng.generate_device(prompt, g).tolist()
+
+
 def test_chunked_prefill_matches_single_shot(tiny_engine, monkeypatch):
     prompt = np.arange(1, 41)[None] % 500
     single, cache1 = tiny_engine.prefill(prompt, tiny_engine.new_cache())
@@ -125,6 +155,14 @@ def test_chip_smoke_phases_rehearse_on_cpu(trained):
     assert metrics["decode_tok_s"] > 0
     ppl = chip_smoke.real_weights(dev="cpu")
     assert ppl["fp"] < 3.5
+    serving = chip_smoke.serving_path(model="bytellama_5m", dev="cpu",
+                                      n_requests=6, n_predict=8, max_len=512)
+    for mode in ("dense", "paged"):
+        assert serving[mode]["tokens"] == 48
+        assert not any(serving[mode]["launches"].values())
+    assert serving["greedy_dense_eq_paged"] == [2, 2]
+    matched = chip_smoke.real_weights_serving(dev="cpu")
+    assert all(min(m) == 48 for k, m in matched.items() if k.startswith("fp"))
 
 
 def test_perplexity_matches_jax(trained):
@@ -201,7 +239,7 @@ def test_sample_pipeline_draws_from_the_kept_set():
     _, jl, tl = _logits(4, b=2, v=100)
     g = GenerationConfig(temp=0.7, top_k=10, top_p=0.9, repeat_penalty=1.0)
     kept = _kept(jsmp.top_p_mask(jsmp.top_k_mask(jl, 10), 0.9))
-    state = tsmp.SamplerState.init(7, 2, g.mirostat_tau)
+    state = tsmp.SamplerState.init(7, 2, g.mirostat_tau, device="cpu")
     seen = set()
     for _ in range(50):
         tok, state = tsmp.sample(tl, state, g)
@@ -220,7 +258,7 @@ def test_mirostat_updates_mu(version):
     _, _, tl = _logits(5, b=2, v=300)
     g = GenerationConfig(temp=1.0, mirostat=version, mirostat_tau=5.0,
                          mirostat_eta=0.1)
-    state = tsmp.SamplerState.init(0, 2, 5.0)
+    state = tsmp.SamplerState.init(0, 2, 5.0, device="cpu")
     tok, state2 = tsmp.sample(tl, state, g)
     assert tok.shape == (2,) and (tok >= 0).all() and (tok < 300).all()
     assert not torch.equal(state2.mu, torch.full((2,), 10.0))

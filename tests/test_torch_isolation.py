@@ -23,6 +23,8 @@ def _port_modules():
 def test_every_port_module_imports_without_jax():
     mods = ["tinychatengine_tpu_torch"] + _port_modules()
     assert "tinychatengine_tpu_torch.generation.engine" in mods
+    assert {"tinychatengine_tpu_torch.runtime.paged",
+            "tinychatengine_tpu_torch.runtime.serving"} <= set(mods)
     code = ("import sys\n"
             "for name in ('jax', 'jaxlib', 'ml_dtypes', 'tinychatengine_tpu'):\n"
             "    sys.modules[name] = None\n"
@@ -54,14 +56,18 @@ def test_no_jax_package_import(path):
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
-    """Engine, init_random_params, load_checkpoint and init_cache without
-    device= raise when no CUDA device is present; they never fall back to
-    the CPU."""
-    from tinychatengine_tpu_torch.core.config import (QuantConfig,
+    """Engine, ServingEngine, init_random_params, load_checkpoint,
+    init_cache, init_paged_cache, SamplerState.init and
+    RowParams.from_configs without device= raise when no CUDA device is
+    present; they never fall back to the CPU."""
+    from tinychatengine_tpu_torch.core.config import (GenerationConfig,
+                                                      QuantConfig,
                                                       get_model_config)
-    from tinychatengine_tpu_torch.generation import kv_cache
+    from tinychatengine_tpu_torch.generation import kv_cache, sampling
     from tinychatengine_tpu_torch.generation.engine import Engine
     from tinychatengine_tpu_torch.models import llama
+    from tinychatengine_tpu_torch.runtime import paged
+    from tinychatengine_tpu_torch.runtime.serving import ServingEngine
     from tinychatengine_tpu_torch.tools.checkpoint import load_checkpoint
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -74,3 +80,11 @@ def test_entry_points_default_to_the_card(monkeypatch):
         load_checkpoint(str(REPO / "assets" / "bytellama_5m"))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         kv_cache.init_cache(1, 1, 16, 1, 64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(None, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        paged.init_paged_cache(1, 4, 1, 16, 64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sampling.SamplerState.init(0, 1, 5.0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sampling.RowParams.from_configs([GenerationConfig()])

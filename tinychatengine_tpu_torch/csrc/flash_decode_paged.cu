@@ -1,0 +1,179 @@
+// Single-token attention over a paged KV cache (continuous-batching
+// serving).
+//
+// Replaces: tinychatengine_tpu/ops/attention.py · flash_decode_paged
+// (body _paged_decode_kernel, pallas_call site :366).
+//
+// q [B, Hq, D] bf16 against one layer of the page pool, k/v
+// [n_pages, Hkv, P, D] bf16 (the wrapper offsets the pointers to the
+// layer). Key pos of row b lives in page table[b, pos / P] at offset
+// pos % P. Keys at lo <= pos < lengths[b] take part, lo = max(length -
+// window, 0) with a sliding window, else 0. Online softmax in fp32; the
+// probabilities are rounded to bf16 before the PV product while the
+// running sum l takes the unrounded values (the TPU kernel's
+// _flash_update). A row of length 0 gives zeros.
+//
+// Bound on the H100: bytes (the valid K/V rows, 2 * length * D * 2 bytes
+// per (b, kv head)). The design is csrc/flash_decode.cu's: one block per
+// (b, kv head), the G query heads of that KV head as its rows, 64-key
+// tiles through shared memory, visited from lo in steps of 64. Only the
+// address of each key row differs: before a tile is loaded, its 64 row
+// offsets are resolved through the page table into shared memory, so P
+// need not divide 64 (nor 64 divide P) and no table entry past
+// ceil(length / P) is read. With the same tile order and arithmetic as
+// flash_decode, paged and dense decode of the same K/V give bit-identical
+// outputs.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int T = 64;        // keys per tile
+constexpr int THREADS = 128;
+constexpr int MAXG = 8;      // query heads per KV head
+
+template <int D>
+__global__ void __launch_bounds__(THREADS) flash_decode_paged_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+    int Hq, int Hkv, int P, const int* __restrict__ table, int max_pages,
+    const int* __restrict__ lengths, int len_scalar, int window,
+    float sm_scale) {
+  constexpr int DW = D / 2 + 1;  // padded row length in 32-bit words
+  __shared__ float qs[MAXG][D];
+  __shared__ uint32_t ks[T][DW];
+  __shared__ uint32_t vs[T][DW];
+  __shared__ float ss[MAXG][T];
+  __shared__ float m_s[MAXG], l_s[MAXG], alpha_s[MAXG];
+  __shared__ size_t row_off[T];  // word offset of each tile row's K/V row
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int G = Hq / Hkv;
+  const int length = lengths ? lengths[b] : len_scalar;
+  const int lo = window > 0 ? max(length - window, 0) : 0;
+  const int* tb = table + (size_t)b * max_pages;
+  const uint32_t* kb = reinterpret_cast<const uint32_t*>(k);
+  const uint32_t* vb = reinterpret_cast<const uint32_t*>(v);
+
+  for (int i = tid; i < G * D; i += THREADS)
+    qs[i / D][i % D] = __bfloat162float(q[((size_t)b * Hq + h * G) * D + i]);
+  if (tid < MAXG) {
+    m_s[tid] = tce::NEG_INF;
+    l_s[tid] = 0.f;
+  }
+  constexpr int NACC = MAXG * D / THREADS;
+  float acc[NACC];
+#pragma unroll
+  for (int r = 0; r < NACC; ++r) acc[r] = 0.f;
+  __syncthreads();
+
+  for (int t0 = lo; t0 < length; t0 += T) {
+    const int nt = min(T, length - t0);
+    if (tid < nt) {
+      const int pos = t0 + tid;
+      const size_t page = (size_t)tb[pos / P];
+      row_off[tid] = ((page * Hkv + h) * P + pos % P) * (D / 2);
+    }
+    __syncthreads();
+    for (int i = tid; i < T * (D / 2); i += THREADS) {
+      const int r = i / (D / 2), c = i % (D / 2);
+      uint32_t kw = 0u, vw = 0u;
+      if (r < nt) {
+        kw = kb[row_off[r] + c];
+        vw = vb[row_off[r] + c];
+      }
+      ks[r][c] = kw;
+      vs[r][c] = vw;
+    }
+    __syncthreads();
+    for (int i = tid; i < G * T; i += THREADS) {
+      const int g = i / T, t = i % T;
+      float dot = 0.f;
+#pragma unroll 8
+      for (int c = 0; c < D / 2; ++c) {
+        const float2 kf = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&ks[t][c]));
+        dot = fmaf(qs[g][2 * c], kf.x, dot);
+        dot = fmaf(qs[g][2 * c + 1], kf.y, dot);
+      }
+      ss[g][t] = t < nt ? dot * sm_scale : tce::NEG_INF;
+    }
+    __syncthreads();
+    for (int g = warp; g < G; g += THREADS / 32) {
+      const float s0 = ss[g][lane], s1 = ss[g][lane + 32];
+      const float m_prev = m_s[g];
+      const float m_new = fmaxf(m_prev, tce::warp_max(fmaxf(s0, s1)));
+      const float p0 = lane < nt ? expf(s0 - m_new) : 0.f;
+      const float p1 = lane + 32 < nt ? expf(s1 - m_new) : 0.f;
+      const float psum = tce::warp_sum(p0 + p1);
+      ss[g][lane] = tce::round_bf16(p0);
+      ss[g][lane + 32] = tce::round_bf16(p1);
+      if (lane == 0) {
+        const float alpha = expf(m_prev - m_new);
+        l_s[g] = l_s[g] * alpha + psum;
+        m_s[g] = m_new;
+        alpha_s[g] = alpha;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < NACC; ++r) {
+      const int i = tid + THREADS * r;
+      if (i < G * D) {
+        const int g = i / D, d = i % D;
+        float a = acc[r] * alpha_s[g];
+        for (int t = 0; t < nt; ++t) {
+          const __nv_bfloat16 vv =
+              reinterpret_cast<const __nv_bfloat16*>(&vs[t][0])[d];
+          a = fmaf(ss[g][t], __bfloat162float(vv), a);
+        }
+        acc[r] = a;
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < NACC; ++r) {
+    const int i = tid + THREADS * r;
+    if (i < G * D) {
+      const int g = i / D;
+      const float l = l_s[g];
+      out[((size_t)b * Hq + h * G) * D + i] =
+          __float2bfloat16(l > 0.f ? acc[r] / l : 0.f);
+    }
+  }
+}
+
+}  // namespace
+
+// q [B, Hq, D] bf16; k, v: one layer's pages [n_pages, Hkv, P, D] bf16;
+// table [B, max_pages] int32 page ids; out [B, Hq, D] bf16. lengths:
+// device int32 [B], or null to use len_scalar for every b. window <= 0: no
+// sliding window. Needs D in {64, 128}, Hq / Hkv <= 8.
+extern "C" int tce_flash_decode_paged(const void* q, const void* k,
+                                      const void* v, void* out, int B, int Hq,
+                                      int Hkv, int P, int D, const void* table,
+                                      int max_pages, const void* lengths,
+                                      int len_scalar, int window,
+                                      float sm_scale, void* stream) {
+  const dim3 grid(Hkv, B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* kp = static_cast<const __nv_bfloat16*>(k);
+  const auto* vp = static_cast<const __nv_bfloat16*>(v);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  const int* tp = static_cast<const int*>(table);
+  const int* lp = static_cast<const int*>(lengths);
+  if (D == 64)
+    flash_decode_paged_kernel<64><<<grid, THREADS, 0, st>>>(
+        qp, kp, vp, op, Hq, Hkv, P, tp, max_pages, lp, len_scalar, window,
+        sm_scale);
+  else if (D == 128)
+    flash_decode_paged_kernel<128><<<grid, THREADS, 0, st>>>(
+        qp, kp, vp, op, Hq, Hkv, P, tp, max_pages, lp, len_scalar, window,
+        sm_scale);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}

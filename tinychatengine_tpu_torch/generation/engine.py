@@ -183,12 +183,13 @@ class Engine:
         n_tokens = n_tokens or gcfg.n_predict
         if cache is None:
             cache = self.new_cache()
-        start = cache.length
-        logits, cache = self.prefill(input_ids, cache, start=start)
+        # as in the JAX package: the prompt lands at position 0 and decode
+        # continues from n_prompt, whatever the cache held before
+        logits, cache = self.prefill(input_ids, cache)
         state = sampling.SamplerState.init(gcfg.seed, b, gcfg.mirostat_tau,
                                            self.device)
         last = self._ids(self._prompt_window(input_ids, gcfg))
-        pos = start + n_prompt
+        pos = n_prompt
         toks = []
         for _ in range(n_tokens):
             tok, state = sampling.sample(logits, state, gcfg, last)

@@ -58,7 +58,7 @@ def init_cache(num_layers: int, batch: int, max_len: int, num_kv_heads: int,
 
 def _quantize_kv(x: torch.Tensor):
     """Per (head, position) symmetric int8: scale = absmax/127 over D.
-    x [B, H, S, D] → (int8 codes, f32 scales [B, H, S])."""
+    x [..., D] → (int8 codes, f32 scales [...])."""
     xf = x.float()
     scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-8)
     q = torch.clamp(torch.round(xf / scale), -128, 127).to(torch.int8)
@@ -66,11 +66,16 @@ def _quantize_kv(x: torch.Tensor):
 
 
 def update_layer(cache: KVCache, layer_k: torch.Tensor, layer_v: torch.Tensor,
-                 layer_idx: int, start: int) -> KVCache:
-    """Write new K/V [B, S_new, H_kv, D] into layer ``layer_idx`` at
-    position ``start`` (in place). Positions past max_len are dropped: they
-    can only be bucket padding beyond the cache. Does not advance
-    ``length``."""
+                 layer_idx: int, start) -> KVCache:
+    """Write new K/V [B, S_new, H_kv, D] into layer ``layer_idx`` (in place)
+    at position ``start``: an int (every row), or an int [B] tensor on the
+    cache's device (row b at start[b], the serving path's ragged write).
+    Positions past max_len are dropped: they can only be bucket padding
+    beyond the cache. A ragged decode write (S_new = 1) is not checked on
+    the host, so its positions are the caller's to keep below max_len.
+    Does not advance ``length``."""
+    if isinstance(start, torch.Tensor):
+        return _update_layer_rows(cache, layer_k, layer_v, layer_idx, start)
     n = min(layer_k.shape[1], cache.max_len - start)
     k = layer_k[:, :n].transpose(1, 2)  # [B, H, n, D]
     v = layer_v[:, :n].transpose(1, 2)
@@ -85,6 +90,34 @@ def update_layer(cache: KVCache, layer_k: torch.Tensor, layer_v: torch.Tensor,
     else:
         cache.k[layer_idx, :, :, sl] = k.to(cache.k.dtype)
         cache.v[layer_idx, :, :, sl] = v.to(cache.v.dtype)
+    return cache
+
+
+def _update_layer_rows(cache: KVCache, layer_k, layer_v, layer_idx,
+                       starts: torch.Tensor) -> KVCache:
+    """Ragged write (JAX ``_update_layer_per_slot``): row b of
+    [B, S_new, H, D] lands at positions starts[b] + s, as one indexed
+    assignment per buffer (no loop over rows)."""
+    b, s = layer_k.shape[:2]
+    rows = torch.arange(b, device=starts.device)[:, None].expand(b, s)
+    pos = starts.long()[:, None] + torch.arange(s, device=starts.device)
+    k, v = layer_k, layer_v
+    if s > 1:  # bucket padding may reach past the cache: drop it
+        keep = pos < cache.max_len
+        if not bool(keep.all()):
+            rows, pos, k, v = rows[keep], pos[keep], k[keep], v[keep]
+    # advanced indices around a slice put their dims first: the target
+    # cache.k[layer][rows, :, pos] is [B, S_new, H, D], the layout of k
+    if cache.quantized:
+        qk, sk = _quantize_kv(k)  # per (position, head) over D
+        qv, sv = _quantize_kv(v)
+        cache.k[layer_idx][rows, :, pos] = qk
+        cache.v[layer_idx][rows, :, pos] = qv
+        cache.k_scale[layer_idx][rows, :, pos] = sk
+        cache.v_scale[layer_idx][rows, :, pos] = sv
+    else:
+        cache.k[layer_idx][rows, :, pos] = k.to(cache.k.dtype)
+        cache.v[layer_idx][rows, :, pos] = v.to(cache.v.dtype)
     return cache
 
 

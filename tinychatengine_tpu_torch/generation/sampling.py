@@ -20,6 +20,8 @@ from typing import Optional
 
 import torch
 
+from tinychatengine_tpu_torch.core.device import resolve_device
+
 NEG_INF = -1e30
 
 
@@ -176,7 +178,8 @@ class SamplerState:
 
     @staticmethod
     def init(seed: int, batch: int, tau: float, device=None) -> "SamplerState":
-        dev = torch.device("cpu" if device is None else device)
+        """``device`` None means the card (raises without one)."""
+        dev = resolve_device(device)
         return SamplerState(
             gen=torch.Generator(device=dev).manual_seed(max(seed, 0)),
             mu=torch.full((batch,), 2.0 * tau, dtype=torch.float32,
@@ -260,3 +263,334 @@ def sample(logits: torch.Tensor, state: SamplerState, gcfg,
     logits = top_p_mask(logits, gcfg.top_p)
     logits = apply_temperature(logits, gcfg.temp)
     return sample_token(logits, state.gen), state
+
+
+# ---- per-row sampling for serving (JAX ``RowParams`` / ``sample_rows``) ----
+#
+# Randomness: each row carries a (key, step) pair of int64s ([B, 2]); a
+# draw's Gumbel noise for vocabulary entry i is a counter-based hash of
+# (key, step, i), and each draw advances step by one. A row's draws depend
+# only on its own key and step: not on its slot, its neighbours or on how
+# the ticks were batched into bursts.
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, m: int) -> torch.Tensor:
+    """x * m mod 2^32 for int64 tensors holding 32-bit values, in halves so
+    no int64 product overflows."""
+    return (x * (m & 0xFFFF) + (((x * (m >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3's 32-bit finaliser on int64 tensors holding 32-bit values."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def row_key(seed: int, stream: int = 0) -> int:
+    """A row's key from a seed and a stream number (JAX ``fold_in``'s
+    role): the same pair always gives the same key."""
+    h = _mix32(torch.tensor([seed & _M32], dtype=torch.int64))
+    return int(_mix32(h ^ _mix32(torch.tensor([stream & _M32]) + 0x9E3779B9)))
+
+
+def row_keys(seed: int, n: int, device=None) -> torch.Tensor:
+    """[n, 2] (key, step = 0) rows for streams 0..n-1 of ``seed``."""
+    keys = torch.tensor([[row_key(seed, i), 0] for i in range(n)],
+                        dtype=torch.int64)
+    return keys.to(resolve_device(device))
+
+
+def _gumbel(keys: torch.Tensor, width: int) -> torch.Tensor:
+    """Gumbel noise [B, width] from each row's (key, step)."""
+    h = _mix32(keys[:, :1] ^ _mix32(keys[:, 1:] & _M32))
+    idx = torch.arange(width, dtype=torch.int64, device=keys.device)
+    bits = _mix32(h ^ _mix32(idx[None, :] + 0x9E3779B9)) >> 8  # 24 bits
+    u = (bits.float() + 0.5) * (1.0 / (1 << 24))  # in (0, 1)
+    return -torch.log(-torch.log(u))
+
+
+def _draw(logits: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """One categorical draw per row over [B, W] logits (Gumbel-max)."""
+    return torch.argmax(logits + _gumbel(keys, logits.shape[-1]),
+                        dim=-1).to(torch.int32)
+
+
+def _next_keys(keys: torch.Tensor) -> torch.Tensor:
+    return torch.stack([keys[:, 0], keys[:, 1] + 1], dim=1)
+
+
+@dataclasses.dataclass
+class RowParams:
+    """Per-ROW sampling parameters as [B] tensors, so one sampler serves any
+    mix of requests."""
+
+    temp: torch.Tensor               # [B] f32; <= 0 → greedy for that row
+    top_k: torch.Tensor              # [B] i32; <= 0 → off
+    top_p: torch.Tensor              # [B] f32; >= 1 → off
+    tfs_z: torch.Tensor              # [B] f32; >= 1 → off
+    typical_p: torch.Tensor          # [B] f32; >= 1 → off
+    repeat_penalty: torch.Tensor     # [B] f32; 1 → off
+    frequency_penalty: torch.Tensor  # [B] f32
+    presence_penalty: torch.Tensor   # [B] f32
+    bias_ids: torch.Tensor           # [B, MAX_BIAS] i64; -1 = unused entry
+    bias_vals: torch.Tensor          # [B, MAX_BIAS] f32
+    mirostat: torch.Tensor           # [B] i32; 0 = off, 1/2 = version
+    mirostat_tau: torch.Tensor       # [B] f32
+    mirostat_eta: torch.Tensor       # [B] f32
+
+    MAX_BIAS = 16  # per-request logit_bias entries
+
+    @staticmethod
+    def from_configs(gcfgs, device=None) -> "RowParams":
+        dev = resolve_device(device)
+        nb = RowParams.MAX_BIAS
+        ids = torch.full((len(gcfgs), nb), -1, dtype=torch.int64)
+        vals = torch.zeros((len(gcfgs), nb), dtype=torch.float32)
+        for r, g in enumerate(gcfgs):
+            if g.logit_bias:
+                items = (g.logit_bias.items()
+                         if hasattr(g.logit_bias, "items") else g.logit_bias)
+                for c, (t, v) in enumerate(list(items)[:nb]):
+                    ids[r, c] = int(t)
+                    vals[r, c] = float(v)
+
+        def arr(name, dt=torch.float32):
+            return torch.tensor([getattr(g, name) for g in gcfgs], dtype=dt)
+
+        fields = dict(
+            temp=arr("temp"), top_k=arr("top_k", torch.int32),
+            top_p=arr("top_p"), tfs_z=arr("tfs_z"),
+            typical_p=arr("typical_p"), repeat_penalty=arr("repeat_penalty"),
+            frequency_penalty=arr("frequency_penalty"),
+            presence_penalty=arr("presence_penalty"),
+            bias_ids=ids, bias_vals=vals,
+            mirostat=arr("mirostat", torch.int32),
+            mirostat_tau=arr("mirostat_tau"),
+            mirostat_eta=arr("mirostat_eta"))
+        return RowParams(**{k: t.to(dev) for k, t in fields.items()})
+
+    def set_rows(self, idx, other: "RowParams") -> None:
+        """Rows ``idx`` take ``other``'s rows, in place."""
+        for f in dataclasses.fields(self):
+            getattr(self, f.name)[idx] = getattr(other, f.name)
+
+
+def _sample_rows_candidates(logits, keys, params: RowParams, last_tokens,
+                            mu, top_k_max: int):
+    """Candidate-domain row sampler: penalties, top_k, nucleus, temperature
+    and the draw run on the [B, C] candidate list (C = top_k_max + window)
+    of the largest raw logits, never on the full vocabulary. Exact when
+    every row has 0 < top_k <= top_k_max and lowering-only penalties (the
+    caller's ``pen_lower``): a token outside the raw top C is dominated
+    after the penalties by top_k_max unpenalised candidates. The draw runs
+    over the C candidates."""
+    b, v = logits.shape
+    t = last_tokens.shape[1]
+    c = min(top_k_max + t, v)
+    cvals, cidx = torch.topk(logits, c, dim=-1)                  # [B, C]
+    # lax.top_k's order: value descending, ties by ascending index (it
+    # decides greedy ties among equal logits)
+    cidx, order = torch.sort(cidx, dim=-1)
+    cvals, order2 = torch.sort(torch.gather(cvals, 1, order), dim=-1,
+                               descending=True, stable=True)
+    cidx = torch.gather(cidx, 1, order2)
+    hit = (cidx[:, :, None] == last_tokens[:, None, :]) \
+        & (last_tokens[:, None, :] >= 0)
+    cnt = hit.sum(-1).float()                                   # [B, C]
+
+    rp = params.repeat_penalty[:, None]
+    pen = torch.where(cvals > 0, cvals / rp, cvals * rp)
+    cvals = torch.where(cnt > 0, pen, cvals)
+    cvals = (cvals - cnt * params.frequency_penalty[:, None]
+             - (cnt > 0).float() * params.presence_penalty[:, None])
+
+    greedy_tok = torch.gather(cidx, 1, cvals.argmax(-1, keepdim=True))[:, 0]
+
+    # top_k within the candidates: threshold at the k_eff-th penalised
+    # value, ties trimmed by candidate order to exactly k_eff kept
+    svals = torch.sort(cvals, dim=-1, descending=True).values
+    k_eff = params.top_k.long().clamp(1, top_k_max)[:, None]
+    kth = torch.gather(svals, 1, k_eff - 1)
+    keep = cvals >= kth
+    keep &= ~(torch.cumsum(keep.int(), dim=-1) > k_eff)
+    masked = torch.where(keep, cvals, NEG_INF)
+
+    # nucleus on the kept candidates
+    col = torch.arange(c, device=logits.device)[None, :]
+    s_logits = torch.where(col < k_eff, svals, NEG_INF)
+    s_probs = torch.softmax(s_logits, dim=-1)
+    keep_p = (torch.cumsum(s_probs, dim=-1) - s_probs) < params.top_p[:, None]
+    keep_p[:, :1] = True
+    n_keep = keep_p.sum(-1, keepdim=True)
+    thresh = torch.gather(s_logits, 1, n_keep - 1)
+    masked = torch.where(masked < thresh, NEG_INF, masked)
+
+    masked = masked / params.temp.clamp(min=1e-6)[:, None]
+    win = _draw(masked, keys)
+    drawn = torch.gather(cidx, 1, win[:, None].long())[:, 0]
+    tok = torch.where(params.temp <= 0, greedy_tok, drawn).to(torch.int32)
+    # rows whose top_k exceeds the bound poison to -1 (the JAX contract)
+    tok = torch.where(params.top_k > top_k_max, -1, tok).to(torch.int32)
+    return tok, _next_keys(keys), mu
+
+
+def sample_rows(logits: torch.Tensor, keys: torch.Tensor, params: RowParams,
+                last_tokens: Optional[torch.Tensor] = None,
+                mu: Optional[torch.Tensor] = None, *, use_bias: bool = True,
+                use_tfs_typical: bool = True, use_mirostat: bool = True,
+                top_k_max: int = 0, pen_lower: bool = False):
+    """Per-row sampling pipeline in the reference order (bias → penalties →
+    top_k → tfs → typical → top_p → temp → draw), every parameter a [B]
+    tensor (JAX ``sample_rows``).
+
+    logits [B, V]; keys [B, 2] int64 (key, step) per row; last_tokens
+    [B, T] (-1 = empty). Returns (tokens [B] int32, new keys, new mu): with
+    ``mu`` ([B] f32 carried mirostat state) rows with mirostat 1/2 draw by
+    mirostat v1/v2 instead of the truncation pipeline.
+
+    use_bias / use_tfs_typical / use_mirostat: stage gates, each exact when
+    the stage is off for every row (its math is then the identity).
+    top_k_max: an upper bound on every row's top_k when all rows have
+    top_k > 0 (0 = none): top_k then runs by one ``topk`` and a threshold
+    instead of a full sort. pen_lower: every row's penalties only lower
+    logits; with top_k_max > 0 and the three gates off, the whole pipeline
+    runs on a candidate list (``_sample_rows_candidates``)."""
+    logits = logits.float()
+    if (pen_lower and top_k_max > 0 and not use_bias and not use_tfs_typical
+            and not use_mirostat and last_tokens is not None):
+        return _sample_rows_candidates(logits, keys, params, last_tokens,
+                                       mu, top_k_max)
+    b, v = logits.shape
+    if use_bias:
+        logits = logits.scatter_add(
+            1, params.bias_ids.clamp(0, v - 1),
+            torch.where(params.bias_ids >= 0, params.bias_vals, 0.0))
+    if last_tokens is not None:
+        counts = _token_counts(last_tokens, v)
+        pen = params.repeat_penalty[:, None]
+        penalized = torch.where(logits > 0, logits / pen, logits * pen)
+        logits = torch.where(counts > 0, penalized, logits)
+        logits = (logits - counts * params.frequency_penalty[:, None]
+                  - (counts > 0).float() * params.presence_penalty[:, None])
+    greedy_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+
+    if not use_tfs_typical and top_k_max > 0:
+        # sort-free top_k: the k_eff-th value as threshold; ties at it keep
+        # the right-most tied positions, as the sorted path does
+        topvals = torch.topk(logits, top_k_max, dim=-1).values     # desc
+        k_eff = params.top_k.long().clamp(1, top_k_max)[:, None]
+        kth = torch.gather(topvals, 1, k_eff - 1)
+        tied = logits == kth
+        need = k_eff - (logits > kth).sum(-1, keepdim=True)
+        from_right = tied.flip(-1).cumsum(-1).flip(-1)
+        masked = torch.where((logits > kth) | (tied & (from_right <= need)),
+                             logits, NEG_INF)
+        col = torch.arange(top_k_max, device=logits.device)[None, :]
+        s_logits = torch.where(col < k_eff, topvals, NEG_INF)
+        tok, new_keys, new_mu = _sample_rows_tail(
+            logits, masked, s_logits, greedy_tok, keys, params, mu,
+            use_mirostat)
+        tok = torch.where(params.top_k > top_k_max, -1, tok).to(torch.int32)
+        return tok, new_keys, new_mu
+
+    # one descending sort (ties: higher index first) gives the top_k ranks
+    order = torch.argsort(logits, dim=-1, stable=True).flip(-1)
+    ranks = torch.argsort(order, dim=-1)
+    k_eff = torch.where(params.top_k <= 0, v, params.top_k).long()[:, None]
+    masked = torch.where(ranks < k_eff, logits, NEG_INF)
+    sorted_logits = torch.gather(masked, 1, order)
+    if use_tfs_typical:
+        probs = torch.softmax(sorted_logits, dim=-1)
+        d1 = probs[:, :-1] - probs[:, 1:]
+        d2 = (d1[:, :-1] - d1[:, 1:]).abs()
+        # drop the |d2| windows that reach past the last live token
+        n_live = (sorted_logits > NEG_INF / 2).sum(-1, keepdim=True)
+        d2 = torch.where(torch.arange(v - 2, device=logits.device)[None, :]
+                         < n_live - 2, d2, 0.0)
+        d2 = d2 / d2.sum(-1, keepdim=True).clamp(min=1e-12)
+        cum2 = torch.cumsum(d2, dim=-1)
+        z = params.tfs_z[:, None]
+        n_keep = torch.where(z >= 1.0, v,
+                             1 + (cum2 < z).sum(-1, keepdim=True))
+        thresh = torch.gather(sorted_logits, 1, n_keep - 1)
+        masked = torch.where(masked < thresh, NEG_INF, masked)
+
+        log_probs = torch.log_softmax(masked, dim=-1)
+        p_full = log_probs.exp()
+        entropy = -torch.where(p_full > 0, p_full * log_probs,
+                               0.0).sum(-1, keepdim=True)
+        shifted = (-log_probs - entropy).abs()
+        t_order = torch.argsort(shifted, dim=-1, stable=True)
+        p_sorted = torch.gather(p_full, 1, t_order)
+        keep_t = (torch.cumsum(p_sorted, dim=-1) - p_sorted) \
+            < params.typical_p[:, None]
+        keep_t[:, :1] = True
+        keep = torch.gather(keep_t, 1, torch.argsort(t_order, dim=-1))
+        masked = torch.where(keep, masked, NEG_INF)
+        # tfs/typical masking does not keep the sorted order: sort again
+        s_logits = torch.sort(masked, dim=-1, descending=True).values
+    else:
+        s_logits = sorted_logits  # a top_k prefix cut keeps the order
+    return _sample_rows_tail(logits, masked, s_logits, greedy_tok, keys,
+                             params, mu, use_mirostat)
+
+
+def _sample_rows_tail(logits, masked, s_logits, greedy_tok, keys, params,
+                      mu, use_mirostat):
+    """Nucleus → temperature → draw → (mirostat), shared by the sorted and
+    the sort-free top_k paths. ``s_logits`` holds the live candidates in
+    descending order ([B, V] or [B, top_k_max])."""
+    b, v = logits.shape
+    s_probs = torch.softmax(s_logits, dim=-1)
+    keep_p = (torch.cumsum(s_probs, dim=-1) - s_probs) < params.top_p[:, None]
+    keep_p[:, :1] = True
+    n_keep = keep_p.sum(-1, keepdim=True)
+    thresh = torch.gather(s_logits, 1, n_keep - 1)
+    masked = torch.where(masked < thresh, NEG_INF, masked)
+
+    masked = masked / params.temp.clamp(min=1e-6)[:, None]
+    drawn = _draw(masked, keys)
+    tok = torch.where(params.temp <= 0, greedy_tok, drawn).to(torch.int32)
+    new_keys = _next_keys(keys)
+    if mu is None or not use_mirostat:
+        return tok, new_keys, mu
+
+    # per-row mirostat v1/v2: rows with mirostat != 0 replace the pipeline
+    # above; all three draws share the row's (key, step)
+    lt = logits / params.temp.clamp(min=1e-6)[:, None]
+    log_probs_t = torch.log_softmax(lt, dim=-1)
+    surprise = -log_probs_t / math.log(2.0)                   # bits
+
+    # v2: truncate tokens whose surprise exceeds mu; the argmax survives
+    m2 = torch.where(surprise > mu[:, None], NEG_INF, lt)
+    best = torch.argmax(lt, dim=-1, keepdim=True)
+    m2 = m2.scatter(1, best, torch.gather(lt, 1, best))
+    tok2 = _draw(m2, keys)
+
+    # v1: Zipf-estimated dynamic k from the top-m probs, then a top-k draw
+    mtop = min(100, v)
+    topm = torch.topk(log_probs_t.exp(), mtop, dim=-1).values
+    i_idx = torch.arange(1, mtop, dtype=torch.float32, device=logits.device)
+    t_i = torch.log((i_idx + 1.0) / i_idx)
+    b_i = torch.log(topm[:, :-1] / topm[:, 1:].clamp(min=1e-12))
+    s_hat = (t_i * b_i).sum(-1) / (t_i * t_i).sum()
+    eps_h = s_hat - 1.0
+    k_dyn = torch.pow((eps_h * torch.pow(2.0, mu))
+                      / (1.0 - torch.pow(float(v), -eps_h)), 1.0 / s_hat)
+    k_dyn = torch.nan_to_num(k_dyn, nan=1.0).clamp(1, v).long()
+    ranks_t = torch.argsort(torch.argsort(lt, dim=-1, stable=True).flip(-1),
+                            dim=-1)
+    m1 = torch.where(ranks_t < k_dyn[:, None], lt, NEG_INF)
+    tok1 = _draw(m1, keys)
+
+    tok_m = torch.where(params.mirostat == 1, tok1, tok2)
+    s_drawn = torch.gather(surprise, 1, tok_m[:, None].long())[:, 0]
+    mu_upd = mu - params.mirostat_eta * (s_drawn - params.mirostat_tau)
+    use_m = (params.mirostat > 0) & (params.temp > 0)
+    tok = torch.where(use_m, tok_m, tok).to(torch.int32)
+    return tok, new_keys, torch.where(use_m, mu_upd, mu)

@@ -1,6 +1,7 @@
 """LLaMA-family decoder, single device (counterpart of the JAX package's
-``models/llama.py``; no tensor, sequence or pipeline parallelism, no paged
-cache, no fused-decode branch).
+``models/llama.py``, with per-row positions and the paged decode of the
+serving path; no tensor, sequence or pipeline parallelism, no
+``input_embeds``, no fused-decode branch).
 
 Parameters are dataclasses of tensors with every layer leaf stacked [L, ...]
 as in the JAX package; the forward walks the layers in a Python loop and
@@ -20,7 +21,9 @@ from tinychatengine_tpu_torch.core.config import ModelConfig, QuantConfig
 from tinychatengine_tpu_torch.core.device import resolve_device
 from tinychatengine_tpu_torch.generation import kv_cache as kvc
 from tinychatengine_tpu_torch.ops import ref
-from tinychatengine_tpu_torch.ops.attention import flash_decode, flash_prefill
+from tinychatengine_tpu_torch.ops.attention import (flash_decode,
+                                                   flash_decode_paged,
+                                                   flash_prefill)
 from tinychatengine_tpu_torch.ops.linear import (
     DenseLinear,
     Int4A8Linear,
@@ -30,7 +33,8 @@ from tinychatengine_tpu_torch.ops.linear import (
     random_int4_linear,
     random_int4_linear_fast,
 )
-from tinychatengine_tpu_torch.quant.packing import from_bf16_bits
+from tinychatengine_tpu_torch.quant.packing import numpy_to_torch
+from tinychatengine_tpu_torch.runtime import paged as pg
 
 LMHEAD_PAD = 2048  # lm_head N padded to a multiple of this; the forward
 # slices the logits back to vocab_size
@@ -63,31 +67,52 @@ class LlamaParams:
 
 
 def forward(params: LlamaParams, cfg: ModelConfig, input_ids: torch.Tensor,
-            cache: kvc.KVCache, start: int, full_logits: bool = False,
-            true_len: Optional[int] = None):
+            cache, start, full_logits: bool = False, true_len=None,
+            page_table: Optional[torch.Tensor] = None):
     """One forward pass (prefill S > 1 or decode S = 1), writing the new
     K/V into ``cache`` in place.
 
-    input_ids [B, S] int; start: number of cached tokens (host int).
-    true_len: for a prompt right-padded to a bucket, its unpadded length:
-    the cache advances by true_len and the last-position logits are taken
-    at true_len - 1. Returns (logits [B, V] f32 of the last position, or
-    [B, S, V] with full_logits, and the cache)."""
+    input_ids [B, S] int. start: number of cached tokens, a host int (every
+    row) or an int32 [B] tensor on the device (per-row positions, RoPE,
+    cache writes and attention lengths: the serving path).
+    true_len: for a prompt right-padded to a bucket, its unpadded length,
+    an int or an int [B] sequence or tensor (ragged rows of a batched
+    admission): the cache advances by true_len (by its largest row) and
+    the last-position logits are taken at each row's true_len - 1.
+    page_table: int32 [B, max_pages] on the device. The cache is then a
+    ``runtime.paged.PagedKVCache``, S must be 1 and ``start`` carries the
+    per-row lengths; the pool has no length to advance.
+    Returns (logits [B, V] f32 of the last position, or [B, S, V] with
+    full_logits, and the cache)."""
     b, s = input_ids.shape
     dev = params.embed.device
-    if s == 1 and start >= cache.max_len:
-        raise ValueError(f"KV cache full: position {start} >= max_len "
-                         f"{cache.max_len}")
-    # bucket padding may reach past the cache; real rows never do, so the
-    # attention length is capped there
-    kv_len = min(start + s, cache.max_len)
+    ragged = isinstance(start, torch.Tensor)
+    if page_table is not None and (s != 1 or not ragged):
+        raise ValueError("a paged forward is a decode step: S = 1 and a "
+                         "per-row start tensor")
+    if ragged:
+        start = start.to(device=dev, dtype=torch.int32)
+        st_col = start.long()[:, None]
+    else:
+        if s == 1 and start >= cache.max_len:
+            raise ValueError(f"KV cache full: position {start} >= max_len "
+                             f"{cache.max_len}")
+        st_col = torch.full((1, 1), start, dtype=torch.long, device=dev)
     x = params.embed[input_ids.to(dev)].to(torch.bfloat16)
-    positions = (start + torch.arange(s, device=dev)).expand(b, s)
+    positions = (st_col + torch.arange(s, device=dev)).expand(b, s)
     # the JAX gather clamps out-of-range indices; so does this one (only
     # bucket padding past the table can reach it)
     rope_pos = positions.clamp(max=params.rope_cos.shape[0] - 1)
     cos = params.rope_cos[rope_pos].float()  # [B, S, D]
     sin = params.rope_sin[rope_pos].float()
+    if ragged:  # per-row attention lengths (int32), built once
+        kv_len = start + s
+        if page_table is None:  # bucket padding may reach past the cache
+            kv_len = kv_len.clamp(max=cache.max_len)
+    else:
+        # bucket padding may reach past the cache; real rows never do, so
+        # the attention length is capped there
+        kv_len = min(start + s, cache.max_len)
 
     lyr = params.layers
     d = cfg.head_dim
@@ -102,14 +127,21 @@ def forward(params: LlamaParams, cfg: ModelConfig, input_ids: torch.Tensor,
         k = qkv[..., hq * d:(hq + hkv) * d].reshape(b, s, hkv, d)
         v = qkv[..., (hq + hkv) * d:].reshape(b, s, hkv, d)
         q, k = ref.apply_rotary(q, k, cos, sin)
-        kvc.update_layer(cache, k, v, li, start)
-        if s == 1:
-            attn = flash_decode(q[:, 0], cache.k, cache.v, li, start + 1,
-                                cache.k_scale, cache.v_scale,
-                                window=win).reshape(b, 1, hq * d)
+        if page_table is not None:
+            pg.paged_update_layer(cache, k, v, li, start, page_table)
+            attn = flash_decode_paged(q[:, 0], cache.k, cache.v, li, kv_len,
+                                      page_table, cache.k_scale,
+                                      cache.v_scale, window=win)
+            attn = attn.reshape(b, 1, hq * d)
         else:
-            attn = flash_prefill(q, cache.k, cache.v, li, start, kv_len,
-                                 cache.k_scale, cache.v_scale, window=win)
+            kvc.update_layer(cache, k, v, li, start)
+            if s == 1:
+                attn = flash_decode(q[:, 0], cache.k, cache.v, li, kv_len,
+                                    cache.k_scale, cache.v_scale,
+                                    window=win).reshape(b, 1, hq * d)
+            else:
+                attn = flash_prefill(q, cache.k, cache.v, li, start, kv_len,
+                                     cache.k_scale, cache.v_scale, window=win)
         x = x + apply_linear(lyr.wo, attn.to(x.dtype), layer_idx=li)
         h2 = ref.rms_norm_ref(x, lyr.post_norm[li], cfg.rms_norm_eps)
         gu = apply_linear(lyr.wgate_up, h2, layer_idx=li)
@@ -118,24 +150,21 @@ def forward(params: LlamaParams, cfg: ModelConfig, input_ids: torch.Tensor,
                * gu[..., f:].float()).to(x.dtype)
         x = x + apply_linear(lyr.down, act, layer_idx=li)
 
-    n_new = s if true_len is None else int(true_len)
-    kvc.advance(cache, n_new)
-    if not full_logits:
-        x = x[:, n_new - 1:n_new]  # the lm_head runs on the last real position
+    if true_len is None or np.ndim(true_len) == 0:
+        n_new = s if true_len is None else int(true_len)
+        if page_table is None:
+            kvc.advance(cache, n_new)
+        if not full_logits:  # the lm_head runs on the last real position
+            x = x[:, n_new - 1:n_new]
+    else:  # ragged rows: each row's last real position
+        lens = torch.as_tensor(true_len, dtype=torch.long, device=dev)
+        kvc.advance(cache, int(lens.max()))
+        if not full_logits:
+            idx = (lens - 1)[:, None, None].expand(b, 1, x.shape[-1])
+            x = torch.gather(x, 1, idx)
     x = ref.rms_norm_ref(x, params.final_norm, cfg.rms_norm_eps)
     logits = apply_linear(params.lm_head, x).float()[..., :cfg.vocab_size]
     return (logits if full_logits else logits[:, 0]), cache
-
-
-def _to_torch(a) -> torch.Tensor:
-    """numpy (bf16 from ml_dtypes arrives as a 2-byte void kind and is read
-    as bf16 bits) or torch → torch, on the CPU."""
-    if isinstance(a, torch.Tensor):
-        return a
-    a = np.asarray(a)
-    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
-        return from_bf16_bits(a.view(np.uint16))
-    return torch.from_numpy(np.array(a, copy=True, order="C"))
 
 
 def params_from_numpy(flat: dict, cfg: ModelConfig, qcfg: QuantConfig,
@@ -147,7 +176,7 @@ def params_from_numpy(flat: dict, cfg: ModelConfig, qcfg: QuantConfig,
     dev = resolve_device(device)
 
     def leaf(key):
-        return _to_torch(flat[key]).to(dev)
+        return numpy_to_torch(flat[key]).to(dev)
 
     def lin(prefix):
         bias = leaf(f"{prefix}/bias") if f"{prefix}/bias" in flat else None

@@ -1,9 +1,11 @@
 """Attention over the layer-stacked KV cache: ``flash_decode`` (one query
-position) and ``flash_prefill`` (a causal prompt chunk), with their plain
-PyTorch versions.
+position), ``flash_prefill`` (a causal prompt chunk) and
+``flash_decode_paged`` (one query position over a page pool), with their
+plain PyTorch versions.
 
 Counterpart of the JAX package's ``ops/attention.py``. The kernels are
-``csrc/flash_decode.cu`` and ``csrc/flash_prefill.cu``: fp32 online softmax,
+``csrc/flash_decode.cu``, ``csrc/flash_prefill.cu`` and
+``csrc/flash_decode_paged.cu``: fp32 online softmax,
 probabilities rounded to bf16 before the PV product, and only the valid key
 range visited (so the TPU path's ``ctx_cap`` is accepted and ignored). They
 take a bf16 cache; the int8 cache (per-position scales) runs through the
@@ -106,6 +108,8 @@ def _lengths_arg(value, b: int, device, smax: int):
 
 
 def _check_cache(q, cache_k, cache_v, k_scale, d):
+    """bf16, contiguous, 5-D, on q's CUDA device: the stacked cache
+    [L, B, Hkv, S, D] or the page pool [L, n_pages, Hkv, P, D]."""
     if k_scale is not None:
         raise NotImplementedError(
             "int8 KV cache has no CUDA kernel yet; use a bf16 cache")
@@ -114,11 +118,11 @@ def _check_cache(q, cache_k, cache_v, k_scale, d):
         raise ValueError("q and the cache must lie on one CUDA device")
     if cache_k.dtype != torch.bfloat16 or cache_v.dtype != torch.bfloat16 \
             or not (cache_k.is_contiguous() and cache_v.is_contiguous()):
-        raise ValueError("cache must be contiguous bf16 [L, B, Hkv, S, D]")
+        raise ValueError("cache must be contiguous bf16 (5-D, layer first)")
     if d not in (64, 128):
         raise ValueError(f"kernel needs head_dim 64 or 128, got {d}")
     if cache_k.dim() != 5 or cache_v.shape != cache_k.shape:
-        raise ValueError("cache k and v must both be [L, B, Hkv, S, D]")
+        raise ValueError("cache k and v must have one 5-D shape")
 
 
 def _layer_ptr(cache, layer_idx) -> int:
@@ -197,4 +201,79 @@ def flash_prefill(q, cache_k, cache_v, layer_idx, start, length,
                     torch.cuda.current_stream(q.device).cuda_stream),
                  "flash_prefill")
     _build.LAUNCHES["flash_prefill"] += 1
+    return out.to(q.dtype)
+
+
+def gather_pages(pages_k, pages_v, layer_idx, page_table, k_scale=None,
+                 v_scale=None):
+    """Each row's pages of one layer as a contiguous [B, Hkv, max_pages * P,
+    D] view (int8 dequantized to bf16), as the JAX forward's non-TPU paged
+    branch builds it."""
+    ids = page_table.long()
+    b, mp = ids.shape
+    _, _, hkv, p, d = pages_k.shape
+
+    def rows(buf):  # [B, MP, H, P, ...] -> [B, H, MP * P, ...]
+        g = buf[layer_idx][ids]
+        return g.transpose(1, 2).reshape(b, hkv, mp * p, *g.shape[4:])
+
+    k, v = rows(pages_k), rows(pages_v)
+    if k_scale is not None:
+        k = (k.float() * rows(k_scale)[..., None]).to(torch.bfloat16)
+        v = (v.float() * rows(v_scale)[..., None]).to(torch.bfloat16)
+    return k, v
+
+
+def flash_decode_paged_plain(q, pages_k, pages_v, layer_idx, lengths,
+                             page_table, k_scale=None, v_scale=None, *,
+                             window: int | None = None) -> torch.Tensor:
+    """q [B, Hq, D] at position lengths[b] - 1 against each row's gathered
+    pages, with ``attention_xla``'s cast points. A row of length 0 sees
+    only masked keys (a uniform average, as in the JAX branch)."""
+    b, hq, d = q.shape
+    ck, cv = gather_pages(pages_k, pages_v, layer_idx, page_table, k_scale,
+                          v_scale)
+    ln = _per_batch(lengths, b, q.device)
+    out = attention_plain(q[:, None], ck, cv, (ln - 1)[:, None], ln, window)
+    return out.reshape(b, hq, d)
+
+
+def flash_decode_paged(q, pages_k, pages_v, layer_idx, lengths, page_table,
+                       k_scale=None, v_scale=None, *,
+                       sm_scale: float | None = None,
+                       window: int | None = None) -> torch.Tensor:
+    """Single-step attention over paged KV storage: q [B, Hq, D]; pages
+    [L, n_pages, Hkv, P, D]; page_table [B, max_pages] int32 (entry j of
+    row b holds the row's j-th page); lengths int or int32 [B]. Returns
+    [B, Hq, D] in q.dtype. CUDA: ``csrc/flash_decode_paged.cu`` (bf16 pages;
+    a row of length 0 gives zeros); CPU: ``flash_decode_paged_plain``."""
+    if not q.is_cuda:
+        return flash_decode_paged_plain(q, pages_k, pages_v, layer_idx,
+                                        lengths, page_table, k_scale, v_scale,
+                                        window=window)
+    b, hq, d = q.shape
+    _check_cache(q, pages_k, pages_v, k_scale, d)
+    _, _, hkv, p, dc = pages_k.shape
+    if dc != d or hq % hkv or hq // hkv > 8:
+        raise ValueError(f"q {tuple(q.shape)} does not fit pages "
+                         f"{tuple(pages_k.shape)} (kernel takes Hq/Hkv <= 8)")
+    if page_table.dtype != torch.int32 or page_table.dim() != 2 \
+            or page_table.shape[0] != b or page_table.device != q.device \
+            or not page_table.is_contiguous():
+        raise ValueError("page_table must be a contiguous int32 [B, "
+                         f"max_pages] tensor on {q.device}")
+    max_pages = page_table.shape[1]
+    len_ptr, len_scalar = _lengths_arg(lengths, b, q.device, max_pages * p)
+    qb = q.to(torch.bfloat16).contiguous()
+    out = torch.empty_like(qb)
+    fn = _build.bind("flash_decode_paged", "tce_flash_decode_paged",
+                     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I,
+                      _F, _P])
+    _build.check(fn(qb.data_ptr(), _layer_ptr(pages_k, layer_idx),
+                    _layer_ptr(pages_v, layer_idx), out.data_ptr(), b, hq,
+                    hkv, p, d, page_table.data_ptr(), max_pages, len_ptr,
+                    len_scalar, window or 0, sm_scale or 1.0 / d ** 0.5,
+                    torch.cuda.current_stream(q.device).cuda_stream),
+                 "flash_decode_paged")
+    _build.LAUNCHES["flash_decode_paged"] += 1
     return out.to(q.dtype)

@@ -56,6 +56,17 @@ def from_bf16_bits(u16: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
 
 
+def numpy_to_torch(a) -> torch.Tensor:
+    """numpy (bf16 from ml_dtypes arrives as a 2-byte void kind and is read
+    as bf16 bits) or torch → torch, on the CPU."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return from_bf16_bits(a.view(np.uint16))
+    return torch.from_numpy(np.array(a, copy=True, order="C"))
+
+
 def pack_qm_tpu(q: np.ndarray, group_size: int | None = None) -> np.ndarray:
     """Pack uint4 codes ``q [OC, IC]`` (values 0..15) → QM_TPU
     ``packed [IC_pad//2, OC]`` uint8. With ``group_size``, IC is padded to

@@ -1,0 +1,773 @@
+"""Serving runtime: continuous batching over slot-based KV (counterpart of
+the JAX package's ``runtime/serving.py``).
+
+- a fixed pool of B decode *slots*, each a row of one shared KV cache
+  [L, B, H_kv, S_max, D], or (``paged=True``) a pool of pages that
+  sequences borrow as they grow (``runtime/paged.py``);
+- **continuous batching**: a request is admitted the moment a slot frees.
+  Admission prefills the prompt into a B = 1 scratch cache, chunk by chunk
+  (one chunk per scheduler tick, interleaved with decode), then splices
+  the prefix into the slot or its pages; several short prompts at the
+  queue head are admitted together by one ragged batched prefill (dense);
+- **ragged decode**: one forward decodes every slot at its own position
+  (per-row ``start``; per-row lengths into ``flash_decode`` or
+  ``flash_decode_paged``);
+- inactive slots still run (dead rows keep the batch shape) but their
+  cache writes land beyond their frozen lengths, or on the reserved dead
+  page, and their outputs are discarded;
+- **bursts**: when no admission can run, K decode+sample ticks run back to
+  back with no host synchronisation inside, and the [K, B] tokens are
+  fetched once.
+
+Sampling is per request (``sampling.sample_rows``): every parameter rides
+as a [slots] tensor, and each request carries its own (key, step) random
+stream, so its tokens do not depend on its slot, its neighbours or on how
+ticks were grouped into bursts. An engine-level logit_bias table larger
+than ``RowParams.MAX_BIAS`` keeps the engine-global sampler instead.
+
+Not ported (they raise ``NotImplementedError``): speculative ticks, the
+prefix cache, sequence-parallel admission, ``input_embeds`` and
+``logprobs``.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import itertools
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from tinychatengine_tpu_torch.core.config import (GenerationConfig,
+                                                  ModelConfig, QuantConfig)
+from tinychatengine_tpu_torch.core.device import resolve_device
+from tinychatengine_tpu_torch.generation import kv_cache as kvc
+from tinychatengine_tpu_torch.generation import sampling
+from tinychatengine_tpu_torch.generation.engine import Engine, _bucket
+from tinychatengine_tpu_torch.models import llama
+from tinychatengine_tpu_torch.runtime import paged as pg
+
+
+@dataclasses.dataclass(eq=False)  # identity equality: two requests with
+# equal fields are still two requests (deque.remove must not alias them)
+class Request:
+    """One generation request."""
+
+    prompt_ids: np.ndarray                    # [n] int
+    n_predict: int
+    stop_token_ids: tuple = ()
+    on_token: Optional[Callable[[int, "Request"], None]] = None
+    request_id: int = 0
+    gcfg: Optional[GenerationConfig] = None   # per-request sampling params
+    # filled by the engine:
+    output_ids: list = dataclasses.field(default_factory=list)
+    finished: bool = False
+    finish_reason: Optional[str] = None       # "stop" | "length" | ...
+    submit_t: float = 0.0
+    first_token_t: float = 0.0
+    done_t: float = 0.0
+
+
+@dataclasses.dataclass
+class _Slot:
+    request: Optional[Request] = None
+    length: int = 0          # valid KV positions
+    remaining: int = 0
+    admitting: bool = False  # reserved for an in-flight chunked admission
+
+    @property
+    def active(self) -> bool:
+        return self.request is not None and not self.admitting
+
+
+class ServingEngine:
+    """Continuous-batching server for one model replica (llama family).
+
+    ``device`` defaults to the card and raises when there is none; CPU runs
+    pass ``device="cpu"`` (params must already lie there).
+
+    paged: a page pool (``page_size`` positions per page, ``n_pages`` pages,
+    default the dense-equivalent slots * ceil(max_len / page_size)) in
+    place of the slots x max_len cache; page 0 is the dead page that
+    inactive rows point at. admission_chunk: a long prompt prefills one
+    chunk of this many tokens per tick. tick_batch: the largest decode
+    burst (1 disables bursts)."""
+
+    def __init__(self, params, cfg: ModelConfig,
+                 qcfg: Optional[QuantConfig] = None, slots: int = 8,
+                 max_len: Optional[int] = None,
+                 gcfg: Optional[GenerationConfig] = None,
+                 paged: bool = False, page_size: int = 128,
+                 n_pages: Optional[int] = None, admission_chunk: int = 512,
+                 tick_batch: int = 8, speculative: bool = False,
+                 prefix_cache_entries: int = 0, sp_mesh=None, device=None):
+        if speculative or prefix_cache_entries or sp_mesh is not None:
+            raise NotImplementedError(
+                "speculative ticks, the prefix cache and sequence-parallel "
+                "admission are not ported")
+        if cfg.family != "llama":
+            raise ValueError(
+                f"ServingEngine serves llama-family models, not {cfg.family!r}")
+        self.device = resolve_device(device)
+        self.params = params
+        self.cfg = cfg
+        self.qcfg = qcfg or QuantConfig()
+        self.n_slots = slots
+        self.max_len = max_len or cfg.max_sqlen
+        self.gcfg = gcfg or GenerationConfig()
+        self.paged = paged
+
+        quantized = self.qcfg.kv_cache_dtype == "int8"
+        if paged:
+            self.max_pages = -(-self.max_len // page_size)
+            n_pages = n_pages or slots * self.max_pages
+            self.page_cache = pg.init_paged_cache(
+                cfg.num_layers, n_pages, cfg.num_kv_heads, page_size,
+                cfg.head_dim, quantized=quantized, device=self.device)
+            self.allocator = pg.PageAllocator(n_pages, page_size,
+                                              self.max_pages)
+            # the reserved dead page: inactive slots' table rows point at
+            # it, so their dummy decode writes never touch live pages
+            self._dead_page = self.allocator.alloc(1)[0]
+            self._tables = np.full((slots, self.max_pages), self._dead_page,
+                                   np.int32)
+            self._slot_pages: list[list[int]] = [[] for _ in range(slots)]
+            self.cache = None
+        else:
+            self.cache = kvc.init_cache(
+                cfg.num_layers, slots, self.max_len, cfg.num_kv_heads,
+                cfg.head_dim, quantized=quantized, device=self.device)
+        # single-request prefill engine writing into a scratch cache
+        self._prefill_engine = Engine(params, cfg, self.qcfg, batch=1,
+                                      max_len=self.max_len,
+                                      device=self.device)
+        self._scratch = self._prefill_engine.new_cache()
+
+        self.slots = [_Slot() for _ in range(slots)]
+        # what the scheduler spent its ticks on
+        self.tick_stats = {"bursts": 0, "burst_ticks": 0, "single_ticks": 0,
+                           "admit_chunks": 0, "batch_admits": 0,
+                           "batch_admit_reqs": 0}
+        self.queue: collections.deque[Request] = collections.deque()
+        self.done: list[Request] = []
+        self._ids = itertools.count()
+        self.admission_chunk = admission_chunk
+        self._pending = None  # in-flight chunked admission: [slot_idx, done]
+
+        # repeat_last_n < 0 means the context size: size the shared
+        # history window accordingly
+        window = max(self._resolve_window(self.gcfg), 1)
+        self._last = np.full((slots, window), -1, np.int64)
+        self._next_tok = np.zeros((slots,), np.int64)
+        self._row_window = np.full((slots,), window, np.int64)
+        # per-request sampling; an oversized engine-level bias table keeps
+        # the engine-global sampler for every request instead
+        self._per_row = (len(self.gcfg.logit_bias or ())
+                         <= sampling.RowParams.MAX_BIAS)
+        self._row_cfgs = [self.gcfg] * slots
+        self._row_params = sampling.RowParams.from_configs(self._row_cfgs,
+                                                           self.device)
+        self._mu = torch.full((slots,), 2.0 * self.gcfg.mirostat_tau,
+                              dtype=torch.float32, device=self.device)
+        self._keys = sampling.row_keys(max(self.gcfg.seed, 0), slots,
+                                       self.device)
+        self._state = sampling.SamplerState.init(
+            self.gcfg.seed, slots, self.gcfg.mirostat_tau, self.device)
+        self.tick_batch = max(int(tick_batch), 1)
+        # batched admission: R queue-head single-chunk prompts in one ragged
+        # prefill (dense cache and per-row sampler only, as in JAX)
+        self._batch_admit = self._per_row and not paged
+        self._multi_scratch: dict[int, kvc.KVCache] = {}
+
+    def _resolve_window(self, g: GenerationConfig) -> int:
+        """Penalty-history window for a config: -1 = context size, 0 =
+        penalties disabled (the window stays all -1)."""
+        return min(g.n_ctx, self.max_len) if g.repeat_last_n < 0 \
+            else g.repeat_last_n
+
+    # -- public API ----------------------------------------------------------
+    def submit(self, prompt_ids, n_predict: Optional[int] = None,
+               stop_token_ids=(), on_token=None,
+               gcfg: Optional[GenerationConfig] = None,
+               logprobs: Optional[int] = None,
+               input_embeds=None) -> Request:
+        """Queue a request; gcfg: its own sampling parameters."""
+        if logprobs is not None or input_embeds is not None:
+            raise NotImplementedError(
+                "logprobs and input_embeds requests are not ported")
+        if gcfg is not None:
+            if not self._per_row:
+                raise ValueError(
+                    "per-request gcfg unavailable: the engine gcfg uses the "
+                    "engine-global sampler (oversized logit_bias)")
+            if len(gcfg.logit_bias or ()) > sampling.RowParams.MAX_BIAS:
+                raise ValueError(
+                    f"per-request logit_bias supports at most "
+                    f"{sampling.RowParams.MAX_BIAS} entries")
+        req = Request(
+            prompt_ids=np.asarray(prompt_ids, np.int64).reshape(-1),
+            n_predict=n_predict or (gcfg or self.gcfg).n_predict,
+            stop_token_ids=tuple(int(t) for t in stop_token_ids),
+            on_token=on_token, request_id=next(self._ids), gcfg=gcfg,
+            submit_t=time.perf_counter())
+        self.queue.append(req)
+        return req
+
+    def run(self) -> list:
+        """Drain the queue; returns finished requests in completion order."""
+        while (self.queue or self._pending is not None
+               or any(s.active for s in self.slots)):
+            self.step()
+        return self.done
+
+    @property
+    def n_active(self) -> int:
+        return sum(1 for s in self.slots if s.active)
+
+    def cancel(self, req: Request, reason: str = "cancelled") -> bool:
+        """Abort a request at any stage (queued, mid-admission, decoding).
+        Returns True if it was live and is now finished, False if it had
+        already finished."""
+        if req.finished:
+            return False
+        done = False
+        try:  # still queued (or requeued by preemption)
+            self.queue.remove(req)
+            done = True
+        except ValueError:
+            pass
+        if not done and self._pending is not None \
+                and self.slots[self._pending[0]].request is req:
+            # in-flight chunked admission: only prefill work is lost
+            slot_idx = self._pending[0]
+            self._pending = None
+            slot = self.slots[slot_idx]
+            slot.request = None
+            slot.admitting = False
+            if self.paged:
+                self.allocator.free(self._slot_pages[slot_idx])
+                self._slot_pages[slot_idx] = []
+            done = True
+        if not done:
+            for i, slot in enumerate(self.slots):
+                if slot.request is req:  # active: free the slot mid-stream
+                    slot.request = None
+                    slot.length = 0
+                    if self.paged:
+                        self._release_pages(i)
+                    done = True
+                    break
+        if not done:
+            return False
+        req.finished = True
+        req.finish_reason = reason
+        req.done_t = time.perf_counter()
+        self.done.append(req)
+        return True
+
+    # -- scheduler core --------------------------------------------------------
+    @torch.inference_mode()
+    def step(self):
+        """One scheduler tick: advance at most one admission prefill chunk,
+        then one batched decode step (or a burst) for every active slot.
+        Page-pool exhaustion applies backpressure: admission waits, decode
+        growth preempts (the preempted request resumes with its progress)."""
+        if self._pending is not None:
+            self._admit_chunk()
+        while (self._pending is None and self.queue
+               and self._free_slot() is not None):
+            if self.paged and self.allocator.n_free < \
+                    self.allocator.pages_needed(
+                        _bucket(min(len(self.queue[0].prompt_ids),
+                                    self.max_len - 2))):
+                break  # not enough pages: hold the queue until some free
+            batch = self._eligible_batch()
+            if len(batch) >= 2:
+                self._admit_batch(batch)
+                continue
+            self._begin_admission(self._free_slot(), self.queue.popleft())
+            if self._pending is not None:
+                break  # a long prompt: its chunks continue on later ticks
+        if not any(s.active for s in self.slots):
+            if self.queue and self._pending is None:
+                raise MemoryError(
+                    "paged KV pool cannot fit the next request's prefill "
+                    f"({self.allocator.n_free} pages free)")
+            return
+        k = self._burst_ticks()
+        if k >= 2:
+            self.tick_stats["bursts"] += 1
+            self.tick_stats["burst_ticks"] += k
+            self._decode_burst(k)
+        else:
+            self.tick_stats["single_ticks"] += 1
+            self._decode_once()
+
+    def _burst_ticks(self) -> int:
+        """How many decode ticks can run as one burst without the host
+        stepping in: the per-row sampler, no in-flight chunked admission,
+        no admission possible right now, and tick_batch tokens of budget
+        and cache/page headroom on every active slot. Rounded down to a
+        power of two."""
+        # While a chunked admission is in flight, decode stays single-tick
+        # on purpose: the JAX package measured bursts there to lose
+        # (they front-load decode into lower-occupancy ticks and stretch
+        # the admission).
+        if self.tick_batch < 2 or not self._per_row \
+                or self._pending is not None:
+            return 1
+        if self.queue and self._free_slot() is not None:
+            return 1  # an admission is possible right now: take it
+        k = self.tick_batch
+        for i, s in enumerate(self.slots):
+            if not s.active:
+                continue
+            k = min(k, s.remaining, self.max_len - s.length - 1)
+            if self.paged:
+                # grant the burst's pages up front when the pool allows
+                # (slots free every page at release or preemption, so an
+                # early grant is never leaked); under pool pressure the
+                # clamp below shortens the burst instead
+                want = min(self.tick_batch, s.remaining,
+                           self.max_len - s.length - 1)
+                need_pg = self.allocator.pages_needed(s.length + want) \
+                    - len(self._slot_pages[i])
+                if need_pg > 0 and self.allocator.n_free >= need_pg:
+                    for pg_id in self.allocator.alloc(need_pg):
+                        self._add_page(i, pg_id)
+                k = min(k, len(self._slot_pages[i])
+                        * self.allocator.page_size - s.length)
+        p2 = 1
+        while p2 * 2 <= k:
+            p2 *= 2
+        return p2
+
+    def _decode_burst(self, k: int):
+        """K decode+sample ticks issued back to back with no host sync; the
+        [K, B] tokens are fetched once, then emitted in order (a slot that
+        stopped mid-burst discards its overshoot)."""
+        window = self._last.shape[1]
+        keep_mask = torch.as_tensor(
+            np.arange(window)[None, :] >= (window - self._row_window[:, None]),
+            device=self.device)
+        lengths = self._lengths()
+        tables = self._table_tensor() if self.paged else None
+        active0 = [s.active for s in self.slots]
+        gates = self._row_features()
+        toks = torch.as_tensor(self._next_tok, device=self.device)
+        last = torch.as_tensor(self._last, device=self.device)
+        seq = []
+        for _ in range(k):
+            logits, _ = llama.forward(
+                self.params, self.cfg, toks[:, None], self._kv(), lengths,
+                page_table=tables)
+            tok, self._keys, self._mu = sampling.sample_rows(
+                logits, self._keys, self._row_params, last, self._mu, **gates)
+            toks = tok.long()
+            last = torch.where(
+                keep_mask, torch.cat([last[:, 1:], toks[:, None]], 1), -1)
+            lengths = lengths + 1
+            seq.append(tok)
+        seq = torch.stack(seq).cpu().numpy()                   # [K, B]
+        for t in range(k):
+            for i, slot in enumerate(self.slots):
+                if active0[i] and slot.active:
+                    slot.length += 1
+                    self._emit(i, int(seq[t, i]))
+
+    def _decode_once(self):
+        if self.paged:
+            # grow: a slot writing at a page boundary needs a fresh page;
+            # on exhaustion, preempt other slots until it fits
+            p = self.allocator.page_size
+            for i, slot in enumerate(self.slots):
+                if not slot.active \
+                        or slot.length != len(self._slot_pages[i]) * p:
+                    continue
+                while self.allocator.n_free < 1:
+                    if self._pending is not None:
+                        # cheapest victim: the in-flight admission (only
+                        # prefill work is lost; its reservation frees)
+                        self._cancel_admission()
+                        continue
+                    victim = max(
+                        (j for j, s in enumerate(self.slots)
+                         if s.active and j != i),
+                        key=lambda j: len(self.slots[j].request.output_ids),
+                        default=None)
+                    if victim is None:
+                        raise MemoryError(
+                            "paged KV pool exhausted with one sequence")
+                    self._preempt(victim)
+                self._add_page(i, self.allocator.alloc(1)[0])
+        toks = torch.as_tensor(self._next_tok, device=self.device)
+        last = torch.as_tensor(self._last, device=self.device)
+        logits, _ = llama.forward(
+            self.params, self.cfg, toks[:, None], self._kv(), self._lengths(),
+            page_table=self._table_tensor() if self.paged else None)
+        if self._per_row:
+            tok, self._keys, self._mu = sampling.sample_rows(
+                logits, self._keys, self._row_params, last, self._mu,
+                **self._row_features())
+        else:
+            tok, self._state = sampling.sample(logits, self._state,
+                                               self.gcfg, last)
+        tok_host = tok.cpu().numpy()
+        for i, slot in enumerate(self.slots):
+            if slot.active:
+                slot.length += 1
+                self._emit(i, int(tok_host[i]))
+
+    def _cancel_admission(self):
+        """Abort the in-flight chunked admission: requeue its request at
+        the front of the queue and free the slot and its reserved pages."""
+        slot_idx, _ = self._pending
+        self._pending = None
+        slot = self.slots[slot_idx]
+        req = slot.request
+        slot.request = None
+        slot.admitting = False
+        if self.paged:
+            self.allocator.free(self._slot_pages[slot_idx])
+            self._slot_pages[slot_idx] = []
+        self.queue.appendleft(req)
+
+    def _preempt(self, slot_idx: int):
+        """Free a slot mid-generation and requeue its request with its
+        emitted tokens folded into the prompt (recompute preemption): a
+        later prefill of prompt + emitted rebuilds the cache, so nothing is
+        emitted twice and greedy output is unchanged."""
+        slot = self.slots[slot_idx]
+        req = slot.request
+        req.prompt_ids = np.concatenate(
+            [req.prompt_ids, np.asarray(req.output_ids, np.int64)])
+        slot.request = None
+        slot.length = 0
+        if self.paged:
+            self._release_pages(slot_idx)
+        self.queue.appendleft(req)
+
+    def _free_slot(self) -> Optional[int]:
+        for i, s in enumerate(self.slots):
+            if not s.active:
+                return i
+        return None
+
+    # -- admission ------------------------------------------------------------
+    def _eligible_batch(self) -> list:
+        """The largest power-of-two prefix (>= 2) of the queue head that can
+        be admitted by one batched prefill: single-chunk prompts, at most
+        one per free slot. FIFO order holds: the scan stops at the first
+        prompt that does not fit."""
+        if not self._batch_admit:
+            return []
+        cap = min(self.admission_chunk, self.max_len - 2)
+        out = []
+        free = sum(1 for s in self.slots if not s.active)
+        for req in self.queue:
+            if len(out) >= free or len(req.prompt_ids) > cap:
+                break
+            out.append(req)
+        r = 1 << (len(out).bit_length() - 1) if out else 0
+        return out[:r] if r >= 2 else []
+
+    def _admit_batch(self, reqs: list):
+        """Admit R queue-head requests at once: a ragged batched prefill
+        (per-row true lengths) into an R-row scratch cache, R slot splices
+        and R first-token samples. Per request this is the same math as
+        the single path."""
+        slots = []
+        for req in reqs:
+            self.queue.remove(req)
+            slots.append(self._free_slot())
+            self.slots[slots[-1]].request = req
+        n_rows = len(reqs)
+        self.tick_stats["batch_admits"] += 1
+        self.tick_stats["batch_admit_reqs"] += n_rows
+
+        rcfgs = [self._admit_host_prep(i, req) for i, req in zip(slots, reqs)]
+        for i, rcfg in zip(slots, rcfgs):
+            self._row_cfgs[i] = rcfg
+        bucket = max(_bucket(len(r.prompt_ids)) for r in reqs)
+        ids = np.zeros((n_rows, bucket), np.int64)
+        true_lens = np.zeros((n_rows,), np.int64)
+        for r, req in enumerate(reqs):
+            ids[r, :len(req.prompt_ids)] = req.prompt_ids
+            true_lens[r] = len(req.prompt_ids)
+
+        scratch = self._multi_scratch.pop(n_rows, None)
+        if scratch is None:
+            scratch = kvc.init_cache(
+                self.cfg.num_layers, n_rows,
+                min(_bucket(self.admission_chunk), self.max_len),
+                self.cfg.num_kv_heads, self.cfg.head_dim,
+                quantized=self._scratch.quantized, device=self.device)
+        scratch.length = 0
+        logits, scratch = llama.forward(
+            self.params, self.cfg, torch.as_tensor(ids, device=self.device),
+            scratch,
+            torch.zeros((n_rows,), dtype=torch.int32, device=self.device),
+            true_len=true_lens)
+        _insert_multi(self.cache, scratch,
+                      torch.as_tensor(slots, device=self.device), bucket)
+        tok = self._first_tokens(logits, slots, reqs, rcfgs)
+        self._multi_scratch[n_rows] = scratch
+        now = time.perf_counter()
+        for r, (slot_idx, req) in enumerate(zip(slots, reqs)):
+            req.first_token_t = now
+            self._emit(slot_idx, int(tok[r]))
+
+    def _begin_admission(self, slot_idx: int, req: Request):
+        """Reserve a slot (and, paged, the prefill's pages, up front: decode
+        growth during a multi-tick prefill must not take them) and start
+        the possibly chunked prefill."""
+        n = len(req.prompt_ids)
+        cap = self.max_len - 2
+        if n > cap:
+            req.prompt_ids = req.prompt_ids[-cap:]  # keep the tail
+            n = cap
+        slot = self.slots[slot_idx]
+        slot.request = req
+        slot.admitting = True
+        if self.paged:
+            n_pg = self.allocator.pages_needed(min(_bucket(n), self.max_len))
+            self._slot_pages[slot_idx] = self.allocator.alloc(n_pg)
+        self._scratch.length = 0
+        self._pending = [slot_idx, 0]
+        self._admit_chunk()
+
+    def _admit_chunk(self):
+        """Prefill ONE chunk of the pending admission; the last chunk also
+        finishes the admission (splice and first token)."""
+        slot_idx, done = self._pending
+        self.tick_stats["admit_chunks"] += 1
+        req = self.slots[slot_idx].request
+        n = len(req.prompt_ids)
+        take = min(self.admission_chunk, n - done)
+        if done + take >= n:
+            self._pending = None
+            self._finish_admission(slot_idx, req, done, take)
+            return
+        self._prefill_engine.prefill(req.prompt_ids[None, done:done + take],
+                                     self._scratch, start=done)
+        self._pending[1] = done + take
+
+    def _admit_host_prep(self, slot_idx: int, req: Request):
+        """Host-side bookkeeping of an admission: slot budget, penalty
+        window, the row's config. Returns that config."""
+        n = len(req.prompt_ids)
+        slot = self.slots[slot_idx]
+        slot.admitting = False  # the slot joins the decode batch this tick
+        slot.length = n
+        # resumed (preempted) requests keep their budget: n_predict counts
+        # all emitted tokens, of which len(output_ids) already happened
+        slot.remaining = min(req.n_predict - len(req.output_ids),
+                             self.max_len - n - 1)
+        window = self._last.shape[1]
+        self._last[slot_idx] = -1
+        tail = min(window, n)
+        self._last[slot_idx, window - tail:] = req.prompt_ids[n - tail:]
+        rcfg = req.gcfg or self.gcfg
+        self._row_window[slot_idx] = min(
+            max(self._resolve_window(rcfg), 0), window)
+        self._mask_row_window(slot_idx)
+        return rcfg
+
+    def _row_key_for(self, req: Request, rcfg: GenerationConfig) -> list:
+        """(key, step 0) of a request's random stream: its own seed, or the
+        engine seed and its request id."""
+        if req.gcfg is not None and rcfg.seed >= 0:
+            return [sampling.row_key(rcfg.seed), 0]
+        return [sampling.row_key(max(self.gcfg.seed, 0),
+                                 req.request_id + 1 + len(self.slots)), 0]
+
+    def _finish_admission(self, slot_idx: int, req: Request, done: int,
+                          take: int):
+        """The last prefill chunk, the scratch → slot (or pages) splice, the
+        row's sampler state and the first token, in one function."""
+        n = len(req.prompt_ids)
+        logits, _ = self._prefill_engine.prefill(
+            req.prompt_ids[None, done:done + take], self._scratch, start=done)
+        rcfg = self._admit_host_prep(slot_idx, req)
+        self._row_cfgs[slot_idx] = rcfg
+        insert_bucket = min(_bucket(n), self.max_len)
+        if self.paged:
+            pages = self._slot_pages[slot_idx]  # reserved at the start
+            if len(pages) != self.allocator.pages_needed(insert_bucket):
+                raise RuntimeError(f"slot {slot_idx} holds {len(pages)} "
+                                   f"pages for a {insert_bucket} bucket")
+            self._tables[slot_idx] = self._dead_page
+            self._tables[slot_idx, :len(pages)] = pages
+            _insert_pages(self.page_cache, self._scratch,
+                          torch.as_tensor(pages, device=self.device),
+                          len(pages) * self.allocator.page_size)
+        else:
+            _insert_slot(self.cache, self._scratch, slot_idx, insert_bucket)
+        tok = self._first_tokens(logits, [slot_idx], [req], [rcfg])
+        req.first_token_t = time.perf_counter()
+        self._emit(slot_idx, int(tok[0]))
+
+    def _first_tokens(self, logits, slots: list, reqs, rcfgs):
+        """Set the admitted rows' sampler state (params, key, mu) and draw
+        their first tokens from the prefill logits [R, V]. Returns the
+        tokens on the host."""
+        idx = torch.as_tensor(slots, device=self.device)
+        last = torch.as_tensor(self._last[slots], device=self.device)
+        mu0 = torch.tensor([2.0 * c.mirostat_tau for c in rcfgs],
+                           dtype=torch.float32, device=self.device)
+        if not self._per_row:
+            state = sampling.SamplerState(gen=self._state.gen, mu=mu0)
+            tok, state = sampling.sample(logits, state, self.gcfg, last)
+            self._state.mu[idx] = state.mu
+            return tok.cpu().numpy()
+        rp = sampling.RowParams.from_configs(rcfgs, self.device)
+        keys = torch.tensor([self._row_key_for(r, c)
+                             for r, c in zip(reqs, rcfgs)],
+                            dtype=torch.int64, device=self.device)
+        tok, keys, mu = sampling.sample_rows(logits, keys, rp, last, mu0,
+                                             **_features(rcfgs))
+        self._row_params.set_rows(idx, rp)
+        self._keys[idx] = keys
+        self._mu[idx] = mu
+        return tok.cpu().numpy()
+
+    # -- per-tick helpers -----------------------------------------------------
+    def _kv(self):
+        return self.page_cache if self.paged else self.cache
+
+    def _lengths(self) -> torch.Tensor:
+        """Per-slot lengths as one int32 [B] tensor on the device, built
+        once per tick."""
+        return torch.tensor([s.length for s in self.slots], dtype=torch.int32,
+                            device=self.device)
+
+    def _table_tensor(self) -> torch.Tensor:
+        return torch.as_tensor(self._tables, device=self.device)
+
+    def _add_page(self, slot_idx: int, pg_id: int):
+        self._slot_pages[slot_idx].append(pg_id)
+        self._tables[slot_idx, len(self._slot_pages[slot_idx]) - 1] = pg_id
+
+    def _release_pages(self, slot_idx: int):
+        """Recycle every page of a slot; its row points at the dead page."""
+        self.allocator.free(self._slot_pages[slot_idx])
+        self._slot_pages[slot_idx] = []
+        self._tables[slot_idx] = self._dead_page
+
+    def _row_features(self) -> dict:
+        """Sampler stage gates over the ACTIVE rows (``_features``);
+        inactive rows' draws are discarded, so their stale configs cannot
+        affect emitted tokens."""
+        return _features([self._row_cfgs[i] for i, s in enumerate(self.slots)
+                          if s.active])
+
+    def _mask_row_window(self, slot_idx: int):
+        """Per-request repeat_last_n: blank history older than the row's
+        window (the shared history is sized by the engine gcfg; a request
+        asking for a larger window is capped at it)."""
+        w = int(self._row_window[slot_idx])
+        full = self._last.shape[1]
+        if w < full:
+            self._last[slot_idx, :full - w] = -1
+
+    def _emit(self, slot_idx: int, token: int):
+        """Record a sampled token for a slot; finish and free the slot on a
+        stop token or at its length budget."""
+        slot = self.slots[slot_idx]
+        req = slot.request
+        req.output_ids.append(token)
+        if req.on_token is not None:
+            req.on_token(token, req)
+        self._next_tok[slot_idx] = token
+        self._last[slot_idx] = np.roll(self._last[slot_idx], -1)
+        self._last[slot_idx, -1] = token
+        self._mask_row_window(slot_idx)
+        slot.remaining -= 1
+
+        if token in req.stop_token_ids:
+            req.finish_reason = "stop"
+        elif slot.remaining <= 0 or slot.length + 1 >= self.max_len:
+            req.finish_reason = "length"
+        else:
+            return
+        req.finished = True
+        req.done_t = time.perf_counter()
+        self.done.append(req)
+        slot.request = None
+        slot.length = 0  # frozen; dead-row writes land at position 0
+        if self.paged:
+            self._release_pages(slot_idx)
+
+
+_KMAX_BUCKETS = (8, 64, 256, 1024)
+
+
+def _kmax_bucket(kmax: int) -> int:
+    """A batch's largest top_k rounded up to a fixed bucket (rows keep their
+    own k: sample_rows clips each row's k and masks beyond it). Above the
+    largest bucket: 0, the full-vocabulary sorted path."""
+    if kmax <= 0:
+        return 0
+    for b in _KMAX_BUCKETS:
+        if kmax <= b:
+            return b
+    return 0
+
+
+def _features(cfgs) -> dict:
+    """``sample_rows``' stage gates for the rows with configs ``cfgs``:
+    each stage runs only if some row uses it (an unused stage is the
+    identity but costs full-vocabulary sorts and softmaxes)."""
+    ks = [c.top_k for c in cfgs]
+    return dict(
+        use_bias=any(bool(c.logit_bias) for c in cfgs),
+        use_tfs_typical=any(c.tfs_z < 1.0 or c.typical_p < 1.0 for c in cfgs),
+        use_mirostat=any(c.mirostat != 0 for c in cfgs),
+        top_k_max=_kmax_bucket(max(ks) if ks and min(ks) > 0 else 0),
+        # every row's penalties lower logits only: the candidate-domain
+        # sampler is exact
+        pen_lower=all(c.repeat_penalty >= 1.0 and c.frequency_penalty >= 0.0
+                      and c.presence_penalty >= 0.0 for c in cfgs))
+
+
+def _kv_leaves(cache, scratch):
+    """(destination, source) pairs of a cache and a scratch cache: k, v
+    and, with int8 storage, their scales."""
+    pairs = [(cache.k, scratch.k), (cache.v, scratch.v)]
+    if cache.k_scale is not None:
+        pairs += [(cache.k_scale, scratch.k_scale),
+                  (cache.v_scale, scratch.v_scale)]
+    return pairs
+
+
+def _insert_slot(cache: kvc.KVCache, scratch: kvc.KVCache, slot_idx: int,
+                 bucket: int):
+    """Splice scratch[:, 0, :, :bucket] into cache[:, slot_idx] (in place;
+    bucket is the prefill bucket, positions past the prompt are garbage
+    beyond the slot's length)."""
+    for dst, src in _kv_leaves(cache, scratch):
+        dst[:, slot_idx, :, :bucket] = src[:, 0, :, :bucket]
+
+
+def _insert_multi(cache: kvc.KVCache, scratch: kvc.KVCache,
+                  slot_idxs: torch.Tensor, bucket: int):
+    """Splice scratch rows 0..R-1 into cache slots slot_idxs[r] (one
+    indexed assignment per buffer)."""
+    r = slot_idxs.shape[0]
+    for dst, src in _kv_leaves(cache, scratch):
+        dst[:, slot_idxs, :, :bucket] = src[:, :r, :, :bucket]
+
+
+def _insert_pages(page_cache: pg.PagedKVCache, scratch: kvc.KVCache,
+                  page_ids: torch.Tensor, bucket: int):
+    """Splice a single-request prefill (scratch row 0, a page-aligned span
+    of ``bucket`` positions) into its allocated pages."""
+    sks = svs = None
+    if scratch.quantized:
+        sks = scratch.k_scale[:, 0, :, :bucket]
+        svs = scratch.v_scale[:, 0, :, :bucket]
+    pg.insert_prefix(page_cache, scratch.k[:, 0, :, :bucket],
+                     scratch.v[:, 0, :, :bucket], page_ids, sks, svs)

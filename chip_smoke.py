@@ -11,7 +11,10 @@ Phases (any failure ends the run with a non-zero exit code):
    llama3_8b's main-path and serving shapes (B = 8 slots, ragged lengths,
    a shuffled page table), with the stated tolerance, and timed beside its
    plain version, one PyTorch library call and its bound; paged and dense
-   decode of the same keys must be bit-identical;
+   decode of the same keys must be bit-identical; ``int8_decode`` at
+   opt_6.7b's decode and serving shapes and at D = 64, held in units of
+   pv_alpha (``int8_err``); then opt_6.7b's W8A8 linears at M = 1, timed
+   beside their bound, their int32 products checked against the CPU's;
 4. main path: llama3_8b W4A8 at full width (all 32 layers, random packed
    weights from a seed) through ``Engine.generate_device`` (64-token
    prompt, 256 greedy tokens with repeat_penalty 1.1 over the last 64) and
@@ -27,10 +30,23 @@ Phases (any failure ends the run with a non-zero exit code):
    budgets (fp < 3.5, w4a16 <= +3 %, w4a8 <= +4 %) on the card, w4a8 also
    over 64-token windows, where it runs the W4A8 kernel; then the goldens
    through ``ServingEngine`` (2 slots, dense and paged, fp and w4a8): fp
-   keeps the card's golden threshold, w4a8 paged equals w4a8 dense.
+   keeps the card's golden threshold, w4a8 paged equals w4a8 dense;
+7. OPT main path: opt_6.7b W8A8 at full width (32 layers, random int8
+   weights from a seed) through ``Engine.generate_device`` with phase 4's
+   settings, TTFT and a 2048-token prefill; ``int8_decode`` must launch
+   once per layer per decode step and nothing else, no plain version may
+   run; a 2-layer cut must agree with the plain path on the CPU;
+8. OPT serving: the same model through ``ServingEngine`` with the dense
+   int8 slot cache (8 slots, 16 requests of bench_serving's mix, 64 new
+   tokens each): every request ends at its length, ``int8_decode``
+   launches once per layer per tick;
+9. OPT real weights: ``assets/byteopt_4m`` calibrated to W8A8 by the port
+   (``opt_real_weights``): ppl fp < 3.5 and W8A8 <= +1 %; greedy tokens on
+   the card against the CPU and ServingEngine against Engine.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. ``--kernels-only`` stops after phase 3.
+Each phase prints its seconds.
 """
 
 from __future__ import annotations
@@ -55,9 +71,9 @@ INT8_OP_S = 1979e12     # dense int8 tensor-core peak
 MAT_TOL = 1e-2          # matmuls: max |kernel - plain| <= MAT_TOL * max |plain|
 ATTN_RTOL = 2.0 ** -6   # attention, element by element: see attn_err
 ATTN_TOL_TEXT = "2^-6 * (|plain| + max|plain| of the row)"
-CUT_TOL = 5e-2          # 2-layer llama3_8b cut: GPU kernels vs CPU plain
+CUT_TOL = 5e-2          # 2-layer cuts: GPU kernels vs CPU plain
 # the main path's kernels (Engine, phase 4); serving (phase 5) adds
-# flash_decode_paged
+# flash_decode_paged, OPT W8A8 (phases 7-9) int8_decode
 ENGINE_KERNELS = ("int4_matmul", "int4_matmul_a8", "flash_decode",
                   "flash_prefill")
 
@@ -132,6 +148,26 @@ def graph_ms(fn, iters: int) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def case_recorder(cases: list):
+    """``add(...)``: times one kernel case (CUDA-graph and eager), its
+    library call and its bound, appends the row to ``cases`` and fails the
+    run if the error takes more than its tolerance."""
+    def add(kernel, case, err, share, tol, run, iters, plain_ms, lib,
+            bytes_moved, ops, rate, **extra):
+        bms, by = bound(bytes_moved, ops, rate)
+        row = dict(kernel=kernel, case=case, max_abs_err=err, err_share=share,
+                   tol=tol, ms=graph_ms(run, iters),
+                   eager_ms=time_ms(run, iters), plain_ms=plain_ms,
+                   library_ms=graph_ms(lib, iters), bound_ms=bms, bound_by=by,
+                   **extra)
+        cases.append(row)
+        log(json.dumps(row))
+        if not share <= 1.0:
+            raise SystemExit(f"{kernel} {case}: error {err} takes {share:.3f} "
+                             f"of its tolerance ({tol})")
+    return add
+
+
 def check_kernels(gen):
     """Phase 3: every kernel against its plain version at the main path's
     shapes, timed. Returns one row per case."""
@@ -140,19 +176,7 @@ def check_kernels(gen):
     from tinychatengine_tpu_torch.ops.ref import dequantize_int4
     dev = torch.device("cuda")
     cases = []
-
-    def add(kernel, case, err, share, tol, run, iters, plain_ms, lib,
-            bytes_moved, ops, rate):
-        bms, by = bound(bytes_moved, ops, rate)
-        row = dict(kernel=kernel, case=case, max_abs_err=err, err_share=share,
-                   tol=tol, ms=graph_ms(run, iters),
-                   eager_ms=time_ms(run, iters), plain_ms=plain_ms,
-                   library_ms=graph_ms(lib, iters), bound_ms=bms, bound_by=by)
-        cases.append(row)
-        log(json.dumps(row))
-        if not share <= 1.0:
-            raise SystemExit(f"{kernel} {case}: error {err} takes {share:.3f} "
-                             f"of its tolerance ({tol})")
+    add = case_recorder(cases)
 
     # ---- int4 matmuls: weights stacked over enough layers that a timing
     # loop cycling through them does not run out of the 50 MB L2
@@ -259,6 +283,7 @@ def check_kernels(gen):
         del ck, cv
         torch.cuda.empty_cache()
     check_serving_kernels(gen, add)
+    check_int8_kernels(gen, add)
     return cases
 
 
@@ -354,6 +379,137 @@ def check_serving_kernels(gen, add):
         torch.cuda.empty_cache()
 
 
+INT8_ELEM_TOL = 2 * 128  # int8_decode, in units of pv_alpha (see int8_err)
+INT8_PAIR_TOL = 0.01     # share of (row, head) pairs that may differ at all
+INT8_TOL_TEXT = ("|diff| <= 256 * pv_alpha per element; <= 1 % of "
+                 "(row, head) pairs differ")
+
+
+def int8_err(got: torch.Tensor, want: torch.Tensor, pv_alpha: float):
+    """Holds ``int8_decode`` to its plain version in units of pv_alpha
+    (out / pv_alpha, rounded: the int32 PV sums). Both requantize the
+    probabilities against the same stats; another exp or summation order
+    can put p * 127 on the other side of a .5 boundary and move one
+    probability code by one, which moves an element by |v| <= 128 units.
+    Returns (max |got - want|, the share of (row, head) pairs that differ
+    at all, the largest share of a limit taken)."""
+    diff = (torch.round(got.float() / pv_alpha)
+            - torch.round(want.float() / pv_alpha)).abs()
+    pairs = float((diff.amax(dim=-1) > 0).float().mean())
+    share = max(float(diff.max()) / INT8_ELEM_TOL, pairs / INT8_PAIR_TOL)
+    return float((got - want).abs().max()), pairs, share
+
+
+INT8_CASES = (  # (case, layers stacked, H, D, S_max, lengths)
+    ("B=1 H=32 D=128 length=320", 32, 32, 128, 2048, (320,)),  # opt_6.7b
+    ("B=8 H=32 D=128 ragged", 32, 32, 128, 2048, SERVING_LENGTHS),
+    ("B=2 H=4 D=64 ragged", 256, 4, 64, 1024, (37, 1023)))     # byteopt_4m
+
+
+def check_int8_kernels(gen, add):
+    """``int8_decode`` against ``int8_decode_plain`` at opt_6.7b's decode
+    shape, its serving shape and byteopt_4m's D = 64, over a layer stack
+    that the timing loop cycles through (the keys come from HBM, not L2).
+    Library: SDPA over the same keys cast to bf16, the nearest call (it has
+    no x127 requant, so it is not the same function)."""
+    from tinychatengine_tpu_torch.ops import attention as att
+    dev = torch.device("cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qk_alpha, pv_alpha = 3e-5, 1e-3  # scores of std ~2: a spread of codes
+    for case, n_layers, h, d, smax, lengths in INT8_CASES:
+        b = len(lengths)
+
+        def s8(shape):
+            return torch.randint(-127, 128, shape, dtype=torch.int8,
+                                 device=dev, generator=gen)
+        ck, cv = s8((n_layers, b, h, smax, d)), s8((n_layers, b, h, smax, d))
+        q = s8((b, h, d))
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        ln = lengths[0] if b == 1 else lens
+        err = pairs = share = 0.0
+        for li in (0, n_layers - 1):
+            e, p, sh = int8_err(
+                att.int8_decode(q, ck, cv, li, ln, qk_alpha, pv_alpha),
+                att.int8_decode_plain(q, ck, cv, li, ln, qk_alpha, pv_alpha),
+                pv_alpha)
+            err, pairs, share = max(err, e), max(pairs, p), max(share, sh)
+        state = {"li": 0}
+
+        def run(q=q, ck=ck, cv=cv, ln=ln):
+            state["li"] = (state["li"] + 1) % n_layers
+            att.int8_decode(q, ck, cv, state["li"], ln, qk_alpha, pv_alpha)
+        plain_ms = time_ms(lambda: att.int8_decode_plain(
+            q, ck, cv, 0, ln, qk_alpha, pv_alpha), 10)
+        qb = q.to(torch.bfloat16)[:, :, None]
+        if b == 1:
+            kb, vb = (c[0, :, :, :lengths[0]].to(torch.bfloat16)
+                      for c in (ck, cv))
+            mask = None
+        else:
+            kb, vb = ck[0].to(torch.bfloat16), cv[0].to(torch.bfloat16)
+            mask = (torch.arange(smax, device=dev)[None]
+                    < lens[:, None])[:, None, None, :]
+
+        def lib(qb=qb, kb=kb, vb=vb, mask=mask):
+            return sdpa(qb, kb, vb, attn_mask=mask, scale=qk_alpha)
+        keys = sum(lengths)
+        add("int8_decode", case, err, share, INT8_TOL_TEXT, run, 64,
+            plain_ms, lib, 2 * h * keys * d + 5 * b * h * d + 4 * b,
+            4.0 * h * keys * d, INT8_OP_S, differing_pairs=pairs)
+        del ck, cv, kb, vb
+        torch.cuda.empty_cache()
+
+
+def w8a8_linear_times(gen):
+    """opt_6.7b's W8A8 linears at M = 1 (a decode step; ``s8_matmul`` pads
+    the rows for ``torch._int_mm``) through ``apply_linear``, timed beside
+    their byte bound, with the int32 product checked against the CPU's.
+    Returns one row per shape."""
+    from tinychatengine_tpu_torch.ops.linear import (W8A8Linear,
+                                                     apply_linear, s8_matmul)
+    dev = torch.device("cuda")
+    rows = []
+    for name, (k, n) in {"q/k/v/out_proj": (4096, 4096),
+                         "fc1": (4096, 16384), "fc2": (16384, 4096)}.items():
+        n_layers = max(2, -(-200_000_000 // (k * n)))
+        w = torch.randint(-127, 128, (n_layers, n, k), dtype=torch.int8,
+                          device=dev, generator=gen).transpose(1, 2)
+        lin = W8A8Linear(weight=w,
+                         alpha=torch.full((n_layers,), 1e-3, device=dev),
+                         bias=torch.zeros((n_layers, n), device=dev))
+        x = torch.randint(-127, 128, (1, k), dtype=torch.int8, device=dev,
+                          generator=gen)
+        exact = torch.equal(s8_matmul(x, w[1]).cpu(),
+                            torch._int_mm(x.cpu(), w[1].cpu()))
+        state = {"li": 0}
+
+        def run(lin=lin, x=x, n_layers=n_layers):
+            state["li"] = (state["li"] + 1) % n_layers
+            apply_linear(lin, x, out_int8=True, layer_idx=state["li"])
+        bms, by = bound(k * n + k + 8 * n, 2.0 * k * n, INT8_OP_S)
+        # torch._int_mm alone on the padded rows, with the weight N-major
+        # (W8A8Linear's layout) and row-major [K, N]
+        xp = torch.nn.functional.pad(x, (0, 0, 0, 31))
+        row_major = w.contiguous()
+
+        def int_mm(weights, xp=xp, n_layers=n_layers):
+            state["li"] = (state["li"] + 1) % n_layers
+            torch._int_mm(xp, weights[state["li"]])
+        row = dict(linear=name, K=k, N=n, M=1, exact=exact,
+                   ms=graph_ms(run, 50), eager_ms=time_ms(run, 50),
+                   bound_ms=bms, bound_by=by,
+                   int_mm_ms=graph_ms(lambda: int_mm(lin.weight), 50),
+                   int_mm_row_major_ms=graph_ms(
+                       lambda: int_mm(row_major), 50))
+        rows.append(row)
+        log("w8a8 linear:", json.dumps(row))
+        if not exact:
+            raise SystemExit(f"s8_matmul {name} is not exact on the card")
+        del w, lin, row_major
+        torch.cuda.empty_cache()
+    return rows
+
+
 @contextlib.contextmanager
 def plain_calls():
     """Counts the calls of the ported kernels' plain versions while open (on
@@ -362,8 +518,8 @@ def plain_calls():
     from tinychatengine_tpu_torch.ops import attention as att
     from tinychatengine_tpu_torch.ops import int4_matmul as im
     names = [(att, "flash_decode_plain"), (att, "flash_prefill_plain"),
-             (att, "flash_decode_paged_plain"), (im, "int4_matmul_plain"),
-             (im, "int4_matmul_a8_plain")]
+             (att, "flash_decode_paged_plain"), (att, "int8_decode_plain"),
+             (im, "int4_matmul_plain"), (im, "int4_matmul_a8_plain")]
     counts = dict.fromkeys((n for _, n in names), 0)
     saved = [(mod, n, getattr(mod, n)) for mod, n in names]
     for mod, n, fn in saved:
@@ -378,27 +534,54 @@ def plain_calls():
             setattr(mod, n, fn)
 
 
+def random_model(cfg, dev, max_pos=None):
+    """The random full-width model of a phase: llama W4A8 (packed int4 from
+    a seeded generator) or opt W8A8 (int8 from a seeded generator), made on
+    ``dev``. Returns (params, qcfg)."""
+    from tinychatengine_tpu_torch.core.config import QuantConfig
+    from tinychatengine_tpu_torch.models import llama, opt
+    if cfg.family == "llama":
+        qcfg = QuantConfig(scheme="w4a8", group_size=128)
+        return llama.init_random_params(cfg, qcfg, seed=0, max_pos=max_pos,
+                                        fast=True, device=dev), qcfg
+    return opt.init_random_params(cfg, quantized=True, seed=0, fast=True,
+                                  device=dev), QuantConfig(scheme="w8a8")
+
+
+def tree_map(p, fn):
+    """``fn`` over every tensor leaf of a parameter dataclass tree."""
+    if p is None or isinstance(p, torch.Tensor):
+        return None if p is None else fn(p)
+    return type(p)(**{f.name: tree_map(getattr(p, f.name), fn)
+                      for f in dataclasses.fields(p)})
+
+
+def cut_params(p, n_layers: int, where):
+    """The first ``n_layers`` layers of a layer-stacked model, on ``where``."""
+    head = tree_map(dataclasses.replace(p, layers=None), lambda t: t.to(where))
+    return dataclasses.replace(head, layers=tree_map(
+        p.layers, lambda t: t[:n_layers].to(where)))
+
+
 def main_path(model="llama3_8b", dev="cuda", long_len=2048):
-    """Phase 4: ``model`` W4A8 at full width through the Engine. Returns
-    (launches of the run, launches of one decode step, metrics). The
-    arguments shrink the run for a rehearsal on the CPU (tests)."""
+    """Phase 4 (llama3_8b W4A8) or 7 (opt_6.7b W8A8): ``model`` at full
+    width through the Engine. Returns (launches of the run, launches of one
+    decode step, metrics). The arguments shrink the run for a rehearsal on
+    the CPU (tests)."""
     from tinychatengine_tpu_torch.core.config import (GenerationConfig,
-                                                      QuantConfig,
                                                       get_model_config)
-    from tinychatengine_tpu_torch.generation import kv_cache as kvc
     from tinychatengine_tpu_torch.generation import sampling
-    from tinychatengine_tpu_torch.generation.engine import Engine
-    from tinychatengine_tpu_torch.models import llama
+    from tinychatengine_tpu_torch.generation.engine import (
+        Engine, forward_for_family)
     from tinychatengine_tpu_torch.ops import _build
 
     sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
     cfg = get_model_config(model)
-    qcfg = QuantConfig(scheme="w4a8", group_size=128)
+    forward = forward_for_family(cfg.family)
     t0 = time.perf_counter()
-    params = llama.init_random_params(cfg, qcfg, seed=0, fast=True,
-                                      device=dev)
+    params, qcfg = random_model(cfg, dev)
     sync()
-    log(f"{model} w4a8 random init: {time.perf_counter() - t0:.1f} s")
+    log(f"{model} {qcfg.scheme} random init: {time.perf_counter() - t0:.1f} s")
     eng = Engine(params, cfg, qcfg, batch=1, max_len=long_len, device=dev)
     rng = np.random.default_rng(0)
     prompt = rng.integers(0, cfg.vocab_size, (1, 64))
@@ -433,15 +616,28 @@ def main_path(model="llama3_8b", dev="cuda", long_len=2048):
 
     gen_s(2)  # warm-up: allocator, library loads
     prefill_s()
-    _build.reset_launches()
-    t1, _ = gen_s(1)
-    t256, toks = gen_s(256)
-    ttft = ttft_s()
-    t_pre, logits, cache = prefill_s()
-    launches = dict(_build.LAUNCHES)
-    log("main-path launches:", json.dumps(launches))
-    if dev == "cuda" and not all(launches[k] > 0 for k in ENGINE_KERNELS):
-        raise SystemExit(f"a kernel was never launched on the main path: {launches}")
+    with plain_calls() as plain:
+        _build.reset_launches()
+        t1, _ = gen_s(1)
+        t256, toks = gen_s(256)
+        ttft = ttft_s()
+        t_pre, logits, cache = prefill_s()
+        launches = dict(_build.LAUNCHES)
+    log(f"{model} main-path launches:", json.dumps(launches),
+        "plain calls:", json.dumps(plain))
+    if dev == "cuda":
+        if any(plain.values()):
+            raise SystemExit(f"plain versions ran on the card: {plain}")
+        # llama: each of the path's kernels launches; opt: int8_decode once
+        # per layer per decode step (1 + 256 steps), and nothing else
+        want = ({"int8_decode": 257 * cfg.num_layers}
+                if cfg.family == "opt" else None)
+        if want is not None and {k: v for k, v in launches.items() if v} \
+                != want:
+            raise SystemExit(f"{model}: launches {launches}, want {want}")
+        if want is None and not all(launches[k] > 0 for k in ENGINE_KERNELS):
+            raise SystemExit(f"a kernel was never launched on the main path: "
+                             f"{launches}")
     if toks.shape != (1, 256) or int(toks.min()) < 0 \
             or int(toks.max()) >= cfg.vocab_size:
         raise SystemExit(f"bad decode tokens {toks.shape}")
@@ -453,7 +649,7 @@ def main_path(model="llama3_8b", dev="cuda", long_len=2048):
         cache1 = eng.new_cache()
         eng.prefill(prompt, cache1)
         _build.reset_launches()
-        llama.forward(params, cfg, torch.tensor([[1]], device=dev), cache1, 64)
+        forward(params, cfg, torch.tensor([[1]], device=dev), cache1, 64)
     per_step = dict(_build.LAUNCHES)
 
     decode_tok_s = 255 / (t256 - t1)
@@ -464,48 +660,28 @@ def main_path(model="llama3_8b", dev="cuda", long_len=2048):
         metrics["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         metrics.update(decode_profile(params, cfg, eng, prompt, gcfg,
                                       1e3 / decode_tok_s))
-    log("main-path metrics:", json.dumps(metrics))
+    log(f"{model} main-path metrics:", json.dumps(metrics))
 
     # a 2-layer cut at full width: kernels on the card against the plain
     # path on the CPU, 64-token prefill then 2 decode steps
     cut = dataclasses.replace(cfg, num_layers=2)
-
-    def sliced(p, where):
-        lyr = p.layers
-
-        def sl(t):
-            return None if t is None else t[:2].to(where)
-
-        def lin(x):
-            return type(x)(**{f: sl(getattr(x, f)) for f in ("packed", "scales", "bias")})
-        return llama.LlamaParams(
-            embed=p.embed.to(where),
-            layers=llama.LlamaLayerParams(
-                input_norm=sl(lyr.input_norm), wqkv=lin(lyr.wqkv), wo=lin(lyr.wo),
-                post_norm=sl(lyr.post_norm), wgate_up=lin(lyr.wgate_up),
-                down=lin(lyr.down)),
-            final_norm=p.final_norm.to(where),
-            lm_head=type(p.lm_head)(packed=p.lm_head.packed.to(where),
-                                    scales=p.lm_head.scales.to(where)),
-            rope_cos=p.rope_cos[:256].to(where),
-            rope_sin=p.rope_sin[:256].to(where))
-
     outs = {}
     with torch.inference_mode():
         for where in (dev, "cpu"):
-            p = sliced(params, where)
-            cache_c = kvc.init_cache(2, 1, 128, cfg.num_kv_heads, cfg.head_dim,
-                                     device=where)
+            p = cut_params(params, 2, where)
+            cache_c = Engine(p, cut, qcfg, max_len=128,
+                             device=where).new_cache()
             ids = torch.as_tensor(prompt, device=where)
-            seq = [llama.forward(p, cut, ids, cache_c, 0)[0].float().cpu()]
+            seq = [forward(p, cut, ids, cache_c, 0)[0].float().cpu()]
             for step, t in enumerate((11, 22)):
-                seq.append(llama.forward(p, cut, torch.tensor([[t]], device=where),
-                                         cache_c, 64 + step)[0].float().cpu())
+                seq.append(forward(p, cut, torch.tensor([[t]], device=where),
+                                   cache_c, 64 + step)[0].float().cpu())
             outs[where] = seq
     errs = [float((a - b).abs().max() / b.abs().max())
             for a, b in zip(outs[dev], outs["cpu"])]
-    log(f"2-layer cut, kernels vs CPU plain: max |diff| / max |ref| = "
-        f"{max(errs):.3e} (tol {CUT_TOL})")
+    metrics["cut_err"] = max(errs)
+    log(f"{model} 2-layer cut, kernels vs CPU plain: max |diff| / max |ref| "
+        f"= {max(errs):.3e} (tol {CUT_TOL})")
     if not max(errs) <= CUT_TOL:
         raise SystemExit("2-layer cut disagrees with the plain path")
     del params, eng
@@ -537,28 +713,28 @@ def serving_load(srv, cfg, n_requests: int, n_predict: int, seed: int = 0):
 
 def serving_path(model="llama3_8b", dev="cuda", n_requests=24, n_predict=128,
                  max_len=2048):
-    """Phase 5: ``model`` W4A8 at full width through ServingEngine, dense
-    then paged (n_pages the dense-equivalent capacity), each after a
-    2-request warm-up. Returns {mode: metrics and launches}. The arguments
-    shrink the run for a rehearsal on the CPU (tests)."""
+    """Phase 5 (llama3_8b W4A8, dense then paged) or 8 (opt_6.7b W8A8,
+    dense only: OPT W8A8 has no paged path): ``model`` at full width
+    through ServingEngine (n_pages the dense-equivalent capacity), each
+    mode after a 2-request warm-up. Returns {mode: metrics and launches}.
+    The arguments shrink the run for a rehearsal on the CPU (tests)."""
     from tinychatengine_tpu_torch.core.config import (GenerationConfig,
-                                                      QuantConfig,
                                                       get_model_config)
-    from tinychatengine_tpu_torch.models import llama
+    from tinychatengine_tpu_torch.generation.engine import forward_for_family
     from tinychatengine_tpu_torch.ops import _build
     from tinychatengine_tpu_torch.runtime.serving import ServingEngine
 
     sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
     cfg = get_model_config(model)
-    qcfg = QuantConfig(scheme="w4a8", group_size=128)
-    params = llama.init_random_params(cfg, qcfg, seed=0, max_pos=max_len,
-                                      fast=True, device=dev)
+    llama_family = cfg.family == "llama"
+    params, qcfg = random_model(cfg, dev, max_pos=max_len)
     gcfg = GenerationConfig(temp=0.0, n_predict=n_predict, repeat_penalty=1.1,
                             repeat_last_n=64, seed=0)
     out, greedy = {}, {}
-    for mode in ("dense", "paged"):
+    for mode in ("dense", "paged") if llama_family else ("dense",):
         srv = ServingEngine(params, cfg, qcfg, slots=8, max_len=max_len,
                             gcfg=gcfg, admission_chunk=512, tick_batch=16,
+                            forward_fn=forward_for_family(cfg.family),
                             paged=mode == "paged", device=dev)
         serving_load(srv, cfg, 2, n_predict, seed=1)  # warm-up
         srv.run()
@@ -584,7 +760,7 @@ def serving_path(model="llama3_8b", dev="cuda", n_requests=24, n_predict=128,
                  launches=launches, plain_calls=dict(plain))
         if dev == "cuda":
             m["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        log(f"serving {mode}:", json.dumps(m))
+        log(f"{model} serving {mode}:", json.dumps(m))
         bad = [r.request_id for r in reqs
                if r.finish_reason != "length" or len(r.output_ids) != n_predict]
         if bad:
@@ -593,24 +769,31 @@ def serving_path(model="llama3_8b", dev="cuda", n_requests=24, n_predict=128,
         if dev == "cuda":  # the CPU rehearsal runs the plain versions
             if any(plain.values()):
                 raise SystemExit(f"serving {mode}: plain versions ran: {plain}")
-            # each mode's decode attention kernel runs, the other one never
+            # llama: each mode's decode attention kernel runs, the other one
+            # never; opt: int8_decode once per layer per tick, nothing else
             ran, idle = (("flash_decode_paged", "flash_decode") if mode == "paged"
                          else ("flash_decode", "flash_decode_paged"))
-            if launches[idle] or not all(
+            if not llama_family:
+                want = {"int8_decode": cfg.num_layers * ticks}
+                if {k: v for k, v in launches.items() if v} != want:
+                    raise SystemExit(f"{model} serving: launches {launches}, "
+                                     f"want {want}")
+            elif launches[idle] or not all(
                     launches[k] > 0 for k in ("int4_matmul_a8", "flash_prefill", ran)):
                 raise SystemExit(f"serving {mode}: wrong kernels ran: {launches}")
         greedy[mode] = [r.output_ids for r in reqs if r.gcfg is None]
-        if dev == "cuda":
+        if dev == "cuda" and llama_family:
             m.update(burst_profile(srv, cfg))
             log(f"serving {mode} burst profile:", json.dumps(m["burst"]))
         out[mode] = m
         del srv
         if dev == "cuda":
             torch.cuda.empty_cache()
-    same = sum(a == b for a, b in zip(greedy["dense"], greedy["paged"]))
-    out["greedy_dense_eq_paged"] = [same, len(greedy["dense"])]
-    log(f"serving: {same} of {len(greedy['dense'])} greedy requests agree "
-        "token for token, dense vs paged")
+    if llama_family:
+        same = sum(a == b for a, b in zip(greedy["dense"], greedy["paged"]))
+        out["greedy_dense_eq_paged"] = [same, len(greedy["dense"])]
+        log(f"serving: {same} of {len(greedy['dense'])} greedy requests "
+            "agree token for token, dense vs paged")
     del params
     if dev == "cuda":
         torch.cuda.empty_cache()
@@ -727,7 +910,8 @@ def decode_profile(params, cfg, eng, prompt, gcfg, step_ms: float,
     from torch.profiler import ProfilerActivity, profile
 
     from tinychatengine_tpu_torch.generation import sampling
-    from tinychatengine_tpu_torch.models import llama
+    from tinychatengine_tpu_torch.generation.engine import forward_for_family
+    forward = forward_for_family(cfg.family)
     with torch.inference_mode():
         cache = eng.new_cache()
         logits, _ = eng.prefill(prompt, cache)
@@ -739,8 +923,8 @@ def decode_profile(params, cfg, eng, prompt, gcfg, step_ms: float,
             for i in range(steps):
                 tok, state = sampling.sample(logits, state, gcfg, last)
                 last = torch.cat([last[:, 1:], tok[:, None].long()], dim=1)
-                logits, _ = llama.forward(params, cfg, tok[:, None].long(),
-                                          cache, 64 + i)
+                logits, _ = forward(params, cfg, tok[:, None].long(), cache,
+                                    64 + i)
             torch.cuda.synchronize()
     by_name = device_ms_by_kernel(prof)
     busy_ms = sum(by_name.values()) / steps
@@ -811,6 +995,109 @@ def real_weights(dev="cuda"):
     return ppl
 
 
+OPT_CKPT = ROOT / "assets" / "byteopt_4m"
+# byteopt_4m's calibration text: a fixed source file of the port, never the
+# held-out eval sample
+OPT_CALIB = ROOT / "tinychatengine_tpu_torch" / "quant" / "numerics.py"
+
+
+def byteopt_calib_ids() -> np.ndarray:
+    """The first 512 byte tokens of ``OPT_CALIB``, [1, 512]."""
+    from tinychatengine_tpu_torch.tokenizers.byte_fallback import ByteTokenizer
+    text = OPT_CALIB.read_text(encoding="utf-8")
+    return np.asarray(ByteTokenizer().encode(text), np.int64)[:512][None]
+
+
+def opt_real_weights(dev="cuda"):
+    """Phase 9: ``assets/byteopt_4m`` calibrated to W8A8 by the port's
+    ``quantize_opt_w8a8`` (smooth_alpha 0.5, ``byteopt_calib_ids``); ppl
+    budgets on 6144 eval tokens (fp < 3.5, W8A8 <= +1 %); 32 greedy tokens
+    of each golden prompt through Engine on the card against the same
+    parameters on the CPU, fp (``flash_decode``) and W8A8
+    (``int8_decode``), then W8A8 through ServingEngine (2 slots) on the
+    card against Engine on the card: >= 16 tokens must agree. Returns a
+    summary."""
+    from tinychatengine_tpu_torch.core.config import (GenerationConfig,
+                                                      QuantConfig,
+                                                      get_model_config)
+    from tinychatengine_tpu_torch.generation.engine import Engine
+    from tinychatengine_tpu_torch.models import opt
+    from tinychatengine_tpu_torch.ops import _build
+    from tinychatengine_tpu_torch.runtime.serving import ServingEngine
+    from tinychatengine_tpu_torch.tokenizers.byte_fallback import ByteTokenizer
+    from tinychatengine_tpu_torch.tools.calibrate_opt import quantize_opt_w8a8
+    from tinychatengine_tpu_torch.tools.checkpoint import load_checkpoint
+    from tinychatengine_tpu_torch.tools.perplexity import perplexity
+
+    cfg = get_model_config("byteopt_4m")
+    fp, _ = load_checkpoint(str(OPT_CKPT), cfg, device=dev)
+    qp = quantize_opt_w8a8(fp, cfg, byteopt_calib_ids(), 0.5, device=dev)
+    tok = ByteTokenizer()
+    ids = np.asarray(tok.encode((OPT_CKPT / "eval_sample.txt").read_text(
+        encoding="utf-8")), np.int64)[:6144]
+    ppl = {name: perplexity(opt.forward, p, cfg, ids, 512, 256)
+           for name, p in (("fp", fp), ("w8a8", qp))}
+    log("byteopt_4m ppl on 6144 tokens:", json.dumps(ppl))
+    if not (ppl["fp"] < 3.5 and ppl["w8a8"] <= ppl["fp"] * 1.01):
+        raise SystemExit("byteopt_4m perplexity outside the ACCURACY.md "
+                         "budgets (fp < 3.5, w8a8 <= +1 %)")
+
+    golden = ROOT / "tests" / "golden"
+    golds = [json.loads((golden / "bytellama_greedy.json").read_text())]
+    golds += json.loads((golden / "bytellama_goldens.json").read_text())
+    prompts = [np.asarray(tok.encode(gd["prompt"]), np.int64) for gd in golds]
+    g = GenerationConfig(temp=0.0, n_predict=32, repeat_penalty=1.0,
+                         repeat_last_n=1)
+
+    def agree(a, b):
+        return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                    min(len(a), len(b)))
+    out = dict(ppl=ppl)
+    # fp decodes through flash_decode, W8A8 through int8_decode; W8A8 also
+    # through ServingEngine's int8 slot cache
+    for scheme, p in (("fp", fp), ("w8a8", qp)):
+        qcfg = QuantConfig(scheme=scheme)
+        card = Engine(p, cfg, qcfg, max_len=cfg.max_sqlen, device=dev)
+        host = Engine(tree_map(p, lambda t: t.to("cpu")), cfg, qcfg,
+                      max_len=cfg.max_sqlen, device="cpu")
+        with plain_calls() as plain:
+            _build.reset_launches()
+            want = [card.generate(x[None], g).tokens[0] for x in prompts]
+            if scheme == "w8a8":
+                srv = ServingEngine(p, cfg, qcfg, slots=2,
+                                    max_len=cfg.max_sqlen, gcfg=g,
+                                    forward_fn=opt.forward, device=dev)
+                reqs = [srv.submit(x) for x in prompts]
+                srv.run()
+            launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        got_cpu = [host.generate(x[None], g).tokens[0] for x in prompts]
+        out[f"{scheme} card_vs_cpu"] = [agree(a, b)
+                                        for a, b in zip(want, got_cpu)]
+        out[f"{scheme} launches"] = launches
+        if dev == "cuda" and (any(plain.values()) or not launches.get(
+                "int8_decode" if scheme == "w8a8" else "flash_decode")):
+            raise SystemExit(f"byteopt_4m {scheme}: plain calls {plain}, "
+                             f"launches {launches}")
+        if min(out[f"{scheme} card_vs_cpu"]) < 16:
+            raise SystemExit(f"byteopt_4m {scheme}: the card and the CPU "
+                             "diverged within 16 tokens")
+    out["w8a8 serving_vs_engine"] = [agree(r.output_ids, w)
+                                     for r, w in zip(reqs, want)]
+    for x, w, r, n in zip(prompts, want, reqs, out["w8a8 serving_vs_engine"]):
+        if n < len(w):  # the gap between the top two logits where they part
+            logits, _ = card.prefill(np.asarray([list(x) + w[:n]]),
+                                     card.new_cache())
+            top = torch.topk(logits[0].float(), 2).values
+            log(f"byteopt_4m serving parts from Engine at step {n}: "
+                f"{r.output_ids[n]} vs {w[n]}, top-2 logit gap "
+                f"{float(top[0] - top[1]):.4g}")
+    log("byteopt_4m tokens agreeing:", json.dumps(out))
+    if min(out["w8a8 serving_vs_engine"]) < 16:
+        raise SystemExit("byteopt_4m w8a8: ServingEngine diverged from "
+                         "Engine within 16 tokens")
+    return out
+
+
 SUMMARY = {  # kernel -> (source, TPU kernel it replaces, summary case)
     "int4_matmul": ("tinychatengine_tpu_torch/csrc/int4_matmul.cu",
                     "tinychatengine_tpu/ops/int4_matmul.py:409",
@@ -827,6 +1114,9 @@ SUMMARY = {  # kernel -> (source, TPU kernel it replaces, summary case)
     "flash_decode_paged": ("tinychatengine_tpu_torch/csrc/flash_decode_paged.cu",
                            "tinychatengine_tpu/ops/attention.py:375",
                            "B=8 Hq=32 Hkv=8 D=128 P=128 ragged"),
+    "int8_decode": ("tinychatengine_tpu_torch/csrc/int8_decode.cu",
+                    "tinychatengine_tpu/ops/attention.py:718",
+                    "B=1 H=32 D=128 length=320"),
 }
 
 
@@ -857,13 +1147,27 @@ def main(argv=None) -> int:
                 log(f"  {name}: {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = check_kernels(gen)
+    phase_s = {"build": time.perf_counter() - t0}
+
+    def phase(name, fn, *a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        phase_s[name] = time.perf_counter() - t
+        log(f"phase {name}: {phase_s[name]:.1f} s")
+        return out
+    cases = phase("kernels", check_kernels, gen)
+    linears = phase("w8a8 linears", w8a8_linear_times, gen)
     if args.kernels_only:
         return 0
-    launches, per_step, metrics = main_path()
-    serving = serving_path()
-    real_weights()
-    real_weights_serving()
+    launches, per_step, metrics = phase("llama main path", main_path)
+    serving = phase("llama serving", serving_path)
+    phase("bytellama real weights", real_weights)
+    phase("bytellama serving", real_weights_serving)
+    opt_launches, opt_step, opt_metrics = phase("opt main path", main_path,
+                                                "opt_6.7b")
+    opt_serving = phase("opt serving", serving_path, "opt_6.7b",
+                        n_requests=16, n_predict=64)["dense"]
+    phase("byteopt real weights", opt_real_weights)
 
     rows = []
     paged = serving["paged"]
@@ -874,28 +1178,40 @@ def main(argv=None) -> int:
                    or c["case"].startswith(case + " "))
         by_path = {"engine": launches[name],
                    "serving_dense": serving["dense"]["launches"][name],
-                   "serving_paged": paged["launches"][name]}
+                   "serving_paged": paged["launches"][name],
+                   "opt_engine": opt_launches[name],
+                   "opt_serving": opt_serving["launches"][name]}
+        # the count of the path whose kernel it is: phase 4's Engine path,
+        # phase 5's paged serving run for the paged kernel, phase 7's OPT
+        # Engine path for int8_decode (per tick: its serving run, phase 8)
+        tick_run = opt_serving if name == "int8_decode" else paged
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            # the count of the path whose kernel it is: phase 4's Engine
-            # path, or phase 5's paged serving run for the paged kernel
-            launches=paged["launches"][name] if name == "flash_decode_paged"
-            else launches[name], launches_by_path=by_path,
-            launches_per_decode_step=per_step[name],
-            launches_per_serving_tick=paged["launches"][name]
-            / paged["decode_ticks"],
+            launches=(paged["launches"][name] if name == "flash_decode_paged"
+                      else by_path["opt_engine" if name == "int8_decode"
+                                   else "engine"]),
+            launches_by_path=by_path,
+            launches_per_decode_step=(opt_step if name == "int8_decode"
+                                      else per_step)[name],
+            launches_per_serving_tick=tick_run["launches"][name]
+            / tick_run["decode_ticks"],
             max_abs_err=max(c["max_abs_err"] for c in mine), case=row["case"],
             ms=row["ms"], eager_ms=row["eager_ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
-    log(f"main path on {smi}: decode {metrics['decode_tok_s']:.2f} tok/s, "
-        f"TTFT {metrics['ttft_ms']:.1f} ms, prefill "
-        f"{metrics['prefill_tok_s']:.1f} tok/s")
-    for mode in ("dense", "paged"):
-        m = serving[mode]
+    for model, m in (("llama3_8b w4a8", metrics),
+                     ("opt_6.7b w8a8", opt_metrics)):
+        log(f"{model} main path on {smi}: decode {m['decode_tok_s']:.2f} "
+            f"tok/s, TTFT {m['ttft_ms']:.1f} ms, prefill "
+            f"{m['prefill_tok_s']:.1f} tok/s")
+    for mode, m in (("llama3_8b dense", serving["dense"]),
+                    ("llama3_8b paged", paged),
+                    ("opt_6.7b dense", opt_serving)):
         log(f"serving {mode} on {smi}: {m['tok_s']:.1f} tok/s, TTFT p50 "
             f"{m['ttft_p50_s']:.3f} s p95 {m['ttft_p95_s']:.3f} s, "
             f"ticks {json.dumps(m['tick_stats'])}")
+    log("w8a8 linears at M = 1:", json.dumps(linears))
+    log("phase seconds:", json.dumps(phase_s))
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

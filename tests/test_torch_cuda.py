@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import attn_err
+from chip_smoke import attn_err, int8_err
 from tinychatengine_tpu_torch.ops import _build
 from tinychatengine_tpu_torch.ops import attention as att
 from tinychatengine_tpu_torch.ops import int4_matmul as im
@@ -126,3 +126,35 @@ def test_paged_decode_kernel_matches_plain(cuda, d, p):
                                lengths, table,
                                torch.ones(pk.shape[:-1], device=cuda),
                                torch.ones(pk.shape[:-1], device=cuda))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_int8_decode_kernel_matches_plain(cuda, d):
+    """int8_decode over ragged lengths: a row of length 0 gives zeros, 333
+    keys end inside no tile, 4500 keys pass the kernel's 4096-key chunk
+    (scores recomputed in each pass); held in units of pv_alpha as
+    chip_smoke.int8_err holds it, with the alphas as floats and as f32
+    tensors on the card, and an int length."""
+    rng = np.random.default_rng(d)
+    shape = (2, 4, 4, 4608, d)  # [L, B, H, S_max, D]
+
+    def s8(shp):
+        return torch.from_numpy(rng.integers(-127, 128, shp).astype(np.int8)
+                                ).to(cuda)
+    ck, cv, q = s8(shape), s8(shape), s8((4, 4, d))
+    lengths = torch.tensor([0, 1, 333, 4500], dtype=torch.int32, device=cuda)
+    _build.reset_launches()
+    for qk, pv in ((3e-5, 1e-3), (torch.tensor(3e-5, device=cuda),
+                                  torch.tensor(1e-3, device=cuda))):
+        got = att.int8_decode(q, ck, cv, 1, lengths, qk, pv)
+        want = att.int8_decode_plain(q, ck, cv, 1, lengths, qk, pv)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == (4, 4, d)
+        assert int8_err(got, want, 1e-3)[2] <= 1.0
+        assert torch.equal(got[0], torch.zeros_like(got[0]))
+    assert _build.LAUNCHES["int8_decode"] == 2
+    got = att.int8_decode(q, ck, cv, 0, 333, 3e-5, 1e-3)
+    want = att.int8_decode_plain(q, ck, cv, 0, 333, 3e-5, 1e-3)
+    assert int8_err(got, want, 1e-3)[2] <= 1.0
+    with pytest.raises(ValueError):
+        att.int8_decode(q, ck.to(torch.bfloat16), cv, 0, lengths, 3e-5, 1e-3)

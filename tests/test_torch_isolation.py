@@ -24,7 +24,9 @@ def test_every_port_module_imports_without_jax():
     mods = ["tinychatengine_tpu_torch"] + _port_modules()
     assert "tinychatengine_tpu_torch.generation.engine" in mods
     assert {"tinychatengine_tpu_torch.runtime.paged",
-            "tinychatengine_tpu_torch.runtime.serving"} <= set(mods)
+            "tinychatengine_tpu_torch.runtime.serving",
+            "tinychatengine_tpu_torch.models.opt",
+            "tinychatengine_tpu_torch.tools.calibrate_opt"} <= set(mods)
     code = ("import sys\n"
             "for name in ('jax', 'jaxlib', 'ml_dtypes', 'tinychatengine_tpu'):\n"
             "    sys.modules[name] = None\n"
@@ -59,7 +61,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
     """Engine, ServingEngine, init_random_params, load_checkpoint,
     init_cache, init_paged_cache, SamplerState.init and
     RowParams.from_configs without device= raise when no CUDA device is
-    present; they never fall back to the CPU."""
+    present, and so do the OPT ones (opt.init_random_params, the OPT
+    checkpoint, quantize_opt_w8a8, Engine and ServingEngine for OPT); they
+    never fall back to the CPU."""
     from tinychatengine_tpu_torch.core.config import (GenerationConfig,
                                                       QuantConfig,
                                                       get_model_config)
@@ -88,3 +92,19 @@ def test_entry_points_default_to_the_card(monkeypatch):
         sampling.SamplerState.init(0, 1, 5.0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sampling.RowParams.from_configs([GenerationConfig()])
+
+    from tinychatengine_tpu_torch.models import opt
+    from tinychatengine_tpu_torch.tools.calibrate_opt import quantize_opt_w8a8
+    ocfg = get_model_config("byteopt_4m")
+    w8 = QuantConfig(scheme="w8a8")
+    for fast in (False, True):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            opt.init_random_params(ocfg, quantized=True, fast=fast, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_checkpoint(str(REPO / "assets" / "byteopt_4m"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quantize_opt_w8a8(None, ocfg, [[1, 2, 3]])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(None, ocfg, w8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(None, ocfg, w8, forward_fn=opt.forward)

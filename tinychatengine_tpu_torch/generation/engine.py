@@ -8,7 +8,8 @@
 - **generate_device**: tokens stay on the card; a Python loop of forward +
   sample steps that synchronises once, at the end.
 
-Sampling runs on the device in both loops (generation/sampling.py).
+Sampling runs on the device in both loops (generation/sampling.py). The
+family's forward comes from ``forward_for_family`` (llama, opt).
 """
 
 from __future__ import annotations
@@ -25,10 +26,26 @@ from tinychatengine_tpu_torch.core.config import (GenerationConfig,
 from tinychatengine_tpu_torch.core.device import resolve_device
 from tinychatengine_tpu_torch.generation import kv_cache as kvc
 from tinychatengine_tpu_torch.generation import sampling
-from tinychatengine_tpu_torch.models import llama
+from tinychatengine_tpu_torch.models import llama, opt
 from tinychatengine_tpu_torch.utils.profiler import Profiler
 
 PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
+
+
+def forward_for_family(family: str):
+    """Family -> its forward function (the families the port has)."""
+    if family == "llama":
+        return llama.forward
+    if family == "opt":
+        return opt.forward
+    raise ValueError(f"no generation driver for family {family!r}")
+
+
+def raw_int8_kv(cfg: ModelConfig, qcfg: QuantConfig) -> bool:
+    """OPT's SmoothQuant path stores raw int8 K/V with no scales (the
+    static scales are folded into the BMM alphas); this is not the
+    ``kv_cache_dtype="int8"`` mode, which keeps per-position scales."""
+    return cfg.family == "opt" and qcfg.scheme == "w8a8"
 
 
 def _bucket(n: int) -> int:
@@ -54,19 +71,18 @@ def _penalty_window(gcfg: GenerationConfig) -> int:
 
 
 class Engine:
-    """Single-model, single-device inference engine (llama family).
+    """Single-model, single-device inference engine (llama and opt).
 
     ``device`` defaults to the card and raises when there is none; CPU
-    runs pass ``device="cpu"`` (params must already lie there)."""
+    runs pass ``device="cpu"`` (params must already lie there).
+    ``forward_fn`` defaults to the family's forward."""
 
     CHUNK = 2048  # long prompts prefill in chunks of this many tokens
 
     def __init__(self, params, cfg: ModelConfig,
                  qcfg: Optional[QuantConfig] = None, batch: int = 1,
-                 max_len: Optional[int] = None, device=None):
-        if cfg.family != "llama":
-            raise ValueError(
-                f"Engine runs llama-family models only, not {cfg.family!r}")
+                 max_len: Optional[int] = None, device=None, forward_fn=None):
+        self._forward = forward_fn or forward_for_family(cfg.family)
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -76,10 +92,13 @@ class Engine:
         self.profiler = Profiler()
 
     def new_cache(self) -> kvc.KVCache:
+        raw = raw_int8_kv(self.cfg, self.qcfg)
         return kvc.init_cache(
             self.cfg.num_layers, self.batch, self.max_len,
             self.cfg.num_kv_heads, self.cfg.head_dim,
-            quantized=self.qcfg.kv_cache_dtype == "int8", device=self.device)
+            dtype=torch.int8 if raw else torch.bfloat16,
+            quantized=not raw and self.qcfg.kv_cache_dtype == "int8",
+            device=self.device)
 
     @torch.inference_mode()
     def prefill(self, input_ids: np.ndarray, cache: kvc.KVCache,
@@ -89,14 +108,14 @@ class Engine:
         b, n = input_ids.shape
         while n > self.CHUNK:
             head, input_ids = input_ids[:, :self.CHUNK], input_ids[:, self.CHUNK:]
-            _, cache = llama.forward(
+            _, cache = self._forward(
                 self.params, self.cfg, self._ids(head), cache, start,
                 true_len=self.CHUNK)
             start += self.CHUNK
             n -= self.CHUNK
         ids = np.zeros((b, _bucket(n)), np.int64)
         ids[:, :n] = input_ids
-        return llama.forward(self.params, self.cfg, self._ids(ids), cache,
+        return self._forward(self.params, self.cfg, self._ids(ids), cache,
                              start, true_len=n)
 
     def _ids(self, ids) -> torch.Tensor:
@@ -158,7 +177,7 @@ class Engine:
                 last_np = np.roll(last_np, -1, axis=1)
                 last_np[:, -1] = tok_host
             with self.profiler.section("decode"):
-                logits, cache = llama.forward(
+                logits, cache = self._forward(
                     self.params, self.cfg, self._ids(tok_host[:, None]),
                     cache, pos)
                 tok, state = sampling.sample(logits, state, gcfg,
@@ -196,7 +215,7 @@ class Engine:
             toks.append(tok)
             if gcfg.repeat_last_n != 0:
                 last = torch.cat([last[:, 1:], tok[:, None].long()], dim=1)
-            logits, cache = llama.forward(self.params, self.cfg,
+            logits, cache = self._forward(self.params, self.cfg,
                                           tok[:, None].long(), cache, pos)
             pos += 1
         tokens = torch.stack(toks, dim=1)

@@ -7,8 +7,10 @@ the buffers and ``advance`` bumps ``length`` on the same object, which both
 return for the JAX package's calling style. ``length`` is a host int (the
 host always knows how many positions it has written).
 
-bf16 (default) or int8 storage; int8 keeps a per-(head, position) absmax
-scale in [L, B, H_kv, max_len] f32 beside the codes.
+bf16 (default) or int8 storage; ``quantized=True`` keeps a per-(head,
+position) absmax scale in [L, B, H_kv, max_len] f32 beside the codes, while
+``dtype=torch.int8`` stores raw int8 codes written and read unchanged (OPT
+W8A8, whose static scales live in the attention alphas).
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Attention over the layer-stacked KV cache: ``flash_decode`` (one query
-position), ``flash_prefill`` (a causal prompt chunk) and
-``flash_decode_paged`` (one query position over a page pool), with their
-plain PyTorch versions.
+position), ``flash_prefill`` (a causal prompt chunk),
+``flash_decode_paged`` (one query position over a page pool) and
+``int8_decode`` (OPT SmoothQuant decode over the raw int8 cache), with
+their plain PyTorch versions.
 
 Counterpart of the JAX package's ``ops/attention.py``. The kernels are
 ``csrc/flash_decode.cu``, ``csrc/flash_prefill.cu`` and
@@ -10,6 +11,9 @@ probabilities rounded to bf16 before the PV product, and only the valid key
 range visited (so the TPU path's ``ctx_cap`` is accepted and ignored). They
 take a bf16 cache; the int8 cache (per-position scales) runs through the
 plain versions only, and a CUDA call with it raises ``NotImplementedError``.
+``csrc/int8_decode.cu`` keeps the Int8OPT dataflow: int32 scores, a
+softmax against the row's final stats, probabilities requantized x127 to
+int8, an int32 PV product.
 
 The plain versions have ``attention_xla``'s semantics and cast points:
 dense masked scores in f32, softmax, probabilities cast to the cache's
@@ -277,3 +281,105 @@ def flash_decode_paged(q, pages_k, pages_v, layer_idx, lengths, page_table,
                  "flash_decode_paged")
     _build.LAUNCHES["flash_decode_paged"] += 1
     return out.to(q.dtype)
+
+
+def exact_f32_products(t: torch.Tensor) -> None:
+    """The int8 attention products run as fp32 matmuls of int8 codes. They
+    are exact while every partial sum is an integer below 2^24: QK sums at
+    most 128^2 * D (2.1 M at D = 128), PV at most 128 * (127 + T / 2)
+    (148 k at T = 2048 keys, the requanted probabilities summing to at most
+    127 + T / 2). On the card that holds only with TF32 off: checked here."""
+    if t.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("the int8 attention products need TF32 off "
+                           "(torch.backends.cuda.matmul.allow_tf32 = False)")
+
+
+def int8_probs(logits: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last dim (masked keys at NEG_INF), then the x127
+    requant: exp(s - max) / max(sum, 1e-30), round half to even, clip to
+    int8. Returns the codes as f32."""
+    m = logits.amax(dim=-1, keepdim=True)
+    e = torch.exp(logits - m)
+    p = e / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
+    return torch.clamp(torch.round(p * 127.0), -128, 127)
+
+
+def _alpha(value, device) -> torch.Tensor:
+    return torch.as_tensor(value, dtype=torch.float32, device=device)
+
+
+def int8_decode_plain(q_s8, cache_k, cache_v, layer_idx, lengths, qk_alpha,
+                      pv_alpha) -> torch.Tensor:
+    """The dense Int8OPT dataflow at one query position, restricted to each
+    row's valid length: s = (q . k) * qk_alpha, ``int8_probs``, then
+    (p_s8 . v) * pv_alpha. Returns f32 [B, H, D]; a row of length 0 gives
+    zeros."""
+    b, h, d = q_s8.shape
+    dev = q_s8.device
+    exact_f32_products(q_s8)
+    k, v = cache_k[layer_idx], cache_v[layer_idx]  # [B, H, S_max, D] int8
+    s = torch.einsum("bhd,bhtd->bht", q_s8.float(), k.float()) \
+        * _alpha(qk_alpha, dev)
+    ln = _per_batch(lengths, b, dev)[:, None, None]
+    col = torch.arange(k.shape[2], device=dev)
+    s = torch.where(col[None, None, :] < ln, s, NEG_INF)
+    out = torch.einsum("bht,bhtd->bhd", int8_probs(s), v.float()) \
+        * _alpha(pv_alpha, dev)
+    return torch.where(ln > 0, out, 0.0)
+
+
+def _alpha_arg(value, device):
+    """(device pointer, scalar) for a float or a one-element f32 tensor on
+    ``device`` (read by the kernel, so no host sync)."""
+    if isinstance(value, torch.Tensor):
+        if value.dtype != torch.float32 or value.device != device \
+                or value.numel() != 1:
+            raise ValueError("an alpha tensor must be one f32 value on "
+                             f"{device}")
+        return value.data_ptr(), 0.0
+    return None, float(value)
+
+
+def int8_decode(q_s8, cache_k, cache_v, layer_idx, lengths, qk_alpha,
+                pv_alpha) -> torch.Tensor:
+    """Single-step Int8OPT attention: q_s8 [B, H, D] int8 against the raw
+    int8 stacked cache [L, B, H, S_max, D] (no scales: SmoothQuant's static
+    scales live in the alphas); keys at positions < lengths[b] (int or
+    int32 [B]) take part. qk_alpha / pv_alpha: floats or one-element f32
+    tensors. Returns the pre-requant output f32 [B, H, D]. CUDA:
+    ``csrc/int8_decode.cu``; CPU: ``int8_decode_plain``."""
+    if not q_s8.is_cuda:
+        return int8_decode_plain(q_s8, cache_k, cache_v, layer_idx, lengths,
+                                 qk_alpha, pv_alpha)
+    b, h, d = q_s8.shape
+    if not (cache_k.is_cuda and cache_v.is_cuda
+            and cache_k.device == q_s8.device == cache_v.device):
+        raise ValueError("q and the cache must lie on one CUDA device")
+    if q_s8.dtype != torch.int8 or cache_k.dtype != torch.int8 \
+            or cache_v.dtype != torch.int8 \
+            or not (cache_k.is_contiguous() and cache_v.is_contiguous()):
+        raise ValueError("q and the cache must be int8, the cache "
+                         "contiguous (5-D, layer first)")
+    if cache_k.dim() != 5 or cache_v.shape != cache_k.shape \
+            or tuple(cache_k.shape[1:3]) != (b, h) or cache_k.shape[4] != d:
+        raise ValueError(f"q {tuple(q_s8.shape)} does not fit cache "
+                         f"{tuple(cache_k.shape)}")
+    if d not in (64, 128):
+        raise ValueError(f"kernel needs head_dim 64 or 128, got {d}")
+    smax = cache_k.shape[3]
+    len_ptr, len_scalar = _lengths_arg(lengths, b, q_s8.device, smax)
+    qk_ptr, qk_scalar = _alpha_arg(qk_alpha, q_s8.device)
+    pv_ptr, pv_scalar = _alpha_arg(pv_alpha, q_s8.device)
+    qc = q_s8.contiguous()
+    out = torch.empty((b, h, d), dtype=torch.float32, device=q_s8.device)
+    fn = _build.bind("int8_decode", "tce_int8_decode",
+                     [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _F, _P, _F,
+                      _P])
+    _build.check(fn(qc.data_ptr(), _layer_ptr(cache_k, layer_idx),
+                    _layer_ptr(cache_v, layer_idx), out.data_ptr(), b, h,
+                    smax, d, len_ptr, len_scalar, qk_ptr, qk_scalar, pv_ptr,
+                    pv_scalar,
+                    torch.cuda.current_stream(q_s8.device).cuda_stream),
+                 "int8_decode")
+    _build.LAUNCHES["int8_decode"] += 1
+    return out

@@ -2,7 +2,7 @@
 package's ``ops/linear.py``).
 
 Parameters are plain dataclasses of tensors; ``apply_linear`` dispatches on
-the container type, so one model code runs fp, W4A16 and W4A8. Layer-
+the container type, so one model code runs fp, W4A16, W4A8 and W8A8. Layer-
 stacked containers carry a leading [L] dim and are applied with
 ``layer_idx``: the int4 kernels then read the layer straight from the
 stacked buffer.
@@ -59,14 +59,74 @@ class Int4A8Linear(Int4Linear):
     (row, group) at matmul time."""
 
 
+@dataclasses.dataclass
+class W8A8Linear:
+    """SmoothQuant static int8 linear: weight [K, N] int8, a scalar f32
+    requant multiplier ``alpha`` and an optional f32 bias [N] (the int8
+    bias already folded to fp32 by the converter).
+
+    The weight is kept N-major: a [..., K, N] view of a contiguous
+    [..., N, K] buffer (made so here if it is not), the operand layout
+    cuBLASLt's int8 GEMM takes fastest; a row-major [K, N] weight ran
+    ``torch._int_mm`` 4-14x slower at M <= 64 on the H100."""
+
+    weight: torch.Tensor
+    alpha: torch.Tensor
+    bias: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.weight.stride(-2) != 1:
+            self.weight = self.weight.transpose(-1, -2).contiguous() \
+                .transpose(-1, -2)
+
+
 def _at(t, layer_idx):
     return t if t is None or layer_idx is None else t[layer_idx]
 
 
-def apply_linear(p, x: torch.Tensor, *, layer_idx=None) -> torch.Tensor:
+# torch._int_mm on CUDA (cuBLASLt's int8 GEMM) takes M > 16 rows and K, N
+# multiples of 8; fewer rows are zero-padded to this many
+_INT_MM_ROWS = 32
+
+
+def s8_matmul(x_s8: torch.Tensor, w_s8: torch.Tensor) -> torch.Tensor:
+    """Exact int8 x int8 -> int32 product, x [..., K] @ w [K, N] (never
+    ``int8 @ int8`` in torch, which returns int8 and wraps; fp32 is not
+    exact either once |sum| passes 2^24, and K = 16384 reaches 2^28).
+    ``torch._int_mm`` accumulates in int32 on the CPU and on the card."""
+    if x_s8.dtype != torch.int8 or w_s8.dtype != torch.int8:
+        raise TypeError(f"s8_matmul takes int8 operands, got {x_s8.dtype} "
+                        f"and {w_s8.dtype}")
+    k, n = w_s8.shape
+    x2 = x_s8.reshape(-1, k)
+    m = x2.shape[0]
+    if x2.is_cuda:
+        if k % 8 or n % 8:
+            raise ValueError(f"int8 GEMM on CUDA needs K and N multiples of "
+                             f"8, got K={k}, N={n}")
+        if m < _INT_MM_ROWS:
+            x2 = torch.nn.functional.pad(x2, (0, 0, 0, _INT_MM_ROWS - m))
+    y = torch._int_mm(x2.contiguous(), w_s8)[:m]
+    return y.reshape(*x_s8.shape[:-1], n)
+
+
+def apply_linear(p, x: torch.Tensor, *, out_int8: bool = False,
+                 relu: bool = False, layer_idx=None) -> torch.Tensor:
     """y = x @ W (+ bias), in x.dtype for DenseLinear and bf16 for the int4
-    kinds."""
+    kinds. W8A8Linear takes int8 x and gives f32, or with ``out_int8`` the
+    int8 requant clip(round(y)); ``relu`` applies before that (W8A8
+    only)."""
     bias = _at(p.bias, layer_idx)
+    if isinstance(p, W8A8Linear):
+        acc = s8_matmul(x, _at(p.weight, layer_idx))
+        y = acc.to(torch.float32) * _at(p.alpha, layer_idx)
+        if bias is not None:
+            y = y + bias.to(torch.float32)
+        if relu:
+            y = torch.clamp_min(y, 0.0)
+        if out_int8:
+            return torch.clamp(torch.round(y), -128, 127).to(torch.int8)
+        return y
     if isinstance(p, DenseLinear):
         w = _at(p.weight, layer_idx)
         y = torch.matmul(x.float(), w.to(x.dtype).float()).to(x.dtype)

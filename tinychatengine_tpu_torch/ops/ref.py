@@ -44,6 +44,42 @@ def rms_norm_ref(x: torch.Tensor, weight: torch.Tensor,
     return (y * weight.to(torch.float32)).to(x.dtype)
 
 
+def layer_norm_ref(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with bias, fp32 statistics; result in x.dtype."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * weight.to(torch.float32)
+            + bias.to(torch.float32)).to(x.dtype)
+
+
+def layer_norm_q_ref(x: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNormQ (SmoothQuant's static activation quantization, the scale
+    folded into the LN weights): fp32 LN, round half to even, clip to
+    int8."""
+    y = layer_norm_ref(x.to(torch.float32), weight, bias, eps)
+    return torch.clamp(torch.round(y), -128, 127).to(torch.int8)
+
+
+def w8a8_linear_ref(x_q: torch.Tensor, w_q: torch.Tensor, alpha,
+                    bias: torch.Tensor | None = None,
+                    out_int8: bool = True) -> torch.Tensor:
+    """SmoothQuant W8A8 linear oracle with the weight [N, K] (CPU): acc =
+    x_q @ w_q^T exact in int64; y = acc * alpha (+ fp32 bias), clipped to
+    int8 after round half to even when ``out_int8``."""
+    acc = torch.einsum("...k,nk->...n", x_q.to(torch.int64),
+                       w_q.to(torch.int64))
+    y = acc.to(torch.float32) * alpha
+    if bias is not None:
+        y = y + bias.to(torch.float32)
+    if out_int8:
+        return torch.clamp(torch.round(y), -128, 127).to(torch.int8)
+    return y
+
+
 def apply_rotary(q: torch.Tensor, k: torch.Tensor, cos_sel: torch.Tensor,
                  sin_sel: torch.Tensor):
     """Rotate-half RoPE with pre-gathered cos/sin [B, S, D]."""

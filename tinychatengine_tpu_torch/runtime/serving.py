@@ -25,6 +25,11 @@ stream, so its tokens do not depend on its slot, its neighbours or on how
 ticks were grouped into bursts. An engine-level logit_bias table larger
 than ``RowParams.MAX_BIAS`` keeps the engine-global sampler instead.
 
+The model runs through ``forward_fn`` (``llama.forward`` by default, as in
+the JAX package; ``opt.forward`` for OPT). OPT W8A8 serves from a dense
+slot cache of raw int8 K/V; it has no paged path (``paged=True`` raises
+``NotImplementedError``, as in JAX).
+
 Not ported (they raise ``NotImplementedError``): speculative ticks, the
 prefix cache, sequence-parallel admission, ``input_embeds`` and
 ``logprobs``.
@@ -46,7 +51,8 @@ from tinychatengine_tpu_torch.core.config import (GenerationConfig,
 from tinychatengine_tpu_torch.core.device import resolve_device
 from tinychatengine_tpu_torch.generation import kv_cache as kvc
 from tinychatengine_tpu_torch.generation import sampling
-from tinychatengine_tpu_torch.generation.engine import Engine, _bucket
+from tinychatengine_tpu_torch.generation.engine import (Engine, _bucket,
+                                                        raw_int8_kv)
 from tinychatengine_tpu_torch.models import llama
 from tinychatengine_tpu_torch.runtime import paged as pg
 
@@ -84,7 +90,7 @@ class _Slot:
 
 
 class ServingEngine:
-    """Continuous-batching server for one model replica (llama family).
+    """Continuous-batching server for one model replica (llama and opt).
 
     ``device`` defaults to the card and raises when there is none; CPU runs
     pass ``device="cpu"`` (params must already lie there).
@@ -100,7 +106,8 @@ class ServingEngine:
                  qcfg: Optional[QuantConfig] = None, slots: int = 8,
                  max_len: Optional[int] = None,
                  gcfg: Optional[GenerationConfig] = None,
-                 paged: bool = False, page_size: int = 128,
+                 forward_fn=llama.forward, paged: bool = False,
+                 page_size: int = 128,
                  n_pages: Optional[int] = None, admission_chunk: int = 512,
                  tick_batch: int = 8, speculative: bool = False,
                  prefix_cache_entries: int = 0, sp_mesh=None, device=None):
@@ -108,9 +115,11 @@ class ServingEngine:
             raise NotImplementedError(
                 "speculative ticks, the prefix cache and sequence-parallel "
                 "admission are not ported")
-        if cfg.family != "llama":
-            raise ValueError(
-                f"ServingEngine serves llama-family models, not {cfg.family!r}")
+        if cfg.family not in ("llama", "opt"):
+            raise ValueError(f"ServingEngine serves the llama and opt "
+                             f"families, not {cfg.family!r}")
+        if cfg.family != "llama" and forward_fn is llama.forward:
+            raise ValueError(f"pass the {cfg.family} forward as forward_fn")
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -119,8 +128,14 @@ class ServingEngine:
         self.max_len = max_len or cfg.max_sqlen
         self.gcfg = gcfg or GenerationConfig()
         self.paged = paged
+        self._forward = forward_fn
 
-        quantized = self.qcfg.kv_cache_dtype == "int8"
+        raw_int8 = raw_int8_kv(cfg, self.qcfg)
+        quantized = not raw_int8 and self.qcfg.kv_cache_dtype == "int8"
+        if paged and raw_int8:
+            raise NotImplementedError(
+                "OPT W8A8's static-scale int8 KV attention (int8_decode) "
+                "has no paged variant: OPT serves with the dense slot cache")
         if paged:
             self.max_pages = -(-self.max_len // page_size)
             n_pages = n_pages or slots * self.max_pages
@@ -139,11 +154,13 @@ class ServingEngine:
         else:
             self.cache = kvc.init_cache(
                 cfg.num_layers, slots, self.max_len, cfg.num_kv_heads,
-                cfg.head_dim, quantized=quantized, device=self.device)
+                cfg.head_dim, dtype=torch.int8 if raw_int8 else torch.bfloat16,
+                quantized=quantized, device=self.device)
         # single-request prefill engine writing into a scratch cache
         self._prefill_engine = Engine(params, cfg, self.qcfg, batch=1,
                                       max_len=self.max_len,
-                                      device=self.device)
+                                      device=self.device,
+                                      forward_fn=forward_fn)
         self._scratch = self._prefill_engine.new_cache()
 
         self.slots = [_Slot() for _ in range(slots)]
@@ -178,8 +195,9 @@ class ServingEngine:
             self.gcfg.seed, slots, self.gcfg.mirostat_tau, self.device)
         self.tick_batch = max(int(tick_batch), 1)
         # batched admission: R queue-head single-chunk prompts in one ragged
-        # prefill (dense cache and per-row sampler only, as in JAX)
-        self._batch_admit = self._per_row and not paged
+        # prefill (dense cache, per-row sampler and llama only, as in JAX)
+        self._batch_admit = (self._per_row and not paged
+                             and forward_fn is llama.forward)
         self._multi_scratch: dict[int, kvc.KVCache] = {}
 
     def _resolve_window(self, g: GenerationConfig) -> int:
@@ -361,7 +379,7 @@ class ServingEngine:
         last = torch.as_tensor(self._last, device=self.device)
         seq = []
         for _ in range(k):
-            logits, _ = llama.forward(
+            logits, _ = self._forward(
                 self.params, self.cfg, toks[:, None], self._kv(), lengths,
                 page_table=tables)
             tok, self._keys, self._mu = sampling.sample_rows(
@@ -405,7 +423,7 @@ class ServingEngine:
                 self._add_page(i, self.allocator.alloc(1)[0])
         toks = torch.as_tensor(self._next_tok, device=self.device)
         last = torch.as_tensor(self._last, device=self.device)
-        logits, _ = llama.forward(
+        logits, _ = self._forward(
             self.params, self.cfg, toks[:, None], self._kv(), self._lengths(),
             page_table=self._table_tensor() if self.paged else None)
         if self._per_row:
@@ -506,7 +524,7 @@ class ServingEngine:
                 self.cfg.num_kv_heads, self.cfg.head_dim,
                 quantized=self._scratch.quantized, device=self.device)
         scratch.length = 0
-        logits, scratch = llama.forward(
+        logits, scratch = self._forward(
             self.params, self.cfg, torch.as_tensor(ids, device=self.device),
             scratch,
             torch.zeros((n_rows,), dtype=torch.int32, device=self.device),

@@ -1,11 +1,12 @@
-"""Load a ``tinychatengine_tpu.v1`` llama checkpoint into the port
+"""Load a ``tinychatengine_tpu.v1`` llama or opt checkpoint into the port
 (counterpart of the JAX package's ``tools/checkpoint.py`` loader).
 
 The format is ``meta.json`` (model and quant config, a ``dtypes`` map) plus
 ``shard_*.npz`` files of the flattened parameter tree keyed by tree path
 (``layers/wqkv/packed`` stored as ``layers|wqkv|packed``). bf16 leaves are
 stored as their uint16 bit patterns and become ``torch.bfloat16`` tensors
-here without a round trip through float.
+here without a round trip through float; int8 (W8A8 weights), uint8
+(packed int4) and f32 leaves are stored as themselves.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import numpy as np
 
 from tinychatengine_tpu_torch.core.config import (ModelConfig, QuantConfig,
                                                   get_model_config)
-from tinychatengine_tpu_torch.models.llama import LlamaParams, params_from_numpy
+from tinychatengine_tpu_torch.models import llama, opt
 from tinychatengine_tpu_torch.quant.packing import from_bf16_bits
 
 
@@ -42,14 +43,17 @@ def read_flat(path: str) -> tuple[dict, dict]:
 
 
 def load_checkpoint(path: str, cfg: ModelConfig | None = None,
-                    device=None) -> tuple[LlamaParams, QuantConfig]:
-    """Returns (params on ``device``, qcfg); ``device`` defaults to the card
-    and raises when there is none."""
+                    device=None):
+    """Returns (``LlamaParams`` or ``OPTParams`` on ``device``, qcfg);
+    ``device`` defaults to the card and raises when there is none."""
     meta, flat = read_flat(path)
     cfg = cfg or get_model_config(meta["model"])
-    if (meta.get("family") or cfg.family) != "llama":
-        raise NotImplementedError("the port loads llama checkpoints only")
+    family = meta.get("family") or cfg.family
+    if family not in ("llama", "opt"):
+        raise NotImplementedError(
+            f"the port loads llama and opt checkpoints, not {family!r}")
     q = meta["quant"]
     qcfg = QuantConfig(scheme=q["scheme"], group_size=q["group_size"],
                        kv_cache_dtype=q.get("kv_cache_dtype", "bf16"))
-    return params_from_numpy(flat, cfg, qcfg, device), qcfg
+    model = llama if family == "llama" else opt
+    return model.params_from_numpy(flat, cfg, qcfg, device), qcfg

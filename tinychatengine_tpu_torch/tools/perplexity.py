@@ -3,7 +3,8 @@
 
 Windows of ``window`` tokens advance by ``stride``; only the last
 ``stride`` positions of each window (every position of the first) add
-their log-likelihood. Runs on the device the params lie on.
+their log-likelihood. Runs on the device the params lie on, with any
+family's forward (``llama.forward``, ``opt.forward``).
 """
 
 from __future__ import annotations
@@ -27,7 +28,10 @@ def perplexity(forward_fn, params, cfg, token_ids, window: int = 1024,
     assert n >= 2, "need at least two tokens"
     window = min(window, cfg.max_sqlen, n)
     stride = min(stride, window)
-    dev = params.embed.device
+    # the device of the token embedding: llama's ``embed``, opt's
+    # ``embed_tokens``
+    dev = getattr(params, "embed", None)
+    dev = (params.embed_tokens if dev is None else dev).device
 
     total_nll, total_cnt = 0.0, 0
     start = 0

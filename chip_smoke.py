@@ -11,15 +11,25 @@ Phases (any failure ends the run with a non-zero exit code):
    llama3_8b's main-path and serving shapes (B = 8 slots, ragged lengths,
    a shuffled page table), with the stated tolerance, and timed beside its
    plain version, one PyTorch library call and its bound; paged and dense
-   decode of the same keys must be bit-identical; ``int8_decode`` at
+   decode of the same keys must be bit-identical, also at StarCoder's
+   multi-query shape (48 query heads on one KV head); ``int8_decode`` at
    opt_6.7b's decode and serving shapes and at D = 64, held in units of
-   pv_alpha (``int8_err``); then opt_6.7b's W8A8 linears at M = 1, timed
-   beside their bound, their int32 products checked against the CPU's;
+   pv_alpha (``int8_err``); ``int4_matmul_fused`` at the fused decode's
+   llama3_8b and StarCoder shapes (``FUSED_CASES``; the roped and the
+   pass-through columns held apart); then opt_6.7b's W8A8 linears at
+   M = 1, timed beside their bound, their int32 products checked against
+   the CPU's;
 4. main path: llama3_8b W4A8 at full width (all 32 layers, random packed
    weights from a seed) through ``Engine.generate_device`` (64-token
    prompt, 256 greedy tokens with repeat_penalty 1.1 over the last 64) and
    a 2048-token prefill; each of the path's four kernels must launch; a
    2-layer cut of the same model must agree with the plain path on the CPU;
+4b. llama3_8b W4A16 fused decode: phase 4's packed weights re-wrapped as
+   W4A16 (no new memory) through phase 4's run, unfused and then with
+   ``FUSED_DECODE`` on (``fused_ab``): one decode step launches
+   ``int4_matmul`` (unfused) or ``int4_matmul_fused`` (fused) 4 * 32 + 1
+   times and ``flash_decode`` 32 times, nothing else; the first decode
+   step's logits of the two agree within ``FUSED_STEP_TOL``;
 5. serving: the same model at full width through ``ServingEngine``
    (scripts/bench_serving.py's load: 8 slots, 24 requests of 32-320
    prompt tokens, 128 new tokens each, three sampling configs), once with
@@ -31,6 +41,9 @@ Phases (any failure ends the run with a non-zero exit code):
    over 64-token windows, where it runs the W4A8 kernel; then the goldens
    through ``ServingEngine`` (2 slots, dense and paged, fp and w4a8): fp
    keeps the card's golden threshold, w4a8 paged equals w4a8 dense;
+6c. bytellama_5m requantized to W4A16 at group 32 (every linear passes
+   the fused gate there): 32 greedy tokens of each golden prompt through
+   ``Engine``, fused decode against unfused, >= 16 must agree;
 7. OPT main path: opt_6.7b W8A8 at full width (32 layers, random int8
    weights from a seed) through ``Engine.generate_device`` with phase 4's
    settings, TTFT and a 2048-token prefill; ``int8_decode`` must launch
@@ -42,7 +55,18 @@ Phases (any failure ends the run with a non-zero exit code):
    launches once per layer per tick;
 9. OPT real weights: ``assets/byteopt_4m`` calibrated to W8A8 by the port
    (``opt_real_weights``): ppl fp < 3.5 and W8A8 <= +1 %; greedy tokens on
-   the card against the CPU and ServingEngine against Engine.
+   the card against the CPU and ServingEngine against Engine;
+10. StarCoder main path: starcoder_15.5b W4A16 at full width and depth
+   (40 layers, random int4 weights made on the card from a seed, one KV
+   head) through phase 4's run, unfused and then fused (``fused_ab``): 161
+   fused launches per decode step when fused, none unfused, the first
+   step's logits agreeing within ``FUSED_STEP_TOL``, each mode's 2-layer
+   cut agreeing with the CPU's plain path;
+11. StarCoder serving: the same model with the fused decode through
+   ``ServingEngine`` (bench_serving's mix cut to 16 requests x 64 tokens,
+   8 slots), dense then paged: every request ends at its length,
+   ``flash_decode_paged`` launches in the paged run only and
+   ``int4_matmul_fused`` 161 times per decode tick.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. ``--kernels-only`` stops after phase 3.
@@ -72,10 +96,18 @@ MAT_TOL = 1e-2          # matmuls: max |kernel - plain| <= MAT_TOL * max |plain|
 ATTN_RTOL = 2.0 ** -6   # attention, element by element: see attn_err
 ATTN_TOL_TEXT = "2^-6 * (|plain| + max|plain| of the row)"
 CUT_TOL = 5e-2          # 2-layer cuts: GPU kernels vs CPU plain
+# fused against unfused W4A16 decode at full depth: max |diff| / max |logit|
+# of the first decode step. Two functions (exact codes times f32 scales
+# against bf16-rounded dequantized weights) 32-40 layers apart; a fault
+# (a wrong layer, a missing bias or norm) moves the logits by O(1)
+FUSED_STEP_TOL = 0.1
 # the main path's kernels (Engine, phase 4); serving (phase 5) adds
-# flash_decode_paged, OPT W8A8 (phases 7-9) int8_decode
+# flash_decode_paged, OPT W8A8 (phases 7-9) int8_decode; a W4A16 Engine run
+# (phases 4b, 10) launches W4A16_KERNELS, and int4_matmul_fused with the
+# fused decode on (its prefill stays unfused)
 ENGINE_KERNELS = ("int4_matmul", "int4_matmul_a8", "flash_decode",
                   "flash_prefill")
+W4A16_KERNELS = ("int4_matmul", "flash_decode", "flash_prefill")
 
 
 def log(*a):
@@ -196,6 +228,9 @@ def check_kernels(gen):
         if name != "lm_head":
             runs.append(("int4_matmul", im.int4_matmul, im.int4_matmul_plain,
                          2048, BF16_FLOP_S))
+        if name == "gate_up":  # the unfused W4A16 decode the fused path replaces
+            runs.append(("int4_matmul", im.int4_matmul, im.int4_matmul_plain,
+                         1, BF16_FLOP_S))
         for kernel, fn, plain, m, rate in runs:
             x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
             err = share = 0.0
@@ -208,7 +243,7 @@ def check_kernels(gen):
             it = 5 if m == 2048 else 50
             state = {"li": 0}
 
-            def run():
+            def run(fn=fn, x=x):
                 state["li"] = (state["li"] + 1) % n_layers
                 fn(x, packed, scales, 128, layer_idx=state["li"])
             plain_ms = time_ms(lambda: plain(x, packed, scales, 128,
@@ -221,12 +256,15 @@ def check_kernels(gen):
         torch.cuda.empty_cache()
 
     # ---- attention over a 32-layer stacked cache (B=1, Hkv=8, S=2048)
+    # (and StarCoder's MQA: 48 query heads on one KV head, 6 blocks a row)
     L, S = 32, 2048
-    for d, hq, hkv in ((128, 32, 8), (64, 32, 8)):
+    for d, hq, hkv in ((128, 32, 8), (64, 32, 8), (128, 48, 1)):
         ck = torch.randn((L, 1, hkv, S, d), device=dev, generator=gen).to(torch.bfloat16)
         cv = torch.randn((L, 1, hkv, S, d), device=dev, generator=gen).to(torch.bfloat16)
         g = hq // hkv
-        for length in ((1, 65, 320, 2047) if d == 128 else (65, 2047)):
+        lengths = {(128, 32): (1, 65, 320, 2047), (64, 32): (65, 2047),
+                   (128, 48): (320, 2047)}[(d, hq)]
+        for length in lengths:
             q = torch.randn((1, hq, d), device=dev, generator=gen).to(torch.bfloat16)
             err = share = 0.0
             for li in (0, L - 1):
@@ -249,7 +287,7 @@ def check_kernels(gen):
                 2 * hq * d * 2 + 2 * hkv * length * d * 2, 4.0 * hq * length * d,
                 BF16_FLOP_S)
         for s, start in ((2048, 0), (64, S - 64)):
-            if d == 64 and s == 64:
+            if (d == 64 or hkv == 1) and s == 64:
                 continue
             length = start + s
             q = torch.randn((1, s, hq, d), device=dev, generator=gen).to(torch.bfloat16)
@@ -284,6 +322,7 @@ def check_kernels(gen):
         torch.cuda.empty_cache()
     check_serving_kernels(gen, add)
     check_int8_kernels(gen, add)
+    check_fused_kernels(gen, add)
     return cases
 
 
@@ -297,10 +336,13 @@ def check_serving_kernels(gen, add):
     from tinychatengine_tpu_torch.ops import attention as att
     dev = torch.device("cuda")
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    L, S, B = 32, 2048, len(SERVING_LENGTHS)
+    S, B = 2048, len(SERVING_LENGTHS)
     lengths = torch.tensor(SERVING_LENGTHS, dtype=torch.int32, device=dev)
-    for d, hq, hkv, p, windows in ((128, 32, 8, 128, (None, 256)),
-                                   (64, 32, 8, 16, (None,))):
+    # llama3_8b (GQA, page 128 and a window), bytellama's D = 64 at page 16,
+    # StarCoder's MQA (one KV head: 64 layers so the cycled keys leave L2)
+    for L, d, hq, hkv, p, windows in ((32, 128, 32, 8, 128, (None, 256)),
+                                      (32, 64, 32, 8, 16, (None,)),
+                                      (64, 128, 48, 1, 128, (None,))):
         mp = S // p
         ck = torch.randn((L, B, hkv, S, d), device=dev, generator=gen).to(torch.bfloat16)
         cv = torch.randn((L, B, hkv, S, d), device=dev, generator=gen).to(torch.bfloat16)
@@ -460,6 +502,96 @@ def check_int8_kernels(gen, add):
         torch.cuda.empty_cache()
 
 
+# int4_matmul_fused at the decode shapes of the fused paths: (model, linear,
+# M, K, N, fused parts); M = 8 is a StarCoder serving tick over 8 slots
+FUSED_CASES = (
+    ("llama3_8b", "qkv", 1, 4096, 6144, ("rmsnorm", "rope")),
+    ("llama3_8b", "gate_up", 1, 4096, 28672, ("rmsnorm",)),
+    ("llama3_8b", "down", 1, 14336, 4096, ("residual",)),
+    ("llama3_8b", "lm_head", 1, 4096, 129024, ("rmsnorm",)),
+    ("starcoder", "c_attn", 1, 6144, 6400, ("layernorm", "bias")),
+    ("starcoder", "fc_out", 1, 24576, 6144, ("bias", "residual")),
+    ("starcoder", "c_attn", 8, 6144, 6400, ("layernorm", "bias")),
+)
+LLAMA_QK_COLS = 5120  # llama3_8b's roped q|k columns: (32 + 8) heads of 128
+FUSED_TOL_TEXT = (f"{MAT_TOL} * max|plain|, the RoPE and the pass-through "
+                  "columns each against their own")
+
+
+def check_fused_kernels(gen, add):
+    """``int4_matmul_fused`` against its plain version at ``FUSED_CASES``,
+    over a layer stack the timing loop cycles through (the weights come
+    from HBM, not L2), with random norm weights, biases, residuals and
+    RoPE rows. Where RoPE runs, the roped columns and the pass-through v
+    columns are held apart, each to its own largest value, so a fault in
+    one cannot hide behind the other's scale. Library: ``torch.matmul`` on
+    the layer's bf16-dequantized weight (the yardstick of rows 1-2; it
+    does none of the glue)."""
+    from tinychatengine_tpu_torch.ops import int4_matmul as im
+    from tinychatengine_tpu_torch.ops.ref import (dequantize_int4,
+                                                  make_rope_cache)
+    dev = torch.device("cuda")
+    cos_t, sin_t = make_rope_cache(128, 2048, 500000.0, device=dev)
+
+    def randn(*shape):
+        return torch.randn(shape, device=dev, generator=gen)
+    for model, name, m, k, n, parts in FUSED_CASES:
+        n_layers = max(2, -(-200_000_000 // (k * n // 2)))
+        packed = torch.randint(0, 256, (n_layers, k // 2, n), dtype=torch.uint8,
+                               device=dev, generator=gen)
+        scales = ((torch.rand((n_layers, k // 128, n), device=dev,
+                              generator=gen) + 0.5) * 0.005).to(torch.bfloat16)
+        w_lib = dequantize_int4(packed[0], scales[0], 128, torch.bfloat16)
+        x = randn(m, k).to(torch.bfloat16)
+        kw, extra = {}, 0
+        if "rmsnorm" in parts or "layernorm" in parts:
+            kw["norm_w"] = (randn(n_layers, k) * 0.3 + 1.0).to(torch.bfloat16)
+            extra += 2 * k
+        if "layernorm" in parts:
+            kw["norm_b"] = (randn(n_layers, k) * 0.2).to(torch.bfloat16)
+            extra += 2 * k
+        if "rope" in parts:
+            pos = torch.randint(0, 2048, (m,), device=dev, generator=gen)
+            kw.update(rope_cos=cos_t[pos], rope_sin=sin_t[pos],
+                      rope_qk_cols=LLAMA_QK_COLS, head_dim=128)
+            extra += 2 * m * 128 * 4
+        if "bias" in parts:
+            kw["bias"] = randn(n_layers, n) * 0.05  # f32, as StarCoder's
+            extra += 4 * n
+        if "residual" in parts:
+            kw["residual"] = randn(m, n).to(torch.bfloat16)
+            extra += 2 * m * n
+        regions = ([slice(0, LLAMA_QK_COLS), slice(LLAMA_QK_COLS, n)]
+                   if "rope" in parts else [slice(0, n)])
+        err = share = 0.0
+        for li in (0, n_layers - 1):
+            y = im.int4_matmul_fused(x, packed, scales, 128, layer_idx=li,
+                                     **kw).float()
+            ref = im.int4_matmul_fused_plain(x, packed, scales, 128,
+                                             layer_idx=li, **kw).float()
+            for cols in regions:
+                e = float((y[:, cols] - ref[:, cols]).abs().max())
+                err = max(err, e)
+                share = max(share, e / (MAT_TOL * float(
+                    ref[:, cols].abs().max())))
+        state = {"li": 0}
+
+        def run(x=x, packed=packed, scales=scales, kw=kw, n_layers=n_layers):
+            state["li"] = (state["li"] + 1) % n_layers
+            im.int4_matmul_fused(x, packed, scales, 128, layer_idx=state["li"],
+                                 **kw)
+        plain_ms = time_ms(lambda: im.int4_matmul_fused_plain(
+            x, packed, scales, 128, layer_idx=0, **kw), 3)
+        bytes_moved = (k * n // 2 + (k // 128) * n * 2 + m * k * 2 + m * n * 2
+                       + extra)
+        add("int4_matmul_fused", f"{model} {name} M={m} K={k} N={n} "
+            + "+".join(parts), err, share, FUSED_TOL_TEXT, run, 50, plain_ms,
+            lambda: torch.matmul(x, w_lib), bytes_moved, 2.0 * m * n * k,
+            BF16_FLOP_S, ksplit=im.fused_split(m, n, k)[1])
+        del packed, scales, w_lib, kw
+        torch.cuda.empty_cache()
+
+
 def w8a8_linear_times(gen):
     """opt_6.7b's W8A8 linears at M = 1 (a decode step; ``s8_matmul`` pads
     the rows for ``torch._int_mm``) through ``apply_linear``, timed beside
@@ -519,7 +651,8 @@ def plain_calls():
     from tinychatengine_tpu_torch.ops import int4_matmul as im
     names = [(att, "flash_decode_plain"), (att, "flash_prefill_plain"),
              (att, "flash_decode_paged_plain"), (att, "int8_decode_plain"),
-             (im, "int4_matmul_plain"), (im, "int4_matmul_a8_plain")]
+             (im, "int4_matmul_plain"), (im, "int4_matmul_a8_plain"),
+             (im, "int4_matmul_fused_plain")]
     counts = dict.fromkeys((n for _, n in names), 0)
     saved = [(mod, n, getattr(mod, n)) for mod, n in names]
     for mod, n, fn in saved:
@@ -535,17 +668,60 @@ def plain_calls():
 
 
 def random_model(cfg, dev, max_pos=None):
-    """The random full-width model of a phase: llama W4A8 (packed int4 from
-    a seeded generator) or opt W8A8 (int8 from a seeded generator), made on
-    ``dev``. Returns (params, qcfg)."""
+    """The random full-width model of a phase, made on ``dev`` from a
+    seeded generator: llama W4A8 or GPTBigCode W4A16 (packed int4) or opt
+    W8A8 (int8). Returns (params, qcfg)."""
     from tinychatengine_tpu_torch.core.config import QuantConfig
-    from tinychatengine_tpu_torch.models import llama, opt
+    from tinychatengine_tpu_torch.models import gptbigcode, llama, opt
+    t0 = time.perf_counter()
     if cfg.family == "llama":
         qcfg = QuantConfig(scheme="w4a8", group_size=128)
-        return llama.init_random_params(cfg, qcfg, seed=0, max_pos=max_pos,
-                                        fast=True, device=dev), qcfg
-    return opt.init_random_params(cfg, quantized=True, seed=0, fast=True,
-                                  device=dev), QuantConfig(scheme="w8a8")
+        params = llama.init_random_params(cfg, qcfg, seed=0, max_pos=max_pos,
+                                          fast=True, device=dev)
+    elif cfg.family == "gptbigcode":
+        qcfg = QuantConfig(scheme="w4a16", group_size=128)
+        params = gptbigcode.init_random_params(cfg, seed=0, qcfg=qcfg,
+                                               fast=True, device=dev)
+    else:
+        qcfg = QuantConfig(scheme="w8a8")
+        params = opt.init_random_params(cfg, quantized=True, seed=0,
+                                        fast=True, device=dev)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    log(f"{cfg.name} {qcfg.scheme} random init: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return params, qcfg
+
+
+def model_config(model):
+    """A registry name, or a ``ModelConfig`` as it is (CPU rehearsals of a
+    family whose registry models are all full size)."""
+    from tinychatengine_tpu_torch.core.config import get_model_config
+    return get_model_config(model) if isinstance(model, str) else model
+
+
+@contextlib.contextmanager
+def fused_decode(on: bool):
+    """``FUSED_DECODE`` set to ``on`` while open."""
+    from tinychatengine_tpu_torch.ops import int4_matmul as im
+    saved = im.FUSED_DECODE
+    im.FUSED_DECODE = on
+    try:
+        yield
+    finally:
+        im.FUSED_DECODE = saved
+
+
+def as_w4a16(p):
+    """The same tree with every W4A8 container re-wrapped as W4A16 over the
+    same packed bytes (no new memory)."""
+    from tinychatengine_tpu_torch.ops.linear import Int4A8Linear, Int4Linear
+    if isinstance(p, Int4A8Linear):
+        return Int4Linear(packed=p.packed, scales=p.scales, bias=p.bias)
+    if p is None or isinstance(p, torch.Tensor):
+        return p
+    return type(p)(**{f.name: as_w4a16(getattr(p, f.name))
+                      for f in dataclasses.fields(p)})
 
 
 def tree_map(p, fn):
@@ -563,30 +739,38 @@ def cut_params(p, n_layers: int, where):
         p.layers, lambda t: t[:n_layers].to(where)))
 
 
-def main_path(model="llama3_8b", dev="cuda", long_len=2048):
-    """Phase 4 (llama3_8b W4A8) or 7 (opt_6.7b W8A8): ``model`` at full
-    width through the Engine. Returns (launches of the run, launches of one
-    decode step, metrics). The arguments shrink the run for a rehearsal on
-    the CPU (tests)."""
-    from tinychatengine_tpu_torch.core.config import (GenerationConfig,
-                                                      get_model_config)
+def main_path(model="llama3_8b", dev="cuda", long_len=2048, fused=False,
+              model_params=None, n_predict=256):
+    """Phase 4 (llama3_8b W4A8), 7 (opt_6.7b W8A8) or one mode of
+    ``fused_ab`` (phases 4b and 10): ``model`` (a registry name or a
+    ``ModelConfig``) at full width through the Engine, with
+    ``FUSED_DECODE`` set to ``fused``. ``model_params``: (params, qcfg) of a
+    model already on ``dev``, else a random one is made. Returns (launches
+    of the run, launches of one decode step, metrics). The arguments shrink
+    the run for a rehearsal on the CPU (tests)."""
+    with fused_decode(fused):
+        return _engine_run(model_config(model), dev, long_len, model_params,
+                           n_predict)
+
+
+def _engine_run(cfg, dev, long_len, model_params, n_predict):
+    from tinychatengine_tpu_torch.core.config import GenerationConfig
     from tinychatengine_tpu_torch.generation import sampling
     from tinychatengine_tpu_torch.generation.engine import (
         Engine, forward_for_family)
     from tinychatengine_tpu_torch.ops import _build
+    from tinychatengine_tpu_torch.ops import int4_matmul as im
 
     sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
-    cfg = get_model_config(model)
+    fused = im.FUSED_DECODE
     forward = forward_for_family(cfg.family)
-    t0 = time.perf_counter()
-    params, qcfg = random_model(cfg, dev)
-    sync()
-    log(f"{model} {qcfg.scheme} random init: {time.perf_counter() - t0:.1f} s")
+    params, qcfg = model_params or random_model(cfg, dev)
+    label = f"{cfg.name} {qcfg.scheme}" + (" fused" if fused else "")
     eng = Engine(params, cfg, qcfg, batch=1, max_len=long_len, device=dev)
     rng = np.random.default_rng(0)
     prompt = rng.integers(0, cfg.vocab_size, (1, 64))
     long_prompt = rng.integers(0, cfg.vocab_size, (1, long_len))
-    gcfg = GenerationConfig(temp=0.0, n_predict=256, repeat_penalty=1.1,
+    gcfg = GenerationConfig(temp=0.0, n_predict=n_predict, repeat_penalty=1.1,
                             repeat_last_n=64)
 
     def gen_s(n):
@@ -619,31 +803,12 @@ def main_path(model="llama3_8b", dev="cuda", long_len=2048):
     with plain_calls() as plain:
         _build.reset_launches()
         t1, _ = gen_s(1)
-        t256, toks = gen_s(256)
+        tn, toks = gen_s(n_predict)
         ttft = ttft_s()
         t_pre, logits, cache = prefill_s()
         launches = dict(_build.LAUNCHES)
-    log(f"{model} main-path launches:", json.dumps(launches),
+    log(f"{label} main-path launches:", json.dumps(launches),
         "plain calls:", json.dumps(plain))
-    if dev == "cuda":
-        if any(plain.values()):
-            raise SystemExit(f"plain versions ran on the card: {plain}")
-        # llama: each of the path's kernels launches; opt: int8_decode once
-        # per layer per decode step (1 + 256 steps), and nothing else
-        want = ({"int8_decode": 257 * cfg.num_layers}
-                if cfg.family == "opt" else None)
-        if want is not None and {k: v for k, v in launches.items() if v} \
-                != want:
-            raise SystemExit(f"{model}: launches {launches}, want {want}")
-        if want is None and not all(launches[k] > 0 for k in ENGINE_KERNELS):
-            raise SystemExit(f"a kernel was never launched on the main path: "
-                             f"{launches}")
-    if toks.shape != (1, 256) or int(toks.min()) < 0 \
-            or int(toks.max()) >= cfg.vocab_size:
-        raise SystemExit(f"bad decode tokens {toks.shape}")
-    if logits.shape != (1, cfg.vocab_size) or not torch.isfinite(logits).all() \
-            or cache.length != long_len:
-        raise SystemExit("bad long-prompt prefill output")
 
     with torch.inference_mode():  # launches of one decode step
         cache1 = eng.new_cache()
@@ -651,16 +816,47 @@ def main_path(model="llama3_8b", dev="cuda", long_len=2048):
         _build.reset_launches()
         forward(params, cfg, torch.tensor([[1]], device=dev), cache1, 64)
     per_step = dict(_build.LAUNCHES)
+    if dev == "cuda":
+        if any(plain.values()):
+            raise SystemExit(f"plain versions ran on the card: {plain}")
+        # opt: int8_decode once per layer per decode step (1 + n_predict
+        # steps), and nothing else; W4A16: each linear (4 per layer and the
+        # head) through one matmul kernel per step, fused or not, and one
+        # flash_decode per layer
+        nl = cfg.num_layers
+        want = ({"int8_decode": (n_predict + 1) * nl}
+                if cfg.family == "opt" else None)
+        if want is not None and {k: v for k, v in launches.items() if v} \
+                != want:
+            raise SystemExit(f"{label}: launches {launches}, want {want}")
+        kernels = (ENGINE_KERNELS if qcfg.scheme == "w4a8" else
+                   W4A16_KERNELS + (("int4_matmul_fused",) if fused else ()))
+        if want is None and not all(launches[k] > 0 for k in kernels):
+            raise SystemExit(f"a kernel was never launched on the main path: "
+                             f"{launches}")
+        if qcfg.scheme == "w4a16":
+            mm = "int4_matmul_fused" if fused else "int4_matmul"
+            step_want = {mm: 4 * nl + 1, "flash_decode": nl}
+            if {k: v for k, v in per_step.items() if v} != step_want or (
+                    not fused and launches["int4_matmul_fused"]):
+                raise SystemExit(f"{label}: launches per decode step "
+                                 f"{per_step}, want {step_want}")
+    if toks.shape != (1, n_predict) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.vocab_size:
+        raise SystemExit(f"bad decode tokens {toks.shape}")
+    if logits.shape != (1, cfg.vocab_size) or not torch.isfinite(logits).all() \
+            or cache.length != long_len:
+        raise SystemExit("bad long-prompt prefill output")
 
-    decode_tok_s = 255 / (t256 - t1)
+    decode_tok_s = (n_predict - 1) / (tn - t1)
     metrics = dict(decode_tok_s=decode_tok_s, ttft_ms=ttft * 1e3,
-                   prefill_tok_s=long_len / t_pre, gen256_s=t256, gen1_s=t1,
+                   prefill_tok_s=long_len / t_pre, gen_n_s=tn, gen1_s=t1,
                    prefill_s=t_pre)
     if dev == "cuda":
         metrics["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         metrics.update(decode_profile(params, cfg, eng, prompt, gcfg,
                                       1e3 / decode_tok_s))
-    log(f"{model} main-path metrics:", json.dumps(metrics))
+    log(f"{label} main-path metrics:", json.dumps(metrics))
 
     # a 2-layer cut at full width: kernels on the card against the plain
     # path on the CPU, 64-token prefill then 2 decode steps
@@ -677,10 +873,11 @@ def main_path(model="llama3_8b", dev="cuda", long_len=2048):
                 seq.append(forward(p, cut, torch.tensor([[t]], device=where),
                                    cache_c, 64 + step)[0].float().cpu())
             outs[where] = seq
+            del p, cache_c
     errs = [float((a - b).abs().max() / b.abs().max())
             for a, b in zip(outs[dev], outs["cpu"])]
     metrics["cut_err"] = max(errs)
-    log(f"{model} 2-layer cut, kernels vs CPU plain: max |diff| / max |ref| "
+    log(f"{label} 2-layer cut, kernels vs CPU plain: max |diff| / max |ref| "
         f"= {max(errs):.3e} (tol {CUT_TOL})")
     if not max(errs) <= CUT_TOL:
         raise SystemExit("2-layer cut disagrees with the plain path")
@@ -688,6 +885,46 @@ def main_path(model="llama3_8b", dev="cuda", long_len=2048):
     if dev == "cuda":
         torch.cuda.empty_cache()
     return launches, per_step, metrics
+
+
+def fused_ab(model, dev="cuda", long_len=2048, model_params=None,
+             n_predict=256):
+    """Phases 4b (llama3_8b W4A16 on phase 4's weights) and 10
+    (starcoder_15.5b W4A16): phase 4's Engine run unfused, then with the
+    fused decode, on the same weights; then the first decode step of each
+    after the same 64-token prompt, whose logits must agree within
+    ``FUSED_STEP_TOL``. Returns {"unfused": (launches, per_step, metrics),
+    "fused": (...), "first_step": {...}}."""
+    from tinychatengine_tpu_torch.generation.engine import (
+        Engine, forward_for_family)
+    cfg = model_config(model)
+    params, qcfg = model_params or random_model(cfg, dev)
+    out = {mode: main_path(cfg, dev, long_len, fused=mode == "fused",
+                           model_params=(params, qcfg), n_predict=n_predict)
+           for mode in ("unfused", "fused")}
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 64))
+    forward = forward_for_family(cfg.family)
+    logits = {}
+    for fused in (False, True):
+        with fused_decode(fused), torch.inference_mode():
+            eng = Engine(params, cfg, qcfg, max_len=128, device=dev)
+            cache = eng.new_cache()
+            eng.prefill(prompt, cache)
+            logits[fused] = forward(params, cfg,
+                                    torch.tensor([[1]], device=dev), cache,
+                                    64)[0].float()
+    rel = float((logits[True] - logits[False]).abs().max()
+                / logits[False].abs().max())
+    same = bool(torch.equal(logits[True].argmax(-1), logits[False].argmax(-1)))
+    out["first_step"] = dict(rel_diff=rel, same_argmax=same)
+    log(f"{cfg.name} first decode step, fused vs unfused: max |diff| / "
+        f"max |logit| = {rel:.3e} (tol {FUSED_STEP_TOL}), same argmax {same}")
+    if not rel <= FUSED_STEP_TOL:
+        raise SystemExit(f"{cfg.name}: fused decode disagrees with unfused")
+    del params, logits, cache
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
 
 
 def serving_load(srv, cfg, n_requests: int, n_predict: int, seed: int = 0):
@@ -712,26 +949,34 @@ def serving_load(srv, cfg, n_requests: int, n_predict: int, seed: int = 0):
 
 
 def serving_path(model="llama3_8b", dev="cuda", n_requests=24, n_predict=128,
-                 max_len=2048):
-    """Phase 5 (llama3_8b W4A8, dense then paged) or 8 (opt_6.7b W8A8,
-    dense only: OPT W8A8 has no paged path): ``model`` at full width
-    through ServingEngine (n_pages the dense-equivalent capacity), each
-    mode after a 2-request warm-up. Returns {mode: metrics and launches}.
-    The arguments shrink the run for a rehearsal on the CPU (tests)."""
-    from tinychatengine_tpu_torch.core.config import (GenerationConfig,
-                                                      get_model_config)
+                 max_len=2048, fused=False):
+    """Phase 5 (llama3_8b W4A8, dense then paged), 8 (opt_6.7b W8A8,
+    dense only: OPT W8A8 has no paged path) or 11 (starcoder_15.5b W4A16
+    with ``fused``, dense then paged): ``model`` (a registry name or a
+    ``ModelConfig``) at full width through ServingEngine (n_pages the
+    dense-equivalent capacity), each mode after a 2-request warm-up.
+    Returns {mode: metrics and launches}. The arguments shrink the run for
+    a rehearsal on the CPU (tests)."""
+    with fused_decode(fused):
+        return _serving_run(model_config(model), dev, n_requests, n_predict,
+                            max_len)
+
+
+def _serving_run(cfg, dev, n_requests, n_predict, max_len):
+    from tinychatengine_tpu_torch.core.config import GenerationConfig
     from tinychatengine_tpu_torch.generation.engine import forward_for_family
     from tinychatengine_tpu_torch.ops import _build
+    from tinychatengine_tpu_torch.ops import int4_matmul as im
     from tinychatengine_tpu_torch.runtime.serving import ServingEngine
 
     sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
-    cfg = get_model_config(model)
-    llama_family = cfg.family == "llama"
+    model, fused = cfg.name, im.FUSED_DECODE
+    paged_ok = cfg.family != "opt"
     params, qcfg = random_model(cfg, dev, max_pos=max_len)
     gcfg = GenerationConfig(temp=0.0, n_predict=n_predict, repeat_penalty=1.1,
                             repeat_last_n=64, seed=0)
     out, greedy = {}, {}
-    for mode in ("dense", "paged") if llama_family else ("dense",):
+    for mode in ("dense", "paged") if paged_ok else ("dense",):
         srv = ServingEngine(params, cfg, qcfg, slots=8, max_len=max_len,
                             gcfg=gcfg, admission_chunk=512, tick_batch=16,
                             forward_fn=forward_for_family(cfg.family),
@@ -769,27 +1014,36 @@ def serving_path(model="llama3_8b", dev="cuda", n_requests=24, n_predict=128,
         if dev == "cuda":  # the CPU rehearsal runs the plain versions
             if any(plain.values()):
                 raise SystemExit(f"serving {mode}: plain versions ran: {plain}")
-            # llama: each mode's decode attention kernel runs, the other one
-            # never; opt: int8_decode once per layer per tick, nothing else
+            # llama and gptbigcode: each mode's decode attention kernel runs,
+            # the other one never, and with the fused decode every tick
+            # launches int4_matmul_fused once per linear (4 per layer and
+            # the head); opt: int8_decode once per layer per tick, nothing
+            # else
             ran, idle = (("flash_decode_paged", "flash_decode") if mode == "paged"
                          else ("flash_decode", "flash_decode_paged"))
-            if not llama_family:
+            mm = "int4_matmul_a8" if qcfg.scheme == "w4a8" else "int4_matmul"
+            if not paged_ok:
                 want = {"int8_decode": cfg.num_layers * ticks}
                 if {k: v for k, v in launches.items() if v} != want:
                     raise SystemExit(f"{model} serving: launches {launches}, "
                                      f"want {want}")
             elif launches[idle] or not all(
-                    launches[k] > 0 for k in ("int4_matmul_a8", "flash_prefill", ran)):
+                    launches[k] > 0 for k in (mm, "flash_prefill", ran)):
                 raise SystemExit(f"serving {mode}: wrong kernels ran: {launches}")
+            if fused and launches["int4_matmul_fused"] != \
+                    (4 * cfg.num_layers + 1) * ticks:
+                raise SystemExit(f"{model} serving {mode}: "
+                                 f"{launches['int4_matmul_fused']} fused "
+                                 f"launches over {ticks} ticks")
         greedy[mode] = [r.output_ids for r in reqs if r.gcfg is None]
-        if dev == "cuda" and llama_family:
+        if dev == "cuda" and paged_ok:
             m.update(burst_profile(srv, cfg))
             log(f"serving {mode} burst profile:", json.dumps(m["burst"]))
         out[mode] = m
         del srv
         if dev == "cuda":
             torch.cuda.empty_cache()
-    if llama_family:
+    if paged_ok:
         same = sum(a == b for a, b in zip(greedy["dense"], greedy["paged"]))
         out["greedy_dense_eq_paged"] = [same, len(greedy["dense"])]
         log(f"serving: {same} of {len(greedy['dense'])} greedy requests "
@@ -852,6 +1106,61 @@ def real_weights_serving(dev="cuda"):
     return matched
 
 
+def fused_real_weights(dev="cuda"):
+    """Phase 6c: bytellama_5m requantized to W4A16 at group 32 (at 128,
+    K = 256 has K/G = 2 and fails the fused gate; at 32 every layer linear
+    passes it), 32 greedy tokens of each golden prompt through Engine,
+    unfused and then with the fused decode: >= 16 must agree per prompt.
+    Returns {"agree": [...], "launches": {...}}."""
+    from tinychatengine_tpu_torch.core.config import (GenerationConfig,
+                                                      QuantConfig,
+                                                      get_model_config)
+    from tinychatengine_tpu_torch.generation.engine import Engine
+    from tinychatengine_tpu_torch.models import llama
+    from tinychatengine_tpu_torch.ops import _build
+    from tinychatengine_tpu_torch.tokenizers.byte_fallback import ByteTokenizer
+    from tinychatengine_tpu_torch.tools.checkpoint import load_checkpoint
+    from tinychatengine_tpu_torch.tools.convert import requantize_llama
+
+    cfg = get_model_config("bytellama_5m")
+    fp, _ = load_checkpoint(str(ROOT / "assets" / "bytellama_5m"), cfg,
+                            device=dev)
+    qcfg = QuantConfig(scheme="w4a16", group_size=32)
+    qp = requantize_llama(fp, qcfg)
+    with fused_decode(True):
+        if llama.fused_group_size(qp.layers, cfg, 1) != 32:
+            raise SystemExit("bytellama_5m at group 32 fails the fused gate")
+    golden = ROOT / "tests" / "golden"
+    golds = [json.loads((golden / "bytellama_greedy.json").read_text())]
+    golds += json.loads((golden / "bytellama_goldens.json").read_text())
+    tok = ByteTokenizer()
+    prompts = [np.asarray(tok.encode(gd["prompt"]), np.int64) for gd in golds]
+    g = GenerationConfig(temp=0.0, n_predict=32, repeat_penalty=1.0,
+                         repeat_last_n=1)
+    eng = Engine(qp, cfg, qcfg, max_len=cfg.max_sqlen, device=dev)
+    toks, launches = {}, {}
+    for fused in (False, True):
+        with fused_decode(fused), plain_calls() as plain:
+            _build.reset_launches()
+            toks[fused] = [eng.generate(x[None], g).tokens[0] for x in prompts]
+            launches[fused] = {k: v for k, v in _build.LAUNCHES.items() if v}
+        if dev == "cuda" and (any(plain.values()) or fused != bool(
+                launches[fused].get("int4_matmul_fused"))):
+            raise SystemExit(f"bytellama_5m w4a16 g32 fused={fused}: plain "
+                             f"calls {plain}, launches {launches[fused]}")
+    agree = [next((i for i, (a, b) in enumerate(zip(u, f)) if a != b),
+                  min(len(u), len(f)))
+             for u, f in zip(toks[False], toks[True])]
+    out = {"agree": agree, "launches": {"unfused": launches[False],
+                                        "fused": launches[True]}}
+    log("bytellama_5m w4a16 g32, fused vs unfused greedy tokens agreeing "
+        f"(of 32): {agree}; launches {json.dumps(out['launches'])}")
+    if min(agree) < 16:
+        raise SystemExit("bytellama_5m: fused decode diverged from unfused "
+                         "within 16 tokens")
+    return out
+
+
 def device_ms_by_kernel(prof) -> dict:
     """Device time (ms) by kernel name from a torch.profiler run."""
     from torch.autograd import DeviceType
@@ -905,8 +1214,9 @@ def burst_profile(srv, cfg, n_ticks: int = 16) -> dict:
 def decode_profile(params, cfg, eng, prompt, gcfg, step_ms: float,
                    steps: int = 16) -> dict:
     """Device time of the decode steps by kernel, from a torch.profiler
-    trace of ``steps`` steps; the busy share divides it by the unprofiled
-    step time ``step_ms``."""
+    trace of ``steps`` steps (sampling included), and the device operations
+    (kernels and copies) per step; the busy share divides the time by the
+    unprofiled step time ``step_ms``."""
     from torch.profiler import ProfilerActivity, profile
 
     from tinychatengine_tpu_torch.generation import sampling
@@ -926,6 +1236,7 @@ def decode_profile(params, cfg, eng, prompt, gcfg, step_ms: float,
                 logits, _ = forward(params, cfg, tok[:, None].long(), cache,
                                     64 + i)
             torch.cuda.synchronize()
+    from torch.autograd import DeviceType
     by_name = device_ms_by_kernel(prof)
     busy_ms = sum(by_name.values()) / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
@@ -934,8 +1245,10 @@ def decode_profile(params, cfg, eng, prompt, gcfg, step_ms: float,
     if busy_ms == 0.0:
         log("  decode profile: no device time traced (not measured)")
         return {}
+    ops = sum(e.device_type == DeviceType.CUDA for e in prof.events())
     return dict(decode_device_ms_per_step=busy_ms,
-                decode_busy_share=busy_ms / step_ms)
+                decode_busy_share=busy_ms / step_ms,
+                decode_device_ops_per_step=ops / steps)
 
 
 def real_weights(dev="cuda"):
@@ -1117,7 +1430,18 @@ SUMMARY = {  # kernel -> (source, TPU kernel it replaces, summary case)
     "int8_decode": ("tinychatengine_tpu_torch/csrc/int8_decode.cu",
                     "tinychatengine_tpu/ops/attention.py:718",
                     "B=1 H=32 D=128 length=320"),
+    "int4_matmul_fused": ("tinychatengine_tpu_torch/csrc/int4_matmul_fused.cu",
+                          "tinychatengine_tpu/ops/int4_matmul.py:700",
+                          "starcoder fc_out M=1 K=24576 N=6144"),
 }
+# the run each kernel's launches count comes from: phase 4's Engine path,
+# phase 5's paged serving run for the paged kernel, phase 7's OPT Engine
+# path for int8_decode, phase 10's fused StarCoder Engine path for
+# int4_matmul_fused; per decode step from the same Engine path; per tick
+# from phase 5's paged run, phase 8's OPT run for int8_decode and phase
+# 11's paged StarCoder run for int4_matmul_fused
+HOME_RUN = {"flash_decode_paged": "serving_paged", "int8_decode": "opt_engine",
+            "int4_matmul_fused": "starcoder_fused"}
 
 
 def main(argv=None) -> int:
@@ -1159,54 +1483,81 @@ def main(argv=None) -> int:
     linears = phase("w8a8 linears", w8a8_linear_times, gen)
     if args.kernels_only:
         return 0
-    launches, per_step, metrics = phase("llama main path", main_path)
+    from tinychatengine_tpu_torch.core.config import (QuantConfig,
+                                                      get_model_config)
+    llama = random_model(get_model_config("llama3_8b"), "cuda")
+    launches, per_step, metrics = phase("llama main path", main_path,
+                                        model_params=llama)
+    llama_ab = phase("llama w4a16 fused decode", fused_ab, "llama3_8b",
+                     model_params=(as_w4a16(llama[0]),
+                                   QuantConfig(scheme="w4a16")))
+    del llama
+    torch.cuda.empty_cache()
     serving = phase("llama serving", serving_path)
     phase("bytellama real weights", real_weights)
     phase("bytellama serving", real_weights_serving)
+    phase("bytellama g32 fused decode", fused_real_weights)
     opt_launches, opt_step, opt_metrics = phase("opt main path", main_path,
                                                 "opt_6.7b")
     opt_serving = phase("opt serving", serving_path, "opt_6.7b",
                         n_requests=16, n_predict=64)["dense"]
     phase("byteopt real weights", opt_real_weights)
+    sc_ab = phase("starcoder main path", fused_ab, "starcoder_15.5b")
+    sc_serving = phase("starcoder serving", serving_path, "starcoder_15.5b",
+                       n_requests=16, n_predict=64, fused=True)
 
+    runs = {"engine": launches,  # path -> launches over its run
+            "serving_dense": serving["dense"]["launches"],
+            "serving_paged": serving["paged"]["launches"],
+            "llama_w4a16_unfused": llama_ab["unfused"][0],
+            "llama_w4a16_fused": llama_ab["fused"][0],
+            "opt_engine": opt_launches, "opt_serving": opt_serving["launches"],
+            "starcoder_unfused": sc_ab["unfused"][0],
+            "starcoder_fused": sc_ab["fused"][0],
+            "starcoder_serving_dense": sc_serving["dense"]["launches"],
+            "starcoder_serving_paged": sc_serving["paged"]["launches"]}
+    step_of = {"int8_decode": opt_step, "int4_matmul_fused": sc_ab["fused"][1]}
+    tick_of = {"int8_decode": opt_serving,
+               "int4_matmul_fused": sc_serving["paged"]}
     rows = []
-    paged = serving["paged"]
     for name in _build.KERNELS:
         source, replaces, case = SUMMARY[name]
         mine = [c for c in cases if c["kernel"] == name]
         row = next(c for c in mine if c["case"] == case
                    or c["case"].startswith(case + " "))
-        by_path = {"engine": launches[name],
-                   "serving_dense": serving["dense"]["launches"][name],
-                   "serving_paged": paged["launches"][name],
-                   "opt_engine": opt_launches[name],
-                   "opt_serving": opt_serving["launches"][name]}
-        # the count of the path whose kernel it is: phase 4's Engine path,
-        # phase 5's paged serving run for the paged kernel, phase 7's OPT
-        # Engine path for int8_decode (per tick: its serving run, phase 8)
-        tick_run = opt_serving if name == "int8_decode" else paged
+        tick_run = tick_of.get(name, serving["paged"])
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=(paged["launches"][name] if name == "flash_decode_paged"
-                      else by_path["opt_engine" if name == "int8_decode"
-                                   else "engine"]),
-            launches_by_path=by_path,
-            launches_per_decode_step=(opt_step if name == "int8_decode"
-                                      else per_step)[name],
+            launches=runs[HOME_RUN.get(name, "engine")][name],
+            launches_by_path={path: n[name] for path, n in runs.items()},
+            launches_per_decode_step=step_of.get(name, per_step)[name],
             launches_per_serving_tick=tick_run["launches"][name]
             / tick_run["decode_ticks"],
             max_abs_err=max(c["max_abs_err"] for c in mine), case=row["case"],
             ms=row["ms"], eager_ms=row["eager_ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
-    for model, m in (("llama3_8b w4a8", metrics),
-                     ("opt_6.7b w8a8", opt_metrics)):
+    engine_runs = [("llama3_8b w4a8", metrics),
+                   ("opt_6.7b w8a8", opt_metrics)]
+    for model, ab in (("llama3_8b w4a16", llama_ab),
+                      ("starcoder_15.5b w4a16", sc_ab)):
+        engine_runs += [(f"{model} {mode}", ab[mode][2])
+                        for mode in ("unfused", "fused")]
+        log(f"{model} first decode step, fused vs unfused:",
+            json.dumps(ab["first_step"]))
+    for model, m in engine_runs:
         log(f"{model} main path on {smi}: decode {m['decode_tok_s']:.2f} "
             f"tok/s, TTFT {m['ttft_ms']:.1f} ms, prefill "
-            f"{m['prefill_tok_s']:.1f} tok/s")
+            f"{m['prefill_tok_s']:.1f} tok/s, device "
+            f"{m.get('decode_device_ms_per_step', 'not measured')} ms per "
+            f"step, busy share {m.get('decode_busy_share', 'not measured')}, "
+            f"device ops per step "
+            f"{m.get('decode_device_ops_per_step', 'not measured')}")
     for mode, m in (("llama3_8b dense", serving["dense"]),
-                    ("llama3_8b paged", paged),
-                    ("opt_6.7b dense", opt_serving)):
+                    ("llama3_8b paged", serving["paged"]),
+                    ("opt_6.7b dense", opt_serving),
+                    ("starcoder_15.5b fused dense", sc_serving["dense"]),
+                    ("starcoder_15.5b fused paged", sc_serving["paged"])):
         log(f"serving {mode} on {smi}: {m['tok_s']:.1f} tok/s, TTFT p50 "
             f"{m['ttft_p50_s']:.3f} s p95 {m['ttft_p95_s']:.3f} s, "
             f"ticks {json.dumps(m['tick_stats'])}")

@@ -18,6 +18,7 @@ from tinychatengine_tpu_torch.ops import _build
 from tinychatengine_tpu_torch.ops import attention as att
 from tinychatengine_tpu_torch.ops import int4_matmul as im
 from tinychatengine_tpu_torch.ops.linear import quantized_linear
+from tinychatengine_tpu_torch.ops.ref import make_rope_cache
 
 pytestmark = pytest.mark.gpu
 
@@ -126,6 +127,97 @@ def test_paged_decode_kernel_matches_plain(cuda, d, p):
                                lengths, table,
                                torch.ones(pk.shape[:-1], device=cuda),
                                torch.ones(pk.shape[:-1], device=cuda))
+
+
+@pytest.mark.parametrize("hq,hkv", [(48, 1), (32, 2)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_decode_kernels_take_more_than_8_heads_per_kv_head(cuda, d, hq, hkv):
+    """MQA (StarCoder's G = 48: six blocks of 8 query heads per KV head)
+    and G = 16: dense and paged decode against their plain versions, and
+    bit-identical to each other on the same keys."""
+    rng = np.random.default_rng(hq + d)
+    b, p, max_len = 3, 64, 320
+    mp = max_len // p
+    k = _bf16(rng, (2, b, hkv, max_len, d), cuda)
+    v = _bf16(rng, (2, b, hkv, max_len, d), cuda)
+    q = _bf16(rng, (b, hq, d), cuda)
+    lengths = torch.tensor([1, 130, max_len], dtype=torch.int32, device=cuda)
+    table = torch.from_numpy(rng.permutation(b * mp).reshape(b, mp).astype(
+        np.int32) + 1).to(cuda)
+    pk = torch.zeros((2, b * mp + 1, hkv, p, d), dtype=torch.bfloat16,
+                     device=cuda)
+    pv = torch.zeros_like(pk)
+    for pool, c in ((pk, k), (pv, v)):
+        pool[:, table.reshape(-1).long()] = c.reshape(
+            2, b, hkv, mp, p, d).transpose(2, 3).reshape(2, b * mp, hkv, p, d)
+    _build.reset_launches()
+    dense = att.flash_decode(q, k, v, 1, lengths)
+    paged = att.flash_decode_paged(q, pk, pv, 1, lengths, table)
+    want = att.flash_decode_plain(q, k, v, 1, lengths).float()
+    assert attn_err(dense.float(), want, d)[1] <= 1.0
+    assert torch.equal(dense, paged)
+    assert _build.LAUNCHES["flash_decode"] == _build.LAUNCHES[
+        "flash_decode_paged"] == 1
+
+
+def _fused_operands(rng, m, k, n, group_size, scale_dtype, dev):
+    lins = [quantized_linear(rng.standard_normal((n, k)).astype(np.float32)
+                             * 0.02, group_size, scale_dtype)
+            for _ in range(2)]
+    cos, sin = make_rope_cache(128, 64, device="cpu")
+    pos = torch.from_numpy(rng.integers(0, 64, m))
+    return dict(
+        x=_bf16(rng, (m, k), dev) * 2.0 + 0.5,
+        packed=torch.stack([p.packed for p in lins]).to(dev),
+        scales=torch.stack([p.scales for p in lins]).to(dev),
+        norm_w=_bf16(rng, (2, k), dev) * 0.3 + 1.0,
+        norm_b=_bf16(rng, (2, k), dev) * 0.2,
+        bias=torch.from_numpy(rng.standard_normal((2, n)).astype(
+            np.float32) * 0.05).to(dev),
+        residual=_bf16(rng, (m, n), dev),
+        rope_cos=cos[pos].to(dev), rope_sin=sin[pos].to(dev))
+
+
+FUSED_VARIANTS = {  # the parts each model's call sites fold in
+    "plain": (),
+    "rmsnorm_rope": ("norm_w", "rope"),             # llama qkv
+    "layernorm_bias": ("norm_w", "norm_b", "bias"),  # StarCoder c_attn
+    "bias_residual": ("bias", "residual"),          # StarCoder fc_out
+}
+
+
+@pytest.mark.parametrize("variant", list(FUSED_VARIANTS))
+@pytest.mark.parametrize("m,group_size,scale_dtype",
+                         [(1, 128, "bf16"), (1, 32, "f32"), (8, 64, "bf16"),
+                          (11, 128, "f32")])
+def test_int4_matmul_fused_matches_plain(cuda, variant, m, group_size,
+                                         scale_dtype):
+    """K = 1024 (four superblocks, split over blocks at these M) and
+    N = 512; the roped q|k columns and the pass-through columns are held
+    apart, each to its own largest value (chip_smoke.py's check)."""
+    rng = np.random.default_rng(m + group_size)
+    k, n, qk = 1024, 512, 384
+    ops = _fused_operands(rng, m, k, n, group_size, scale_dtype, cuda)
+    kw = {}
+    for part in FUSED_VARIANTS[variant]:
+        if part == "rope":
+            kw.update(rope_cos=ops["rope_cos"], rope_sin=ops["rope_sin"],
+                      rope_qk_cols=qk, head_dim=128)
+        else:
+            kw[part] = ops[part]
+    _build.reset_launches()
+    got = im.int4_matmul_fused(ops["x"], ops["packed"], ops["scales"],
+                               group_size, layer_idx=1, **kw).float()
+    want = im.int4_matmul_fused_plain(ops["x"], ops["packed"], ops["scales"],
+                                      group_size, layer_idx=1, **kw).float()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["int4_matmul_fused"] == 1
+    assert got.shape == (m, n)
+    regions = ((slice(0, qk), slice(qk, n)) if "rope" in kw
+               else (slice(0, n),))
+    for cols in regions:
+        w = want[:, cols]
+        assert (got[:, cols] - w).abs().max() <= MAT_TOL * w.abs().max()
 
 
 @pytest.mark.parametrize("d", [64, 128])

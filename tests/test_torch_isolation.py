@@ -26,6 +26,7 @@ def test_every_port_module_imports_without_jax():
     assert {"tinychatengine_tpu_torch.runtime.paged",
             "tinychatengine_tpu_torch.runtime.serving",
             "tinychatengine_tpu_torch.models.opt",
+            "tinychatengine_tpu_torch.models.gptbigcode",
             "tinychatengine_tpu_torch.tools.calibrate_opt"} <= set(mods)
     code = ("import sys\n"
             "for name in ('jax', 'jaxlib', 'ml_dtypes', 'tinychatengine_tpu'):\n"
@@ -62,8 +63,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
     init_cache, init_paged_cache, SamplerState.init and
     RowParams.from_configs without device= raise when no CUDA device is
     present, and so do the OPT ones (opt.init_random_params, the OPT
-    checkpoint, quantize_opt_w8a8, Engine and ServingEngine for OPT); they
-    never fall back to the CPU."""
+    checkpoint, quantize_opt_w8a8, Engine and ServingEngine for OPT) and
+    the GPTBigCode ones (gptbigcode.init_random_params, Engine and
+    ServingEngine for GPTBigCode); they never fall back to the CPU."""
     from tinychatengine_tpu_torch.core.config import (GenerationConfig,
                                                       QuantConfig,
                                                       get_model_config)
@@ -108,3 +110,14 @@ def test_entry_points_default_to_the_card(monkeypatch):
         Engine(None, ocfg, w8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(None, ocfg, w8, forward_fn=opt.forward)
+
+    from tinychatengine_tpu_torch.models import gptbigcode
+    scfg = get_model_config("starcoder_15.5b")
+    w4 = QuantConfig(scheme="w4a16")
+    for fast in (False, True):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            gptbigcode.init_random_params(scfg, seed=0, qcfg=w4, fast=fast)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(None, scfg, w4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(None, scfg, w4, forward_fn=gptbigcode.forward)

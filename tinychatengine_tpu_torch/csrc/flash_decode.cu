@@ -11,14 +11,17 @@
 // unrounded values (the TPU kernel's _flash_update).
 //
 // Bound on the H100: bytes (the valid K/V prefix, 2 * length * D * 2 bytes
-// per (b, kv head)). One block per (b, kv head) whose rows are the G query
-// heads sharing that KV head (GQA), so each K/V tile is read once for all G
-// heads. The loop visits only the valid range (no fixed grid over S_max, so
-// the TPU path's ctx_cap is not needed). K/V tiles of 64 positions go
-// through shared memory with rows padded by one word, so the per-key score
-// dots read conflict-free. Only B * Hkv blocks run (8 for llama3_8b at
-// B = 1), which leaves most SMs idle at long contexts: splitting the key
-// range over blocks (flash-decoding) is later work.
+// per (b, kv head)). One block per (b, kv head, group of up to 8 of the G
+// query heads sharing that KV head), so each K/V tile is read once for up
+// to 8 heads: one block per KV head under GQA (G <= 8), ceil(G / 8) under
+// MQA (StarCoder's G = 48 takes 6, each reading the head's K/V itself).
+// The loop visits only the valid range (no fixed grid over S_max, so the
+// TPU path's ctx_cap is not needed). K/V tiles of 64 positions go through
+// shared memory with rows padded by one word, so the per-key score dots
+// read conflict-free. Only B * Hkv * ceil(G / 8) blocks run (8 for
+// llama3_8b and 6 for StarCoder at B = 1), which leaves most SMs idle at
+// long contexts: splitting the key range over blocks (flash-decoding) is
+// later work.
 
 #include "common.cuh"
 
@@ -42,16 +45,20 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(
   __shared__ float m_s[MAXG], l_s[MAXG], alpha_s[MAXG];
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int G = Hq / Hkv;
+  // block x = (kv head h, group block): up to MAXG of the G query heads
+  // that share KV head h (MQA's G = 48 takes six blocks per head)
+  const int G = Hq / Hkv, nblk = (G + MAXG - 1) / MAXG;
+  const int h = blockIdx.x / nblk, b = blockIdx.y;
+  const int g0 = (blockIdx.x % nblk) * MAXG, GB = min(MAXG, G - g0);
   const int length = lengths ? lengths[b] : len_scalar;
   const int lo = window > 0 ? max(length - window, 0) : 0;
   const size_t kv_off = (size_t)(b * Hkv + h) * S * D;
   const uint32_t* kb = reinterpret_cast<const uint32_t*>(k + kv_off);
   const uint32_t* vb = reinterpret_cast<const uint32_t*>(v + kv_off);
 
-  for (int i = tid; i < G * D; i += THREADS)
-    qs[i / D][i % D] = __bfloat162float(q[((size_t)b * Hq + h * G) * D + i]);
+  const size_t q0 = ((size_t)b * Hq + h * G + g0) * D;
+  for (int i = tid; i < GB * D; i += THREADS)
+    qs[i / D][i % D] = __bfloat162float(q[q0 + i]);
   if (tid < MAXG) {
     m_s[tid] = tce::NEG_INF;
     l_s[tid] = 0.f;
@@ -75,7 +82,7 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(
       vs[r][c] = vw;
     }
     __syncthreads();
-    for (int i = tid; i < G * T; i += THREADS) {
+    for (int i = tid; i < GB * T; i += THREADS) {
       const int g = i / T, t = i % T;
       float dot = 0.f;
 #pragma unroll 8
@@ -88,7 +95,7 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(
       ss[g][t] = t < nt ? dot * sm_scale : tce::NEG_INF;
     }
     __syncthreads();
-    for (int g = warp; g < G; g += THREADS / 32) {
+    for (int g = warp; g < GB; g += THREADS / 32) {
       const float s0 = ss[g][lane], s1 = ss[g][lane + 32];
       const float m_prev = m_s[g];
       const float m_new = fmaxf(m_prev, tce::warp_max(fmaxf(s0, s1)));
@@ -108,7 +115,7 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(
 #pragma unroll
     for (int r = 0; r < NACC; ++r) {
       const int i = tid + THREADS * r;
-      if (i < G * D) {
+      if (i < GB * D) {
         const int g = i / D, d = i % D;
         float a = acc[r] * alpha_s[g];
         for (int t = 0; t < nt; ++t) {
@@ -124,10 +131,10 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(
 #pragma unroll
   for (int r = 0; r < NACC; ++r) {
     const int i = tid + THREADS * r;
-    if (i < G * D) {
+    if (i < GB * D) {
       const int g = i / D;
       const float l = l_s[g];
-      out[((size_t)b * Hq + h * G) * D + i] =
+      out[q0 + i] =
           __float2bfloat16(l > 0.f ? acc[r] / l : 0.f);
     }
   }
@@ -137,12 +144,13 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(
 
 // q [B, Hq, D] bf16; k, v: one layer [B, Hkv, S, D] bf16; out [B, Hq, D]
 // bf16. lengths: device int32 [B], or null to use len_scalar for every b.
-// window <= 0: no sliding window. Needs D in {64, 128}, Hq / Hkv <= 8.
+// window <= 0: no sliding window. Needs D in {64, 128}, Hq % Hkv == 0.
 extern "C" int tce_flash_decode(const void* q, const void* k, const void* v,
                                 void* out, int B, int Hq, int Hkv, int S,
                                 int D, const void* lengths, int len_scalar,
                                 int window, float sm_scale, void* stream) {
-  const dim3 grid(Hkv, B);
+  const int G = Hq / Hkv;
+  const dim3 grid(Hkv * ((G + MAXG - 1) / MAXG), B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* kp = static_cast<const __nv_bfloat16*>(k);

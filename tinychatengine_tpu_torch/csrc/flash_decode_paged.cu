@@ -15,7 +15,7 @@
 //
 // Bound on the H100: bytes (the valid K/V rows, 2 * length * D * 2 bytes
 // per (b, kv head)). The design is csrc/flash_decode.cu's: one block per
-// (b, kv head), the G query heads of that KV head as its rows, 64-key
+// (b, kv head, group of up to 8 query heads of that KV head), 64-key
 // tiles through shared memory, visited from lo in steps of 64. Only the
 // address of each key row differs: before a tile is loaded, its 64 row
 // offsets are resolved through the page table into shared memory, so P
@@ -48,16 +48,20 @@ __global__ void __launch_bounds__(THREADS) flash_decode_paged_kernel(
   __shared__ size_t row_off[T];  // word offset of each tile row's K/V row
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int G = Hq / Hkv;
+  // block x = (kv head h, group block): up to MAXG of the G query heads
+  // that share KV head h (MQA's G = 48 takes six blocks per head)
+  const int G = Hq / Hkv, nblk = (G + MAXG - 1) / MAXG;
+  const int h = blockIdx.x / nblk, b = blockIdx.y;
+  const int g0 = (blockIdx.x % nblk) * MAXG, GB = min(MAXG, G - g0);
   const int length = lengths ? lengths[b] : len_scalar;
   const int lo = window > 0 ? max(length - window, 0) : 0;
   const int* tb = table + (size_t)b * max_pages;
   const uint32_t* kb = reinterpret_cast<const uint32_t*>(k);
   const uint32_t* vb = reinterpret_cast<const uint32_t*>(v);
 
-  for (int i = tid; i < G * D; i += THREADS)
-    qs[i / D][i % D] = __bfloat162float(q[((size_t)b * Hq + h * G) * D + i]);
+  const size_t q0 = ((size_t)b * Hq + h * G + g0) * D;
+  for (int i = tid; i < GB * D; i += THREADS)
+    qs[i / D][i % D] = __bfloat162float(q[q0 + i]);
   if (tid < MAXG) {
     m_s[tid] = tce::NEG_INF;
     l_s[tid] = 0.f;
@@ -87,7 +91,7 @@ __global__ void __launch_bounds__(THREADS) flash_decode_paged_kernel(
       vs[r][c] = vw;
     }
     __syncthreads();
-    for (int i = tid; i < G * T; i += THREADS) {
+    for (int i = tid; i < GB * T; i += THREADS) {
       const int g = i / T, t = i % T;
       float dot = 0.f;
 #pragma unroll 8
@@ -100,7 +104,7 @@ __global__ void __launch_bounds__(THREADS) flash_decode_paged_kernel(
       ss[g][t] = t < nt ? dot * sm_scale : tce::NEG_INF;
     }
     __syncthreads();
-    for (int g = warp; g < G; g += THREADS / 32) {
+    for (int g = warp; g < GB; g += THREADS / 32) {
       const float s0 = ss[g][lane], s1 = ss[g][lane + 32];
       const float m_prev = m_s[g];
       const float m_new = fmaxf(m_prev, tce::warp_max(fmaxf(s0, s1)));
@@ -120,7 +124,7 @@ __global__ void __launch_bounds__(THREADS) flash_decode_paged_kernel(
 #pragma unroll
     for (int r = 0; r < NACC; ++r) {
       const int i = tid + THREADS * r;
-      if (i < G * D) {
+      if (i < GB * D) {
         const int g = i / D, d = i % D;
         float a = acc[r] * alpha_s[g];
         for (int t = 0; t < nt; ++t) {
@@ -136,10 +140,10 @@ __global__ void __launch_bounds__(THREADS) flash_decode_paged_kernel(
 #pragma unroll
   for (int r = 0; r < NACC; ++r) {
     const int i = tid + THREADS * r;
-    if (i < G * D) {
+    if (i < GB * D) {
       const int g = i / D;
       const float l = l_s[g];
-      out[((size_t)b * Hq + h * G) * D + i] =
+      out[q0 + i] =
           __float2bfloat16(l > 0.f ? acc[r] / l : 0.f);
     }
   }
@@ -150,14 +154,15 @@ __global__ void __launch_bounds__(THREADS) flash_decode_paged_kernel(
 // q [B, Hq, D] bf16; k, v: one layer's pages [n_pages, Hkv, P, D] bf16;
 // table [B, max_pages] int32 page ids; out [B, Hq, D] bf16. lengths:
 // device int32 [B], or null to use len_scalar for every b. window <= 0: no
-// sliding window. Needs D in {64, 128}, Hq / Hkv <= 8.
+// sliding window. Needs D in {64, 128}, Hq % Hkv == 0.
 extern "C" int tce_flash_decode_paged(const void* q, const void* k,
                                       const void* v, void* out, int B, int Hq,
                                       int Hkv, int P, int D, const void* table,
                                       int max_pages, const void* lengths,
                                       int len_scalar, int window,
                                       float sm_scale, void* stream) {
-  const dim3 grid(Hkv, B);
+  const int G = Hq / Hkv;
+  const dim3 grid(Hkv * ((G + MAXG - 1) / MAXG), B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* kp = static_cast<const __nv_bfloat16*>(k);

@@ -9,7 +9,8 @@
   sample steps that synchronises once, at the end.
 
 Sampling runs on the device in both loops (generation/sampling.py). The
-family's forward comes from ``forward_for_family`` (llama, opt).
+family's forward comes from ``forward_for_family`` (llama, opt,
+gptbigcode).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from tinychatengine_tpu_torch.core.config import (GenerationConfig,
 from tinychatengine_tpu_torch.core.device import resolve_device
 from tinychatengine_tpu_torch.generation import kv_cache as kvc
 from tinychatengine_tpu_torch.generation import sampling
-from tinychatengine_tpu_torch.models import llama, opt
+from tinychatengine_tpu_torch.models import gptbigcode, llama, opt
 from tinychatengine_tpu_torch.utils.profiler import Profiler
 
 PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
@@ -38,6 +39,8 @@ def forward_for_family(family: str):
         return llama.forward
     if family == "opt":
         return opt.forward
+    if family == "gptbigcode":
+        return gptbigcode.forward
     raise ValueError(f"no generation driver for family {family!r}")
 
 
@@ -71,7 +74,8 @@ def _penalty_window(gcfg: GenerationConfig) -> int:
 
 
 class Engine:
-    """Single-model, single-device inference engine (llama and opt).
+    """Single-model, single-device inference engine (llama, opt and
+    gptbigcode).
 
     ``device`` defaults to the card and raises when there is none; CPU
     runs pass ``device="cpu"`` (params must already lie there).

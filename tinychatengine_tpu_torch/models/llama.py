@@ -1,7 +1,13 @@
 """LLaMA-family decoder, single device (counterpart of the JAX package's
-``models/llama.py``, with per-row positions and the paged decode of the
-serving path; no tensor, sequence or pipeline parallelism, no
-``input_embeds``, no fused-decode branch).
+``models/llama.py``, with per-row positions, the paged decode of the
+serving path and the fused decode branch; no tensor, sequence or pipeline
+parallelism, no ``input_embeds``).
+
+Fused decode (``ops.int4_matmul.FUSED_DECODE``, off by default): a
+one-token step of a W4A16 model whose linears pass JAX's shape gate
+(``fused_group_size``) folds the RMSNorms into the qkv, gate_up and
+lm_head matmuls, RoPE into the qkv matmul and the residual adds into wo and
+down (``int4_matmul_fused``), in the contiguous and the paged decode alike.
 
 Parameters are dataclasses of tensors with every layer leaf stacked [L, ...]
 as in the JAX package; the forward walks the layers in a Python loop and
@@ -20,6 +26,7 @@ import torch
 from tinychatengine_tpu_torch.core.config import ModelConfig, QuantConfig
 from tinychatengine_tpu_torch.core.device import resolve_device
 from tinychatengine_tpu_torch.generation import kv_cache as kvc
+from tinychatengine_tpu_torch.ops import int4_matmul as int4m
 from tinychatengine_tpu_torch.ops import ref
 from tinychatengine_tpu_torch.ops.attention import (flash_decode,
                                                    flash_decode_paged,
@@ -33,7 +40,7 @@ from tinychatengine_tpu_torch.ops.linear import (
     random_int4_linear,
     random_int4_linear_fast,
 )
-from tinychatengine_tpu_torch.quant.packing import numpy_to_torch
+from tinychatengine_tpu_torch.quant.packing import SUPERBLOCK, numpy_to_torch
 from tinychatengine_tpu_torch.runtime import paged as pg
 
 LMHEAD_PAD = 2048  # lm_head N padded to a multiple of this; the forward
@@ -42,6 +49,40 @@ LMHEAD_PAD = 2048  # lm_head N padded to a multiple of this; the forward
 
 def lmhead_padded(v: int) -> int:
     return ((v + LMHEAD_PAD - 1) // LMHEAD_PAD) * LMHEAD_PAD
+
+
+def fusable(p, group_size: Optional[int] = None,
+            bias_ok: bool = False) -> bool:
+    """JAX's ``_fusable``: a W4A16 ``Int4Linear`` (W4A8 is another kind
+    there) whose K is a whole number of superblocks with a multiple of 8
+    scale rows at ``group_size`` (default its own) and whose N is a
+    multiple of 128; without a bias unless ``bias_ok`` (GPTBigCode's
+    gate)."""
+    if not isinstance(p, Int4Linear) or isinstance(p, Int4A8Linear) \
+            or (p.bias is not None and not bias_ok):
+        return False
+    group_size = group_size or p.group_size
+    k = 2 * p.packed.shape[-2]
+    return (k % SUPERBLOCK == 0 and (k // group_size) % 8 == 0
+            and p.packed.shape[-1] % 128 == 0)
+
+
+def fused_group_size(lyr: "LlamaLayerParams", cfg: ModelConfig,
+                     s: int) -> int:
+    """The group size of the fused decode when this step takes it, else 0.
+    A static shape gate, as in JAX: the switch is on, S == 1, head_dim in
+    (64, 128, 256) (the RoPE epilogue's tiling there), and every layer
+    linear is fusable at the qkv group size with its K unpadded (the norm
+    runs over the whole row)."""
+    if not (int4m.FUSED_DECODE and s == 1 and cfg.head_dim in (64, 128, 256)
+            and fusable(lyr.wqkv)):
+        return 0
+    gs = lyr.wqkv.group_size
+    e, f = cfg.embed_dim, cfg.hidden_dim
+    lins = ((lyr.wqkv, e), (lyr.wo, e), (lyr.wgate_up, e), (lyr.down, f))
+    ok = all(fusable(p, gs) and 2 * p.packed.shape[-2] == k_in
+             for p, k_in in lins)
+    return gs if ok else 0
 
 
 @dataclasses.dataclass
@@ -118,15 +159,26 @@ def forward(params: LlamaParams, cfg: ModelConfig, input_ids: torch.Tensor,
     d = cfg.head_dim
     ratio = cfg.num_heads // cfg.num_kv_heads
     win = cfg.sliding_window
+    eps = cfg.rms_norm_eps
+    gs = fused_group_size(lyr, cfg, s)
+    fused = int4m.int4_matmul_fused
     for li in range(cfg.num_layers):
-        h = ref.rms_norm_ref(x, lyr.input_norm[li], cfg.rms_norm_eps)
-        qkv = apply_linear(lyr.wqkv, h, layer_idx=li)
+        if gs:  # RMSNorm in the qkv matmul's prologue, RoPE in its epilogue
+            hkv = lyr.wqkv.packed.shape[-1] // (d * (ratio + 2))
+            qkv = fused(x, lyr.wqkv.packed, lyr.wqkv.scales, gs, layer_idx=li,
+                        norm_w=lyr.input_norm, norm_eps=eps,
+                        rope_cos=cos[:, 0], rope_sin=sin[:, 0],
+                        rope_qk_cols=(ratio + 1) * hkv * d, head_dim=d)
+        else:
+            h = ref.rms_norm_ref(x, lyr.input_norm[li], eps)
+            qkv = apply_linear(lyr.wqkv, h, layer_idx=li)
         hkv = qkv.shape[-1] // (d * (ratio + 2))
         hq = ratio * hkv
         q = qkv[..., :hq * d].reshape(b, s, hq, d)
         k = qkv[..., hq * d:(hq + hkv) * d].reshape(b, s, hkv, d)
         v = qkv[..., (hq + hkv) * d:].reshape(b, s, hkv, d)
-        q, k = ref.apply_rotary(q, k, cos, sin)
+        if not gs:
+            q, k = ref.apply_rotary(q, k, cos, sin)
         if page_table is not None:
             pg.paged_update_layer(cache, k, v, li, start, page_table)
             attn = flash_decode_paged(q[:, 0], cache.k, cache.v, li, kv_len,
@@ -142,13 +194,23 @@ def forward(params: LlamaParams, cfg: ModelConfig, input_ids: torch.Tensor,
             else:
                 attn = flash_prefill(q, cache.k, cache.v, li, start, kv_len,
                                      cache.k_scale, cache.v_scale, window=win)
-        x = x + apply_linear(lyr.wo, attn.to(x.dtype), layer_idx=li)
-        h2 = ref.rms_norm_ref(x, lyr.post_norm[li], cfg.rms_norm_eps)
-        gu = apply_linear(lyr.wgate_up, h2, layer_idx=li)
+        if gs:  # residual in wo's epilogue, the post-norm in gate_up's prologue
+            x = fused(attn.to(x.dtype), lyr.wo.packed, lyr.wo.scales, gs,
+                      layer_idx=li, residual=x)
+            gu = fused(x, lyr.wgate_up.packed, lyr.wgate_up.scales, gs,
+                       layer_idx=li, norm_w=lyr.post_norm, norm_eps=eps)
+        else:
+            x = x + apply_linear(lyr.wo, attn.to(x.dtype), layer_idx=li)
+            h2 = ref.rms_norm_ref(x, lyr.post_norm[li], eps)
+            gu = apply_linear(lyr.wgate_up, h2, layer_idx=li)
         f = gu.shape[-1] // 2
         act = (ref.silu_ref(gu[..., :f].float())
                * gu[..., f:].float()).to(x.dtype)
-        x = x + apply_linear(lyr.down, act, layer_idx=li)
+        if gs:
+            x = fused(act, lyr.down.packed, lyr.down.scales, gs, layer_idx=li,
+                      residual=x)
+        else:
+            x = x + apply_linear(lyr.down, act, layer_idx=li)
 
     if true_len is None or np.ndim(true_len) == 0:
         n_new = s if true_len is None else int(true_len)
@@ -162,8 +224,14 @@ def forward(params: LlamaParams, cfg: ModelConfig, input_ids: torch.Tensor,
         if not full_logits:
             idx = (lens - 1)[:, None, None].expand(b, 1, x.shape[-1])
             x = torch.gather(x, 1, idx)
-    x = ref.rms_norm_ref(x, params.final_norm, cfg.rms_norm_eps)
-    logits = apply_linear(params.lm_head, x).float()[..., :cfg.vocab_size]
+    head = params.lm_head
+    if gs and fusable(head):  # the final norm in the head's prologue
+        logits = fused(x, head.packed, head.scales, head.group_size,
+                       norm_w=params.final_norm, norm_eps=eps)
+    else:
+        x = ref.rms_norm_ref(x, params.final_norm, eps)
+        logits = apply_linear(head, x)
+    logits = logits.float()[..., :cfg.vocab_size]
     return (logits if full_logits else logits[:, 0]), cache
 
 

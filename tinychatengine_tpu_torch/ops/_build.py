@@ -21,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tce_torch"
 KERNELS = ("int4_matmul", "int4_matmul_a8", "flash_decode", "flash_prefill",
-           "flash_decode_paged", "int8_decode")
+           "flash_decode_paged", "int8_decode", "int4_matmul_fused")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

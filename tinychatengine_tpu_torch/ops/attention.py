@@ -152,9 +152,9 @@ def flash_decode(q, cache_k, cache_v, layer_idx, lengths, k_scale=None,
     b, hq, d = q.shape
     _check_cache(q, cache_k, cache_v, k_scale, d)
     _, bc, hkv, smax, dc = cache_k.shape
-    if bc != b or dc != d or hq % hkv or hq // hkv > 8:
+    if bc != b or dc != d or hq % hkv:
         raise ValueError(f"q {tuple(q.shape)} does not fit cache "
-                         f"{tuple(cache_k.shape)} (kernel takes Hq/Hkv <= 8)")
+                         f"{tuple(cache_k.shape)} (Hq a multiple of Hkv)")
     len_ptr, len_scalar = _lengths_arg(lengths, b, q.device, smax)
     qb = q.to(torch.bfloat16).contiguous()
     out = torch.empty_like(qb)
@@ -258,9 +258,9 @@ def flash_decode_paged(q, pages_k, pages_v, layer_idx, lengths, page_table,
     b, hq, d = q.shape
     _check_cache(q, pages_k, pages_v, k_scale, d)
     _, _, hkv, p, dc = pages_k.shape
-    if dc != d or hq % hkv or hq // hkv > 8:
+    if dc != d or hq % hkv:
         raise ValueError(f"q {tuple(q.shape)} does not fit pages "
-                         f"{tuple(pages_k.shape)} (kernel takes Hq/Hkv <= 8)")
+                         f"{tuple(pages_k.shape)} (Hq a multiple of Hkv)")
     if page_table.dtype != torch.int32 or page_table.dim() != 2 \
             or page_table.shape[0] != b or page_table.device != q.device \
             or not page_table.is_contiguous():

@@ -171,11 +171,16 @@ def _scale_dtype(name: str):
 def random_int4_linear_fast(gen: torch.Generator, k: int, n: int,
                             group_size: int = 128, std: float = 0.02,
                             scale_dtype: str = "f32", device=None,
-                            n_layers: Optional[int] = None) -> Int4Linear:
+                            n_layers: Optional[int] = None,
+                            centered: bool = False) -> Int4Linear:
     """Random packed bytes and scales made on ``device`` from ``gen`` (a
     generator on that device): only shapes and layout matter (benchmarks).
     With ``n_layers`` the leaves are stacked [L, ...], filled layer by layer
-    so no temporary of the whole stack is made."""
+    so no temporary of the whole stack is made. ``centered``: each code
+    uniform over 1..15, symmetric about the zero point as a quantized
+    zero-mean weight's codes are, instead of uniform bytes, whose codes
+    average 7.5 and so put a common -0.5 * d * sum(x) into every output
+    (GPTBigCode's init needs it; the llama init keeps uniform bytes)."""
     kp = padded_ic(k, group_size)
     lead = () if n_layers is None else (n_layers,)
     packed = torch.empty(lead + (kp // 2, n), dtype=torch.uint8, device=device)
@@ -183,8 +188,14 @@ def random_int4_linear_fast(gen: torch.Generator, k: int, n: int,
                          dtype=_scale_dtype(scale_dtype), device=device)
     for p, s in zip(packed.view(-1, kp // 2, n),
                     scales.view(-1, kp // group_size, n)):
-        p.copy_(torch.randint(0, 256, p.shape, dtype=torch.uint8,
-                              device=device, generator=gen))
+        if centered:
+            lo, hi = (torch.randint(1, 16, p.shape, dtype=torch.uint8,
+                                    device=device, generator=gen)
+                      for _ in range(2))
+            p.copy_(lo | (hi << 4))
+        else:
+            p.copy_(torch.randint(0, 256, p.shape, dtype=torch.uint8,
+                                  device=device, generator=gen))
         u = torch.rand(s.shape, dtype=torch.float32, device=device,
                        generator=gen)
         s.copy_((u + 0.5) * (std / 4.0))

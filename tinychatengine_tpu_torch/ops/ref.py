@@ -109,3 +109,8 @@ def make_rope_cache(head_dim: int, max_pos: int, theta: float = 10000.0,
 
 def silu_ref(x: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.silu(x)
+
+
+def gelu_ref(x: torch.Tensor) -> torch.Tensor:
+    """tanh-approximated GELU (GPTBigCode's MLP), in x's dtype."""
+    return torch.nn.functional.gelu(x, approximate="tanh")

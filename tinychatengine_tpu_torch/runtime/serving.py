@@ -26,9 +26,10 @@ ticks were grouped into bursts. An engine-level logit_bias table larger
 than ``RowParams.MAX_BIAS`` keeps the engine-global sampler instead.
 
 The model runs through ``forward_fn`` (``llama.forward`` by default, as in
-the JAX package; ``opt.forward`` for OPT). OPT W8A8 serves from a dense
-slot cache of raw int8 K/V; it has no paged path (``paged=True`` raises
-``NotImplementedError``, as in JAX).
+the JAX package; ``opt.forward`` for OPT, ``gptbigcode.forward`` for
+StarCoder, dense or paged, with single admissions). OPT W8A8 serves from a
+dense slot cache of raw int8 K/V; it has no paged path (``paged=True``
+raises ``NotImplementedError``, as in JAX).
 
 Not ported (they raise ``NotImplementedError``): speculative ticks, the
 prefix cache, sequence-parallel admission, ``input_embeds`` and
@@ -90,7 +91,8 @@ class _Slot:
 
 
 class ServingEngine:
-    """Continuous-batching server for one model replica (llama and opt).
+    """Continuous-batching server for one model replica (llama, opt and
+    gptbigcode).
 
     ``device`` defaults to the card and raises when there is none; CPU runs
     pass ``device="cpu"`` (params must already lie there).
@@ -115,9 +117,9 @@ class ServingEngine:
             raise NotImplementedError(
                 "speculative ticks, the prefix cache and sequence-parallel "
                 "admission are not ported")
-        if cfg.family not in ("llama", "opt"):
-            raise ValueError(f"ServingEngine serves the llama and opt "
-                             f"families, not {cfg.family!r}")
+        if cfg.family not in ("llama", "opt", "gptbigcode"):
+            raise ValueError(f"ServingEngine serves the llama, opt and "
+                             f"gptbigcode families, not {cfg.family!r}")
         if cfg.family != "llama" and forward_fn is llama.forward:
             raise ValueError(f"pass the {cfg.family} forward as forward_fn")
         self.device = resolve_device(device)

@@ -1,5 +1,5 @@
-"""Load a ``tinychatengine_tpu.v1`` llama or opt checkpoint into the port
-(counterpart of the JAX package's ``tools/checkpoint.py`` loader).
+"""Load a ``tinychatengine_tpu.v1`` llama, opt or gptbigcode checkpoint into
+the port (counterpart of the JAX package's ``tools/checkpoint.py`` loader).
 
 The format is ``meta.json`` (model and quant config, a ``dtypes`` map) plus
 ``shard_*.npz`` files of the flattened parameter tree keyed by tree path
@@ -18,7 +18,7 @@ import numpy as np
 
 from tinychatengine_tpu_torch.core.config import (ModelConfig, QuantConfig,
                                                   get_model_config)
-from tinychatengine_tpu_torch.models import llama, opt
+from tinychatengine_tpu_torch.models import gptbigcode, llama, opt
 from tinychatengine_tpu_torch.quant.packing import from_bf16_bits
 
 
@@ -44,16 +44,17 @@ def read_flat(path: str) -> tuple[dict, dict]:
 
 def load_checkpoint(path: str, cfg: ModelConfig | None = None,
                     device=None):
-    """Returns (``LlamaParams`` or ``OPTParams`` on ``device``, qcfg);
-    ``device`` defaults to the card and raises when there is none."""
+    """Returns (``LlamaParams``, ``OPTParams`` or ``GPTBigCodeParams`` on
+    ``device``, qcfg); ``device`` defaults to the card and raises when there
+    is none."""
     meta, flat = read_flat(path)
     cfg = cfg or get_model_config(meta["model"])
     family = meta.get("family") or cfg.family
-    if family not in ("llama", "opt"):
-        raise NotImplementedError(
-            f"the port loads llama and opt checkpoints, not {family!r}")
+    models = {"llama": llama, "opt": opt, "gptbigcode": gptbigcode}
+    if family not in models:
+        raise NotImplementedError(f"the port loads {sorted(models)} "
+                                  f"checkpoints, not {family!r}")
     q = meta["quant"]
     qcfg = QuantConfig(scheme=q["scheme"], group_size=q["group_size"],
                        kv_cache_dtype=q.get("kv_cache_dtype", "bf16"))
-    model = llama if family == "llama" else opt
-    return model.params_from_numpy(flat, cfg, qcfg, device), qcfg
+    return models[family].params_from_numpy(flat, cfg, qcfg, device), qcfg

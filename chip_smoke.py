@@ -16,39 +16,59 @@ Phases (any failure ends the run with a non-zero exit code):
    opt_6.7b's decode and serving shapes and at D = 64, held in units of
    pv_alpha (``int8_err``); ``int4_matmul_fused`` at the fused decode's
    llama3_8b and StarCoder shapes (``FUSED_CASES``; the roped and the
-   pass-through columns held apart); then opt_6.7b's W8A8 linears at
-   M = 1, timed beside their bound, their int32 products checked against
-   the CPU's;
+   pass-through columns held apart); the int8-KV kernels
+   (``flash_decode_int8``, ``flash_prefill_int8``,
+   ``flash_decode_paged_int8``) at llama3_8b's decode (320 and 4095 keys),
+   MQA, D = 64 with a window, B = 8 ragged over 1..4607 keys dense and
+   paged (bit-identical), a 2048-token prefill and a 512-token tail at
+   start 2048; then opt_6.7b's W8A8 linears at M = 1, timed beside their
+   bound, their int32 products checked against the CPU's;
 4. main path: llama3_8b W4A8 at full width (all 32 layers, random packed
    weights from a seed) through ``Engine.generate_device`` (64-token
    prompt, 256 greedy tokens with repeat_penalty 1.1 over the last 64) and
    a 2048-token prefill; each of the path's four kernels must launch; a
    2-layer cut of the same model must agree with the plain path on the CPU;
 4b. llama3_8b W4A16 fused decode: phase 4's packed weights re-wrapped as
-   W4A16 (no new memory) through phase 4's run, unfused and then with
-   ``FUSED_DECODE`` on (``fused_ab``): one decode step launches
+   W4A16 (no new memory) through phase 4's run with 64 decode tokens
+   (``SHORT_DECODE``), unfused and then with ``FUSED_DECODE`` on
+   (``fused_ab``): one decode step launches
    ``int4_matmul`` (unfused) or ``int4_matmul_fused`` (fused) 4 * 32 + 1
    times and ``flash_decode`` 32 times, nothing else; the first decode
    step's logits of the two agree within ``FUSED_STEP_TOL``;
+4c. llama3_8b W4A8 with the int8 KV cache (``kv_cache_dtype="int8"``) on
+   phase 4's weights through phase 4's run: ``flash_decode_int8`` exactly
+   32 times per decode step, ``flash_prefill_int8`` once per layer per
+   prefill, no bf16 attention kernel and no plain version; the 2-layer cut
+   against the CPU; the first decode step's logits against bf16 KV's;
+4d. long-context serving on the same weights: bench_serving ``--long``'s
+   mix (prompts of 3072-3967 tokens, ``max_len`` 4608) cut to 8 requests x
+   64 tokens, bf16 KV dense, int8 KV dense and int8 KV paged: every
+   request ends at its length, only the storage's attention kernels run;
+4e. the prefix cache on the int8-KV server: 8 greedy requests sharing a
+   2048-token header with 256-1024-token tails, dense with the cache, dense
+   without, paged with: >= 7 hits, the same tokens in all three;
 5. serving: the same model at full width through ``ServingEngine``
    (scripts/bench_serving.py's load: 8 slots, 24 requests of 32-320
-   prompt tokens, 128 new tokens each, three sampling configs), once with
+   prompt tokens, 64 new tokens each, three sampling configs), once with
    the dense slot cache and once paged; every request must finish at its
    length, ``flash_decode_paged`` must launch in the paged run only, and
    no plain version of a ported kernel may run on the card;
 6. real weights: ``assets/bytellama_5m`` greedy goldens and perplexity
-   budgets (fp < 3.5, w4a16 <= +3 %, w4a8 <= +4 %) on the card, w4a8 also
-   over 64-token windows, where it runs the W4A8 kernel; then the goldens
-   through ``ServingEngine`` (2 slots, dense and paged, fp and w4a8): fp
-   keeps the card's golden threshold, w4a8 paged equals w4a8 dense;
+   budgets (fp < 3.5, w4a16 <= +3 %, w4a8 <= +4 %, w4a16 and w4a8 with the
+   int8 KV cache <= +4 %, through ``flash_prefill_int8`` at D = 64) on the
+   card, w4a8 also over 64-token windows, where it runs the W4A8 kernel;
+   then the goldens through ``ServingEngine`` (2 slots, dense and paged,
+   fp and w4a8): fp keeps the card's golden threshold, w4a8 paged equals
+   w4a8 dense;
 6c. bytellama_5m requantized to W4A16 at group 32 (every linear passes
    the fused gate there): 32 greedy tokens of each golden prompt through
    ``Engine``, fused decode against unfused, >= 16 must agree;
 7. OPT main path: opt_6.7b W8A8 at full width (32 layers, random int8
    weights from a seed) through ``Engine.generate_device`` with phase 4's
-   settings, TTFT and a 2048-token prefill; ``int8_decode`` must launch
-   once per layer per decode step and nothing else, no plain version may
-   run; a 2-layer cut must agree with the plain path on the CPU;
+   settings at 128 decode tokens, TTFT and a 2048-token prefill;
+   ``int8_decode`` must launch once per layer per decode step and nothing
+   else, no plain version may run; a 2-layer cut must agree with the plain
+   path on the CPU;
 8. OPT serving: the same model through ``ServingEngine`` with the dense
    int8 slot cache (8 slots, 16 requests of bench_serving's mix, 64 new
    tokens each): every request ends at its length, ``int8_decode``
@@ -58,7 +78,7 @@ Phases (any failure ends the run with a non-zero exit code):
    the card against the CPU and ServingEngine against Engine;
 10. StarCoder main path: starcoder_15.5b W4A16 at full width and depth
    (40 layers, random int4 weights made on the card from a seed, one KV
-   head) through phase 4's run, unfused and then fused (``fused_ab``): 161
+   head) through phase 4b's run, unfused and then fused (``fused_ab``): 161
    fused launches per decode step when fused, none unfused, the first
    step's logits agreeing within ``FUSED_STEP_TOL``, each mode's 2-layer
    cut agreeing with the CPU's plain path;
@@ -104,10 +124,19 @@ FUSED_STEP_TOL = 0.1
 # the main path's kernels (Engine, phase 4); serving (phase 5) adds
 # flash_decode_paged, OPT W8A8 (phases 7-9) int8_decode; a W4A16 Engine run
 # (phases 4b, 10) launches W4A16_KERNELS, and int4_matmul_fused with the
-# fused decode on (its prefill stays unfused)
+# fused decode on (its prefill stays unfused); the int8 KV cache (phases
+# 4c-4e, 6) swaps each attention kernel for its int8 variant (INT8_KV)
 ENGINE_KERNELS = ("int4_matmul", "int4_matmul_a8", "flash_decode",
                   "flash_prefill")
 W4A16_KERNELS = ("int4_matmul", "flash_decode", "flash_prefill")
+# decode tokens of the runs cut to keep the whole smoke run near 700 s:
+# phases 4b and 10 (W4A16 unfused and fused) decode 64 where phase 4 decodes
+# 256; phase 5 serves 64 new tokens per request (bench_serving: 128) and
+# phase 7 decodes 128
+SHORT_DECODE = 64
+INT8_KV = {"flash_decode": "flash_decode_int8",
+           "flash_prefill": "flash_prefill_int8",
+           "flash_decode_paged": "flash_decode_paged_int8"}
 
 
 def log(*a):
@@ -323,6 +352,7 @@ def check_kernels(gen):
     check_serving_kernels(gen, add)
     check_int8_kernels(gen, add)
     check_fused_kernels(gen, add)
+    check_int8_kv_kernels(gen, add)
     return cases
 
 
@@ -500,6 +530,182 @@ def check_int8_kernels(gen, add):
             4.0 * h * keys * d, INT8_OP_S, differing_pairs=pairs)
         del ck, cv, kb, vb
         torch.cuda.empty_cache()
+
+
+def int8_kv(shape, gen, dev="cuda"):
+    """Random int8 codes [..., D] and their positive f32 per-position
+    scales [...] (kv_cache_dtype "int8"), as a K or V cache."""
+    codes = torch.randint(-127, 128, shape, dtype=torch.int8, device=dev,
+                          generator=gen)
+    scales = torch.rand(shape[:-1], device=dev, generator=gen) * 0.03 + 0.005
+    return codes, scales
+
+
+def dequant(codes, scales):
+    """bf16 copies of int8 codes times their scales (the library's input)."""
+    return (codes.float() * scales[..., None]).to(torch.bfloat16)
+
+
+# the int8-KV kernels' cases: (kernel, case, L, B, Hq, Hkv, D, S_max, lengths,
+# window); decode lengths per row, prefill (S, start) in place of lengths
+INT8_KV_DECODE = (
+    ("B=1 Hq=32 Hkv=8 D=128 length=320", 32, 32, 8, 128, 4096, (320,), None),
+    ("B=1 Hq=32 Hkv=8 D=128 length=4095", 32, 32, 8, 128, 4096, (4095,),
+     None),
+    ("B=1 Hq=48 Hkv=1 D=128 length=2047", 64, 48, 1, 128, 2048, (2047,),
+     None),
+    ("B=1 Hq=32 Hkv=8 D=64 length=2047 window=256", 32, 32, 8, 64, 2048,
+     (2047,), 256))
+INT8_KV_LENGTHS = (1, 37, 128, 129, 700, 1500, 3000, 4607)
+
+
+def check_int8_kv_kernels(gen, add):
+    """The int8-KV kernels (``flash_decode_int8``, ``flash_prefill_int8``,
+    ``flash_decode_paged_int8``) against their plain versions on the card,
+    held to ``attn_err``, over layer stacks the timing loop cycles
+    through: decode at llama3_8b's GQA (320 and 4095 keys), MQA and D = 64
+    with a window; B = 8 ragged over 1..4607 keys dense and paged (P = 128,
+    a shuffled table), which must be bit-identical; prefill S = 2048 at
+    start 0 and S = 512 at start 2048 (a prefix hit's tail). Bound by
+    bytes: codes and scales, 2 * Hkv * length * (D + 4) per row, plus q
+    and the output. Library: SDPA on bf16 copies dequantized beforehand."""
+    from tinychatengine_tpu_torch.ops import attention as att
+    dev = torch.device("cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def kv_bytes(hkv, d, keys):
+        return 2 * hkv * keys * (d + 4)
+
+    for case, L, hq, hkv, d, smax, lengths, window in INT8_KV_DECODE:
+        k, ks = int8_kv((L, 1, hkv, smax, d), gen)
+        v, vs = int8_kv((L, 1, hkv, smax, d), gen)
+        q = torch.randn((1, hq, d), device=dev, generator=gen).to(torch.bfloat16)
+        n = lengths[0]
+        err = share = 0.0
+        for li in (0, L - 1):
+            e, sh = attn_err(att.flash_decode(q, k, v, li, n, ks, vs,
+                                              window=window),
+                             att.flash_decode_plain(q, k, v, li, n, ks, vs,
+                                                    window=window), d)
+            err, share = max(err, e), max(share, sh)
+        state = {"li": 0}
+
+        def run(q=q, k=k, v=v, ks=ks, vs=vs, n=n, window=window, L=L):
+            state["li"] = (state["li"] + 1) % L
+            att.flash_decode(q, k, v, state["li"], n, ks, vs, window=window)
+        lo = max(n - window, 0) if window else 0
+        kd, vd = dequant(k[0, :, :, lo:n], ks[0, :, :, lo:n]), dequant(
+            v[0, :, :, lo:n], vs[0, :, :, lo:n])
+        plain_ms = time_ms(lambda: att.flash_decode_plain(
+            q, k, v, 0, n, ks, vs, window=window), 10)
+        add("flash_decode_int8", case, err, share, ATTN_TOL_TEXT, run, 64,
+            plain_ms, lambda: sdpa(q[:, :, None], kd, vd, enable_gqa=True),
+            2 * 1 * hq * d * 2 + kv_bytes(hkv, d, n - lo),
+            4.0 * hq * (n - lo) * d, BF16_FLOP_S)
+        del k, v, ks, vs, kd, vd
+        torch.cuda.empty_cache()
+
+    # B = 8 ragged, dense and paged over the same codes and scales
+    L, hq, hkv, d, p, smax = 32, 32, 8, 128, 128, 4608
+    b, mp = len(INT8_KV_LENGTHS), smax // p
+    k, ks = int8_kv((L, b, hkv, smax, d), gen)
+    v, vs = int8_kv((L, b, hkv, smax, d), gen)
+    table = (torch.randperm(b * mp, device=dev, generator=gen) + 1
+             ).to(torch.int32).reshape(b, mp)
+
+    def paged(c):
+        pool = torch.zeros((L, b * mp + 1, hkv, p, *c.shape[4:]),
+                           dtype=c.dtype, device=dev)
+        pool[:, table.reshape(-1).long()] = c.reshape(
+            L, b, hkv, mp, p, *c.shape[4:]).transpose(2, 3).reshape(
+                L, b * mp, hkv, p, *c.shape[4:])
+        return pool
+    pk, pv, pks, pvs = paged(k), paged(v), paged(ks), paged(vs)
+    lengths = torch.tensor(INT8_KV_LENGTHS, dtype=torch.int32, device=dev)
+    q = torch.randn((b, hq, d), device=dev, generator=gen).to(torch.bfloat16)
+    mask = (torch.arange(smax, device=dev)[None] < lengths[:, None]
+            )[:, None, None, :]
+    kd, vd = dequant(k[0], ks[0]), dequant(v[0], vs[0])
+    keys = sum(INT8_KV_LENGTHS)
+    tag = f"B={b} Hq={hq} Hkv={hkv} D={d}"
+    for kernel in ("flash_decode_int8", "flash_decode_paged_int8"):
+        if kernel == "flash_decode_int8":
+            def call(li):
+                return att.flash_decode(q, k, v, li, lengths, ks, vs)
+
+            def plain(li):
+                return att.flash_decode_plain(q, k, v, li, lengths, ks, vs)
+            case, extra = f"{tag} ragged 1..4607", 0
+        else:
+            def call(li):
+                return att.flash_decode_paged(q, pk, pv, li, lengths, table,
+                                              pks, pvs)
+
+            def plain(li):
+                return att.flash_decode_paged_plain(q, pk, pv, li, lengths,
+                                                    table, pks, pvs)
+            case = f"{tag} P={p} ragged 1..4607"
+            extra = 4 * sum(-(-n // p) for n in INT8_KV_LENGTHS)
+        err = share = 0.0
+        for li in (0, L - 1):
+            e, sh = attn_err(call(li), plain(li), d)
+            err, share = max(err, e), max(share, sh)
+        state = {"li": 0}
+
+        def run(call=call):
+            state["li"] = (state["li"] + 1) % L
+            call(state["li"])
+        plain_ms = time_ms(lambda plain=plain: plain(0), 5)
+        add(kernel, case, err, share, ATTN_TOL_TEXT, run, 32, plain_ms,
+            lambda: sdpa(q[:, :, None], kd, vd, attn_mask=mask,
+                         enable_gqa=True),
+            2 * b * hq * d * 2 + 4 * b + kv_bytes(hkv, d, keys) + extra,
+            4.0 * hq * keys * d, BF16_FLOP_S)
+    same = all(torch.equal(att.flash_decode(q, k, v, li, lengths, ks, vs),
+                           att.flash_decode_paged(q, pk, pv, li, lengths,
+                                                  table, pks, pvs))
+               for li in (0, L - 1))
+    log(f"int8 paged == dense decode, bit for bit ({tag} ragged): {same}")
+    if not same:
+        raise SystemExit("int8 paged and dense decode of the same keys differ")
+    del k, v, ks, vs, pk, pv, pks, pvs, kd, vd
+    torch.cuda.empty_cache()
+
+    # prefill: a 2048-token prompt, and a 512-token tail at start 2048
+    L, hq, hkv, d, smax = 32, 32, 8, 128, 4096
+    k, ks = int8_kv((L, 1, hkv, smax, d), gen)
+    v, vs = int8_kv((L, 1, hkv, smax, d), gen)
+    for s, start in ((2048, 0), (512, 2048)):
+        length = start + s
+        q = torch.randn((1, s, hq, d), device=dev, generator=gen).to(torch.bfloat16)
+        err = share = 0.0
+        for li in (0, L - 1):
+            y = att.flash_prefill(q, k, v, li, start, length, ks, vs)
+            assert not torch.isnan(y).any(), "NaN in flash_prefill_int8 output"
+            e, sh = attn_err(y, att.flash_prefill_plain(
+                q, k, v, li, start, length, ks, vs), d)
+            err, share = max(err, e), max(share, sh)
+        state = {"li": 0}
+
+        def run(q=q, start=start, length=length):
+            state["li"] = (state["li"] + 1) % L
+            att.flash_prefill(q, k, v, state["li"], start, length, ks, vs)
+        plain_ms = time_ms(lambda: att.flash_prefill_plain(
+            q, k, v, 0, start, length, ks, vs), 3)
+        kd, vd = (dequant(c[0, :, :, :length], sc[0, :, :, :length])
+                  for c, sc in ((k, ks), (v, vs)))
+        qt = q.transpose(1, 2)
+        causal = (torch.arange(length, device=dev)[None, :]
+                  <= start + torch.arange(s, device=dev)[:, None])
+        pairs = sum(min(start + r + 1, length) for r in range(s))
+        add("flash_prefill_int8", f"B=1 S={s} start={start} Hq={hq} "
+            f"Hkv={hkv} D={d}", err, share, ATTN_TOL_TEXT, run, 5, plain_ms,
+            lambda: sdpa(qt, kd, vd, attn_mask=causal, enable_gqa=True),
+            2 * s * hq * d * 2 + kv_bytes(hkv, d, length),
+            4.0 * hq * pairs * d, BF16_FLOP_S)
+        del kd, vd
+    del k, v, ks, vs
+    torch.cuda.empty_cache()
 
 
 # int4_matmul_fused at the decode shapes of the fused paths: (model, linear,
@@ -765,7 +971,9 @@ def _engine_run(cfg, dev, long_len, model_params, n_predict):
     fused = im.FUSED_DECODE
     forward = forward_for_family(cfg.family)
     params, qcfg = model_params or random_model(cfg, dev)
-    label = f"{cfg.name} {qcfg.scheme}" + (" fused" if fused else "")
+    int8_kv = qcfg.kv_cache_dtype == "int8" and cfg.family != "opt"
+    label = (f"{cfg.name} {qcfg.scheme}" + (" fused" if fused else "")
+             + (" int8 KV" if int8_kv else ""))
     eng = Engine(params, cfg, qcfg, batch=1, max_len=long_len, device=dev)
     rng = np.random.default_rng(0)
     prompt = rng.integers(0, cfg.vocab_size, (1, 64))
@@ -831,6 +1039,18 @@ def _engine_run(cfg, dev, long_len, model_params, n_predict):
             raise SystemExit(f"{label}: launches {launches}, want {want}")
         kernels = (ENGINE_KERNELS if qcfg.scheme == "w4a8" else
                    W4A16_KERNELS + (("int4_matmul_fused",) if fused else ()))
+        if int8_kv:  # each attention kernel's int8 variant, and only it
+            kernels = tuple(INT8_KV.get(k, k) for k in kernels)
+            mm = ("int4_matmul_a8" if qcfg.scheme == "w4a8" else
+                  "int4_matmul_fused" if fused else "int4_matmul")
+            step_want = {mm: 4 * nl + 1, "flash_decode_int8": nl}
+            if any(launches[k] for k in INT8_KV) or launches[
+                    "flash_prefill_int8"] != 4 * nl or {
+                        k: v for k, v in per_step.items() if v} != step_want:
+                raise SystemExit(f"{label}: launches {launches}, per decode "
+                                 f"step {per_step}, want {step_want} per "
+                                 f"step and {4 * nl} flash_prefill_int8 "
+                                 "(4 prefills)")
         if want is None and not all(launches[k] > 0 for k in kernels):
             raise SystemExit(f"a kernel was never launched on the main path: "
                              f"{launches}")
@@ -895,42 +1115,74 @@ def fused_ab(model, dev="cuda", long_len=2048, model_params=None,
     after the same 64-token prompt, whose logits must agree within
     ``FUSED_STEP_TOL``. Returns {"unfused": (launches, per_step, metrics),
     "fused": (...), "first_step": {...}}."""
-    from tinychatengine_tpu_torch.generation.engine import (
-        Engine, forward_for_family)
     cfg = model_config(model)
     params, qcfg = model_params or random_model(cfg, dev)
     out = {mode: main_path(cfg, dev, long_len, fused=mode == "fused",
                            model_params=(params, qcfg), n_predict=n_predict)
            for mode in ("unfused", "fused")}
-    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 64))
-    forward = forward_for_family(cfg.family)
-    logits = {}
-    for fused in (False, True):
-        with fused_decode(fused), torch.inference_mode():
-            eng = Engine(params, cfg, qcfg, max_len=128, device=dev)
-            cache = eng.new_cache()
-            eng.prefill(prompt, cache)
-            logits[fused] = forward(params, cfg,
-                                    torch.tensor([[1]], device=dev), cache,
-                                    64)[0].float()
-    rel = float((logits[True] - logits[False]).abs().max()
-                / logits[False].abs().max())
-    same = bool(torch.equal(logits[True].argmax(-1), logits[False].argmax(-1)))
-    out["first_step"] = dict(rel_diff=rel, same_argmax=same)
+    out["first_step"] = first_step_diff(params, cfg, (qcfg, False),
+                                        (qcfg, True), dev)
     log(f"{cfg.name} first decode step, fused vs unfused: max |diff| / "
-        f"max |logit| = {rel:.3e} (tol {FUSED_STEP_TOL}), same argmax {same}")
-    if not rel <= FUSED_STEP_TOL:
+        f"max |logit| = {out['first_step']['rel_diff']:.3e} (tol "
+        f"{FUSED_STEP_TOL}), same argmax {out['first_step']['same_argmax']}")
+    if not out["first_step"]["rel_diff"] <= FUSED_STEP_TOL:
         raise SystemExit(f"{cfg.name}: fused decode disagrees with unfused")
-    del params, logits, cache
+    del params
     if dev == "cuda":
         torch.cuda.empty_cache()
     return out
 
 
-def serving_load(srv, cfg, n_requests: int, n_predict: int, seed: int = 0):
-    """scripts/bench_serving.py's load: prompts of 32-320 tokens from
-    ``default_rng(seed)``, the engine's greedy config and two sampled
-    configs in turn."""
+def first_step_diff(params, cfg, a, b, dev):
+    """The first decode step's logits after the same 64-token prompt under
+    two (qcfg, fused) settings ``a`` and ``b``: max |b - a| absolute and
+    over max |a|, and whether the argmax agrees."""
+    from tinychatengine_tpu_torch.generation.engine import (
+        Engine, forward_for_family)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 64))
+    forward = forward_for_family(cfg.family)
+    logits = []
+    for qcfg, fused in (a, b):
+        with fused_decode(fused), torch.inference_mode():
+            eng = Engine(params, cfg, qcfg, max_len=128, device=dev)
+            cache = eng.new_cache()
+            eng.prefill(prompt, cache)
+            logits.append(forward(params, cfg,
+                                  torch.tensor([[1]], device=dev), cache,
+                                  64)[0].float())
+            del cache
+    diff = float((logits[1] - logits[0]).abs().max())
+    return dict(max_abs_diff=diff,
+                rel_diff=diff / float(logits[0].abs().max()),
+                same_argmax=bool(torch.equal(logits[0].argmax(-1),
+                                             logits[1].argmax(-1))))
+
+
+def int8_kv_engine(model, model_params, dev="cuda", long_len=2048,
+                   n_predict=256):
+    """Phase 4c: phase 4's model (``model_params``, W4A8) with the int8 KV
+    cache through phase 4's Engine run (``flash_decode_int8`` exactly once
+    per layer per decode step, ``flash_prefill_int8`` once per layer per
+    prefill, no bf16 attention kernel), then the first decode step's
+    logits against the bf16 KV cache's. Returns (launches, per_step,
+    metrics) with metrics["first_step_vs_bf16_kv"]."""
+    params, qcfg = model_params
+    cfg = model_config(model)
+    q8 = dataclasses.replace(qcfg, kv_cache_dtype="int8")
+    launches, per_step, metrics = main_path(
+        cfg, dev, long_len, model_params=(params, q8), n_predict=n_predict)
+    metrics["first_step_vs_bf16_kv"] = first_step_diff(
+        params, cfg, (qcfg, False), (q8, False), dev)
+    log(f"{cfg.name} first decode step, int8 vs bf16 KV:",
+        json.dumps(metrics["first_step_vs_bf16_kv"]))
+    return launches, per_step, metrics
+
+
+def serving_load(srv, cfg, n_requests: int, n_predict: int, seed: int = 0,
+                 plen=(32, 320)):
+    """scripts/bench_serving.py's load: prompts of ``plen`` tokens (32-320;
+    its ``--long`` mix 3072-3967) from ``default_rng(seed)``, the engine's
+    greedy config and two sampled configs in turn."""
     from tinychatengine_tpu_torch.core.config import GenerationConfig
     rng = np.random.default_rng(seed)
     variants = [
@@ -942,7 +1194,7 @@ def serving_load(srv, cfg, n_requests: int, n_predict: int, seed: int = 0):
     reqs = []
     for i in range(n_requests):
         ids = rng.integers(100, cfg.vocab_size - 100,
-                           int(rng.integers(32, 320)))
+                           int(rng.integers(*plen)))
         reqs.append(srv.submit(ids, n_predict=n_predict,
                                gcfg=variants[i % len(variants)]))
     return reqs
@@ -965,11 +1217,9 @@ def serving_path(model="llama3_8b", dev="cuda", n_requests=24, n_predict=128,
 def _serving_run(cfg, dev, n_requests, n_predict, max_len):
     from tinychatengine_tpu_torch.core.config import GenerationConfig
     from tinychatengine_tpu_torch.generation.engine import forward_for_family
-    from tinychatengine_tpu_torch.ops import _build
     from tinychatengine_tpu_torch.ops import int4_matmul as im
     from tinychatengine_tpu_torch.runtime.serving import ServingEngine
 
-    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
     model, fused = cfg.name, im.FUSED_DECODE
     paged_ok = cfg.family != "opt"
     params, qcfg = random_model(cfg, dev, max_pos=max_len)
@@ -983,37 +1233,15 @@ def _serving_run(cfg, dev, n_requests, n_predict, max_len):
                             paged=mode == "paged", device=dev)
         serving_load(srv, cfg, 2, n_predict, seed=1)  # warm-up
         srv.run()
-        srv.done.clear()
-        for k in srv.tick_stats:
-            srv.tick_stats[k] = 0
-        with plain_calls() as plain:
-            sync()
-            _build.reset_launches()
-            t0 = time.perf_counter()
-            reqs = serving_load(srv, cfg, n_requests, n_predict)
-            srv.run()
-            sync()
-            wall = time.perf_counter() - t0
-            launches = dict(_build.LAUNCHES)
-        ttft = sorted(r.first_token_t - r.submit_t for r in reqs)
-        total = sum(len(r.output_ids) for r in reqs)
-        ticks = srv.tick_stats["burst_ticks"] + srv.tick_stats["single_ticks"]
-        m = dict(tok_s=total / wall, wall_s=wall, tokens=total,
-                 ttft_p50_s=ttft[len(ttft) // 2],
-                 ttft_p95_s=ttft[int(len(ttft) * 0.95)],
-                 decode_ticks=ticks, tick_stats=dict(srv.tick_stats),
-                 launches=launches, plain_calls=dict(plain))
-        if dev == "cuda":
-            m["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        reqs, m = timed_run(
+            srv, lambda: serving_load(srv, cfg, n_requests, n_predict), dev)
+        launches, ticks = m["launches"], m["decode_ticks"]
         log(f"{model} serving {mode}:", json.dumps(m))
-        bad = [r.request_id for r in reqs
-               if r.finish_reason != "length" or len(r.output_ids) != n_predict]
-        if bad:
-            raise SystemExit(f"serving {mode}: requests {bad} did not finish "
-                             "at their length")
+        check_lengths(reqs, n_predict, f"serving {mode}")
         if dev == "cuda":  # the CPU rehearsal runs the plain versions
-            if any(plain.values()):
-                raise SystemExit(f"serving {mode}: plain versions ran: {plain}")
+            if any(m["plain_calls"].values()):
+                raise SystemExit(f"serving {mode}: plain versions ran: "
+                                 f"{m['plain_calls']}")
             # llama and gptbigcode: each mode's decode attention kernel runs,
             # the other one never, and with the fused decode every tick
             # launches int4_matmul_fused once per linear (4 per layer and
@@ -1051,6 +1279,163 @@ def _serving_run(cfg, dev, n_requests, n_predict, max_len):
     del params
     if dev == "cuda":
         torch.cuda.empty_cache()
+    return out
+
+
+def timed_run(srv, submit, dev):
+    """Drain the requests ``submit()`` queues through ``srv`` from zeroed
+    tick counters and launch counts: wall clock, tokens/s, TTFT p50 / p95
+    (first token - submit), decode ticks, the tick mix, kernel launches and
+    plain-version calls. Returns (requests, metrics)."""
+    from tinychatengine_tpu_torch.ops import _build
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    srv.done.clear()
+    for k in srv.tick_stats:
+        srv.tick_stats[k] = 0
+    with plain_calls() as plain:
+        sync()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        reqs = submit()
+        srv.run()
+        sync()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+    ttft = sorted(r.first_token_t - r.submit_t for r in reqs)
+    total = sum(len(r.output_ids) for r in reqs)
+    ticks = srv.tick_stats["burst_ticks"] + srv.tick_stats["single_ticks"]
+    m = dict(tok_s=total / wall, wall_s=wall, tokens=total,
+             ttft_p50_s=ttft[len(ttft) // 2],
+             ttft_p95_s=ttft[int(len(ttft) * 0.95)],
+             decode_ticks=ticks, tick_stats=dict(srv.tick_stats),
+             launches=launches, plain_calls=dict(plain))
+    if dev == "cuda":
+        m["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return reqs, m
+
+
+def check_lengths(reqs, n_predict: int, what: str):
+    """Every request must have ended at its length budget."""
+    bad = [r.request_id for r in reqs
+           if r.finish_reason != "length" or len(r.output_ids) != n_predict]
+    if bad:
+        raise SystemExit(f"{what}: requests {bad} did not finish at their "
+                         "length")
+
+
+ATTENTION = ("flash_decode", "flash_prefill", "flash_decode_paged",
+             *INT8_KV.values())
+
+
+def check_serving_attention(m, kv: str, mode: str, what: str):
+    """A llama serving run on the card: no plain version ran, and of the
+    six attention kernels exactly the storage's (bf16 or int8) prefill and
+    the mode's (dense or paged) decode kernel launched."""
+    want = ["flash_prefill", "flash_decode_paged" if mode == "paged"
+            else "flash_decode"]
+    if kv == "int8":
+        want = [INT8_KV[k] for k in want]
+    ran = [k for k in ATTENTION if m["launches"][k]]
+    if any(m["plain_calls"].values()) or sorted(ran) != sorted(want):
+        raise SystemExit(f"{what}: attention kernels {ran}, want {want}; "
+                         f"plain calls {m['plain_calls']}")
+
+
+LONG_PROMPTS = (3072, 3968)  # scripts/bench_serving.py --long's lengths
+
+
+def long_serving(model, model_params, dev="cuda", n_requests=8, n_predict=64,
+                 max_len=4608, plen=LONG_PROMPTS):
+    """Phase 4d: scripts/bench_serving.py ``--long``'s mix (prompts of
+    3072-3967 tokens from ``default_rng(0)``, ``max_len`` 4608, 8 slots,
+    ``admission_chunk`` 512, ``tick_batch`` 16, the three sampling configs)
+    cut to ``n_requests`` x ``n_predict``, on phase 4's model
+    (``model_params``), three times: bf16 KV dense, int8 KV dense, int8 KV
+    paged, each after a 2-request warm-up. Every request ends at its
+    length; only the storage's and the mode's attention kernels launch.
+    Returns {"<kv> <mode>": metrics}."""
+    from tinychatengine_tpu_torch.core.config import GenerationConfig
+    from tinychatengine_tpu_torch.runtime.serving import ServingEngine
+    params, qcfg = model_params
+    cfg = model_config(model)
+    gcfg = GenerationConfig(temp=0.0, n_predict=n_predict, repeat_penalty=1.1,
+                            repeat_last_n=64, seed=0)
+    out = {}
+    for kv, mode in (("bf16", "dense"), ("int8", "dense"), ("int8", "paged")):
+        srv = ServingEngine(
+            params, cfg, dataclasses.replace(qcfg, kv_cache_dtype=kv),
+            slots=8, max_len=max_len, gcfg=gcfg, admission_chunk=512,
+            tick_batch=16, paged=mode == "paged", device=dev)
+        serving_load(srv, cfg, 2, 8, seed=1)  # warm-up
+        srv.run()
+        reqs, m = timed_run(srv, lambda: serving_load(
+            srv, cfg, n_requests, n_predict, plen=plen), dev)
+        name = f"{kv} {mode}"
+        log(f"{cfg.name} long-context serving {name}:", json.dumps(m))
+        check_lengths(reqs, n_predict, f"long-context serving {name}")
+        if dev == "cuda":
+            check_serving_attention(m, kv, mode,
+                                    f"long-context serving {name}")
+        out[name] = m
+        del srv
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def prefix_serving(model, model_params, dev="cuda", n_requests=8,
+                   header=2048, tails=(256, 1024), n_predict=32,
+                   max_len=4096, admission_chunk=512):
+    """Phase 4e: the prefix cache on the int8-KV server. ``n_requests``
+    greedy requests share one ``header``-token prefix (a multiple of
+    ``admission_chunk``, so the chunks of a hit's tail start where an
+    uncached prefill's do) and end in random tails of ``tails`` tokens,
+    all submitted at once to 8 slots: dense with the cache
+    (``prefix_cache_entries=2``, ``prefix_min=64``), dense without it, and
+    paged with it. The cached runs need >= n_requests - 1 hits; the tokens
+    must be identical in all three; only the int8 kernels launch. Returns
+    {run: metrics with prefix_stats}."""
+    from tinychatengine_tpu_torch.core.config import GenerationConfig
+    from tinychatengine_tpu_torch.runtime.serving import ServingEngine
+    params, qcfg = model_params
+    cfg = model_config(model)
+    q8 = dataclasses.replace(qcfg, kv_cache_dtype="int8")
+    rng = np.random.default_rng(3)
+    head = rng.integers(100, cfg.vocab_size - 100, header)
+    prompts = [np.concatenate([head, rng.integers(
+        100, cfg.vocab_size - 100, int(rng.integers(*tails)))])
+        for _ in range(n_requests)]
+    gcfg = GenerationConfig(temp=0.0, n_predict=n_predict, repeat_penalty=1.0,
+                            repeat_last_n=1)
+    out, toks = {}, {}
+    for name, mode, entries in (("dense uncached", "dense", 0),
+                                ("dense cached", "dense", 2),
+                                ("paged cached", "paged", 2)):
+        srv = ServingEngine(params, cfg, q8, slots=8, max_len=max_len,
+                            gcfg=gcfg, admission_chunk=admission_chunk,
+                            tick_batch=16, paged=mode == "paged",
+                            prefix_cache_entries=entries, prefix_min=64,
+                            device=dev)
+        reqs, m = timed_run(srv, lambda: [srv.submit(p) for p in prompts],
+                            dev)
+        m["prefix_stats"] = getattr(srv, "prefix_stats", None)
+        toks[name] = [r.output_ids for r in reqs]
+        log(f"{cfg.name} int8-KV prefix cache, {name}:", json.dumps(m))
+        check_lengths(reqs, n_predict, f"prefix cache {name}")
+        if dev == "cuda":
+            check_serving_attention(m, "int8", mode, f"prefix cache {name}")
+        if entries and m["prefix_stats"]["hits"] < n_requests - 1:
+            raise SystemExit(f"prefix cache {name}: {m['prefix_stats']}")
+        out[name] = m
+        del srv
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    same = {name: t == toks["dense uncached"] for name, t in toks.items()}
+    out["tokens_equal_uncached"] = same
+    log("prefix cache: tokens equal to the uncached dense run:",
+        json.dumps(same))
+    if not all(same.values()):
+        raise SystemExit("the prefix cache changed the greedy tokens")
     return out
 
 
@@ -1296,14 +1681,27 @@ def real_weights(dev="cuda"):
     _build.reset_launches()
     ppl["w4a8_w64"] = perplexity(llama.forward, qp, cfg, ids, 64, 32)
     a8 = dict(_build.LAUNCHES)
+    # the int8 KV cache (its prefill kernel at D = 64)
+    _build.reset_launches()
+    for scheme in ("w4a16", "w4a8"):
+        qp = requantize_llama(params, QuantConfig(scheme=scheme, group_size=128))
+        ppl[f"{scheme}_int8kv"] = perplexity(llama.forward, qp, cfg, ids, 512,
+                                             256, quantized_kv=True)
+    kv8 = dict(_build.LAUNCHES)
     log("bytellama_5m ppl on 6144 tokens:", json.dumps(ppl))
     log("w4a8 64-token windows, launches:", json.dumps(a8))
+    log("int8 KV, launches:", json.dumps(kv8))
     if dev == "cuda" and not (a8["int4_matmul_a8"] > 0
                               and a8["int4_matmul"] == 0):
         raise SystemExit("w4a8 64-token windows did not run the W4A8 kernel")
+    if dev == "cuda" and not (kv8["flash_prefill_int8"] > 0
+                              and kv8["flash_prefill"] == 0):
+        raise SystemExit("the int8 KV cache did not run flash_prefill_int8")
     if not (ppl["fp"] < 3.5 and ppl["w4a16"] <= ppl["fp"] * 1.03
             and ppl["w4a8"] <= ppl["fp"] * 1.04
-            and ppl["w4a8_w64"] <= ppl["fp_w64"] * 1.04):
+            and ppl["w4a8_w64"] <= ppl["fp_w64"] * 1.04
+            and ppl["w4a16_int8kv"] <= ppl["fp"] * 1.04
+            and ppl["w4a8_int8kv"] <= ppl["fp"] * 1.04):
         raise SystemExit("perplexity outside the ACCURACY.md budgets")
     return ppl
 
@@ -1433,15 +1831,31 @@ SUMMARY = {  # kernel -> (source, TPU kernel it replaces, summary case)
     "int4_matmul_fused": ("tinychatengine_tpu_torch/csrc/int4_matmul_fused.cu",
                           "tinychatengine_tpu/ops/int4_matmul.py:700",
                           "starcoder fc_out M=1 K=24576 N=6144"),
+    "flash_decode_int8": ("tinychatengine_tpu_torch/csrc/flash_decode.cu",
+                          "tinychatengine_tpu/ops/attention.py:204",
+                          "B=1 Hq=32 Hkv=8 D=128 length=4095"),
+    "flash_prefill_int8": ("tinychatengine_tpu_torch/csrc/flash_prefill.cu",
+                           "tinychatengine_tpu/ops/attention.py:549",
+                           "B=1 S=2048 start=0 Hq=32 Hkv=8 D=128"),
+    "flash_decode_paged_int8": (
+        "tinychatengine_tpu_torch/csrc/flash_decode_paged.cu",
+        "tinychatengine_tpu/ops/attention.py:375",
+        "B=8 Hq=32 Hkv=8 D=128 P=128 ragged 1..4607"),
 }
 # the run each kernel's launches count comes from: phase 4's Engine path,
 # phase 5's paged serving run for the paged kernel, phase 7's OPT Engine
 # path for int8_decode, phase 10's fused StarCoder Engine path for
-# int4_matmul_fused; per decode step from the same Engine path; per tick
-# from phase 5's paged run, phase 8's OPT run for int8_decode and phase
-# 11's paged StarCoder run for int4_matmul_fused
+# int4_matmul_fused, phase 4c's int8-KV Engine path for the int8 dense
+# kernels and phase 4d's int8 paged run for the int8 paged one; per decode
+# step from the same Engine path; per tick from phase 5's paged run, phase
+# 8's OPT run for int8_decode, phase 11's paged StarCoder run for
+# int4_matmul_fused and phase 4d's int8 runs (dense, paged) for the int8
+# kernels
 HOME_RUN = {"flash_decode_paged": "serving_paged", "int8_decode": "opt_engine",
-            "int4_matmul_fused": "starcoder_fused"}
+            "int4_matmul_fused": "starcoder_fused",
+            "flash_decode_int8": "llama_int8kv_engine",
+            "flash_prefill_int8": "llama_int8kv_engine",
+            "flash_decode_paged_int8": "long_int8_paged"}
 
 
 def main(argv=None) -> int:
@@ -1490,19 +1904,26 @@ def main(argv=None) -> int:
                                         model_params=llama)
     llama_ab = phase("llama w4a16 fused decode", fused_ab, "llama3_8b",
                      model_params=(as_w4a16(llama[0]),
-                                   QuantConfig(scheme="w4a16")))
+                                   QuantConfig(scheme="w4a16")),
+                     n_predict=SHORT_DECODE)
+    kv8 = phase("llama int8 KV", int8_kv_engine, "llama3_8b", llama)
+    long_ctx = phase("llama long-context serving", long_serving, "llama3_8b",
+                     llama)
+    pfx = phase("llama int8-KV prefix cache", prefix_serving, "llama3_8b",
+                llama)
     del llama
     torch.cuda.empty_cache()
-    serving = phase("llama serving", serving_path)
+    serving = phase("llama serving", serving_path, n_predict=64)
     phase("bytellama real weights", real_weights)
     phase("bytellama serving", real_weights_serving)
     phase("bytellama g32 fused decode", fused_real_weights)
     opt_launches, opt_step, opt_metrics = phase("opt main path", main_path,
-                                                "opt_6.7b")
+                                                "opt_6.7b", n_predict=128)
     opt_serving = phase("opt serving", serving_path, "opt_6.7b",
                         n_requests=16, n_predict=64)["dense"]
     phase("byteopt real weights", opt_real_weights)
-    sc_ab = phase("starcoder main path", fused_ab, "starcoder_15.5b")
+    sc_ab = phase("starcoder main path", fused_ab, "starcoder_15.5b",
+                  n_predict=SHORT_DECODE)
     sc_serving = phase("starcoder serving", serving_path, "starcoder_15.5b",
                        n_requests=16, n_predict=64, fused=True)
 
@@ -1515,10 +1936,19 @@ def main(argv=None) -> int:
             "starcoder_unfused": sc_ab["unfused"][0],
             "starcoder_fused": sc_ab["fused"][0],
             "starcoder_serving_dense": sc_serving["dense"]["launches"],
-            "starcoder_serving_paged": sc_serving["paged"]["launches"]}
-    step_of = {"int8_decode": opt_step, "int4_matmul_fused": sc_ab["fused"][1]}
+            "starcoder_serving_paged": sc_serving["paged"]["launches"],
+            "llama_int8kv_engine": kv8[0],
+            **{"long_" + k.replace(" ", "_"): m["launches"]
+               for k, m in long_ctx.items()},
+            **{"prefix_" + k.replace(" ", "_"): m["launches"]
+               for k, m in pfx.items() if k != "tokens_equal_uncached"}}
+    step_of = {"int8_decode": opt_step, "int4_matmul_fused": sc_ab["fused"][1],
+               **dict.fromkeys(INT8_KV.values(), kv8[1])}
     tick_of = {"int8_decode": opt_serving,
-               "int4_matmul_fused": sc_serving["paged"]}
+               "int4_matmul_fused": sc_serving["paged"],
+               "flash_decode_int8": long_ctx["int8 dense"],
+               "flash_prefill_int8": long_ctx["int8 dense"],
+               "flash_decode_paged_int8": long_ctx["int8 paged"]}
     rows = []
     for name in _build.KERNELS:
         source, replaces, case = SUMMARY[name]
@@ -1538,6 +1968,7 @@ def main(argv=None) -> int:
             bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
     engine_runs = [("llama3_8b w4a8", metrics),
+                   ("llama3_8b w4a8 int8 KV", kv8[2]),
                    ("opt_6.7b w8a8", opt_metrics)]
     for model, ab in (("llama3_8b w4a16", llama_ab),
                       ("starcoder_15.5b w4a16", sc_ab)):
@@ -1553,14 +1984,23 @@ def main(argv=None) -> int:
             f"step, busy share {m.get('decode_busy_share', 'not measured')}, "
             f"device ops per step "
             f"{m.get('decode_device_ops_per_step', 'not measured')}")
+    log("llama3_8b first decode step, int8 vs bf16 KV:",
+        json.dumps(kv8[2]["first_step_vs_bf16_kv"]))
     for mode, m in (("llama3_8b dense", serving["dense"]),
                     ("llama3_8b paged", serving["paged"]),
+                    *((f"llama3_8b long-context {k}", v)
+                      for k, v in long_ctx.items()),
+                    *((f"llama3_8b int8-KV prefix {k}", v)
+                      for k, v in pfx.items()
+                      if k != "tokens_equal_uncached"),
                     ("opt_6.7b dense", opt_serving),
                     ("starcoder_15.5b fused dense", sc_serving["dense"]),
                     ("starcoder_15.5b fused paged", sc_serving["paged"])):
         log(f"serving {mode} on {smi}: {m['tok_s']:.1f} tok/s, TTFT p50 "
             f"{m['ttft_p50_s']:.3f} s p95 {m['ttft_p95_s']:.3f} s, "
-            f"ticks {json.dumps(m['tick_stats'])}")
+            f"ticks {json.dumps(m['tick_stats'])}"
+            + (f", prefix {json.dumps(m['prefix_stats'])}"
+               if m.get("prefix_stats") else ""))
     log("w8a8 linears at M = 1:", json.dumps(linears))
     log("phase seconds:", json.dumps(phase_s))
     log(smi)

@@ -160,31 +160,175 @@ def test_kv_cache_update_matches_jax():
                                           np.asarray(b).view(np.int16))
 
 
-def test_kernel_wrappers_refuse_int8_on_cuda_only():
-    """On the CPU the int8 cache takes the plain path; the CUDA kernels
-    take bf16 only, and say so."""
+def test_kernel_wrappers_check_int8_storage():
+    """The kernels take a contiguous bf16 cache with no scales, or int8
+    codes with contiguous f32 k_scale and v_scale of the cache's shape
+    without D, on the codes' device. The storage checks refuse anything
+    else with ValueError, before the device is looked at; on the CPU a
+    well-formed int8 cache takes the plain path."""
     rng = np.random.default_rng(5)
     _, tc = _caches(rng, 1, 1, 2, 64, 64, quantized=True)
     q = _t(_bf16(rng, (1, 4, 64)))
     out = tatt.flash_decode(q, tc.k, tc.v, 0, 10, tc.k_scale, tc.v_scale)
     assert out.shape == (1, 4, 64) and torch.isfinite(out.float()).all()
-    with pytest.raises(NotImplementedError):
-        tatt._check_cache(q, tc.k, tc.v, tc.k_scale, 64)
+    k, v, ks, vs = tc.k, tc.v, tc.k_scale, tc.v_scale
+    bf = k.to(torch.bfloat16)
+
+    def strided(t):  # the same shape and values, not contiguous
+        return t.transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert tatt._check_storage(k, v, ks, vs) is True
+    assert tatt._check_storage(bf, bf, None, None) is False
+    bad = {"int8 without scales": (k, v, None, None),
+           "one scale missing": (k, v, ks, None),
+           "scales of the wrong shape": (k, v, ks[..., :32], vs[..., :32]),
+           "scales with a D axis": (k, v, ks[..., None].expand(k.shape),
+                                    vs[..., None].expand(k.shape)),
+           "bf16 scales": (k, v, ks.to(torch.bfloat16), vs),
+           "f64 scales": (k, v, ks, vs.double()),
+           "non-contiguous scales": (k, v, strided(ks), vs),
+           "non-contiguous codes": (strided(k), v, ks, vs),
+           "scales beside a bf16 cache": (bf, bf, ks, vs),
+           "int8 K with bf16 V": (k, bf, ks, vs),
+           "uint8 codes": (k.view(torch.uint8), v.view(torch.uint8), ks, vs)}
+    for name, args in bad.items():
+        with pytest.raises(ValueError) as err:
+            tatt._check_cache(q, *args, 64)
+        assert "CUDA device" not in str(err.value), name
+    with pytest.raises(ValueError, match="CUDA device"):  # storage passed
+        tatt._check_cache(q, k, v, ks, vs, 64)
 
 
-def _kernel_like(q, ck, cv, allowed):
-    """The kernels' cast points on the CPU: probabilities exp(s - max)
-    rounded to bf16 before PV, their sum l taken unrounded, out = PV / l
-    rounded to bf16. q [B, S, Hq, D]; cache layer [B, Hkv, T, D]; allowed
-    [S, T] bool. Returns [B, S, Hq, D]."""
+def _kernel_like(q, ck, cv, allowed, k_scale=None, v_scale=None, tile=None):
+    """The kernels' cast points on the CPU, an online softmax over key
+    tiles of ``tile`` columns (the whole row when None): s = (q . k) *
+    sm_scale, and with int8 codes then times k_scale[pos]; the running max
+    and sum l over the unscaled probabilities exp(s - max); with int8 the
+    probabilities times v_scale[pos]; then rounded to bf16 against the
+    (exact) V values, summed in f32; out = PV / l rounded to bf16.
+    q [B, S, Hq, D]; cache layer [B, Hkv, T, D] (bf16, or int8 codes with
+    scales [B, Hkv, T]); allowed broadcasts to [B, 1, S, T]. Returns
+    [B, S, Hq, D]."""
     d, g = q.shape[-1], q.shape[2] // ck.shape[1]
     k = ck.float().repeat_interleave(g, 1)
     v = cv.float().repeat_interleave(g, 1)
-    s = torch.einsum("bshd,bhtd->bhst", q.float(), k) / d ** 0.5
+    s = torch.einsum("bshd,bhtd->bhst", q.float(), k) * (1.0 / d ** 0.5)
+    vs = None
+    if k_scale is not None:
+        s = s * k_scale.repeat_interleave(g, 1)[:, :, None]
+        vs = v_scale.repeat_interleave(g, 1)[:, :, None]
     s = torch.where(allowed, s, torch.tensor(-1e30))
-    p = torch.exp(s - s.amax(-1, keepdim=True))
-    out = torch.einsum("bhst,bhtd->bshd", p.to(torch.bfloat16).float(), v)
-    return (out / p.sum(-1)[..., None].transpose(1, 2)).to(torch.bfloat16)
+    n = s.shape[-1]
+    tile = tile or n
+    m = torch.full(s.shape[:-1] + (1,), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(s.shape[:-1] + (d,))
+    for t0 in range(0, n, tile):
+        st = s[..., t0:t0 + tile]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        if vs is not None:
+            p = p * vs[..., t0:t0 + tile]
+        acc = acc * alpha + torch.einsum(
+            "bhst,bhtd->bhsd", p.to(torch.bfloat16).float(),
+            v[:, :, t0:t0 + tile])
+        m = m_new
+    return (acc / l).transpose(1, 2).to(torch.bfloat16)
+
+
+def _int8_layer(tc, li):
+    return tc.k[li], tc.v[li], tc.k_scale[li], tc.v_scale[li]
+
+
+# the int8 arithmetic against the TPU kernels in interpret mode, over the
+# same tiles (the TPU's blocks): only the f32 summation order differs, so
+# an output may sit one bf16 step (2^-8 of itself) apart, or a probability
+# round to the other side of a bf16 boundary. Held to 2^-8 of the element
+# plus 2^-10 of its row's largest value, four times tighter than
+# chip_smoke.attn_err
+def _int8_err(got, want):
+    g = got.float().reshape(-1, got.shape[-1])
+    w = torch.from_numpy(np.asarray(want, np.float32)).reshape(g.shape)
+    limit = 2.0 ** -8 * w.abs() + 2.0 ** -10 * w.abs().amax(1, keepdim=True)
+    return float(((g - w).abs() / limit).max())
+
+
+@pytest.mark.parametrize("window", [None, 70])
+def test_int8_cast_points_match_tpu_decode(window):
+    """Decode over an int8 cache: ``_kernel_like`` with the TPU kernel's
+    128-key blocks against ``flash_decode`` in interpret mode (GQA 4:1,
+    D = 128, ragged lengths)."""
+    rng = np.random.default_rng(7)
+    L, B, hq, hkv, S, D = 2, 3, 8, 2, 384, 128
+    jc, tc = _caches(rng, L, B, hkv, S, D, quantized=True)
+    q = _bf16(rng, (B, hq, D))
+    lengths = np.array([5, 130, 384], np.int32)
+    col = torch.arange(S)
+    ln = torch.from_numpy(lengths)[:, None, None, None]
+    allowed = col < ln
+    if window:
+        allowed = allowed & (col >= ln - window)
+    want = jatt.flash_decode(jnp.asarray(q), jc.k, jc.v, jnp.int32(1),
+                             jnp.asarray(lengths), jc.k_scale, jc.v_scale,
+                             window=window, interpret=True, block_s=128)
+    ck, cv, ks, vs = _int8_layer(tc, 1)
+    got = _kernel_like(_t(q)[:, None], ck, cv, allowed, ks, vs, tile=128)
+    assert _int8_err(got[:, 0], want) <= 1.0
+
+
+def test_int8_cast_points_match_tpu_paged_decode():
+    """Paged decode over int8 pages (P = 32, a shuffled table, ragged
+    lengths): ``_kernel_like`` over the gathered codes and scales, one
+    tile per page, against ``flash_decode_paged`` in interpret mode."""
+    rng = np.random.default_rng(8)
+    L, B, hq, hkv, P, D, mp = 2, 3, 8, 2, 32, 64, 6
+    n_pages = B * mp + 1
+    k = rng.integers(-127, 128, (L, n_pages, hkv, P, D)).astype(np.int8)
+    v = rng.integers(-127, 128, (L, n_pages, hkv, P, D)).astype(np.int8)
+    ks = (rng.random((L, n_pages, hkv, P)) * 0.02 + 0.001).astype(np.float32)
+    vs = (rng.random((L, n_pages, hkv, P)) * 0.02 + 0.001).astype(np.float32)
+    table = (rng.permutation(B * mp) + 1).astype(np.int32).reshape(B, mp)
+    lengths = np.array([1, 33, 192], np.int32)
+    q = _bf16(rng, (B, hq, D))
+    want = jatt.flash_decode_paged(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.int32(1),
+        jnp.asarray(lengths), jnp.asarray(table), jnp.asarray(ks),
+        jnp.asarray(vs), interpret=True)
+    ids = torch.from_numpy(table).long()
+
+    def rows(a):  # layer 1's [n_pages, H, P, ...] -> [B, H, MP * P, ...]
+        g = torch.from_numpy(a)[1][ids]
+        return g.transpose(1, 2).reshape(B, hkv, mp * P, *g.shape[4:])
+    allowed = torch.arange(mp * P) < torch.from_numpy(lengths)[:, None,
+                                                                None, None]
+    got = _kernel_like(_t(q)[:, None], rows(k), rows(v), allowed, rows(ks),
+                       rows(vs), tile=P)
+    assert _int8_err(got[:, 0], want) <= 1.0
+
+
+@pytest.mark.parametrize("start", [0, 192])
+def test_int8_cast_points_match_tpu_prefill(start):
+    """A causal prompt chunk over the int8 cache, at position 0 and at a
+    prefix hit's start = 192 (the cache holding an earlier prefill's
+    codes): ``_kernel_like`` with the TPU kernel's 64-key blocks against
+    ``flash_prefill`` in interpret mode; rows past the true length attend
+    to the whole prefix."""
+    rng = np.random.default_rng(9 + start)
+    L, B, hq, hkv, S, D = 1, 2, 4, 2, 320, 64
+    jc, tc = _caches(rng, L, B, hkv, S, D, quantized=True)
+    s_q, true_len = 64, 50
+    q = _bf16(rng, (B, s_q, hq, D))
+    length = start + true_len
+    want = jatt.flash_prefill(jnp.asarray(q), jc.k, jc.v, jnp.int32(0),
+                              jnp.int32(start), jnp.int32(length),
+                              jc.k_scale, jc.v_scale, interpret=True,
+                              block_q=64, block_s=64)
+    qpos = start + torch.arange(s_q)[:, None]
+    allowed = torch.arange(S) < torch.clamp(qpos + 1, max=length)
+    ck, cv, ks, vs = _int8_layer(tc, 0)
+    got = _kernel_like(_t(q), ck, cv, allowed, ks, vs, tile=64)
+    assert _int8_err(got, want) <= 1.0
 
 
 def test_attention_tolerance_passes_rounding_and_fails_mask_faults():

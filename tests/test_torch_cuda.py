@@ -80,10 +80,8 @@ def test_attention_kernels_match_plain(cuda, d):
         want = att.flash_prefill_plain(qp, k, v, 0, start, length).float()
         assert not torch.isnan(got).any()
         assert attn_err(got, want, d)[1] <= 1.0
-    with pytest.raises(NotImplementedError):
-        att.flash_decode(q, k.to(torch.int8), v.to(torch.int8), 0, 5,
-                         torch.ones(k.shape[:-1], device=cuda),
-                         torch.ones(k.shape[:-1], device=cuda))
+    with pytest.raises(ValueError):  # int8 codes need their scales
+        att.flash_decode(q, k.to(torch.int8), v.to(torch.int8), 0, 5)
 
 
 @pytest.mark.parametrize("d,p", [(128, 128), (128, 16), (64, 16), (64, 64)])
@@ -122,11 +120,11 @@ def test_paged_decode_kernel_matches_plain(cuda, d, p):
     zero = att.flash_decode_paged(q, pk, pv, 1, torch.zeros_like(lengths),
                                   table)
     assert torch.equal(zero, torch.zeros_like(zero))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):  # scales of the wrong shape
         att.flash_decode_paged(q, pk.to(torch.int8), pv.to(torch.int8), 0,
                                lengths, table,
-                               torch.ones(pk.shape[:-1], device=cuda),
-                               torch.ones(pk.shape[:-1], device=cuda))
+                               torch.ones(pk.shape[:-2], device=cuda),
+                               torch.ones(pk.shape[:-2], device=cuda))
 
 
 @pytest.mark.parametrize("hq,hkv", [(48, 1), (32, 2)])
@@ -158,6 +156,90 @@ def test_decode_kernels_take_more_than_8_heads_per_kv_head(cuda, d, hq, hkv):
     assert torch.equal(dense, paged)
     assert _build.LAUNCHES["flash_decode"] == _build.LAUNCHES[
         "flash_decode_paged"] == 1
+
+
+def _int8_kv(rng, shape, dev):
+    """int8 codes [..., D] and positive f32 scales [...] on ``dev``."""
+    codes = torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
+    scales = torch.from_numpy((rng.random(shape[:-1]) * 0.03 + 0.005)
+                              .astype(np.float32))
+    return codes.to(dev), scales.to(dev)
+
+
+def _pool(c, table, p):
+    """A [L, B, H, S, ...] cache as a page pool [L, n_pages, H, P, ...]
+    under ``table`` (page 0 left zero)."""
+    L, b, h, s = c.shape[:4]
+    mp = s // p
+    pool = torch.zeros((L, b * mp + 1, h, p, *c.shape[4:]), dtype=c.dtype,
+                       device=c.device)
+    pool[:, table.reshape(-1).long()] = c.reshape(
+        L, b, h, mp, p, *c.shape[4:]).transpose(2, 3).reshape(
+            L, b * mp, h, p, *c.shape[4:])
+    return pool
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_int8_attention_kernels_match_plain(cuda, d):
+    """The int8-KV kernels against their plain versions (which dequantize
+    to bf16 first, a different rounding of the same function), held to
+    attn_err: decode with ragged lengths and a window, prefill at start 0
+    and at start > 0 (scalar, and ragged per row, as a prefix hit's tail).
+    Only the int8 counters move."""
+    rng = np.random.default_rng(100 + d)
+    k, ks = _int8_kv(rng, (2, 2, 2, 320, d), cuda)
+    v, vs = _int8_kv(rng, (2, 2, 2, 320, d), cuda)
+    q = _bf16(rng, (2, 8, d), cuda)
+    lengths = torch.tensor([5, 320], dtype=torch.int32, device=cuda)
+    _build.reset_launches()
+    for window in (None, 100):
+        got = att.flash_decode(q, k, v, 1, lengths, ks, vs, window=window)
+        want = att.flash_decode_plain(q, k, v, 1, lengths, ks, vs,
+                                      window=window)
+        torch.cuda.synchronize()
+        assert attn_err(got, want, d)[1] <= 1.0
+    qp = _bf16(rng, (2, 70, 8, d), cuda)
+    starts = torch.tensor([0, 192], dtype=torch.int32, device=cuda)
+    for start, length in ((0, 64), (192, 250), (starts, starts + 60)):
+        got = att.flash_prefill(qp, k, v, 0, start, length, ks, vs)
+        want = att.flash_prefill_plain(qp, k, v, 0, start, length, ks, vs)
+        torch.cuda.synchronize()
+        assert not torch.isnan(got).any()
+        assert attn_err(got, want, d)[1] <= 1.0
+    assert {n: c for n, c in _build.LAUNCHES.items() if c} == {
+        "flash_decode_int8": 2, "flash_prefill_int8": 3}
+
+
+@pytest.mark.parametrize("hq,hkv", [(8, 2), (48, 1)])
+@pytest.mark.parametrize("d,p", [(128, 128), (64, 16)])
+def test_int8_paged_decode_bit_identical_to_dense(cuda, d, p, hq, hkv):
+    """int8 pages under a shuffled table, ragged lengths (0 gives zeros),
+    GQA and MQA's G = 48: paged equals dense decode of the same codes and
+    scales bit for bit, and both hold to the plain versions."""
+    rng = np.random.default_rng(d + p + hq)
+    b, max_len = 4, 384
+    mp = max_len // p
+    k, ks = _int8_kv(rng, (2, b, hkv, max_len, d), cuda)
+    v, vs = _int8_kv(rng, (2, b, hkv, max_len, d), cuda)
+    table = torch.from_numpy(rng.permutation(b * mp).reshape(b, mp).astype(
+        np.int32) + 1).to(cuda)
+    pk, pv, pks, pvs = (_pool(c, table, p) for c in (k, v, ks, vs))
+    q = _bf16(rng, (b, hq, d), cuda)
+    lengths = torch.tensor([0, 37, p + 1, max_len], dtype=torch.int32,
+                           device=cuda)
+    _build.reset_launches()
+    for window in (None, 100):
+        dense = att.flash_decode(q, k, v, 1, lengths, ks, vs, window=window)
+        paged = att.flash_decode_paged(q, pk, pv, 1, lengths, table, pks,
+                                       pvs, window=window)
+        want = att.flash_decode_plain(q, k, v, 1, lengths, ks, vs,
+                                      window=window)
+        torch.cuda.synchronize()
+        assert torch.equal(dense, paged)
+        assert torch.equal(dense[0], torch.zeros_like(dense[0]))
+        assert attn_err(dense[1:], want[1:], d)[1] <= 1.0
+    assert {n: c for n, c in _build.LAUNCHES.items() if c} == {
+        "flash_decode_int8": 2, "flash_decode_paged_int8": 2}
 
 
 def _fused_operands(rng, m, k, n, group_size, scale_dtype, dev):

@@ -165,6 +165,60 @@ def test_chip_smoke_phases_rehearse_on_cpu(trained):
     assert all(min(m) == 48 for k, m in matched.items() if k.startswith("fp"))
 
 
+def test_chip_smoke_int8_kv_phases_rehearse_on_cpu(trained):
+    """chip_smoke.py's int8-KV phases (4c-4e) on the CPU at bytellama_5m's
+    size in W4A8 (the card runs llama3_8b): the Engine run with the int8
+    cache and its first step against bf16 KV, the long-context serving
+    runs (bf16 dense, int8 dense, int8 paged) and the prefix cache (>= 3
+    hits of 4, the same tokens with and without it, dense and paged)."""
+    import chip_smoke
+    from tinychatengine_tpu_torch.tools.convert import requantize_llama
+    cfg, fp = trained
+    qcfg = QuantConfig(scheme="w4a8", group_size=128)
+    model = (requantize_llama(fp, qcfg), qcfg)
+    launches, per_step, metrics = chip_smoke.int8_kv_engine(
+        "bytellama_5m", model, dev="cpu", long_len=512, n_predict=8)
+    assert not any(launches.values()) and not any(per_step.values())
+    first = metrics["first_step_vs_bf16_kv"]
+    assert 0 < first["rel_diff"] < 0.1 and first["same_argmax"]
+    long_ctx = chip_smoke.long_serving("bytellama_5m", model, dev="cpu",
+                                       n_requests=3, n_predict=4,
+                                       max_len=512, plen=(200, 400))
+    assert sorted(long_ctx) == ["bf16 dense", "int8 dense", "int8 paged"]
+    assert all(m["tokens"] == 12 for m in long_ctx.values())
+    pfx = chip_smoke.prefix_serving("bytellama_5m", model, dev="cpu",
+                                    n_requests=4, header=128, tails=(16, 64),
+                                    n_predict=4, max_len=512,
+                                    admission_chunk=64)
+    assert pfx["dense uncached"]["prefix_stats"] is None
+    for run in ("dense cached", "paged cached"):
+        assert pfx[run]["prefix_stats"]["hits"] == 3
+        assert pfx[run]["prefix_stats"]["hit_tokens"] >= 3 * 128
+    assert all(pfx["tokens_equal_uncached"].values())
+
+
+def test_quantize_linear_defaults_to_the_card():
+    """``tools.convert.quantize_linear`` without ``device`` asks for the
+    card, as the port's other entry points do (here, with no card: the
+    ``resolve_device`` error); ``device="cpu"`` gives the JAX package's
+    packed bytes."""
+    from tinychatengine_tpu.core.config import QuantConfig as JQuantConfig
+    from tinychatengine_tpu.tools.convert import quantize_linear as jql
+    from tinychatengine_tpu_torch.tools.convert import quantize_linear
+    w = np.random.default_rng(0).standard_normal((256, 512)).astype(
+        np.float32) * 0.02
+    qcfg = QuantConfig(scheme="w4a8", group_size=128)
+    if torch.cuda.is_available():
+        assert quantize_linear(w, qcfg).packed.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            quantize_linear(w, qcfg)
+    got = quantize_linear(w, qcfg, device="cpu")
+    want = jql(w, JQuantConfig(scheme="w4a8", group_size=128))
+    assert got.packed.device.type == "cpu"
+    np.testing.assert_array_equal(got.packed.numpy(), np.asarray(want.packed))
+
+
 def test_perplexity_matches_jax(trained):
     """Same windows and masking as the JAX harness on 1024 eval tokens."""
     from tinychatengine_tpu.core.config import get_model_config as jget

@@ -586,14 +586,141 @@ def test_engine_global_sampler_and_unported_options(tiny):
         assert not any(20 <= t < 40 for t in r.output_ids)
     with pytest.raises(ValueError):
         srv.submit(PROMPTS[0], gcfg=GenerationConfig())
-    for kw in (dict(speculative=True), dict(prefix_cache_entries=4),
-               dict(sp_mesh=object())):
+    for kw in (dict(speculative=True), dict(sp_mesh=object())):
         with pytest.raises(NotImplementedError):
             _srv(tiny, **kw)
     with pytest.raises(NotImplementedError):
         srv.submit(PROMPTS[0], logprobs=2)
     with pytest.raises(NotImplementedError):
         srv.submit(PROMPTS[0], input_embeds=np.zeros((3, 128)))
+
+
+# ---- prefix cache (CPU twins of tests/test_serving.py's prefix tests) -------
+
+@pytest.fixture(scope="module")
+def twin_params():
+    """The tiny model's JAX params and the port's copy, per KV storage."""
+    out = {}
+    for kv in ("bf16", "int8"):
+        jcfg = JModelConfig(**TINY)
+        jq = JQuantConfig(scheme="fp", kv_cache_dtype=kv)
+        jp = jllama.init_random_params(jcfg, jq, seed=0)
+        cfg = ModelConfig(**TINY)
+        qcfg = QuantConfig(scheme="fp", kv_cache_dtype=kv)
+        out[kv] = ((jp, jcfg, jq), (llama.params_from_numpy(
+            jckpt._flatten(jp)[0], cfg, qcfg, device="cpu"), cfg, qcfg))
+    return out
+
+
+def _prefix_twins(twin_params, waves, n_predict, kv="bf16", **kw):
+    """Each wave of prompts submitted and run to the end, in turn, through
+    the JAX ServingEngine and the port's with the same settings ``kw``.
+    Returns {side: (tokens per request, prefix_stats or None)}."""
+    (jp, jcfg, jq), (tp, cfg, qcfg) = twin_params[kv]
+    out = {}
+    for side in ("jax", "port"):
+        if side == "jax":
+            srv = JServing(jp, jcfg, jq, gcfg=JGen(n_predict=n_predict,
+                                                   **GREEDY), **kw)
+        else:
+            srv = ServingEngine(tp, cfg, qcfg, gcfg=GenerationConfig(
+                n_predict=n_predict, **GREEDY), device="cpu", **kw)
+        toks = []
+        for wave in waves:
+            reqs = [srv.submit(p) for p in wave]
+            srv.run()
+            srv.done.clear()
+            toks += [list(r.output_ids) for r in reqs]
+        out[side] = (toks, getattr(srv, "prefix_stats", None))
+    return out
+
+
+SHARED_HEADER = np.arange(10, 110)
+
+
+def test_prefix_cache_exact_across_shared_header(twin_params):
+    """Two prompts sharing a 100-token header, one after the other through
+    one slot: the second splices the cached prefix and prefills only its
+    tail. Tokens and prefix_stats equal the JAX ServingEngine's, and the
+    tokens equal the port's without the cache."""
+    p1 = np.concatenate([SHARED_HEADER, [5, 9, 11]])
+    p2 = np.concatenate([SHARED_HEADER, [7, 3, 2, 8]])
+    waves = [[p1], [p2]]
+    kw = dict(slots=1, prefix_cache_entries=2, prefix_min=16)
+    got = _prefix_twins(twin_params, waves, 10, **kw)
+    cold = _prefix_twins(twin_params, waves, 10, slots=1)["port"]
+    assert got["port"] == got["jax"]
+    assert got["port"][0] == cold[0]
+    assert got["port"][1]["hits"] == 1 and got["port"][1]["hit_tokens"] == 100
+
+
+def test_prefix_cache_partial_and_shorter_prompt(twin_params):
+    """A prompt that is a strict prefix of a stored one still hits, capped
+    at n - 1 tokens so its last chunk gives the first token's logits."""
+    long = np.arange(10, 110)
+    waves = [[long], [long[:60].copy()]]
+    got = _prefix_twins(twin_params, waves, 8, slots=1,
+                        prefix_cache_entries=2, prefix_min=16)
+    assert got["port"] == got["jax"]
+    assert got["port"][1]["hits"] == 1
+    assert got["port"][1]["hit_tokens"] == 59
+    cold = _prefix_twins(twin_params, waves, 8, slots=1)["port"]
+    assert got["port"][0] == cold[0]
+
+
+def test_prefix_cache_lru_eviction(twin_params):
+    """One entry: a second header evicts the first, which then misses and
+    is stored again (three stores, no hit), as in JAX."""
+    pa, pb = np.arange(10, 90), np.arange(120, 200)
+    got = _prefix_twins(twin_params, [[pa], [pb], [pa]], 4, slots=1,
+                        prefix_cache_entries=1, prefix_min=16)
+    assert got["port"] == got["jax"]
+    assert got["port"][1] == {"hits": 0, "hit_tokens": 0, "stores": 3}
+
+
+@pytest.mark.parametrize("paged,kv", [(True, "bf16"), (False, "int8"),
+                                      (True, "int8")])
+def test_prefix_cache_paged_and_int8_kv(twin_params, paged, kv):
+    """Prefix reuse composes with the page pool and the int8 KV cache (its
+    scales copied with the codes), two slots: tokens and prefix_stats
+    equal JAX's, and the tokens equal the port's without the cache."""
+    # (with the JAX test's tails [5, 9] / [7, 3, 2] the bf16 greedy tokens
+    # of the port and JAX already part at p2's third token with no cache,
+    # dense or paged: bf16 rounding in another order, ROADMAP Queue 3)
+    p1 = np.concatenate([SHARED_HEADER, [5, 9, 11]])
+    p2 = np.concatenate([SHARED_HEADER, [7, 3, 2, 8]])
+    waves = [[p1], [p2]]
+    got = _prefix_twins(twin_params, waves, 8, kv, slots=2, paged=paged,
+                        prefix_cache_entries=2, prefix_min=16)
+    cold = _prefix_twins(twin_params, waves, 8, kv, slots=2,
+                         paged=paged)["port"]
+    assert got["port"] == got["jax"]
+    assert got["port"][1]["hits"] == 1
+    assert got["port"][0] == cold[0]
+
+
+def test_prefix_hit_bypasses_batched_admission(tiny):
+    """Queue-head prompts that hit the cache take the single path (their
+    stored prefix spliced in) instead of one batched fresh prefill, and
+    give the tokens of a server without the cache."""
+    p0 = np.concatenate([SHARED_HEADER, [1]])
+    tails = [np.concatenate([SHARED_HEADER, [t, t + 1]]) for t in (5, 7)]
+    g = GenerationConfig(n_predict=6, **GREEDY)
+
+    def run(entries):
+        srv = _srv(tiny, slots=4, gcfg=g, prefix_cache_entries=entries,
+                   prefix_min=16)
+        srv.submit(p0)
+        srv.run()
+        reqs = [srv.submit(p) for p in tails]
+        srv.run()
+        return srv, [r.output_ids for r in reqs]
+    warm, got = run(2)
+    cold, want = run(0)
+    assert got == want
+    assert warm.prefix_stats["hits"] == 2
+    assert warm.tick_stats["batch_admits"] == 0
+    assert cold.tick_stats["batch_admits"] == 1
 
 
 def test_kmax_bucket_matches_jax():

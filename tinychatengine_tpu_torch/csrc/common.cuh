@@ -37,4 +37,46 @@ __device__ __forceinline__ float warp_sum(float v, int width = 32) {
   return v;
 }
 
+// The attention kernels' K/V storage: bf16 values, or int8 codes with one
+// f32 scale per (row, head, position) kept beside them (the JAX package's
+// kv_cache_dtype="int8"). A tile moves whole 32-bit words of a row from
+// device memory (int8: four codes a word, half the bytes of bf16) and
+// stages them into shared memory as bf16 pairs, the layout every tile
+// loop reads: an int8 code is exact in bf16 (|code| <= 128), so each code
+// is converted once per tile, not once per query head that reads it.
+template <typename KV>
+struct KVStore;
+
+template <>
+struct KVStore<__nv_bfloat16> {
+  static constexpr bool kInt8 = false;
+  static constexpr int kPerWord = 2;  // elements in one device word
+  __device__ static __forceinline__ void stage(uint32_t w, uint32_t* dst) {
+    dst[0] = w;
+  }
+};
+
+template <>
+struct KVStore<int8_t> {
+  static constexpr bool kInt8 = true;
+  static constexpr int kPerWord = 4;
+  __device__ static __forceinline__ void stage(uint32_t w, uint32_t* dst) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const __nv_bfloat162 p = __floats2bfloat162_rn(
+          static_cast<float>(static_cast<int8_t>((w >> (16 * h)) & 0xffu)),
+          static_cast<float>(static_cast<int8_t>((w >> (16 * h + 8)) & 0xffu)));
+      dst[h] = *reinterpret_cast<const uint32_t*>(&p);
+    }
+  }
+};
+
+// A masked-in score of the int8 cache: (q . code) * sm_scale, then times
+// the key's scale, two roundings as the TPU kernel's two multiplies (no
+// contraction by nvcc).
+__device__ __forceinline__ float scaled_score(float dot, float sm_scale,
+                                              float k_scale) {
+  return __fmul_rn(__fmul_rn(dot, sm_scale), k_scale);
+}
+
 }  // namespace tce

@@ -1,12 +1,14 @@
 """Build the CUDA kernels under ``csrc/`` with ``nvcc`` and load them.
 
-Each ``csrc/<name>.cu`` is one shared library with a plain C interface,
+Each ``csrc/<source>.cu`` is one shared library with a plain C interface,
 compiled at first use for ``sm_90a`` into ``build/tce_torch/`` at the root
 of the checkout (listed in ``.gitignore``) under a name keyed by a hash of
-its source and flags, and loaded with ``ctypes``. ``build_all`` starts one
-``nvcc`` per source at once and waits for all of them. Every C entry point
-returns ``cudaGetLastError()`` after its launch; ``check`` raises on a
-non-zero code.
+its source and flags, and loaded with ``ctypes``. A kernel is named by its
+launch counter; the int8-KV attention kernels live in their bf16 kernels'
+sources (``SOURCES``). ``build_all`` starts one ``nvcc`` per source at once
+and waits for all of them. Every C entry point returns
+``cudaGetLastError()`` after its launch; ``check`` raises on a non-zero
+code.
 """
 
 from __future__ import annotations
@@ -21,13 +23,18 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tce_torch"
 KERNELS = ("int4_matmul", "int4_matmul_a8", "flash_decode", "flash_prefill",
-           "flash_decode_paged", "int8_decode", "int4_matmul_fused")
+           "flash_decode_paged", "int8_decode", "int4_matmul_fused",
+           "flash_decode_int8", "flash_prefill_int8", "flash_decode_paged_int8")
+# kernel -> its source under csrc/ where the two names differ
+SOURCES = {"flash_decode_int8": "flash_decode",
+           "flash_prefill_int8": "flash_prefill",
+           "flash_decode_paged_int8": "flash_decode_paged"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FNS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
-BUILD_LOG: dict[str, str] = {}  # name -> nvcc's output (ptxas register use)
+BUILD_LOG: dict[str, str] = {}  # source -> nvcc's output (ptxas register use)
 
 # launches per kernel: each wrapper adds one where it launches its kernel
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -50,20 +57,26 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
+def source(name: str) -> str:
+    """The ``csrc/<source>.cu`` that holds kernel ``name``."""
+    return SOURCES.get(name, name)
+
+
+def _target(src: str) -> Path:
     h = hashlib.sha256()
-    h.update((CSRC / f"{name}.cu").read_bytes())
+    h.update((CSRC / f"{src}.cu").read_bytes())
     for common in sorted(CSRC.glob("*.cuh")):
         h.update(common.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{src}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=KERNELS) -> dict[str, Path]:
-    """Compile every named kernel that is not built yet, one ``nvcc``
-    process per source, all started together. Returns name -> library."""
+    """Compile the source of every named kernel that is not built yet, one
+    ``nvcc`` process per source, all started together. Returns source ->
+    library."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    targets = {n: _target(n) for n in names}
+    targets = {s: _target(s) for s in dict.fromkeys(map(source, names))}
     procs = {}
     for n, out in targets.items():
         if out.exists():
@@ -88,11 +101,12 @@ def build_all(names=KERNELS) -> dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built if needed."""
-    lib = _LIBS.get(name)
+    """The loaded library that holds kernel ``name``, built if needed."""
+    src = source(name)
+    lib = _LIBS.get(src)
     if lib is None:
-        lib = ctypes.CDLL(str(build_all((name,))[name]))
-        _LIBS[name] = lib
+        lib = ctypes.CDLL(str(build_all((name,))[src]))
+        _LIBS[src] = lib
     return lib
 
 

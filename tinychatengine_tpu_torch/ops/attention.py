@@ -8,9 +8,13 @@ Counterpart of the JAX package's ``ops/attention.py``. The kernels are
 ``csrc/flash_decode.cu``, ``csrc/flash_prefill.cu`` and
 ``csrc/flash_decode_paged.cu``: fp32 online softmax,
 probabilities rounded to bf16 before the PV product, and only the valid key
-range visited (so the TPU path's ``ctx_cap`` is accepted and ignored). They
-take a bf16 cache; the int8 cache (per-position scales) runs through the
-plain versions only, and a CUDA call with it raises ``NotImplementedError``.
+range visited (so the TPU path's ``ctx_cap`` is accepted and ignored). Each
+source holds a bf16 kernel and an int8 one (launch counters
+``flash_decode_int8``, ``flash_prefill_int8``, ``flash_decode_paged_int8``)
+for the int8 cache with per-position f32 scales, with the TPU kernels'
+quantized arithmetic: scores of the exact codes times sm_scale, then times
+k_scale; max and sum over the unscaled probabilities; probabilities times
+v_scale rounded to bf16 against the exact V codes.
 ``csrc/int8_decode.cu`` keeps the Int8OPT dataflow: int32 scores, a
 softmax against the row's final stats, probabilities requantized x127 to
 int8, an int32 PV product.
@@ -111,22 +115,42 @@ def _lengths_arg(value, b: int, device, smax: int):
     return None, int(value)
 
 
-def _check_cache(q, cache_k, cache_v, k_scale, d):
-    """bf16, contiguous, 5-D, on q's CUDA device: the stacked cache
-    [L, B, Hkv, S, D] or the page pool [L, n_pages, Hkv, P, D]."""
-    if k_scale is not None:
-        raise NotImplementedError(
-            "int8 KV cache has no CUDA kernel yet; use a bf16 cache")
+def _check_storage(cache_k, cache_v, k_scale, v_scale) -> bool:
+    """The storage the kernels take: the stacked cache [L, B, Hkv, S, D]
+    or the page pool [L, n_pages, Hkv, P, D], contiguous, as bf16 with no
+    scales or as int8 codes with contiguous f32 k_scale and v_scale of
+    shape ``cache_k.shape[:-1]`` on the codes' device. Returns whether it
+    is int8; raises ``ValueError`` on anything else."""
+    if cache_k.dim() != 5 or cache_v.shape != cache_k.shape:
+        raise ValueError("cache k and v must have one 5-D shape")
+    if not (cache_k.is_contiguous() and cache_v.is_contiguous()):
+        raise ValueError("cache must be contiguous (5-D, layer first)")
+    if cache_k.dtype == torch.bfloat16 and cache_v.dtype == torch.bfloat16:
+        if k_scale is not None or v_scale is not None:
+            raise ValueError("a bf16 cache takes no scales")
+        return False
+    if cache_k.dtype != torch.int8 or cache_v.dtype != torch.int8:
+        raise ValueError("cache must be bf16, or int8 codes with scales, "
+                         f"not {cache_k.dtype} / {cache_v.dtype}")
+    want = tuple(cache_k.shape[:-1])
+    for s in (k_scale, v_scale):
+        if s is None or s.dtype != torch.float32 or tuple(s.shape) != want \
+                or not s.is_contiguous() or s.device != cache_k.device:
+            raise ValueError("an int8 cache needs contiguous f32 k_scale and "
+                             f"v_scale of shape {want} on {cache_k.device}")
+    return True
+
+
+def _check_cache(q, cache_k, cache_v, k_scale, v_scale, d) -> bool:
+    """``_check_storage``, on q's CUDA device, at a head_dim the kernels
+    take. Returns whether the cache is int8."""
+    int8 = _check_storage(cache_k, cache_v, k_scale, v_scale)
     if not (cache_k.is_cuda and cache_v.is_cuda
             and cache_k.device == q.device == cache_v.device):
         raise ValueError("q and the cache must lie on one CUDA device")
-    if cache_k.dtype != torch.bfloat16 or cache_v.dtype != torch.bfloat16 \
-            or not (cache_k.is_contiguous() and cache_v.is_contiguous()):
-        raise ValueError("cache must be contiguous bf16 (5-D, layer first)")
     if d not in (64, 128):
         raise ValueError(f"kernel needs head_dim 64 or 128, got {d}")
-    if cache_k.dim() != 5 or cache_v.shape != cache_k.shape:
-        raise ValueError("cache k and v must have one 5-D shape")
+    return int8
 
 
 def _layer_ptr(cache, layer_idx) -> int:
@@ -136,6 +160,16 @@ def _layer_ptr(cache, layer_idx) -> int:
     return cache.data_ptr() + int(layer_idx) * per_layer
 
 
+def _kv_args(kernel, int8, cache_k, cache_v, k_scale, v_scale, layer_idx):
+    """(launch counter, C entry point, pointers of one layer's K, V and,
+    int8, their scales) for ``kernel``'s bf16 or int8 variant."""
+    ptrs = [_layer_ptr(cache_k, layer_idx), _layer_ptr(cache_v, layer_idx)]
+    if not int8:
+        return kernel, f"tce_{kernel}", ptrs
+    ptrs += [_layer_ptr(k_scale, layer_idx), _layer_ptr(v_scale, layer_idx)]
+    return f"{kernel}_int8", f"tce_{kernel}_s8", ptrs
+
+
 def flash_decode(q, cache_k, cache_v, layer_idx, lengths, k_scale=None,
                  v_scale=None, *, sm_scale: float | None = None,
                  window: int | None = None, ctx_cap: int | None = None
@@ -143,14 +177,16 @@ def flash_decode(q, cache_k, cache_v, layer_idx, lengths, k_scale=None,
     """Single-step attention: q [B, Hq, D] against the stacked cache
     [L, B, Hkv, S_max, D]; keys at positions < lengths[b] (int or int32
     [B]) take part, and with ``window`` only the last ``window`` of them.
-    Returns [B, Hq, D] in q.dtype. CUDA: ``csrc/flash_decode.cu``; CPU:
-    ``flash_decode_plain``. ``ctx_cap`` is accepted and ignored."""
+    int8 cache: k_scale/v_scale [L, B, Hkv, S_max] f32. Returns
+    [B, Hq, D] in q.dtype. CUDA: ``csrc/flash_decode.cu`` (counter
+    ``flash_decode`` or ``flash_decode_int8``); CPU: ``flash_decode_plain``.
+    ``ctx_cap`` is accepted and ignored."""
     del ctx_cap  # the kernel's loop already stops at lengths[b]
     if not q.is_cuda:
         return flash_decode_plain(q, cache_k, cache_v, layer_idx, lengths,
                                   k_scale, v_scale, window=window)
     b, hq, d = q.shape
-    _check_cache(q, cache_k, cache_v, k_scale, d)
+    int8 = _check_cache(q, cache_k, cache_v, k_scale, v_scale, d)
     _, bc, hkv, smax, dc = cache_k.shape
     if bc != b or dc != d or hq % hkv:
         raise ValueError(f"q {tuple(q.shape)} does not fit cache "
@@ -158,15 +194,15 @@ def flash_decode(q, cache_k, cache_v, layer_idx, lengths, k_scale=None,
     len_ptr, len_scalar = _lengths_arg(lengths, b, q.device, smax)
     qb = q.to(torch.bfloat16).contiguous()
     out = torch.empty_like(qb)
-    fn = _build.bind("flash_decode", "tce_flash_decode",
-                     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _F, _P])
-    _build.check(fn(qb.data_ptr(), _layer_ptr(cache_k, layer_idx),
-                    _layer_ptr(cache_v, layer_idx), out.data_ptr(), b, hq, hkv,
+    name, entry, kv = _kv_args("flash_decode", int8, cache_k, cache_v,
+                               k_scale, v_scale, layer_idx)
+    fn = _build.bind(name, entry, [_P] * (2 + len(kv))
+                     + [_I, _I, _I, _I, _I, _P, _I, _I, _F, _P])
+    _build.check(fn(qb.data_ptr(), *kv, out.data_ptr(), b, hq, hkv,
                     smax, d, len_ptr, len_scalar, window or 0,
                     sm_scale or 1.0 / d ** 0.5,
-                    torch.cuda.current_stream(q.device).cuda_stream),
-                 "flash_decode")
-    _build.LAUNCHES["flash_decode"] += 1
+                    torch.cuda.current_stream(q.device).cuda_stream), name)
+    _build.LAUNCHES[name] += 1
     return out.to(q.dtype)
 
 
@@ -180,13 +216,15 @@ def flash_prefill(q, cache_k, cache_v, layer_idx, start, length,
     Key ``col`` is allowed for query position ``qpos`` iff
     col < min(qpos + 1, length) (and col > qpos - window), so rows past the
     true length attend to the whole prefix and never give NaN.
-    Returns [B, S, Hq*D] in q.dtype. CUDA: ``csrc/flash_prefill.cu``;
-    CPU: ``flash_prefill_plain``."""
+    int8 cache: k_scale/v_scale [L, B, Hkv, S_max] f32. Returns
+    [B, S, Hq*D] in q.dtype. CUDA: ``csrc/flash_prefill.cu`` (counter
+    ``flash_prefill`` or ``flash_prefill_int8``); CPU:
+    ``flash_prefill_plain``."""
     if not q.is_cuda:
         return flash_prefill_plain(q, cache_k, cache_v, layer_idx, start,
                                    length, k_scale, v_scale, window=window)
     b, s, hq, d = q.shape
-    _check_cache(q, cache_k, cache_v, k_scale, d)
+    int8 = _check_cache(q, cache_k, cache_v, k_scale, v_scale, d)
     _, bc, hkv, smax, dc = cache_k.shape
     if bc != b or dc != d or hq % hkv:
         raise ValueError(f"q {tuple(q.shape)} does not fit cache "
@@ -195,16 +233,15 @@ def flash_prefill(q, cache_k, cache_v, layer_idx, start, length,
     len_ptr, len_scalar = _lengths_arg(length, b, q.device, smax)
     qb = q.to(torch.bfloat16).contiguous()
     out = torch.empty((b, s, hq * d), dtype=torch.bfloat16, device=q.device)
-    fn = _build.bind("flash_prefill", "tce_flash_prefill",
-                     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I,
-                      _I, _F, _P])
-    _build.check(fn(qb.data_ptr(), _layer_ptr(cache_k, layer_idx),
-                    _layer_ptr(cache_v, layer_idx), out.data_ptr(), b, s, hq,
+    name, entry, kv = _kv_args("flash_prefill", int8, cache_k, cache_v,
+                               k_scale, v_scale, layer_idx)
+    fn = _build.bind(name, entry, [_P] * (2 + len(kv))
+                     + [_I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _F, _P])
+    _build.check(fn(qb.data_ptr(), *kv, out.data_ptr(), b, s, hq,
                     hkv, smax, d, st_ptr, st_scalar, len_ptr, len_scalar,
                     window or 0, sm_scale or 1.0 / d ** 0.5,
-                    torch.cuda.current_stream(q.device).cuda_stream),
-                 "flash_prefill")
-    _build.LAUNCHES["flash_prefill"] += 1
+                    torch.cuda.current_stream(q.device).cuda_stream), name)
+    _build.LAUNCHES[name] += 1
     return out.to(q.dtype)
 
 
@@ -249,14 +286,16 @@ def flash_decode_paged(q, pages_k, pages_v, layer_idx, lengths, page_table,
     """Single-step attention over paged KV storage: q [B, Hq, D]; pages
     [L, n_pages, Hkv, P, D]; page_table [B, max_pages] int32 (entry j of
     row b holds the row's j-th page); lengths int or int32 [B]. Returns
-    [B, Hq, D] in q.dtype. CUDA: ``csrc/flash_decode_paged.cu`` (bf16 pages;
-    a row of length 0 gives zeros); CPU: ``flash_decode_paged_plain``."""
+    [B, Hq, D] in q.dtype; int8 pages: k_scale/v_scale [L, n_pages, Hkv, P]
+    f32. CUDA: ``csrc/flash_decode_paged.cu`` (counter
+    ``flash_decode_paged`` or ``flash_decode_paged_int8``; a row of length
+    0 gives zeros); CPU: ``flash_decode_paged_plain``."""
     if not q.is_cuda:
         return flash_decode_paged_plain(q, pages_k, pages_v, layer_idx,
                                         lengths, page_table, k_scale, v_scale,
                                         window=window)
     b, hq, d = q.shape
-    _check_cache(q, pages_k, pages_v, k_scale, d)
+    int8 = _check_cache(q, pages_k, pages_v, k_scale, v_scale, d)
     _, _, hkv, p, dc = pages_k.shape
     if dc != d or hq % hkv:
         raise ValueError(f"q {tuple(q.shape)} does not fit pages "
@@ -270,16 +309,15 @@ def flash_decode_paged(q, pages_k, pages_v, layer_idx, lengths, page_table,
     len_ptr, len_scalar = _lengths_arg(lengths, b, q.device, max_pages * p)
     qb = q.to(torch.bfloat16).contiguous()
     out = torch.empty_like(qb)
-    fn = _build.bind("flash_decode_paged", "tce_flash_decode_paged",
-                     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I,
-                      _F, _P])
-    _build.check(fn(qb.data_ptr(), _layer_ptr(pages_k, layer_idx),
-                    _layer_ptr(pages_v, layer_idx), out.data_ptr(), b, hq,
+    name, entry, kv = _kv_args("flash_decode_paged", int8, pages_k, pages_v,
+                               k_scale, v_scale, layer_idx)
+    fn = _build.bind(name, entry, [_P] * (2 + len(kv))
+                     + [_I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _F, _P])
+    _build.check(fn(qb.data_ptr(), *kv, out.data_ptr(), b, hq,
                     hkv, p, d, page_table.data_ptr(), max_pages, len_ptr,
                     len_scalar, window or 0, sm_scale or 1.0 / d ** 0.5,
-                    torch.cuda.current_stream(q.device).cuda_stream),
-                 "flash_decode_paged")
-    _build.LAUNCHES["flash_decode_paged"] += 1
+                    torch.cuda.current_stream(q.device).cuda_stream), name)
+    _build.LAUNCHES[name] += 1
     return out.to(q.dtype)
 
 

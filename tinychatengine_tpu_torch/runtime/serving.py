@@ -17,7 +17,12 @@ the JAX package's ``runtime/serving.py``).
   page, and their outputs are discarded;
 - **bursts**: when no admission can run, K decode+sample ticks run back to
   back with no host synchronisation inside, and the [K, B] tokens are
-  fetched once.
+  fetched once;
+- **prefix cache** (``prefix_cache_entries > 0``): after an admission the
+  prompt's KV head is kept in a pool of entries (the scratch cache's
+  storage: bf16, int8 codes with their scales, or OPT's raw int8); a later
+  prompt that shares at least ``prefix_min`` leading tokens with an entry
+  starts its prefill from a copy of that KV and prefills only its tail.
 
 Sampling is per request (``sampling.sample_rows``): every parameter rides
 as a [slots] tensor, and each request carries its own (key, step) random
@@ -31,9 +36,8 @@ StarCoder, dense or paged, with single admissions). OPT W8A8 serves from a
 dense slot cache of raw int8 K/V; it has no paged path (``paged=True``
 raises ``NotImplementedError``, as in JAX).
 
-Not ported (they raise ``NotImplementedError``): speculative ticks, the
-prefix cache, sequence-parallel admission, ``input_embeds`` and
-``logprobs``.
+Not ported (they raise ``NotImplementedError``): speculative ticks,
+sequence-parallel admission, ``input_embeds`` and ``logprobs``.
 """
 
 from __future__ import annotations
@@ -102,7 +106,16 @@ class ServingEngine:
     place of the slots x max_len cache; page 0 is the dead page that
     inactive rows point at. admission_chunk: a long prompt prefills one
     chunk of this many tokens per tick. tick_batch: the largest decode
-    burst (1 disables bursts)."""
+    burst (1 disables bursts).
+
+    prefix_cache_entries: the KV prefix cache's entries (0: none). After
+    each single admission the prompt's first ``prefix_cache_len`` (default
+    ``max_len``) positions of KV are stored; a later prompt whose longest
+    common token prefix with an entry is >= ``prefix_min`` (capped at its
+    length - 1, so a tail remains to give the first token's logits) copies
+    that KV into its prefill and prefills only the rest. Causality makes
+    KV[0:m) a function of tokens[0:m) alone. LRU eviction; counters in
+    ``prefix_stats``. A hit bypasses batched admission."""
 
     def __init__(self, params, cfg: ModelConfig,
                  qcfg: Optional[QuantConfig] = None, slots: int = 8,
@@ -112,11 +125,13 @@ class ServingEngine:
                  page_size: int = 128,
                  n_pages: Optional[int] = None, admission_chunk: int = 512,
                  tick_batch: int = 8, speculative: bool = False,
-                 prefix_cache_entries: int = 0, sp_mesh=None, device=None):
-        if speculative or prefix_cache_entries or sp_mesh is not None:
+                 prefix_cache_entries: int = 0,
+                 prefix_cache_len: Optional[int] = None,
+                 prefix_min: int = 64, sp_mesh=None, device=None):
+        if speculative or sp_mesh is not None:
             raise NotImplementedError(
-                "speculative ticks, the prefix cache and sequence-parallel "
-                "admission are not ported")
+                "speculative ticks and sequence-parallel admission are not "
+                "ported")
         if cfg.family not in ("llama", "opt", "gptbigcode"):
             raise ValueError(f"ServingEngine serves the llama, opt and "
                              f"gptbigcode families, not {cfg.family!r}")
@@ -201,6 +216,21 @@ class ServingEngine:
         self._batch_admit = (self._per_row and not paged
                              and forward_fn is llama.forward)
         self._multi_scratch: dict[int, kvc.KVCache] = {}
+
+        # prefix cache: a KVCache whose batch axis is the entry pool, in
+        # the scratch cache's storage
+        self._pfx_entries = int(prefix_cache_entries)
+        self._prefix_min = int(prefix_min)
+        if self._pfx_entries:
+            w = min(prefix_cache_len or self.max_len, self.max_len)
+            self._pfx_store = kvc.init_cache(
+                cfg.num_layers, self._pfx_entries, w, cfg.num_kv_heads,
+                cfg.head_dim, dtype=self._scratch.k.dtype,
+                quantized=self._scratch.quantized, device=self.device)
+            self._pfx_tokens: list[Optional[np.ndarray]] = \
+                [None] * self._pfx_entries
+            self._pfx_lru: list[int] = list(range(self._pfx_entries))
+            self.prefix_stats = {"hits": 0, "hit_tokens": 0, "stores": 0}
 
     def _resolve_window(self, g: GenerationConfig) -> int:
         """Penalty-history window for a config: -1 = context size, 0 =
@@ -479,9 +509,9 @@ class ServingEngine:
     # -- admission ------------------------------------------------------------
     def _eligible_batch(self) -> list:
         """The largest power-of-two prefix (>= 2) of the queue head that can
-        be admitted by one batched prefill: single-chunk prompts, at most
-        one per free slot. FIFO order holds: the scan stops at the first
-        prompt that does not fit."""
+        be admitted by one batched prefill: single-chunk prompts with no
+        prefix-cache hit, at most one per free slot. FIFO order holds: the
+        scan stops at the first prompt that does not fit."""
         if not self._batch_admit:
             return []
         cap = min(self.admission_chunk, self.max_len - 2)
@@ -490,6 +520,9 @@ class ServingEngine:
         for req in self.queue:
             if len(out) >= free or len(req.prompt_ids) > cap:
                 break
+            if self._pfx_entries and \
+                    self._prefix_match(req.prompt_ids) is not None:
+                break  # a cached prefix beats a batched fresh prefill
             out.append(req)
         r = 1 << (len(out).bit_length() - 1) if out else 0
         return out[:r] if r >= 2 else []
@@ -498,7 +531,8 @@ class ServingEngine:
         """Admit R queue-head requests at once: a ragged batched prefill
         (per-row true lengths) into an R-row scratch cache, R slot splices
         and R first-token samples. Per request this is the same math as
-        the single path."""
+        the single path. It stores no prefix (as in the JAX package: the
+        store copies scratch row 0 of a single admission)."""
         slots = []
         for req in reqs:
             self.queue.remove(req)
@@ -556,7 +590,16 @@ class ServingEngine:
             n_pg = self.allocator.pages_needed(min(_bucket(n), self.max_len))
             self._slot_pages[slot_idx] = self.allocator.alloc(n_pg)
         self._scratch.length = 0
-        self._pending = [slot_idx, 0]
+        done0 = 0
+        if self._pfx_entries:
+            hit = self._prefix_match(req.prompt_ids)
+            if hit is not None:
+                entry, m = hit
+                _prefix_load(self._scratch, self._pfx_store, entry, m)
+                done0 = m
+                self.prefix_stats["hits"] += 1
+                self.prefix_stats["hit_tokens"] += m
+        self._pending = [slot_idx, done0]
         self._admit_chunk()
 
     def _admit_chunk(self):
@@ -628,7 +671,49 @@ class ServingEngine:
             _insert_slot(self.cache, self._scratch, slot_idx, insert_bucket)
         tok = self._first_tokens(logits, [slot_idx], [req], [rcfg])
         req.first_token_t = time.perf_counter()
+        if self._pfx_entries:
+            self._maybe_store_prefix(req)
         self._emit(slot_idx, int(tok[0]))
+
+    # -- prefix cache ---------------------------------------------------------
+    def _prefix_match(self, prompt: np.ndarray):
+        """Longest common token prefix against the stored entries, capped
+        at n - 1 so the last chunk prefills >= 1 token and gives the first
+        token's logits. Returns (entry, m) or None; refreshes the LRU."""
+        n = len(prompt)
+        best, best_m = None, 0
+        for e, toks in enumerate(self._pfx_tokens):
+            if toks is None:
+                continue
+            k = min(len(toks), n)
+            neq = np.nonzero(toks[:k] != prompt[:k])[0]
+            m = int(neq[0]) if len(neq) else k
+            if m > best_m:
+                best, best_m = e, m
+        best_m = min(best_m, n - 1)
+        if best is None or best_m < self._prefix_min:
+            return None
+        self._pfx_lru.remove(best)
+        self._pfx_lru.append(best)
+        return best, best_m
+
+    def _maybe_store_prefix(self, req: Request):
+        """After an admission, store the prompt's KV head (up to the pool
+        width) unless an entry already covers it; evicts the LRU entry."""
+        w = self._pfx_store.max_len
+        keep = min(len(req.prompt_ids), w)
+        if keep < self._prefix_min:
+            return
+        head = req.prompt_ids[:keep]
+        for toks in self._pfx_tokens:
+            if toks is not None and len(toks) >= keep and \
+                    np.array_equal(toks[:keep], head):
+                return  # already covered by a same-or-longer entry
+        victim = self._pfx_lru.pop(0)
+        self._pfx_lru.append(victim)
+        _prefix_store(self._pfx_store, self._scratch, victim)
+        self._pfx_tokens[victim] = head.copy()
+        self.prefix_stats["stores"] += 1
 
     def _first_tokens(self, logits, slots: list, reqs, rcfgs):
         """Set the admitted rows' sampler state (params, key, mu) and draw
@@ -791,3 +876,24 @@ def _insert_pages(page_cache: pg.PagedKVCache, scratch: kvc.KVCache,
         svs = scratch.v_scale[:, 0, :, :bucket]
     pg.insert_prefix(page_cache, scratch.k[:, 0, :, :bucket],
                      scratch.v[:, 0, :, :bucket], page_ids, sks, svs)
+
+
+def _prefix_load(scratch: kvc.KVCache, store: kvc.KVCache, entry: int,
+                 m: int):
+    """Copy prefix-cache entry ``entry`` into the prefill scratch's row 0
+    (in place) and set its length to ``m``. The whole entry width is
+    copied: positions in [m, n) are rewritten by the tail's prefill and
+    positions >= n lie past the admitted length, never attended."""
+    w = store.max_len
+    for dst, src in _kv_leaves(scratch, store):
+        dst[:, 0, :, :w] = src[:, entry]
+    scratch.length = m
+
+
+def _prefix_store(store: kvc.KVCache, scratch: kvc.KVCache, entry: int):
+    """Copy the scratch's row 0, its first entry-width positions, into
+    entry ``entry`` (in place). Positions past the prompt hold garbage:
+    the host-side token record never matches past the prompt."""
+    w = store.max_len
+    for dst, src in _kv_leaves(store, scratch):
+        dst[:, entry] = src[:, 0, :, :w]

@@ -9,16 +9,19 @@ import numpy as np
 import torch
 
 from tinychatengine_tpu_torch.core.config import QuantConfig
+from tinychatengine_tpu_torch.core.device import resolve_device
 from tinychatengine_tpu_torch.models.llama import LlamaLayerParams, LlamaParams
 from tinychatengine_tpu_torch.ops.linear import DenseLinear, quantized_linear
 
 
-def quantize_linear(w_oc_ic: np.ndarray, qcfg: QuantConfig, device="cpu"):
-    """w [OC, IC] float → Int4Linear, or Int4A8Linear for w4a8 (QM_TPU)."""
+def quantize_linear(w_oc_ic: np.ndarray, qcfg: QuantConfig, device=None):
+    """w [OC, IC] float → Int4Linear, or Int4A8Linear for w4a8 (QM_TPU), on
+    ``device`` (``None``: the card, raising without one)."""
     if qcfg.scheme not in ("w4a16", "w4a8"):
         raise ValueError(f"no int4 layout for scheme {qcfg.scheme!r}")
     return quantized_linear(w_oc_ic, qcfg.group_size, qcfg.scale_dtype,
-                            a8=qcfg.scheme == "w4a8", device=device)
+                            a8=qcfg.scheme == "w4a8",
+                            device=resolve_device(device))
 
 
 def requantize_llama(params: LlamaParams, qcfg: QuantConfig) -> LlamaParams:

@@ -21,8 +21,14 @@ Phases (any failure ends the run with a non-zero exit code):
    ``flash_decode_paged_int8``) at llama3_8b's decode (320 and 4095 keys),
    MQA, D = 64 with a window, B = 8 ragged over 1..4607 keys dense and
    paged (bit-identical), a 2048-token prefill and a 512-token tail at
-   start 2048; then opt_6.7b's W8A8 linears at M = 1, timed beside their
-   bound, their int32 products checked against the CPU's;
+   start 2048; the split-K kernels at llama3_8b's widths:
+   ``int4_matmul_kouter`` (phase 4f's qkv, wo, gate_up and down at M = 1
+   and 64, ``KOUTER_BLOCKS``), ``int4_matmul_glu`` (down from gu at M = 1
+   and 8; also against int4_matmul -> silu * up -> int4_matmul within
+   ``GLU_COMPOSITION_TOL``), ``mlp_fused`` (the whole MLP at M = 1 and 16)
+   and ``int3_matmul`` (gate_up and down widths at M = 1, f32 scales);
+   then opt_6.7b's W8A8 linears at M = 1, timed beside their bound, their
+   int32 products checked against the CPU's;
 4. main path: llama3_8b W4A8 at full width (all 32 layers, random packed
    weights from a seed) through ``Engine.generate_device`` (64-token
    prompt, 256 greedy tokens with repeat_penalty 1.1 over the last 64) and
@@ -35,6 +41,19 @@ Phases (any failure ends the run with a non-zero exit code):
    ``int4_matmul`` (unfused) or ``int4_matmul_fused`` (fused) 4 * 32 + 1
    times and ``flash_decode`` 32 times, nothing else; the first decode
    step's logits of the two agree within ``FUSED_STEP_TOL``;
+4f. llama3_8b W4A16 through the K-outer route (``kouter_engine``): phase
+   4b's weights through phase 4's run with 64 decode tokens and
+   ``DECODE_KOUTER`` listing the four stacked shapes at ``KOUTER_BLOCKS``:
+   one decode step launches ``int4_matmul_kouter`` 4 * 32 times,
+   ``int4_matmul`` once (the unstacked lm_head) and ``flash_decode`` 32
+   times, nothing else; the 64-token prompt's prefill routes its 128
+   stacked linears there, the 2048-token prefill none; the first decode
+   step's logits agree with the table empty within ``KOUTER_STEP_TOL``,
+   and so does every step when both settings are fed the K-outer run's
+   tokens (``teacher_forced``; the K-outer setting must choose its own
+   tokens again); greedy tokens against phase 4b's unfused run are
+   printed, with the table-empty margin where the two part; the table is
+   restored after;
 4c. llama3_8b W4A8 with the int8 KV cache (``kv_cache_dtype="int8"``) on
    phase 4's weights through phase 4's run: ``flash_decode_int8`` exactly
    32 times per decode step, ``flash_prefill_int8`` once per layer per
@@ -98,6 +117,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import itertools
 import json
 import re
 import subprocess
@@ -134,6 +154,15 @@ W4A16_KERNELS = ("int4_matmul", "flash_decode", "flash_prefill")
 # 256; phase 5 serves 64 new tokens per request (bench_serving: 128) and
 # phase 7 decodes 128
 SHORT_DECODE = 64
+# phase 4f: llama3_8b's four stacked shapes through the K-outer kernel at
+# (block_n, block_k); against int4_matmul at full depth, max |diff| / max
+# |logit| of a decode step (the first, and each of the run's steps fed its
+# tokens). On the card both compute the exact codes times the scales in f32
+# and differ in the order of the sums only, which 32 layers amplify: the
+# first step read 7.0e-3 on an H100; a fault (a wrong band, layer or row)
+# moves the logits by O(1)
+KOUTER_BLOCKS = (2048, 1024)
+KOUTER_STEP_TOL = 0.03
 INT8_KV = {"flash_decode": "flash_decode_int8",
            "flash_prefill": "flash_prefill_int8",
            "flash_decode_paged": "flash_decode_paged_int8"}
@@ -353,6 +382,7 @@ def check_kernels(gen):
     check_int8_kernels(gen, add)
     check_fused_kernels(gen, add)
     check_int8_kv_kernels(gen, add)
+    check_split_k_kernels(gen, add)
     return cases
 
 
@@ -798,6 +828,199 @@ def check_fused_kernels(gen, add):
         torch.cuda.empty_cache()
 
 
+# the unfused composition (int4_matmul gate_up -> silu * up -> int4_matmul
+# down) against int4_matmul_glu on the same gu: two roundings of one
+# function (silu * up rounded to bf16 by torch or by the kernel, sums in
+# other orders), held as JAX's own test holds them
+GLU_COMPOSITION_TOL = 0.06
+
+
+def int4_stack(gen, k, n, dtype=torch.bfloat16, n_layers=None):
+    """Random packed int4 weights [L, K/2, N] and scales [L, K/128, N] on
+    the card, over enough layers that a loop cycling through them does not
+    run in the 50 MB L2."""
+    n_layers = n_layers or max(2, -(-200_000_000 // (k * n // 2)))
+    packed = torch.randint(0, 256, (n_layers, k // 2, n), dtype=torch.uint8,
+                           device="cuda", generator=gen)
+    scales = ((torch.rand((n_layers, k // 128, n), device="cuda",
+                          generator=gen) + 0.5) * 0.005).to(dtype)
+    return packed, scales
+
+
+def int3_dequant(pa, pb, scales, group_size=128):
+    """QM_TPU3 planes → [K, N] bf16 weights, (A + 4 B - 4) * d (the
+    library yardstick's operand)."""
+    k, n = 4 * pa.shape[0], pa.shape[1]
+    a = pa.reshape(-1, 128, n)
+    qa = torch.stack([(a >> (2 * j)) & 3 for j in range(4)], 1).reshape(k, n)
+    b = pb.reshape(-1, 128, n)
+    qb = torch.stack([(b >> j) & 1 for j in range(8)], 1).reshape(k, n)
+    w = (qa + 4 * qb).float() - 4.0
+    return (w.reshape(-1, group_size, n) * scales.float()[:, None]
+            ).reshape(k, n).to(torch.bfloat16)
+
+
+def mat_err(y, ref):
+    """(max |y - ref|, its share of MAT_TOL * max |ref|)."""
+    e = float((y.float() - ref.float()).abs().max())
+    return e, e / (MAT_TOL * float(ref.float().abs().max()))
+
+
+def check_split_k_kernels(gen, add):
+    """The K-outer, GLU, fused-MLP and int3 kernels against their plain
+    versions at llama3_8b's widths, over layer stacks a timing loop cycles
+    through. Library: bf16 ``torch.matmul`` on the layer's dequantized
+    weights (with silu * mul for GLU and the MLP)."""
+    from tinychatengine_tpu_torch.ops import int3_matmul as i3
+    from tinychatengine_tpu_torch.ops import int4_matmul as im
+    from tinychatengine_tpu_torch.ops import mlp_fused as mf
+    from tinychatengine_tpu_torch.ops.linear import Int4Linear
+    from tinychatengine_tpu_torch.ops.ref import dequantize_int4
+    silu = torch.nn.functional.silu
+    dev = torch.device("cuda")
+    bn, bk = KOUTER_BLOCKS
+
+    def cycle(n_layers, call):
+        state = {"li": 0}
+
+        def run():
+            state["li"] = (state["li"] + 1) % n_layers
+            call(state["li"])
+        return run
+
+    # ---- int4_matmul_kouter: phase 4f's four stacked shapes at decode
+    # (M = 1) and at its prompt bucket (M = 64)
+    shapes = (("gate_up", 4096, 28672), ("down", 14336, 4096),
+              ("qkv", 4096, 6144), ("wo", 4096, 4096))
+    for (name, k, n), m in itertools.product(shapes, (1, 64)):
+        packed, scales = int4_stack(gen, k, n)
+        nl = packed.shape[0]
+        w_lib = dequantize_int4(packed[0], scales[0], 128, torch.bfloat16)
+        x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
+        kw = dict(block_n=bn, block_k=bk)
+        err = share = 0.0
+        for li in (0, nl - 1):
+            e, sh = mat_err(
+                im.int4_matmul_kouter(x, packed, scales, 128, layer_idx=li,
+                                      **kw),
+                im.int4_matmul_kouter_plain(x, packed, scales, 128,
+                                            layer_idx=li, **kw))
+            err, share = max(err, e), max(share, sh)
+        plain_ms = time_ms(lambda: im.int4_matmul_kouter_plain(
+            x, packed, scales, 128, layer_idx=0, **kw), 3)
+        add("int4_matmul_kouter", f"{name} M={m} K={k} N={n} bn={bn} bk={bk}",
+            err, share, f"{MAT_TOL} * max|plain|",
+            cycle(nl, lambda li: im.int4_matmul_kouter(
+                x, packed, scales, 128, layer_idx=li, **kw)),
+            50 if m == 1 else 20, plain_ms, lambda: torch.matmul(x, w_lib),
+            m * k * 2 + k * n // 2 + (k // 128) * n * 2 + m * n * 2,
+            2.0 * m * n * k, BF16_FLOP_S, bands=k // bk)
+        del packed, scales, w_lib
+        torch.cuda.empty_cache()
+
+    # ---- int4_matmul_glu: llama3_8b's down from gu, decode and 8 slots;
+    # then against the unfused composition on a gu made by int4_matmul
+    f, n = 14336, 4096
+    packed, scales = int4_stack(gen, f, n)
+    nl = packed.shape[0]
+    w_lib = dequantize_int4(packed[0], scales[0], 128, torch.bfloat16)
+    for m in (1, 8):
+        gu = torch.randn((m, 2 * f), device=dev, generator=gen).to(
+            torch.bfloat16)
+        err = share = 0.0
+        for li in (0, nl - 1):
+            e, sh = mat_err(
+                im.int4_matmul_glu(gu, packed, scales, 128, layer_idx=li),
+                im.int4_matmul_glu_plain(gu, packed, scales, 128,
+                                         layer_idx=li))
+            err, share = max(err, e), max(share, sh)
+        plain_ms = time_ms(lambda: im.int4_matmul_glu_plain(
+            gu, packed, scales, 128, layer_idx=0), 3)
+        add("int4_matmul_glu", f"down M={m} F={f} N={n}", err, share,
+            f"{MAT_TOL} * max|plain|",
+            cycle(nl, lambda li: im.int4_matmul_glu(gu, packed, scales, 128,
+                                                    layer_idx=li)),
+            50, plain_ms,
+            lambda: torch.matmul(silu(gu[:, :f]) * gu[:, f:], w_lib),
+            m * 2 * f * 2 + f * n // 2 + (f // 128) * n * 2 + m * n * 2,
+            2.0 * m * n * f, BF16_FLOP_S)
+    wgu, sgu = int4_stack(gen, 4096, 2 * f, n_layers=1)
+    x = torch.randn((8, 4096), device=dev, generator=gen).to(torch.bfloat16)
+    gu = im.int4_matmul(x, wgu, sgu, 128, layer_idx=0)
+    act = (silu(gu[:, :f].float()) * gu[:, f:].float()).to(torch.bfloat16)
+    unfused = im.int4_matmul(act, packed, scales, 128, layer_idx=0)
+    glu = im.int4_matmul_glu(gu, packed, scales, 128, layer_idx=0)
+    diff = float((glu.float() - unfused.float()).abs().max())
+    rel = diff / float(unfused.float().abs().max())
+    log(f"int4_matmul_glu M=8 against int4_matmul -> silu * up -> "
+        f"int4_matmul: max |diff| / max |unfused| = {rel:.3e} (tol "
+        f"{GLU_COMPOSITION_TOL})")
+    if not rel <= GLU_COMPOSITION_TOL:
+        raise SystemExit("int4_matmul_glu disagrees with the unfused "
+                         "composition")
+    del packed, scales, w_lib, wgu, sgu
+    torch.cuda.empty_cache()
+
+    # ---- mlp_fused: the whole llama3_8b MLP, decode and 16 rows
+    e = 4096
+    n_layers = 3  # 88 MB of weights a layer
+    wgu, sgu = int4_stack(gen, e, 2 * f, n_layers=n_layers)
+    wdn, sdn = int4_stack(gen, f, e, n_layers=n_layers)
+    lin_gu, lin_dn = Int4Linear(wgu, sgu), Int4Linear(wdn, sdn)
+    lib_gu = dequantize_int4(wgu[0], sgu[0], 128, torch.bfloat16)
+    lib_dn = dequantize_int4(wdn[0], sdn[0], 128, torch.bfloat16)
+    for m in (1, 16):
+        if not mf.mlp_fused_supported(e, f, m, 2048):
+            raise SystemExit(f"mlp_fused_supported refuses llama3_8b at M={m}")
+        x = (torch.randn((m, e), device=dev, generator=gen) * 0.5).to(
+            torch.bfloat16)
+        err = share = 0.0
+        for li in (0, n_layers - 1):
+            e_, sh = mat_err(mf.mlp_fused(x, lin_gu, lin_dn, li),
+                             mf.mlp_fused_plain(x, lin_gu, lin_dn, li))
+            err, share = max(err, e_), max(share, sh)
+        plain_ms = time_ms(lambda: mf.mlp_fused_plain(x, lin_gu, lin_dn, 0),
+                           3)
+
+        def lib(x=x):
+            g = torch.matmul(x, lib_gu)
+            return torch.matmul(silu(g[:, :f]) * g[:, f:], lib_dn)
+        add("mlp_fused", f"llama3_8b M={m} E={e} F={f} bn=2048", err, share,
+            f"{MAT_TOL} * max|plain|",
+            cycle(n_layers, lambda li: mf.mlp_fused(x, lin_gu, lin_dn, li)),
+            20, plain_ms, lib,
+            3 * e * f // 2 + (e // 128) * 2 * f * 2 + (f // 128) * e * 2
+            + 2 * m * e * 2, 6.0 * m * e * f, BF16_FLOP_S)
+    del wgu, sgu, wdn, sdn, lin_gu, lin_dn, lib_gu, lib_dn
+    torch.cuda.empty_cache()
+
+    # ---- int3_matmul: llama3_8b's gate_up and down widths, f32 scales
+    for name, k, n in (("gate_up", 4096, 28672), ("down", 14336, 4096)):
+        nl = max(2, -(-200_000_000 // (k * n * 3 // 8)))
+        layers = [(torch.randint(0, 256, (k // 4, n), dtype=torch.uint8,
+                                 device=dev, generator=gen),
+                   torch.randint(0, 256, (k // 8, n), dtype=torch.uint8,
+                                 device=dev, generator=gen),
+                   (torch.rand((k // 128, n), device=dev, generator=gen)
+                    + 0.5) * 0.01) for _ in range(nl)]
+        w_lib = int3_dequant(*layers[0])
+        x = torch.randn((1, k), device=dev, generator=gen).to(torch.bfloat16)
+        err = share = 0.0
+        for li in (0, nl - 1):
+            e_, sh = mat_err(i3.int3_matmul(x, *layers[li]),
+                             i3.int3_matmul_plain(x, *layers[li]))
+            err, share = max(err, e_), max(share, sh)
+        plain_ms = time_ms(lambda: i3.int3_matmul_plain(x, *layers[0]), 3)
+        add("int3_matmul", f"{name} M=1 K={k} N={n}", err, share,
+            f"{MAT_TOL} * max|plain|",
+            cycle(nl, lambda li: i3.int3_matmul(x, *layers[li])), 50,
+            plain_ms, lambda: torch.matmul(x, w_lib),
+            k * n * 3 // 8 + (k // 128) * n * 4 + k * 2 + n * 2,
+            2.0 * n * k, BF16_FLOP_S)
+        del layers, w_lib
+        torch.cuda.empty_cache()
+
+
 def w8a8_linear_times(gen):
     """opt_6.7b's W8A8 linears at M = 1 (a decode step; ``s8_matmul`` pads
     the rows for ``torch._int_mm``) through ``apply_linear``, timed beside
@@ -854,11 +1077,15 @@ def plain_calls():
     the card a wrapper launches its kernel or raises: the counts must stay
     0)."""
     from tinychatengine_tpu_torch.ops import attention as att
+    from tinychatengine_tpu_torch.ops import int3_matmul as i3
     from tinychatengine_tpu_torch.ops import int4_matmul as im
+    from tinychatengine_tpu_torch.ops import mlp_fused as mf
     names = [(att, "flash_decode_plain"), (att, "flash_prefill_plain"),
              (att, "flash_decode_paged_plain"), (att, "int8_decode_plain"),
              (im, "int4_matmul_plain"), (im, "int4_matmul_a8_plain"),
-             (im, "int4_matmul_fused_plain")]
+             (im, "int4_matmul_fused_plain"), (im, "int4_matmul_kouter_plain"),
+             (im, "int4_matmul_glu_plain"), (mf, "mlp_fused_plain"),
+             (i3, "int3_matmul_plain")]
     counts = dict.fromkeys((n for _, n in names), 0)
     saved = [(mod, n, getattr(mod, n)) for mod, n in names]
     for mod, n, fn in saved:
@@ -918,6 +1145,18 @@ def fused_decode(on: bool):
         im.FUSED_DECODE = saved
 
 
+@contextlib.contextmanager
+def kouter_table(table: dict):
+    """``DECODE_KOUTER`` replaced by ``table`` while open, restored after."""
+    from tinychatengine_tpu_torch.ops import int4_matmul as im
+    saved = im.DECODE_KOUTER
+    im.DECODE_KOUTER = dict(table)
+    try:
+        yield
+    finally:
+        im.DECODE_KOUTER = saved
+
+
 def as_w4a16(p):
     """The same tree with every W4A8 container re-wrapped as W4A16 over the
     same packed bytes (no new memory)."""
@@ -959,8 +1198,14 @@ def main_path(model="llama3_8b", dev="cuda", long_len=2048, fused=False,
                            n_predict)
 
 
-def _engine_run(cfg, dev, long_len, model_params, n_predict):
+def greedy_config(n_predict):
+    """The Engine runs' sampling: greedy under a repeat penalty."""
     from tinychatengine_tpu_torch.core.config import GenerationConfig
+    return GenerationConfig(temp=0.0, n_predict=n_predict, repeat_penalty=1.1,
+                            repeat_last_n=64)
+
+
+def _engine_run(cfg, dev, long_len, model_params, n_predict):
     from tinychatengine_tpu_torch.generation import sampling
     from tinychatengine_tpu_torch.generation.engine import (
         Engine, forward_for_family)
@@ -968,18 +1213,18 @@ def _engine_run(cfg, dev, long_len, model_params, n_predict):
     from tinychatengine_tpu_torch.ops import int4_matmul as im
 
     sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
-    fused = im.FUSED_DECODE
+    fused, kouter = im.FUSED_DECODE, bool(im.DECODE_KOUTER)
     forward = forward_for_family(cfg.family)
     params, qcfg = model_params or random_model(cfg, dev)
     int8_kv = qcfg.kv_cache_dtype == "int8" and cfg.family != "opt"
     label = (f"{cfg.name} {qcfg.scheme}" + (" fused" if fused else "")
+             + (" K-outer" if kouter else "")
              + (" int8 KV" if int8_kv else ""))
     eng = Engine(params, cfg, qcfg, batch=1, max_len=long_len, device=dev)
     rng = np.random.default_rng(0)
     prompt = rng.integers(0, cfg.vocab_size, (1, 64))
     long_prompt = rng.integers(0, cfg.vocab_size, (1, long_len))
-    gcfg = GenerationConfig(temp=0.0, n_predict=n_predict, repeat_penalty=1.1,
-                            repeat_last_n=64)
+    gcfg = greedy_config(n_predict)
 
     def gen_s(n):
         sync()
@@ -1038,7 +1283,8 @@ def _engine_run(cfg, dev, long_len, model_params, n_predict):
                 != want:
             raise SystemExit(f"{label}: launches {launches}, want {want}")
         kernels = (ENGINE_KERNELS if qcfg.scheme == "w4a8" else
-                   W4A16_KERNELS + (("int4_matmul_fused",) if fused else ()))
+                   W4A16_KERNELS + (("int4_matmul_fused",) if fused else ())
+                   + (("int4_matmul_kouter",) if kouter else ()))
         if int8_kv:  # each attention kernel's int8 variant, and only it
             kernels = tuple(INT8_KV.get(k, k) for k in kernels)
             mm = ("int4_matmul_a8" if qcfg.scheme == "w4a8" else
@@ -1057,6 +1303,9 @@ def _engine_run(cfg, dev, long_len, model_params, n_predict):
         if qcfg.scheme == "w4a16":
             mm = "int4_matmul_fused" if fused else "int4_matmul"
             step_want = {mm: 4 * nl + 1, "flash_decode": nl}
+            if kouter:  # the stacked linears K-outer, the head unstacked
+                step_want = {"int4_matmul_kouter": 4 * nl, "int4_matmul": 1,
+                             "flash_decode": nl}
             if {k: v for k, v in per_step.items() if v} != step_want or (
                     not fused and launches["int4_matmul_fused"]):
                 raise SystemExit(f"{label}: launches per decode step "
@@ -1077,6 +1326,7 @@ def _engine_run(cfg, dev, long_len, model_params, n_predict):
         metrics.update(decode_profile(params, cfg, eng, prompt, gcfg,
                                       1e3 / decode_tok_s))
     log(f"{label} main-path metrics:", json.dumps(metrics))
+    metrics["tokens"] = toks[0].tolist()  # the greedy run, for comparisons
 
     # a 2-layer cut at full width: kernels on the card against the plain
     # path on the CPU, 64-token prefill then 2 decode steps
@@ -1135,15 +1385,17 @@ def fused_ab(model, dev="cuda", long_len=2048, model_params=None,
 
 def first_step_diff(params, cfg, a, b, dev):
     """The first decode step's logits after the same 64-token prompt under
-    two (qcfg, fused) settings ``a`` and ``b``: max |b - a| absolute and
-    over max |a|, and whether the argmax agrees."""
+    two (qcfg, fused) or (qcfg, fused, K-outer table) settings ``a`` and
+    ``b``: max |b - a| absolute and over max |a|, and whether the argmax
+    agrees."""
     from tinychatengine_tpu_torch.generation.engine import (
         Engine, forward_for_family)
     prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 64))
     forward = forward_for_family(cfg.family)
     logits = []
-    for qcfg, fused in (a, b):
-        with fused_decode(fused), torch.inference_mode():
+    for qcfg, fused, *table in (a, b):
+        with fused_decode(fused), kouter_table(table[0] if table else {}), \
+                torch.inference_mode():
             eng = Engine(params, cfg, qcfg, max_len=128, device=dev)
             cache = eng.new_cache()
             eng.prefill(prompt, cache)
@@ -1156,6 +1408,139 @@ def first_step_diff(params, cfg, a, b, dev):
                 rel_diff=diff / float(logits[0].abs().max()),
                 same_argmax=bool(torch.equal(logits[0].argmax(-1),
                                              logits[1].argmax(-1))))
+
+
+def stacked_shapes(params) -> list:
+    """(packed K, N) of a llama model's four stacked linears."""
+    lyr = params.layers
+    return [(2 * p.packed.shape[-2], p.packed.shape[-1])
+            for p in (lyr.wqkv, lyr.wo, lyr.wgate_up, lyr.down)]
+
+
+def prefill_launches(params, cfg, qcfg, dev, lengths) -> dict:
+    """Kernel launches of one prefill of each prompt length into a fresh
+    cache (one chunk each)."""
+    from tinychatengine_tpu_torch.generation.engine import Engine
+    from tinychatengine_tpu_torch.ops import _build
+    eng = Engine(params, cfg, qcfg, max_len=max(lengths), device=dev)
+    rng = np.random.default_rng(1)
+    out = {}
+    with torch.inference_mode():
+        for n in lengths:
+            cache = eng.new_cache()
+            _build.reset_launches()
+            eng.prefill(rng.integers(0, cfg.vocab_size, (1, n)), cache)
+            out[n] = {k: v for k, v in _build.LAUNCHES.items() if v}
+            del cache
+    return out
+
+
+def teacher_forced(params, cfg, qcfg, dev, tokens, table):
+    """``tokens`` fed one by one after the Engine run's 64-token prompt
+    with ``DECODE_KOUTER`` set to ``table``. Returns the raw logits before
+    each token [n, V] f32, the greedy choice there under the run's repeat
+    penalty [n], and the penalised top-2 margin there [n]."""
+    from tinychatengine_tpu_torch.generation import sampling
+    from tinychatengine_tpu_torch.generation.engine import (
+        Engine, forward_for_family)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 64))
+    gcfg = greedy_config(len(tokens))
+    forward = forward_for_family(cfg.family)
+    seen, choice, margin = [], [], []
+    with kouter_table(table), torch.inference_mode():
+        eng = Engine(params, cfg, qcfg, max_len=64 + len(tokens), device=dev)
+        logits, cache = eng.prefill(prompt, eng.new_cache())
+        last = torch.as_tensor(prompt, device=dev)  # the 64-token window
+        for pos, tok in enumerate(tokens, 64):
+            lf = logits.float()  # as sampling.sample takes them
+            seen.append(lf[0])
+            choice.append(sampling.greedy_penalized(lf, last, gcfg)[0])
+            top2 = torch.topk(sampling.apply_repetition_penalty(
+                lf, last, gcfg.repeat_penalty), 2).values[0]
+            margin.append(top2[0] - top2[1])
+            ids = torch.tensor([[tok]], device=dev)
+            last = torch.cat([last[:, 1:], ids], dim=1)
+            logits, cache = forward(params, cfg, ids, cache, pos)
+        del cache
+    return (torch.stack(seen), torch.stack(choice).cpu(),
+            torch.stack(margin).cpu())
+
+
+def kouter_engine(model, model_params, dev="cuda", long_len=2048,
+                  n_predict=SHORT_DECODE, blocks=KOUTER_BLOCKS,
+                  unfused_tokens=None):
+    """Phase 4f: phase 4b's W4A16 model (``model_params``) through phase
+    4's Engine run with ``DECODE_KOUTER`` listing its four stacked shapes
+    at ``blocks``: one decode step launches ``int4_matmul_kouter`` once per
+    stacked linear, ``int4_matmul`` once (the unstacked head) and
+    ``flash_decode`` once per layer; the 64-token prompt's prefill routes
+    its stacked linears to the K-outer kernel, the ``long_len`` one none;
+    the first decode step's logits agree with the table empty within
+    ``KOUTER_STEP_TOL``. The table is restored after. Returns {"run":
+    (launches, per_step, metrics), "prefill": {length: launches},
+    "first_step": {...}, "tokens_agreeing": leading greedy tokens equal to
+    ``unfused_tokens`` (phase 4b's unfused run), "teacher_forced": both
+    settings fed the run's tokens (``teacher_forced``): steps each chooses
+    as the run did, the largest step's max |diff| / max |logit|, the first
+    step where the empty table chooses otherwise with its penalised top-2
+    margin and max |diff| there, "table": the table}."""
+    cfg = model_config(model)
+    params, qcfg = model_params
+    table = dict.fromkeys(stacked_shapes(params), tuple(blocks))
+    with kouter_table(table):
+        run = main_path(cfg, dev, long_len, model_params=model_params,
+                        n_predict=n_predict)
+        prefill = prefill_launches(params, cfg, qcfg, dev, (64, long_len))
+    first = first_step_diff(params, cfg, (qcfg, False), (qcfg, False, table),
+                            dev)
+    toks = run[2]["tokens"]
+    agree = len(toks) if unfused_tokens is None else next(
+        (i for i, (a, b) in enumerate(zip(toks, unfused_tokens)) if a != b),
+        min(len(toks), len(unfused_tokens)))
+    # both settings fed the K-outer run's tokens: every step compared on the
+    # same context, so a fault after a few steps or in the 64-row prompt
+    # bucket shows in its own step, and where the greedy runs part the
+    # table-empty margin says whether it was a near tie
+    (kl, kc, _), (ul, uc, um) = (
+        teacher_forced(params, cfg, qcfg, dev, toks, t) for t in (table, {}))
+    step_abs = (kl - ul).abs().amax(-1).cpu()
+    step_rel = step_abs / ul.abs().amax(-1).cpu()
+    want = torch.tensor(toks, dtype=kc.dtype)
+    part = next((i for i, ok in enumerate((uc == want).tolist()) if not ok),
+                None)
+    forced = dict(
+        steps=len(toks), self_agree=int((kc == want).sum()),
+        table_empty_agree=int((uc == want).sum()),
+        max_rel_diff=float(step_rel.max()),
+        first_parting_step=part,
+        margin_there=None if part is None else float(um[part]),
+        max_abs_diff_there=None if part is None else float(step_abs[part]))
+    del kl, ul
+    log(f"{cfg.name} K-outer: prefill launches {json.dumps(prefill)}; first "
+        f"decode step against the table empty {json.dumps(first)} (tol "
+        f"{KOUTER_STEP_TOL}); greedy tokens agreeing with the unfused run: "
+        f"{agree} of {len(toks)}; fed the K-outer tokens, K-outer against "
+        f"the table empty: {json.dumps(forced)}")
+    if dev == "cuda":
+        nl = cfg.num_layers
+        want_short = {"int4_matmul_kouter": 4 * nl, "int4_matmul": 1,
+                      "flash_prefill": nl}
+        if prefill[64] != want_short or prefill[long_len].get(
+                "int4_matmul_kouter", 0) or prefill[long_len].get(
+                    "int4_matmul") != 4 * nl + 1:
+            raise SystemExit(f"{cfg.name} K-outer prefill launches "
+                             f"{prefill}, want {want_short} at 64 tokens and "
+                             f"no K-outer kernel at {long_len}")
+        if not max(first["rel_diff"], forced["max_rel_diff"]) \
+                <= KOUTER_STEP_TOL:
+            raise SystemExit(f"{cfg.name}: K-outer decode disagrees with "
+                             "int4_matmul")
+        if forced["self_agree"] != len(toks):
+            raise SystemExit(f"{cfg.name}: the K-outer run fed its own "
+                             "tokens chose others")
+    return {"run": run, "prefill": prefill, "first_step": first,
+            "tokens_agreeing": agree, "teacher_forced": forced,
+            "table": table}
 
 
 def int8_kv_engine(model, model_params, dev="cuda", long_len=2048,
@@ -1841,6 +2226,19 @@ SUMMARY = {  # kernel -> (source, TPU kernel it replaces, summary case)
         "tinychatengine_tpu_torch/csrc/flash_decode_paged.cu",
         "tinychatengine_tpu/ops/attention.py:375",
         "B=8 Hq=32 Hkv=8 D=128 P=128 ragged 1..4607"),
+    "int4_matmul_kouter": (
+        "tinychatengine_tpu_torch/csrc/int4_matmul_kouter.cu",
+        "tinychatengine_tpu/ops/int4_matmul.py:358",
+        "gate_up M=1 K=4096 N=28672"),
+    "int4_matmul_glu": ("tinychatengine_tpu_torch/csrc/int4_matmul_kouter.cu",
+                        "tinychatengine_tpu/ops/int4_matmul.py:805",
+                        "down M=1 F=14336 N=4096"),
+    "mlp_fused": ("tinychatengine_tpu_torch/csrc/mlp_fused.cu",
+                  "tinychatengine_tpu/ops/mlp_fused.py:183",
+                  "llama3_8b M=1 E=4096 F=14336"),
+    "int3_matmul": ("tinychatengine_tpu_torch/csrc/int3_matmul.cu",
+                    "tinychatengine_tpu/ops/int3_matmul.py:134",
+                    "gate_up M=1 K=4096 N=28672"),
 }
 # the run each kernel's launches count comes from: phase 4's Engine path,
 # phase 5's paged serving run for the paged kernel, phase 7's OPT Engine
@@ -1850,12 +2248,17 @@ SUMMARY = {  # kernel -> (source, TPU kernel it replaces, summary case)
 # step from the same Engine path; per tick from phase 5's paged run, phase
 # 8's OPT run for int8_decode, phase 11's paged StarCoder run for
 # int4_matmul_fused and phase 4d's int8 runs (dense, paged) for the int8
-# kernels
+# kernels; phase 4f's K-outer Engine path for int4_matmul_kouter, and phase
+# 3's calls for the three kernels no path of the JAX package runs (the GLU
+# down projection, the fused MLP, int3)
 HOME_RUN = {"flash_decode_paged": "serving_paged", "int8_decode": "opt_engine",
             "int4_matmul_fused": "starcoder_fused",
             "flash_decode_int8": "llama_int8kv_engine",
             "flash_prefill_int8": "llama_int8kv_engine",
-            "flash_decode_paged_int8": "long_int8_paged"}
+            "flash_decode_paged_int8": "long_int8_paged",
+            "int4_matmul_kouter": "llama_w4a16_kouter",
+            "int4_matmul_glu": "kernels", "mlp_fused": "kernels",
+            "int3_matmul": "kernels"}
 
 
 def main(argv=None) -> int:
@@ -1893,7 +2296,9 @@ def main(argv=None) -> int:
         phase_s[name] = time.perf_counter() - t
         log(f"phase {name}: {phase_s[name]:.1f} s")
         return out
+    _build.reset_launches()
     cases = phase("kernels", check_kernels, gen)
+    kernel_launches = dict(_build.LAUNCHES)
     linears = phase("w8a8 linears", w8a8_linear_times, gen)
     if args.kernels_only:
         return 0
@@ -1902,10 +2307,12 @@ def main(argv=None) -> int:
     llama = random_model(get_model_config("llama3_8b"), "cuda")
     launches, per_step, metrics = phase("llama main path", main_path,
                                         model_params=llama)
+    w4a16 = (as_w4a16(llama[0]), QuantConfig(scheme="w4a16"))
     llama_ab = phase("llama w4a16 fused decode", fused_ab, "llama3_8b",
-                     model_params=(as_w4a16(llama[0]),
-                                   QuantConfig(scheme="w4a16")),
-                     n_predict=SHORT_DECODE)
+                     model_params=w4a16, n_predict=SHORT_DECODE)
+    kouter = phase("llama w4a16 K-outer decode", kouter_engine, "llama3_8b",
+                   w4a16, unfused_tokens=llama_ab["unfused"][2]["tokens"])
+    del w4a16
     kv8 = phase("llama int8 KV", int8_kv_engine, "llama3_8b", llama)
     long_ctx = phase("llama long-context serving", long_serving, "llama3_8b",
                      llama)
@@ -1928,6 +2335,8 @@ def main(argv=None) -> int:
                        n_requests=16, n_predict=64, fused=True)
 
     runs = {"engine": launches,  # path -> launches over its run
+            "kernels": kernel_launches,
+            "llama_w4a16_kouter": kouter["run"][0],
             "serving_dense": serving["dense"]["launches"],
             "serving_paged": serving["paged"]["launches"],
             "llama_w4a16_unfused": llama_ab["unfused"][0],
@@ -1943,6 +2352,7 @@ def main(argv=None) -> int:
             **{"prefix_" + k.replace(" ", "_"): m["launches"]
                for k, m in pfx.items() if k != "tokens_equal_uncached"}}
     step_of = {"int8_decode": opt_step, "int4_matmul_fused": sc_ab["fused"][1],
+               "int4_matmul_kouter": kouter["run"][1],
                **dict.fromkeys(INT8_KV.values(), kv8[1])}
     tick_of = {"int8_decode": opt_serving,
                "int4_matmul_fused": sc_serving["paged"],
@@ -1969,6 +2379,7 @@ def main(argv=None) -> int:
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
     engine_runs = [("llama3_8b w4a8", metrics),
                    ("llama3_8b w4a8 int8 KV", kv8[2]),
+                   ("llama3_8b w4a16 K-outer", kouter["run"][2]),
                    ("opt_6.7b w8a8", opt_metrics)]
     for model, ab in (("llama3_8b w4a16", llama_ab),
                       ("starcoder_15.5b w4a16", sc_ab)):
@@ -1986,6 +2397,9 @@ def main(argv=None) -> int:
             f"{m.get('decode_device_ops_per_step', 'not measured')}")
     log("llama3_8b first decode step, int8 vs bf16 KV:",
         json.dumps(kv8[2]["first_step_vs_bf16_kv"]))
+    log("llama3_8b first decode step, K-outer vs int4_matmul:",
+        json.dumps(kouter["first_step"]), "greedy tokens agreeing with the "
+        f"unfused run: {kouter['tokens_agreeing']} of {SHORT_DECODE}")
     for mode, m in (("llama3_8b dense", serving["dense"]),
                     ("llama3_8b paged", serving["paged"]),
                     *((f"llama3_8b long-context {k}", v)

@@ -332,3 +332,91 @@ def test_int8_decode_kernel_matches_plain(cuda, d):
     assert int8_err(got, want, 1e-3)[2] <= 1.0
     with pytest.raises(ValueError):
         att.int8_decode(q, ck.to(torch.bfloat16), cv, 0, lengths, 3e-5, 1e-3)
+
+
+def _int4_stack(rng, k, n, scale_dtype, dev, layers=2):
+    lins = [quantized_linear(rng.standard_normal((n, k)).astype(np.float32)
+                             * 0.02, 128, scale_dtype) for _ in range(layers)]
+    return (torch.stack([p.packed for p in lins]).to(dev),
+            torch.stack([p.scales for p in lins]).to(dev))
+
+
+def _mat_ok(got, want):
+    torch.cuda.synchronize()
+    return (got.float() - want.float()).abs().max() \
+        <= MAT_TOL * want.float().abs().max()
+
+
+@pytest.mark.parametrize("scale_dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("k", [1024, 1152])
+@pytest.mark.parametrize("m", [1, 7, 130, 496, 497])
+def test_kouter_route_runs_the_kernel(cuda, monkeypatch, m, k, scale_dtype):
+    """``int4_matmul`` with the shape listed: the K-outer kernel below 497
+    rows (against its plain version), ``int4_matmul`` from 497 on; K = 1152
+    is pack-padded to 2048."""
+    rng = np.random.default_rng(m + k)
+    packed, scales = _int4_stack(rng, k, 512, scale_dtype, cuda)
+    kw = 2 * packed.shape[-2]
+    monkeypatch.setattr(im, "DECODE_KOUTER", {(kw, 512): (256, 512)})
+    x = _bf16(rng, (m, k), cuda)
+    _build.reset_launches()
+    got = im.int4_matmul(x, packed, scales, 128, layer_idx=1)
+    routed = m <= 496
+    assert _build.LAUNCHES["int4_matmul_kouter"] == int(routed)
+    assert _build.LAUNCHES["int4_matmul"] == int(not routed)
+    want = im.int4_matmul_kouter_plain(x, packed, scales, 128, layer_idx=1,
+                                       block_n=256, block_k=512)
+    assert _mat_ok(got, want)
+
+
+@pytest.mark.parametrize("scale_dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("m", [1, 9])
+def test_int4_matmul_glu_matches_plain(cuda, m, scale_dtype):
+    rng = np.random.default_rng(m)
+    packed, scales = _int4_stack(rng, 512, 256, scale_dtype, cuda)
+    gu = _bf16(rng, (m, 1024), cuda)
+    _build.reset_launches()
+    for li in (0, 1):
+        got = im.int4_matmul_glu(gu, packed, scales, 128, layer_idx=li)
+        want = im.int4_matmul_glu_plain(gu, packed, scales, 128, layer_idx=li)
+        assert _mat_ok(got, want)
+    assert _build.LAUNCHES["int4_matmul_glu"] == 2
+
+
+@pytest.mark.parametrize("m", [1, 16])
+def test_mlp_fused_matches_plain_and_replays_in_a_graph(cuda, m):
+    """The cooperative launch against its plain version, then captured in
+    a CUDA graph and replayed (chip_smoke.py times it so)."""
+    from tinychatengine_tpu_torch.ops import mlp_fused as mf
+    from tinychatengine_tpu_torch.ops.linear import Int4Linear
+    rng = np.random.default_rng(m)
+    wgu = Int4Linear(*_int4_stack(rng, 512, 2048, "bf16", cuda))
+    wdn = Int4Linear(*_int4_stack(rng, 1024, 512, "bf16", cuda))
+    x = _bf16(rng, (m, 512), cuda)
+    _build.reset_launches()
+    got = mf.mlp_fused(x, wgu, wdn, 1, bn=256)
+    assert _mat_ok(got, mf.mlp_fused_plain(x, wgu, wdn, 1, bn=256))
+    assert _build.LAUNCHES["mlp_fused"] == 1
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        y = mf.mlp_fused(x, wgu, wdn, 1, bn=256)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, got)
+
+
+@pytest.mark.parametrize("g", [128, 32])
+@pytest.mark.parametrize("m", [1, 9])
+def test_int3_matmul_matches_plain(cuda, m, g):
+    from tinychatengine_tpu_torch.ops import int3_matmul as i3
+    from tinychatengine_tpu_torch.quant.numerics import quantize_groupwise_int3
+    rng = np.random.default_rng(m + g)
+    q, d = quantize_groupwise_int3(
+        rng.standard_normal((256, 2048)).astype(np.float32) * 0.08, g)
+    pa, pb = (torch.from_numpy(a).to(cuda) for a in i3.pack_qm_tpu3(q))
+    scales = torch.from_numpy(np.ascontiguousarray(d.T)).to(cuda)
+    x = _bf16(rng, (m, 2048), cuda)
+    _build.reset_launches()
+    got = i3.int3_matmul(x, pa, pb, scales, group_size=g)
+    assert _mat_ok(got, i3.int3_matmul_plain(x, pa, pb, scales, group_size=g))
+    assert _build.LAUNCHES["int3_matmul"] == 1

@@ -117,6 +117,24 @@ def test_generate_device_with_a_filled_cache_matches_jax():
     assert got.tolist() == eng.generate_device(prompt, g).tolist()
 
 
+def test_generate_device_past_max_len_raises():
+    """n_prompt + n_tokens > max_len: the port's decode step at position
+    max_len raises ``ValueError("KV cache full")``. JAX's loop runs on
+    instead: its ``dynamic_update_slice`` clamps the write onto the last
+    cache position (tinychatengine_tpu/generation/kv_cache.py:99-111), so it
+    overwrites that entry and returns tokens computed over the overwritten
+    cache. Up to max_len the port decodes as before."""
+    params = llama.init_random_params(TINY, QuantConfig(scheme="w4a16"),
+                                      seed=1, device="cpu")
+    eng = Engine(params, TINY, QuantConfig(scheme="w4a16"), max_len=32,
+                 device="cpu")
+    prompt = [[3, 1, 4, 1, 5, 9, 2, 6]]
+    g = GenerationConfig(temp=0.0, n_predict=24)
+    assert eng.generate_device(prompt, g).shape == (1, 24)  # 8 + 24 = 32
+    with pytest.raises(ValueError, match="KV cache full"):
+        eng.generate_device(prompt, g, n_tokens=25)
+
+
 def test_chunked_prefill_matches_single_shot(tiny_engine, monkeypatch):
     prompt = np.arange(1, 41)[None] % 500
     single, cache1 = tiny_engine.prefill(prompt, tiny_engine.new_cache())

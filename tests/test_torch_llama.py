@@ -14,11 +14,13 @@ from tinychatengine_tpu.core.config import ModelConfig as JModelConfig
 from tinychatengine_tpu.core.config import QuantConfig as JQuantConfig
 from tinychatengine_tpu.generation import kv_cache as jkvc
 from tinychatengine_tpu.models import llama as jllama
+from tinychatengine_tpu.ops import int4_matmul as jim
 from tinychatengine_tpu.tools import checkpoint as jckpt
 from tinychatengine_tpu.tools.convert import requantize_llama as j_requantize
 from tinychatengine_tpu_torch.core.config import ModelConfig, QuantConfig
 from tinychatengine_tpu_torch.generation import kv_cache as tkvc
 from tinychatengine_tpu_torch.models import llama as tllama
+from tinychatengine_tpu_torch.ops import int4_matmul as tim
 from tinychatengine_tpu_torch.tools import checkpoint as tckpt
 from tinychatengine_tpu_torch.tools.convert import requantize_llama
 
@@ -73,15 +75,33 @@ def _port_flat(p: tllama.LlamaParams) -> dict:
 
 # per-step logits of a 2-layer model: the two sides round bf16 activations
 # at the same points but may sum in other orders, so a few bf16 steps of
-# logits of order 1 (W4A8 adds an int8 code flip now and then)
+# logits of order 1 (W4A8 adds an int8 code flip now and then).
+# "w4a16-kouter": W4A16 with every stacked linear listed in both sides'
+# DECODE_KOUTER; a CPU forward on either side never reaches a kernel, so the
+# logits stay the unlisted ones' (on the card these calls run
+# int4_matmul_kouter, chip_smoke.py phase 4f)
 @pytest.mark.parametrize("scheme,kv,tol", [
     ("fp", "bf16", 2e-2), ("w4a16", "bf16", 2e-2), ("w4a8", "bf16", 4e-2),
-    ("fp", "int8", 2e-2), ("w4a16", "int8", 2e-2), ("w4a8", "int8", 4e-2)])
-def test_forward_prefill_and_decode_match_jax(scheme, kv, tol):
+    ("fp", "int8", 2e-2), ("w4a16", "int8", 2e-2), ("w4a8", "int8", 4e-2),
+    ("w4a16-kouter", "bf16", 2e-2)])
+def test_forward_prefill_and_decode_match_jax(scheme, kv, tol, monkeypatch):
     jcfg, cfg = JModelConfig(**TINY), ModelConfig(**TINY)
+    if scheme.endswith("-kouter"):
+        scheme = scheme.removesuffix("-kouter")
+        e, f, d = cfg.embed_dim, cfg.hidden_dim, cfg.head_dim
+        table = dict.fromkeys(
+            [(e, (cfg.num_heads + 2 * cfg.num_kv_heads) * d),
+             (cfg.num_heads * d, e), (e, 2 * f), (f, e)], (256, 256))
+        monkeypatch.setattr(jim, "DECODE_KOUTER", dict(table))
+        monkeypatch.setattr(tim, "DECODE_KOUTER", dict(table))
     jq = JQuantConfig(scheme=scheme, kv_cache_dtype=kv)
     jp = jllama.init_random_params(jcfg, jq, seed=1)
     tp = _port_params(jp, cfg, QuantConfig(scheme=scheme, kv_cache_dtype=kv))
+    for name in ("wqkv", "wo", "wgate_up", "down") if tim.DECODE_KOUTER \
+            else ():
+        p = getattr(tp.layers, name)
+        assert (2 * p.packed.shape[-2], p.packed.shape[-1]) \
+            in tim.DECODE_KOUTER, name
     quant_kv = kv == "int8"
     jc = jkvc.init_cache(2, 1, 64, 2, 64, quantized=quant_kv)
     tc = tkvc.init_cache(2, 1, 64, 2, 64, quantized=quant_kv,

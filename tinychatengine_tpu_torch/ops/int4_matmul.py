@@ -1,16 +1,18 @@
-"""Fused dequant-INT4 matmuls: W4A16 (``int4_matmul``), W4A8
-(``int4_matmul_a8``) and the decode matmul with its norm, RoPE, bias and
-residual folded in (``int4_matmul_fused``), with their plain PyTorch
-versions.
+"""Fused dequant-INT4 matmuls: W4A16 (``int4_matmul``), its K-outer route
+for small M (``int4_matmul_kouter``), W4A8 (``int4_matmul_a8``), the
+decode matmul with its norm, RoPE, bias and residual folded in
+(``int4_matmul_fused``) and the down projection with silu(gate) * up folded
+in (``int4_matmul_glu``), with their plain PyTorch versions.
 
 Counterpart of the JAX package's ``ops/int4_matmul.py``. The kernels are
-``csrc/int4_matmul.cu``, ``csrc/int4_matmul_a8.cu`` and
-``csrc/int4_matmul_fused.cu``. They read the QM_TPU
-packed layout as stored (``quant/packing.py``): ``packed [K/2, N]`` uint8,
-or layer-stacked ``[L, K/2, N]`` with ``layer_idx`` selecting the layer by a
-pointer offset (no per-layer copy); ``scales [K/G, N]`` (or ``[L, K/G, N]``)
-in bf16 or f32. A pack-padded K (``packing.padded_ic``) is handled by
-zero-padding x: the pad rows hold the zero-point code and dequantize to 0.
+``csrc/int4_matmul.cu``, ``csrc/int4_matmul_kouter.cu`` (K-outer and GLU),
+``csrc/int4_matmul_a8.cu`` and ``csrc/int4_matmul_fused.cu``. They read the
+QM_TPU packed layout as stored (``quant/packing.py``): ``packed [K/2, N]``
+uint8, or layer-stacked ``[L, K/2, N]`` with ``layer_idx`` selecting the
+layer by a pointer offset (no per-layer copy); ``scales [K/G, N]`` (or
+``[L, K/G, N]``) in bf16 or f32. A pack-padded K (``packing.padded_ic``) is
+handled by zero-padding x: the pad rows hold the zero-point code and
+dequantize to 0.
 
 Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor takes
 the plain version. The plain versions keep the JAX fallbacks' cast points
@@ -22,6 +24,13 @@ same name): the model forwards read it at call time and, when it is on, run
 their one-token steps through ``int4_matmul_fused``. Off by default, as in
 JAX; the environment variable ``TINYCHAT_DECODE_FUSED=1`` turns it on at
 import, and code may set the attribute at any time.
+
+``DECODE_KOUTER`` is the K-outer route's table (the JAX package's table of
+the same name), ``(K, N) -> (block_n, block_k)`` with K the packed K: a
+stacked CUDA call of ``int4_matmul`` at fewer than 512 (16-padded) rows
+whose shape is listed runs ``int4_matmul_kouter`` with the listed K band.
+Empty by default; ``TINYCHAT_DECODE_KOUTER="K,N:bn,bk;..."`` fills it at
+import, and code may fill it at any time. A CPU call ignores it.
 """
 
 from __future__ import annotations
@@ -39,6 +48,51 @@ from tinychatengine_tpu_torch.quant.packing import PLANE, SUPERBLOCK
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 FUSED_DECODE = os.environ.get("TINYCHAT_DECODE_FUSED", "0") not in ("", "0")
+
+# (K, N) -> (block_n, block_k): stacked shapes routed through the K-outer
+# kernel below 512 rows (see the module docstring)
+DECODE_KOUTER: dict = {}
+
+
+def _parse_env_blocks(table: dict | None = None) -> dict:
+    """Fills ``table`` (``DECODE_KOUTER`` by default) from the environment
+    variable ``TINYCHAT_DECODE_KOUTER``: ``"K,N:block_n,block_k;..."``,
+    where block_n divides N and is a multiple of 128 and block_k divides K
+    and is a multiple of ``SUPERBLOCK`` (the JAX package's syntax and
+    refusals). Raises ``ValueError`` on a malformed entry."""
+    table = DECODE_KOUTER if table is None else table
+    env = "TINYCHAT_DECODE_KOUTER"
+    for item in os.environ.get(env, "").split(";"):
+        if not item.strip():
+            continue
+        try:
+            shape, blocks = item.split(":")
+            k, n = (int(v) for v in shape.split(","))
+            bn, bk = (int(v) for v in blocks.split(","))
+        except ValueError as e:
+            raise ValueError(
+                f"{env} entry {item!r} malformed (want "
+                f"'K,N:block_n,block_k;...'): {e}") from None
+        if n % bn or k % bk or bk % SUPERBLOCK or bn % 128:
+            raise ValueError(
+                f"{env} {item!r}: block_n must divide N and be a multiple "
+                f"of 128; block_k must divide K and be a multiple of "
+                f"{SUPERBLOCK}")
+        table[(k, n)] = (bn, bk)
+    return table
+
+
+_parse_env_blocks()
+
+
+def kouter_route(m: int, kw: int, n: int, stacked: bool):
+    """The (block_n, block_k) of ``DECODE_KOUTER`` that a CUDA call of
+    ``int4_matmul`` at ``m`` rows, packed K ``kw`` and ``n`` columns runs
+    the K-outer kernel with, or None: the JAX package's gate (stacked
+    weights, fewer than 512 rows after padding M to 16, a listed shape)."""
+    if stacked and m + (-m) % 16 < 512:
+        return DECODE_KOUTER.get((kw, n))
+    return None
 
 
 def _check_layout(x, packed, scales, group_size, layer_idx):
@@ -69,10 +123,10 @@ def _layer(t: torch.Tensor, layer_idx):
     return t if layer_idx is None else t[int(layer_idx)]
 
 
-def _cuda_args(x, packed, scales, group_size, layer_idx):
-    """Checks shared by both kernels; returns the 2-D zero-padded bf16 x,
-    the layer's weight and scale pointers and the shape numbers."""
-    k, kw, n = _check_layout(x, packed, scales, group_size, layer_idx)
+def _cuda_weights(x, packed, scales, group_size, layer_idx):
+    """The kernels' checks of the weights; returns the layer's weight and
+    scale pointers (a stacked layer is a pointer offset, not a copy)."""
+    kw, n = 2 * packed.shape[-2], packed.shape[-1]
     if not (packed.is_cuda and scales.is_cuda and x.device == packed.device):
         raise ValueError("x, packed and scales must lie on one CUDA device")
     if packed.dtype != torch.uint8 or not packed.is_contiguous():
@@ -83,14 +137,40 @@ def _cuda_args(x, packed, scales, group_size, layer_idx):
     if n % 4 or group_size not in (32, 64, 128):
         raise ValueError(f"kernel needs N % 4 == 0 and G in (32, 64, 128); "
                          f"got N={n}, G={group_size}")
-    x2 = x.reshape(-1, k).to(torch.bfloat16)
-    if kw > k:
-        x2 = torch.nn.functional.pad(x2, (0, kw - k))
-    x2 = x2.contiguous()
     li = 0 if layer_idx is None else int(layer_idx)
     w_ptr = packed.data_ptr() + li * (kw // 2) * n
     s_ptr = scales.data_ptr() + li * (kw // group_size) * n * scales.element_size()
-    return x2, w_ptr, s_ptr, kw, n
+    return w_ptr, s_ptr
+
+
+def _cuda_args(x, packed, scales, group_size, layer_idx):
+    """Checks shared by the kernels; returns the 2-D zero-padded bf16 x,
+    the layer's weight and scale pointers and the shape numbers."""
+    k, kw, n = _check_layout(x, packed, scales, group_size, layer_idx)
+    w_ptr, s_ptr = _cuda_weights(x, packed, scales, group_size, layer_idx)
+    x2 = x.reshape(-1, k).to(torch.bfloat16)
+    if kw > k:
+        x2 = torch.nn.functional.pad(x2, (0, kw - k))
+    return x2.contiguous(), w_ptr, s_ptr, kw, n
+
+
+def factored_int4(xb: torch.Tensor, packed: torch.Tensor,
+                  scales: torch.Tensor, group_size: int,
+                  split_zero_point: bool = False) -> torch.Tensor:
+    """The TPU kernels' dequant contraction of one layer, f32 [M, N]: per
+    group g, with the exact codes q and f32 scales d, ``(x . q - 8 sum x)
+    * d`` (or ``(x . q) * d - (8 sum x) * d`` with ``split_zero_point``, as
+    ``mlp_fused``'s kernel writes it), summed over the groups. ``xb`` is
+    bf16 [M, K] with K the packed K."""
+    m, k = xb.shape
+    n, ng = packed.shape[-1], k // group_size
+    xg = xb.float().reshape(m, ng, group_size)
+    codes = unpack_int4(packed).float().reshape(ng, group_size, n)
+    dot = torch.einsum("mgk,gkn->mgn", xg, codes)
+    xsum8 = xg.sum(dim=-1, keepdim=True) * ZERO_POINT
+    d = scales.float()[None]
+    terms = dot * d - xsum8 * d if split_zero_point else (dot - xsum8) * d
+    return terms.sum(dim=1)
 
 
 def int4_matmul_plain(x, packed, scales, group_size: int = 128, *,
@@ -107,10 +187,17 @@ def int4_matmul_plain(x, packed, scales, group_size: int = 128, *,
 def int4_matmul(x, packed, scales, group_size: int = 128, *,
                 layer_idx=None) -> torch.Tensor:
     """y[..., N] = x[..., K] @ ((q - 8) * d), bf16 out. CUDA: the W4A16
-    kernel (``csrc/int4_matmul.cu``); CPU: ``int4_matmul_plain``."""
+    kernel (``csrc/int4_matmul.cu``), or the K-outer kernel where
+    ``kouter_route`` lists the call; CPU: ``int4_matmul_plain``."""
     if not x.is_cuda:
         return int4_matmul_plain(x, packed, scales, group_size,
                                  layer_idx=layer_idx)
+    blocks = kouter_route(x.numel() // x.shape[-1], 2 * packed.shape[-2],
+                          packed.shape[-1], layer_idx is not None)
+    if blocks is not None:
+        return int4_matmul_kouter(x, packed, scales, group_size,
+                                  layer_idx=layer_idx, block_n=blocks[0],
+                                  block_k=blocks[1])
     x2, w_ptr, s_ptr, kw, n = _cuda_args(x, packed, scales, group_size,
                                          layer_idx)
     m = x2.shape[0]
@@ -234,13 +321,8 @@ def int4_matmul_fused_plain(x, packed, scales, group_size: int = 128, *,
         xn = (xf * rs * norm_w[li].float()).to(torch.bfloat16)
     else:
         xn = x2
-    ng = k // group_size
-    xg = xn.float().reshape(m, ng, group_size)
-    codes = unpack_int4(packed[li]).float().reshape(ng, group_size, n)
-    dot = torch.einsum("mgk,gkn->mgn", xg, codes)
-    xsum8 = xg.sum(dim=-1, keepdim=True) * ZERO_POINT
-    acc = ((dot - xsum8) * scales[li].float()[None]).sum(dim=1)
-    y = acc.to(torch.bfloat16)
+    y = factored_int4(xn, packed[li], scales[li], group_size).to(
+        torch.bfloat16)
     if rope_cos is not None:
         if rope_qk_cols % head_dim or head_dim % 2:
             raise ValueError("rope_qk_cols must be whole heads of even D")
@@ -276,11 +358,13 @@ def _vec_arg(t, li: int, width: int, device, what: str):
 _FUSED_TARGET_BLOCKS = 264
 
 
-def fused_split(m: int, n: int, k: int) -> tuple[int, int]:
-    """(superblocks per K split, number of splits) of the fused kernel's
-    grid: 128 columns and 8 rows (1 at M = 1) per block."""
+def fused_split(m: int, n: int, k: int,
+                unit: int = SUPERBLOCK) -> tuple[int, int]:
+    """(K units per split, number of splits) of a split-K grid of 128
+    columns and 8 rows (1 at M = 1) per block, the K units being
+    superblocks (the fused and GLU kernels) or ``unit`` rows."""
     tiles = -(-n // 128) * -(-m // (1 if m == 1 else 8))
-    nsb = k // SUPERBLOCK
+    nsb = k // unit
     want = max(1, min(nsb, -(-_FUSED_TARGET_BLOCKS // tiles)))
     per = -(-nsb // want)
     return per, -(-nsb // per)
@@ -351,3 +435,135 @@ def int4_matmul_fused(x, packed, scales, group_size: int = 128, *,
                  "int4_matmul_fused")
     _build.LAUNCHES["int4_matmul_fused"] += 1
     return y.reshape(*x.shape[:-1], n)
+
+
+def _check_kouter(packed, group_size, layer_idx, block_n, block_k):
+    """Checks of a K-outer call beyond the layout's (the asserts of JAX's
+    ``_int4_matmul_kouter``, as ValueError): stacked weights, K/G a
+    multiple of 8, block_n dividing N in multiples of 128, block_k dividing
+    the packed K in superblocks."""
+    if packed.dim() != 3 or layer_idx is None:
+        raise ValueError("the K-outer kernel takes stacked weights "
+                         "[L, K/2, N] with layer_idx")
+    kw, n = 2 * packed.shape[-2], packed.shape[-1]
+    if (kw // group_size) % 8:
+        raise ValueError(f"the K-outer kernel needs K/G % 8 == 0, got "
+                         f"K={kw}, G={group_size}")
+    if n % block_n or block_n % 128 or kw % block_k or block_k % SUPERBLOCK:
+        raise ValueError(
+            f"block_n {block_n} must divide N={n} in multiples of 128 and "
+            f"block_k {block_k} divide K={kw} in multiples of {SUPERBLOCK}")
+
+
+def int4_matmul_kouter_plain(x, packed, scales, group_size: int = 128, *,
+                             layer_idx, block_n: int,
+                             block_k: int) -> torch.Tensor:
+    """The TPU kernel's arithmetic (``_kouter_kernel``): x in bf16, exact
+    codes, f32 scales, per group ``acc += (x . q - 8 sum x) * d`` in f32,
+    the result rounded to bf16 once. The blocking changes nothing here."""
+    k, kw, n = _check_layout(x, packed, scales, group_size, layer_idx)
+    _check_kouter(packed, group_size, layer_idx, block_n, block_k)
+    x2 = x.reshape(-1, k).to(torch.bfloat16)
+    if kw > k:
+        x2 = torch.nn.functional.pad(x2, (0, kw - k))
+    li = int(layer_idx)
+    y = factored_int4(x2, packed[li], scales[li], group_size)
+    return y.to(torch.bfloat16).reshape(*x.shape[:-1], n)
+
+
+def int4_matmul_kouter(x, packed, scales, group_size: int = 128, *,
+                       layer_idx, block_n: int,
+                       block_k: int) -> torch.Tensor:
+    """y[..., N] = x[..., K] @ ((q - 8) * d) over stacked weights, bf16
+    out, with K walked in bands of ``block_k`` rows (the K-outer kernel,
+    the JAX package's ``_int4_matmul_kouter``). CUDA:
+    ``csrc/int4_matmul_kouter.cu``: one block per (128 columns, 8 rows or
+    1, K band), f32 band sums summed in K order by a second kernel; CPU:
+    ``int4_matmul_kouter_plain``. ``block_n`` is checked as JAX checks it
+    (the table's syntax and refusals stay JAX's) and otherwise ignored: the
+    kernel tiles N in 128 columns whatever it is."""
+    if not x.is_cuda:
+        return int4_matmul_kouter_plain(x, packed, scales, group_size,
+                                        layer_idx=layer_idx, block_n=block_n,
+                                        block_k=block_k)
+    x2, w_ptr, s_ptr, kw, n = _cuda_args(x, packed, scales, group_size,
+                                         layer_idx)
+    _check_kouter(packed, group_size, layer_idx, block_n, block_k)
+    m, dev = x2.shape[0], x.device
+    bands = kw // block_k
+    partial = torch.empty((bands, m, n), dtype=torch.float32, device=dev)
+    y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    fn = _build.bind("int4_matmul_kouter", "tce_int4_matmul_kouter",
+                     [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+    _build.check(fn(x2.data_ptr(), w_ptr, s_ptr,
+                    int(scales.dtype == torch.bfloat16), partial.data_ptr(),
+                    y.data_ptr(), m, kw, n, group_size,
+                    block_k // SUPERBLOCK, bands,
+                    torch.cuda.current_stream(dev).cuda_stream),
+                 "int4_matmul_kouter")
+    _build.LAUNCHES["int4_matmul_kouter"] += 1
+    return y.reshape(*x.shape[:-1], n)
+
+
+def _glu_operands(gu, packed, scales, group_size, layer_idx):
+    """Checks of a GLU call (the JAX wrapper's tiling, as ValueError):
+    gu [..., 2F] with F a multiple of ``SUPERBLOCK``, stacked down weights
+    [L, F/2, N] (no pack pad) with N a multiple of 128. Returns (F, N)."""
+    f2 = gu.shape[-1]
+    f = f2 // 2
+    if packed.dim() != 3 or layer_idx is None:
+        raise ValueError("int4_matmul_glu takes stacked down weights "
+                         "[L, F/2, N] with layer_idx")
+    if f2 % 2 or f % SUPERBLOCK or 2 * packed.shape[-2] != f:
+        raise ValueError(f"gu [..., {f2}] does not fit packed "
+                         f"{tuple(packed.shape)}: want gu [..., 2F] with F "
+                         f"= packed K a multiple of {SUPERBLOCK}")
+    _, _, n = _check_layout(gu[..., :f], packed, scales, group_size,
+                            layer_idx)
+    if n % 128:
+        raise ValueError(f"int4_matmul_glu needs N % 128 == 0, got N={n}")
+    return f, n
+
+
+def int4_matmul_glu_plain(gu, packed, scales, group_size: int = 128, *,
+                          layer_idx) -> torch.Tensor:
+    """The TPU kernel's arithmetic (``_glu_kernel``): gate and up rounded
+    to bf16, ``act = bf16(sigmoid(g) * g * u)`` in f32, then the factored
+    contraction against layer ``layer_idx`` of W_down (``factored_int4``),
+    rounded to bf16 once."""
+    f, n = _glu_operands(gu, packed, scales, group_size, layer_idx)
+    g2 = gu.reshape(-1, 2 * f).to(torch.bfloat16).float()
+    gate, up = g2[:, :f], g2[:, f:]
+    act = (torch.sigmoid(gate) * gate * up).to(torch.bfloat16)
+    li = int(layer_idx)
+    y = factored_int4(act, packed[li], scales[li], group_size)
+    return y.to(torch.bfloat16).reshape(*gu.shape[:-1], n)
+
+
+def int4_matmul_glu(gu, packed, scales, group_size: int = 128, *,
+                    layer_idx) -> torch.Tensor:
+    """y = silu(gu[..., :F]) * gu[..., F:] @ ((q - 8) * d) with W_down
+    stacked [L, F/2, N] at ``layer_idx``; gu is the fused gate_up output
+    [..., 2F]. Returns [..., N] bf16 (the JAX package's signature). CUDA:
+    ``csrc/int4_matmul_kouter.cu`` (each block makes its K tile of the
+    activation in shared memory; no [M, F] activation in device memory);
+    CPU: ``int4_matmul_glu_plain``."""
+    if not gu.is_cuda:
+        return int4_matmul_glu_plain(gu, packed, scales, group_size,
+                                     layer_idx=layer_idx)
+    f, n = _glu_operands(gu, packed, scales, group_size, layer_idx)
+    w_ptr, s_ptr = _cuda_weights(gu, packed, scales, group_size, layer_idx)
+    g2 = gu.reshape(-1, 2 * f).to(torch.bfloat16).contiguous()
+    m, dev = g2.shape[0], gu.device
+    per, ksplit = fused_split(m, n, f)
+    partial = torch.empty((ksplit, m, n), dtype=torch.float32, device=dev)
+    y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    fn = _build.bind("int4_matmul_glu", "tce_int4_matmul_glu",
+                     [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+    _build.check(fn(g2.data_ptr(), w_ptr, s_ptr,
+                    int(scales.dtype == torch.bfloat16), partial.data_ptr(),
+                    y.data_ptr(), m, f, n, group_size, per, ksplit,
+                    torch.cuda.current_stream(dev).cuda_stream),
+                 "int4_matmul_glu")
+    _build.LAUNCHES["int4_matmul_glu"] += 1
+    return y.reshape(*gu.shape[:-1], n)

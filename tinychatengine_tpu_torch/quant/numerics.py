@@ -37,3 +37,34 @@ def quantize_groupwise_int4(w: np.ndarray, group_size: int = 128):
     q = np.clip(g * inv_d[..., None] + 8.5, 0.0, 15.0).astype(np.uint8)
     return q.reshape(oc, ic), d.astype(np.float32)
 
+
+
+# ---- group-wise INT3 (the W3 experiment) ------------------------------------
+# The int4 family at 3 bits: d = max / -4, q = clip(x / d + 4.5, 0, 7),
+# dequant (q - 4) * d. Packed as two bitplanes by ops/int3_matmul.py.
+
+ZERO_POINT3 = 4.0
+
+
+def quantize_groupwise_int3(w: np.ndarray, group_size: int = 128):
+    """w [OC, IC] float → uint8 codes in [0, 7] + per-group f32 scales
+    [OC, IC // group_size]."""
+    w = np.asarray(w, dtype=np.float32)
+    oc, ic = w.shape
+    assert ic % group_size == 0, (ic, group_size)
+    g = w.reshape(oc, ic // group_size, group_size)
+    idx = np.argmax(np.abs(g), axis=-1)
+    max_vals = np.take_along_axis(g, idx[..., None], axis=-1)[..., 0]
+    d = max_vals / -4.0
+    inv_d = np.where(d == 0.0, 0.0, np.divide(1.0, d, where=d != 0.0))
+    q = np.clip(g * inv_d[..., None] + 4.5, 0.0, 7.0).astype(np.uint8)
+    return q.reshape(oc, ic), d.astype(np.float32)
+
+
+def dequantize_groupwise_int3(q: np.ndarray, scales: np.ndarray,
+                              group_size: int = 128):
+    """(q - 4) * d, f32 [OC, IC]."""
+    oc, ic = q.shape
+    g = q.reshape(oc, ic // group_size, group_size).astype(np.float32)
+    return ((g - ZERO_POINT3) * scales[..., None]).reshape(oc, ic) \
+        .astype(np.float32)

@@ -6,11 +6,16 @@ Phases (any failure ends the run with a non-zero exit code):
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles every kernel under ``tinychatengine_tpu_torch/csrc``
-   with nvcc, one process per source, all at once;
+   with nvcc, one process per source, all at once; ``int4_matmul``'s SASS
+   must hold HGMMA instructions (its tile route on the tensor cores);
 3. kernels: each kernel against its plain PyTorch version on the card at
    llama3_8b's main-path and serving shapes (B = 8 slots, ragged lengths,
    a shuffled page table), with the stated tolerance, and timed beside its
-   plain version, one PyTorch library call and its bound; paged and dense
+   plain version, one PyTorch library call and its bound: ``int4_matmul``'s
+   tile route at 2048 and 64 rows (and gate_up at 512), its band route at
+   M = 1 (qkv, wo, gate_up, down and the 129024-column lm_head); decode
+   over 1..4095 keys (a
+   4608-key cache); paged and dense
    decode of the same keys must be bit-identical, also at StarCoder's
    multi-query shape (48 query heads on one KV head); ``int8_decode`` at
    opt_6.7b's decode and serving shapes and at D = 64, held in units of
@@ -49,9 +54,17 @@ Phases (any failure ends the run with a non-zero exit code):
    times, nothing else; the 64-token prompt's prefill routes its 128
    stacked linears there, the 2048-token prefill none; the first decode
    step's logits agree with the table empty within ``KOUTER_STEP_TOL``,
-   and so does every step when both settings are fed the K-outer run's
-   tokens (``teacher_forced``; the K-outer setting must choose its own
-   tokens again); greedy tokens against phase 4b's unfused run are
+   each setting after its own prefill (the empty table's 64-row prompt
+   runs ``int4_matmul``'s tile route, on bf16-rounded weights) and after
+   one prefill through the K-outer kernel; fed the K-outer run's tokens
+   (``teacher_forced``; the K-outer setting must choose its own tokens
+   again), every step lies within ``KOUTER_STEP_TOL`` of the plain
+   version at the K-outer kernel's cast point (``exact_int4``, no kernel
+   of the K-outer or band route) and of the table empty after the K-outer
+   prefill, and against the table empty after its own prefill at least
+   ``KOUTER_OWN_MIN_WITHIN`` steps lie within it with a median step gap
+   of at most ``KOUTER_OWN_MEDIAN_TOL``;
+   greedy tokens against phase 4b's unfused run are
    printed, with the table-empty margin where the two part; the table is
    restored after;
 4c. llama3_8b W4A8 with the int8 KV cache (``kv_cache_dtype="int8"``) on
@@ -75,8 +88,9 @@ Phases (any failure ends the run with a non-zero exit code):
 6. real weights: ``assets/bytellama_5m`` greedy goldens and perplexity
    budgets (fp < 3.5, w4a16 <= +3 %, w4a8 <= +4 %, w4a16 and w4a8 with the
    int8 KV cache <= +4 %, through ``flash_prefill_int8`` at D = 64) on the
-   card, w4a8 also over 64-token windows, where it runs the W4A8 kernel;
-   then the goldens through ``ServingEngine`` (2 slots, dense and paged,
+   card, w4a8 also over 64-token windows, where it runs the W4A8 kernel,
+   and w4a16 at the band route's cast point (``exact_int4``) beside the
+   tile route's, the same budget; then the goldens through ``ServingEngine`` (2 slots, dense and paged,
    fp and w4a8): fp keeps the card's golden threshold, w4a8 paged equals
    w4a8 dense;
 6c. bytellama_5m requantized to W4A16 at group 32 (every linear passes
@@ -155,14 +169,25 @@ W4A16_KERNELS = ("int4_matmul", "flash_decode", "flash_prefill")
 # phase 7 decodes 128
 SHORT_DECODE = 64
 # phase 4f: llama3_8b's four stacked shapes through the K-outer kernel at
-# (block_n, block_k); against int4_matmul at full depth, max |diff| / max
-# |logit| of a decode step (the first, and each of the run's steps fed its
-# tokens). On the card both compute the exact codes times the scales in f32
-# and differ in the order of the sums only, which 32 layers amplify: the
-# first step read 7.0e-3 on an H100; a fault (a wrong band, layer or row)
-# moves the logits by O(1)
+# (block_n, block_k); against int4_matmul and the plain version at full
+# depth, max |diff| / max |logit| of a decode step (the first, and each of
+# the run's steps fed its tokens). The K-outer kernel, int4_matmul's band
+# route (M = 1) and the plain version compute the exact codes times the
+# scales in f32 and differ in the order of the sums only, which 32 layers
+# amplify: the first step read 7.0e-3 on an H100; a fault (a wrong band,
+# layer or row) moves the logits by O(1)
 KOUTER_BLOCKS = (2048, 1024)
 KOUTER_STEP_TOL = 0.03
+# the table empty after its own prefill: the 64-row prompt runs
+# int4_matmul's tile route on bf16-rounded weights, so its cache differs;
+# uniform random bytes put -0.5 d sum(x) into every product, the logits'
+# sign rides on a sum near zero, and a step can part by 2.0 of max |logit|
+# (35.5 logits). Held by the count of steps within KOUTER_STEP_TOL and the
+# median step gap instead: on an H100, 63 of 64 steps within, median
+# 3.5e-3; a fault in the prompt's pass (a wrong layer, row or tile) moves
+# every step
+KOUTER_OWN_MIN_WITHIN = 60
+KOUTER_OWN_MEDIAN_TOL = 0.01
 INT8_KV = {"flash_decode": "flash_decode_int8",
            "flash_prefill": "flash_prefill_int8",
            "flash_decode_paged": "flash_decode_paged_int8"}
@@ -283,12 +308,15 @@ def check_kernels(gen):
         # M = 1: Engine decode; 8: serving decode over 8 slots; 64: prompt
         runs = [("int4_matmul_a8", im.int4_matmul_a8, im.int4_matmul_a8_plain,
                  m, INT8_OP_S) for m in (1, 8, 64)]
-        if name != "lm_head":
-            runs.append(("int4_matmul", im.int4_matmul, im.int4_matmul_plain,
-                         2048, BF16_FLOP_S))
-        if name == "gate_up":  # the unfused W4A16 decode the fused path replaces
-            runs.append(("int4_matmul", im.int4_matmul, im.int4_matmul_plain,
-                         1, BF16_FLOP_S))
+        # int4_matmul's tile route at the 2048-token prefill, at the 64-row
+        # prompt bucket of phases 4b and 4f (one partial 128-row tile) and
+        # at gate_up's 512-row admission chunk; its band route at M = 1 at
+        # every shape of the unfused W4A16 decode (down's 56 superblocks
+        # leave a ragged last band) and the K-outer path's lm_head
+        w4 = {"lm_head": (1,), "gate_up": (2048, 512, 64, 1),
+              "down": (2048, 64, 1)}.get(name, (2048, 1))
+        runs += [("int4_matmul", im.int4_matmul, im.int4_matmul_plain, m,
+                  BF16_FLOP_S) for m in w4]
         for kernel, fn, plain, m, rate in runs:
             x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
             err = share = 0.0
@@ -298,14 +326,14 @@ def check_kernels(gen):
                 e = float((y - ref).abs().max())
                 err = max(err, e)
                 share = max(share, e / (MAT_TOL * float(ref.abs().max())))
-            it = 5 if m == 2048 else 50
+            it = 5 if m >= 512 else 50
             state = {"li": 0}
 
             def run(fn=fn, x=x):
                 state["li"] = (state["li"] + 1) % n_layers
                 fn(x, packed, scales, 128, layer_idx=state["li"])
             plain_ms = time_ms(lambda: plain(x, packed, scales, 128,
-                                             layer_idx=0), 3 if m == 2048 else 10)
+                                             layer_idx=0), 3 if m >= 512 else 10)
             bytes_moved = m * k * 2 + k * n // 2 + (k // 128) * n * 2 + m * n * 2
             add(kernel, f"{name} M={m} K={k} N={n}", err, share,
                 f"{MAT_TOL} * max|plain|", run, it, plain_ms, lambda: torch.matmul(x, w_lib), bytes_moved,
@@ -378,12 +406,44 @@ def check_kernels(gen):
                 4.0 * hq * pairs * d, BF16_FLOP_S)
         del ck, cv
         torch.cuda.empty_cache()
+    check_long_decode(gen, add)
     check_serving_kernels(gen, add)
     check_int8_kernels(gen, add)
     check_fused_kernels(gen, add)
     check_int8_kv_kernels(gen, add)
     check_split_k_kernels(gen, add)
     return cases
+
+
+def check_long_decode(gen, add):
+    """bf16 ``flash_decode`` at llama3_8b's GQA over 4095 keys of a
+    4608-key cache (the long-context serving mix's row), 32 layers."""
+    from tinychatengine_tpu_torch.ops import attention as att
+    dev = torch.device("cuda")
+    L, S, hq, hkv, d, n = 32, 4608, 32, 8, 128, 4095
+    ck = torch.randn((L, 1, hkv, S, d), device=dev, generator=gen).to(torch.bfloat16)
+    cv = torch.randn((L, 1, hkv, S, d), device=dev, generator=gen).to(torch.bfloat16)
+    q = torch.randn((1, hq, d), device=dev, generator=gen).to(torch.bfloat16)
+    err = share = 0.0
+    for li in (0, L - 1):
+        e, sh = attn_err(att.flash_decode(q, ck, cv, li, n),
+                         att.flash_decode_plain(q, ck, cv, li, n), d)
+        err, share = max(err, e), max(share, sh)
+    state = {"li": 0}
+
+    def run():
+        state["li"] = (state["li"] + 1) % L
+        att.flash_decode(q, ck, cv, state["li"], n)
+    plain_ms = time_ms(lambda: att.flash_decode_plain(q, ck, cv, 0, n), 10)
+    kr = ck[0, :, :, :n].repeat_interleave(hq // hkv, dim=1)
+    vr = cv[0, :, :, :n].repeat_interleave(hq // hkv, dim=1)
+    add("flash_decode", f"B=1 Hq={hq} Hkv={hkv} D={d} length={n}", err,
+        share, ATTN_TOL_TEXT, run, 64, plain_ms,
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], kr, vr),
+        2 * hq * d * 2 + 2 * hkv * n * d * 2, 4.0 * hq * n * d, BF16_FLOP_S)
+    del ck, cv, kr, vr
+    torch.cuda.empty_cache()
 
 
 SERVING_LENGTHS = (1, 37, 128, 129, 320, 700, 1500, 2047)
@@ -1157,6 +1217,36 @@ def kouter_table(table: dict):
         im.DECODE_KOUTER = saved
 
 
+def exact_int4_matmul(x, packed, scales, group_size: int = 128, *,
+                      layer_idx=None) -> torch.Tensor:
+    """``int4_matmul``'s function at the TPU kernel's cast point (exact
+    codes, f32 scales once per group: ``factored_int4``), in plain PyTorch
+    on x's device, bf16 out. The cast point of the band and K-outer routes,
+    computed by none of their kernels."""
+    from tinychatengine_tpu_torch.ops import int4_matmul as im
+    if layer_idx is not None:
+        packed, scales = packed[layer_idx], scales[layer_idx]
+    k, kw = x.shape[-1], 2 * packed.shape[-2]
+    x2 = x.reshape(-1, k).to(torch.bfloat16)
+    if kw > k:  # pack-padded K: the pad codes meet zeros
+        x2 = torch.nn.functional.pad(x2, (0, kw - k))
+    y = im.factored_int4(x2, packed, scales, group_size)
+    return y.to(torch.bfloat16).reshape(*x.shape[:-1], -1)
+
+
+@contextlib.contextmanager
+def exact_int4():
+    """Every W4A16 linear (``ops.linear``'s ``int4_matmul``) computed by
+    ``exact_int4_matmul`` while open, restored after."""
+    from tinychatengine_tpu_torch.ops import linear
+    saved = linear.int4_matmul
+    linear.int4_matmul = exact_int4_matmul
+    try:
+        yield
+    finally:
+        linear.int4_matmul = saved
+
+
 def as_w4a16(p):
     """The same tree with every W4A8 container re-wrapped as W4A16 over the
     same packed bytes (no new memory)."""
@@ -1383,25 +1473,29 @@ def fused_ab(model, dev="cuda", long_len=2048, model_params=None,
     return out
 
 
-def first_step_diff(params, cfg, a, b, dev):
+def first_step_diff(params, cfg, a, b, dev, prefill_table=None):
     """The first decode step's logits after the same 64-token prompt under
     two (qcfg, fused) or (qcfg, fused, K-outer table) settings ``a`` and
     ``b``: max |b - a| absolute and over max |a|, and whether the argmax
-    agrees."""
+    agrees. With ``prefill_table`` both prompts are prefilled under that
+    K-outer table, so only the decode step's routes differ."""
     from tinychatengine_tpu_torch.generation.engine import (
         Engine, forward_for_family)
     prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 64))
     forward = forward_for_family(cfg.family)
     logits = []
     for qcfg, fused, *table in (a, b):
-        with fused_decode(fused), kouter_table(table[0] if table else {}), \
-                torch.inference_mode():
+        table = table[0] if table else {}
+        with fused_decode(fused), torch.inference_mode():
             eng = Engine(params, cfg, qcfg, max_len=128, device=dev)
             cache = eng.new_cache()
-            eng.prefill(prompt, cache)
-            logits.append(forward(params, cfg,
-                                  torch.tensor([[1]], device=dev), cache,
-                                  64)[0].float())
+            with kouter_table(table if prefill_table is None
+                              else prefill_table):
+                eng.prefill(prompt, cache)
+            with kouter_table(table):
+                logits.append(forward(params, cfg,
+                                      torch.tensor([[1]], device=dev), cache,
+                                      64)[0].float())
             del cache
     diff = float((logits[1] - logits[0]).abs().max())
     return dict(max_abs_diff=diff,
@@ -1435,11 +1529,12 @@ def prefill_launches(params, cfg, qcfg, dev, lengths) -> dict:
     return out
 
 
-def teacher_forced(params, cfg, qcfg, dev, tokens, table):
+def teacher_forced(params, cfg, qcfg, dev, tokens, table, prefill_table):
     """``tokens`` fed one by one after the Engine run's 64-token prompt
-    with ``DECODE_KOUTER`` set to ``table``. Returns the raw logits before
-    each token [n, V] f32, the greedy choice there under the run's repeat
-    penalty [n], and the penalised top-2 margin there [n]."""
+    with ``DECODE_KOUTER`` set to ``table``, the prompt prefilled under
+    ``prefill_table``. Returns the raw logits before each token [n, V] f32,
+    the greedy choice there under the run's repeat penalty [n], and the
+    penalised top-2 margin there [n]."""
     from tinychatengine_tpu_torch.generation import sampling
     from tinychatengine_tpu_torch.generation.engine import (
         Engine, forward_for_family)
@@ -1449,7 +1544,8 @@ def teacher_forced(params, cfg, qcfg, dev, tokens, table):
     seen, choice, margin = [], [], []
     with kouter_table(table), torch.inference_mode():
         eng = Engine(params, cfg, qcfg, max_len=64 + len(tokens), device=dev)
-        logits, cache = eng.prefill(prompt, eng.new_cache())
+        with kouter_table(prefill_table):
+            logits, cache = eng.prefill(prompt, eng.new_cache())
         last = torch.as_tensor(prompt, device=dev)  # the 64-token window
         for pos, tok in enumerate(tokens, 64):
             lf = logits.float()  # as sampling.sample takes them
@@ -1476,14 +1572,26 @@ def kouter_engine(model, model_params, dev="cuda", long_len=2048,
     ``flash_decode`` once per layer; the 64-token prompt's prefill routes
     its stacked linears to the K-outer kernel, the ``long_len`` one none;
     the first decode step's logits agree with the table empty within
-    ``KOUTER_STEP_TOL``. The table is restored after. Returns {"run":
-    (launches, per_step, metrics), "prefill": {length: launches},
-    "first_step": {...}, "tokens_agreeing": leading greedy tokens equal to
-    ``unfused_tokens`` (phase 4b's unfused run), "teacher_forced": both
-    settings fed the run's tokens (``teacher_forced``): steps each chooses
-    as the run did, the largest step's max |diff| / max |logit|, the first
-    step where the empty table chooses otherwise with its penalised top-2
-    margin and max |diff| there, "table": the table}."""
+    ``KOUTER_STEP_TOL``, after each setting's own prefill (the empty
+    table's prompt runs int4_matmul's tile route on bf16-rounded weights)
+    and after one prefill through the K-outer kernel. Fed the run's tokens
+    (``teacher_forced``), every step of the K-outer setting lies within
+    ``KOUTER_STEP_TOL`` of the plain version at its cast point
+    (``exact_int4``) and of the table empty after the K-outer prefill;
+    against the table empty after its own prefill, at least
+    ``KOUTER_OWN_MIN_WITHIN`` steps do and the median step gap is at most
+    ``KOUTER_OWN_MEDIAN_TOL``; the K-outer setting chooses its own tokens
+    again. The table is restored after. Returns {"run": (launches,
+    per_step, metrics), "prefill": {length: launches}, "first_step": {...}
+    (own prefills), "first_step_kouter_prefill": {...}, "tokens_agreeing":
+    leading greedy tokens equal to ``unfused_tokens`` (phase 4b's unfused
+    run), "teacher_forced": per reference ("plain", "empty_own_prefill",
+    "empty_kouter_prefill") the steps it chooses as the run did, the steps
+    within ``KOUTER_STEP_TOL``, the largest and the median step's max
+    |diff| / max |logit|, the first step where it chooses otherwise with
+    its penalised top-2 margin and max |diff| there; "steps", and
+    "self_agree": the steps where the K-outer setting chose as the run did;
+    "table": the table}."""
     cfg = model_config(model)
     params, qcfg = model_params
     table = dict.fromkeys(stacked_shapes(params), tuple(blocks))
@@ -1491,36 +1599,65 @@ def kouter_engine(model, model_params, dev="cuda", long_len=2048,
         run = main_path(cfg, dev, long_len, model_params=model_params,
                         n_predict=n_predict)
         prefill = prefill_launches(params, cfg, qcfg, dev, (64, long_len))
+    # the first decode step, each setting after its own prefill (the empty
+    # table's 64-row prompt runs int4_matmul's tile route, on bf16-rounded
+    # dequantized weights), and after one prefill through the K-outer
+    # kernel (the decode step's routes alone)
+    first_own = first_step_diff(params, cfg, (qcfg, False),
+                                (qcfg, False, table), dev)
     first = first_step_diff(params, cfg, (qcfg, False), (qcfg, False, table),
-                            dev)
+                            dev, prefill_table=table)
     toks = run[2]["tokens"]
     agree = len(toks) if unfused_tokens is None else next(
         (i for i, (a, b) in enumerate(zip(toks, unfused_tokens)) if a != b),
         min(len(toks), len(unfused_tokens)))
-    # both settings fed the K-outer run's tokens: every step compared on the
+    # every setting fed the K-outer run's tokens: each step compared on the
     # same context, so a fault after a few steps or in the 64-row prompt
     # bucket shows in its own step, and where the greedy runs part the
-    # table-empty margin says whether it was a near tie
-    (kl, kc, _), (ul, uc, um) = (
-        teacher_forced(params, cfg, qcfg, dev, toks, t) for t in (table, {}))
-    step_abs = (kl - ul).abs().amax(-1).cpu()
-    step_rel = step_abs / ul.abs().amax(-1).cpu()
+    # reference's margin says whether it was a near tie. References: the
+    # plain version at the K-outer kernel's cast point (``exact_int4``:
+    # every linear, the prompt's too, in plain PyTorch, no kernel of the
+    # K-outer or band route); the table empty, its prompt through the tile
+    # route (another cast point); the table empty after the K-outer
+    # kernel's prefill (the decode step's band route alone)
+    kl, kc, _ = teacher_forced(params, cfg, qcfg, dev, toks, table, table)
     want = torch.tensor(toks, dtype=kc.dtype)
-    part = next((i for i, ok in enumerate((uc == want).tolist()) if not ok),
-                None)
-    forced = dict(
-        steps=len(toks), self_agree=int((kc == want).sum()),
-        table_empty_agree=int((uc == want).sum()),
-        max_rel_diff=float(step_rel.max()),
-        first_parting_step=part,
-        margin_there=None if part is None else float(um[part]),
-        max_abs_diff_there=None if part is None else float(step_abs[part]))
-    del kl, ul
+
+    def against(ref):
+        rl, rc, rm = ref
+        step_abs = (kl - rl).abs().amax(-1).cpu()
+        rel = step_abs / rl.abs().amax(-1).cpu()
+        part = next((i for i, ok in enumerate((rc == want).tolist())
+                     if not ok), None)
+        return dict(
+            agree=int((rc == want).sum()),
+            steps_within=int((rel <= KOUTER_STEP_TOL).sum()),
+            max_rel_diff=float(rel.max()),
+            median_rel_diff=float(rel.median()),
+            first_parting_step=part,
+            margin_there=None if part is None else float(rm[part]),
+            max_abs_diff_there=None if part is None
+            else float(step_abs[part]))
+    with exact_int4():
+        forced = {"plain": against(teacher_forced(params, cfg, qcfg, dev,
+                                                  toks, {}, {}))}
+    forced["empty_own_prefill"] = against(teacher_forced(
+        params, cfg, qcfg, dev, toks, {}, {}))
+    forced["empty_kouter_prefill"] = against(teacher_forced(
+        params, cfg, qcfg, dev, toks, {}, table))
+    forced["steps"], forced["self_agree"] = len(toks), int((kc == want).sum())
+    del kl
+    own = forced["empty_own_prefill"]
     log(f"{cfg.name} K-outer: prefill launches {json.dumps(prefill)}; first "
-        f"decode step against the table empty {json.dumps(first)} (tol "
-        f"{KOUTER_STEP_TOL}); greedy tokens agreeing with the unfused run: "
-        f"{agree} of {len(toks)}; fed the K-outer tokens, K-outer against "
-        f"the table empty: {json.dumps(forced)}")
+        f"decode step against the table empty, each its own prefill "
+        f"{json.dumps(first_own)}, one K-outer prefill {json.dumps(first)} "
+        f"(tol {KOUTER_STEP_TOL}); greedy tokens agreeing with the unfused "
+        f"run: {agree} of {len(toks)}; fed the K-outer tokens, K-outer "
+        f"against each reference: {json.dumps(forced)} (every step within "
+        f"{KOUTER_STEP_TOL} of the plain version and of the table empty "
+        f"after the K-outer prefill; after its own prefill >= "
+        f"{KOUTER_OWN_MIN_WITHIN} steps within it, median <= "
+        f"{KOUTER_OWN_MEDIAN_TOL})")
     if dev == "cuda":
         nl = cfg.num_layers
         want_short = {"int4_matmul_kouter": 4 * nl, "int4_matmul": 1,
@@ -1531,16 +1668,26 @@ def kouter_engine(model, model_params, dev="cuda", long_len=2048,
             raise SystemExit(f"{cfg.name} K-outer prefill launches "
                              f"{prefill}, want {want_short} at 64 tokens and "
                              f"no K-outer kernel at {long_len}")
-        if not max(first["rel_diff"], forced["max_rel_diff"]) \
+        if not max(first["rel_diff"], first_own["rel_diff"]) \
                 <= KOUTER_STEP_TOL:
             raise SystemExit(f"{cfg.name}: K-outer decode disagrees with "
                              "int4_matmul")
+        if not max(forced["plain"]["max_rel_diff"],
+                   forced["empty_kouter_prefill"]["max_rel_diff"]) \
+                <= KOUTER_STEP_TOL:
+            raise SystemExit(f"{cfg.name}: a K-outer step fed the run's "
+                             "tokens disagrees with the plain version or "
+                             "int4_matmul")
+        if not (own["steps_within"] >= KOUTER_OWN_MIN_WITHIN
+                and own["median_rel_diff"] <= KOUTER_OWN_MEDIAN_TOL):
+            raise SystemExit(f"{cfg.name}: K-outer steps after its own "
+                             "prefill disagree with int4_matmul's")
         if forced["self_agree"] != len(toks):
             raise SystemExit(f"{cfg.name}: the K-outer run fed its own "
                              "tokens chose others")
-    return {"run": run, "prefill": prefill, "first_step": first,
-            "tokens_agreeing": agree, "teacher_forced": forced,
-            "table": table}
+    return {"run": run, "prefill": prefill, "first_step": first_own,
+            "first_step_kouter_prefill": first, "tokens_agreeing": agree,
+            "teacher_forced": forced, "table": table}
 
 
 def int8_kv_engine(model, model_params, dev="cuda", long_len=2048,
@@ -2073,7 +2220,16 @@ def real_weights(dev="cuda"):
         ppl[f"{scheme}_int8kv"] = perplexity(llama.forward, qp, cfg, ids, 512,
                                              256, quantized_kv=True)
     kv8 = dict(_build.LAUNCHES)
+    # int4_matmul's tile route (every window's prefill here) computes on
+    # bf16((q - 8) d); the same windows at the band route's (and the TPU
+    # kernel's) cast point, exact codes times f32 scales, in plain PyTorch
+    with exact_int4():
+        qp = requantize_llama(params, QuantConfig(scheme="w4a16",
+                                                  group_size=128))
+        ppl["w4a16_exact"] = perplexity(llama.forward, qp, cfg, ids, 512, 256)
     log("bytellama_5m ppl on 6144 tokens:", json.dumps(ppl))
+    log("w4a16 ppl, tile route minus exact codes:",
+        ppl["w4a16"] - ppl["w4a16_exact"])
     log("w4a8 64-token windows, launches:", json.dumps(a8))
     log("int8 KV, launches:", json.dumps(kv8))
     if dev == "cuda" and not (a8["int4_matmul_a8"] > 0
@@ -2083,6 +2239,7 @@ def real_weights(dev="cuda"):
                               and kv8["flash_prefill"] == 0):
         raise SystemExit("the int8 KV cache did not run flash_prefill_int8")
     if not (ppl["fp"] < 3.5 and ppl["w4a16"] <= ppl["fp"] * 1.03
+            and ppl["w4a16_exact"] <= ppl["fp"] * 1.03
             and ppl["w4a8"] <= ppl["fp"] * 1.04
             and ppl["w4a8_w64"] <= ppl["fp_w64"] * 1.04
             and ppl["w4a16_int8kv"] <= ppl["fp"] * 1.04
@@ -2261,6 +2418,16 @@ HOME_RUN = {"flash_decode_paged": "serving_paged", "int8_decode": "opt_engine",
             "int3_matmul": "kernels"}
 
 
+def sass_count(lib: Path, opcode: str) -> int:
+    """Instructions of ``opcode`` in the SASS of a built library
+    (``cuobjdump -sass``, beside nvcc in the CUDA toolkit)."""
+    from tinychatengine_tpu_torch.ops import _build
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    return sum(opcode in line for line in sass.splitlines())
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2280,8 +2447,12 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     t0 = time.perf_counter()
-    _build.build_all()
+    libs = _build.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s")
+    hgmma = sass_count(libs["int4_matmul"], "HGMMA")
+    log(f"int4_matmul SASS (cuobjdump -sass): {hgmma} HGMMA instructions")
+    if not hgmma:
+        raise SystemExit("int4_matmul's tile route has no HGMMA in its SASS")
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:

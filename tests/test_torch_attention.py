@@ -198,13 +198,43 @@ def test_kernel_wrappers_check_int8_storage():
         tatt._check_cache(q, k, v, ks, vs, 64)
 
 
-def _kernel_like(q, ck, cv, allowed, k_scale=None, v_scale=None, tile=None):
+def _online(s, v, vs, tile):
+    """Online softmax over key tiles of ``tile`` columns of scores s
+    [..., T] (masked to -1e30) against v [B, H, T, D]: (m, l, acc), the
+    probabilities (times vs, when given) rounded to bf16 before PV."""
+    d = v.shape[-1]
+    m = torch.full(s.shape[:-1] + (1,), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(s.shape[:-1] + (d,))
+    for t0 in range(0, s.shape[-1], tile):
+        st = s[..., t0:t0 + tile]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        if vs is not None:
+            p = p * vs[..., t0:t0 + tile]
+        acc = acc * alpha + torch.einsum(
+            "bhst,bhtd->bhsd", p.to(torch.bfloat16).float(),
+            v[:, :, t0:t0 + tile])
+        m = m_new
+    return m, l, acc
+
+
+def _kernel_like(q, ck, cv, allowed, k_scale=None, v_scale=None, tile=None,
+                 split=None):
     """The kernels' cast points on the CPU, an online softmax over key
     tiles of ``tile`` columns (the whole row when None): s = (q . k) *
     sm_scale, and with int8 codes then times k_scale[pos]; the running max
     and sum l over the unscaled probabilities exp(s - max); with int8 the
     probabilities times v_scale[pos]; then rounded to bf16 against the
     (exact) V values, summed in f32; out = PV / l rounded to bf16.
+    With ``split`` (the decode kernels' partition), the keys are cut into
+    chunks of ``split`` columns from position 0, each chunk runs its own
+    online softmax over its tiles, a chunk with no allowed key of a row is
+    empty for it, and the chunks are merged in ascending order in f32: M =
+    max m over the non-empty chunks, acc = sum acc_i exp(m_i - M), l = sum
+    l_i exp(m_i - M), out = acc / l, or zeros where no chunk holds a key.
     q [B, S, Hq, D]; cache layer [B, Hkv, T, D] (bf16, or int8 codes with
     scales [B, Hkv, T]); allowed broadcasts to [B, 1, S, T]. Returns
     [B, S, Hq, D]."""
@@ -219,22 +249,25 @@ def _kernel_like(q, ck, cv, allowed, k_scale=None, v_scale=None, tile=None):
     s = torch.where(allowed, s, torch.tensor(-1e30))
     n = s.shape[-1]
     tile = tile or n
-    m = torch.full(s.shape[:-1] + (1,), -1e30)
-    l = torch.zeros_like(m)
-    acc = torch.zeros(s.shape[:-1] + (d,))
-    for t0 in range(0, n, tile):
-        st = s[..., t0:t0 + tile]
-        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(st - m_new)
-        l = l * alpha + p.sum(-1, keepdim=True)
-        if vs is not None:
-            p = p * vs[..., t0:t0 + tile]
-        acc = acc * alpha + torch.einsum(
-            "bhst,bhtd->bhsd", p.to(torch.bfloat16).float(),
-            v[:, :, t0:t0 + tile])
-        m = m_new
-    return (acc / l).transpose(1, 2).to(torch.bfloat16)
+    if split is None:
+        _, l, acc = _online(s, v, vs, tile)
+        return (acc / l).transpose(1, 2).to(torch.bfloat16)
+    allowed = torch.broadcast_to(allowed, s.shape)
+    parts = []
+    for c0 in range(0, n, split):
+        cut = slice(c0, c0 + split)
+        m, l, acc = _online(s[..., cut], v[:, :, cut],
+                            None if vs is None else vs[..., cut], tile)
+        empty = ~allowed[..., cut].any(-1, keepdim=True)
+        parts.append((m, torch.where(empty, 0.0, l), acc))
+    m_max = torch.stack([torch.where(l > 0, m, -torch.inf)
+                         for m, l, _ in parts]).amax(0)
+    acc_t, l_t = 0.0, 0.0
+    for m, l, acc in parts:
+        w = torch.where(l > 0, torch.exp(m - m_max), 0.0)
+        acc_t, l_t = acc_t + acc * w, l_t + l * w
+    out = torch.where(l_t > 0, acc_t / torch.where(l_t > 0, l_t, 1.0), 0.0)
+    return out.transpose(1, 2).to(torch.bfloat16)
 
 
 def _int8_layer(tc, li):
@@ -368,3 +401,133 @@ def test_attention_tolerance_passes_rounding_and_fails_mask_faults():
             share = chip_smoke.attn_err(_kernel_like(q, ck, cv, allowed),
                                         want, d)[1]
             assert (share <= 1.0) == (name == "exact"), (d, name, share)
+
+
+SPLIT = tatt.DECODE_SPLIT
+# a ragged batch about the decode split's edges; the row of length 0 gives
+# zeros (the JAX kernels leave it undefined: it is held apart)
+SPLIT_LENGTHS = np.array([0, 1, SPLIT - 1, SPLIT, SPLIT + 1, 2 * SPLIT + 65],
+                         np.int32)
+
+
+# The split's chunks and 64-key tiles round the probabilities against other
+# running maxima than the TPU kernel's 128-key blocks, so a probability may
+# sit one bf16 step apart (the unsplit model over 64-key tiles already
+# takes 1.6 of _int8_err's limit, which holds identical tiles to 0.0).
+# Held to twice that limit, 2^-7 of the element plus 2^-9 of its row's
+# largest value: half chip_smoke.attn_err's, and a tile left out or a key
+# too many moves rows far past it
+def _split_err(got, want):
+    return _int8_err(got, want) / 2
+
+
+def _split_model(q, k, v, ks, vs, lengths, window):
+    """``_kernel_like`` with the decode kernels' split and 64-key tiles,
+    over one layer [B, Hkv, T, D] with per-row lengths."""
+    col = torch.arange(k.shape[2])
+    ln = torch.from_numpy(lengths)[:, None, None, None]
+    allowed = col < ln
+    if window:
+        allowed = allowed & (col >= ln - window)
+    return _kernel_like(q[:, None], k, v, allowed, ks, vs, tile=64,
+                        split=SPLIT)[:, 0]
+
+
+@pytest.mark.parametrize("window", [None, 70])
+@pytest.mark.parametrize("int8", [False, True])
+def test_split_decode_matches_tpu_decode(int8, window):
+    """The split decode's cast points (``_kernel_like`` with the split
+    partition) against ``flash_decode`` in interpret mode (GQA 4:1,
+    D = 128), lengths about the split's edges, bf16 and int8, with and
+    without a window; held to ``_split_err``."""
+    rng = np.random.default_rng(20 + int8)
+    L, B, hq, hkv, S, D = 2, len(SPLIT_LENGTHS), 8, 2, 384, 128
+    jc, tc = _caches(rng, L, B, hkv, S, D, quantized=int8)
+    q = _bf16(rng, (B, hq, D))
+    want = jatt.flash_decode(jnp.asarray(q), jc.k, jc.v, jnp.int32(1),
+                             jnp.asarray(SPLIT_LENGTHS), jc.k_scale,
+                             jc.v_scale, window=window, interpret=True,
+                             block_s=128)
+    if int8:
+        k, v, ks, vs = _int8_layer(tc, 1)
+    else:
+        (k, v), ks, vs = (tc.k[1], tc.v[1]), None, None
+    got = _split_model(_t(q), k, v, ks, vs, SPLIT_LENGTHS, window)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    assert _split_err(got[1:], np.asarray(want)[1:]) <= 1.0
+
+
+@pytest.mark.parametrize("window", [None, 70])
+@pytest.mark.parametrize("int8", [False, True])
+def test_split_decode_matches_tpu_paged_decode(int8, window):
+    """The same split model over pages (P = 32, a shuffled table) against
+    ``flash_decode_paged`` in interpret mode: the partition counts key
+    positions, not pages, so the model is the dense one over the gathered
+    rows."""
+    rng = np.random.default_rng(30 + int8)
+    L, B, hq, hkv, P, D, mp = 2, len(SPLIT_LENGTHS), 8, 2, 32, 64, 11
+    n_pages = B * mp + 1
+    if int8:
+        k, v = (rng.integers(-127, 128, (L, n_pages, hkv, P, D)).astype(
+            np.int8) for _ in range(2))
+        ks, vs = ((rng.random((L, n_pages, hkv, P)) * 0.02 + 0.001).astype(
+            np.float32) for _ in range(2))
+    else:
+        k, v = (_bf16(rng, (L, n_pages, hkv, P, D)) for _ in range(2))
+        ks = vs = None
+    table = (rng.permutation(B * mp) + 1).astype(np.int32).reshape(B, mp)
+    q = _bf16(rng, (B, hq, D))
+    opt = (lambda a: None if a is None else jnp.asarray(a))
+    want = jatt.flash_decode_paged(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.int32(1),
+        jnp.asarray(SPLIT_LENGTHS), jnp.asarray(table), opt(ks), opt(vs),
+        window=window, interpret=True)
+    ids = torch.from_numpy(table).long()
+
+    def rows(a):  # layer 1's [n_pages, H, P, ...] -> [B, H, MP * P, ...]
+        if a is None:
+            return None
+        t = _t(a) if a.dtype == ml_dtypes.bfloat16 else torch.from_numpy(a)
+        g = t[1][ids]
+        return g.transpose(1, 2).reshape(B, hkv, mp * P, *g.shape[4:])
+    got = _split_model(_t(q), rows(k), rows(v), rows(ks), rows(vs),
+                       SPLIT_LENGTHS, window)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    assert _split_err(got[1:], np.asarray(want)[1:]) <= 1.0
+
+
+def _partition(length, window, n_split):
+    """The (split, begin, end) key ranges that the decode kernels'
+    non-empty split blocks visit for a row of ``length`` keys in a grid of
+    ``n_split`` splits (``csrc/flash_decode.cuh``): chunks of SPLIT keys
+    counted from position 0, cut to lo <= pos < length with lo =
+    max(length - window, 0) under a sliding window."""
+    lo = max(length - window, 0) if window else 0
+    chunks = []
+    for z in range(n_split):
+        begin, end = max(z * SPLIT, lo), min((z + 1) * SPLIT, length)
+        if begin < end:
+            chunks.append((z, begin, end))
+    return chunks
+
+
+@pytest.mark.parametrize("window", [None, 70, 300])
+def test_decode_partition_depends_on_key_position_only(window):
+    """The chunks a row's split blocks visit are the same whether the
+    length comes as an int (the wrapper's grid of ``decode_splits(length)``
+    splits) or in a [B] tensor (``decode_splits(S)`` dense,
+    ``decode_splits(max_pages * P)`` paged): chunks of SPLIT keys from
+    position 0, cut to [lo, length) and covering it exactly."""
+    S, P, max_pages = 4608, 16, 290  # max_pages * P = 4640
+    for n in (0, 1, 63, 64, SPLIT - 1, SPLIT, SPLIT + 1, 2 * SPLIT + 65,
+              2047, 4095, S):
+        scalar = _partition(n, window, tatt.decode_splits(n))
+        assert scalar == _partition(n, window, tatt.decode_splits(S))
+        assert scalar == _partition(n, window,
+                                    tatt.decode_splits(max_pages * P))
+        lo = max(n - window, 0) if window else 0
+        keys = [pos for _, b, e in scalar for pos in range(b, e)]
+        assert keys == list(range(lo, n))
+        for z, b, e in scalar:
+            assert z * SPLIT <= b < e <= (z + 1) * SPLIT
+    assert tatt.decode_splits(0) == 1  # one empty split: zeros

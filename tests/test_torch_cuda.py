@@ -420,3 +420,153 @@ def test_int3_matmul_matches_plain(cuda, m, g):
     got = i3.int3_matmul(x, pa, pb, scales, group_size=g)
     assert _mat_ok(got, i3.int3_matmul_plain(x, pa, pb, scales, group_size=g))
     assert _build.LAUNCHES["int3_matmul"] == 1
+
+
+SPLIT = att.DECODE_SPLIT
+# lengths about the split's edges: 1, SPLIT - 1, SPLIT, SPLIT + 1, 2 SPLIT + 65
+SPLIT_LENGTHS = (1, SPLIT - 1, SPLIT, SPLIT + 1, 2 * SPLIT + 65)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("hq,hkv", [(8, 2), (48, 1), (32, 2)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_split_decode_matches_plain_about_the_split(cuda, d, hq, hkv, int8):
+    """flash_decode over rows whose lengths sit about the split's edges
+    (and a row of length 0, which gives zeros), GQA and MQA, bf16 and int8,
+    with and without a window: against the plain version (attn_err), and
+    bit for bit against paged decode of the same keys and against a scalar
+    length per row."""
+    rng = np.random.default_rng(d + hq + 7 * int8)
+    lengths = (0,) + SPLIT_LENGTHS
+    b, p = len(lengths), 64
+    smax = -(-max(lengths) // p) * p
+    mp = smax // p
+    if int8:
+        k, ks = _int8_kv(rng, (2, b, hkv, smax, d), cuda)
+        v, vs = _int8_kv(rng, (2, b, hkv, smax, d), cuda)
+    else:
+        k, v = (_bf16(rng, (2, b, hkv, smax, d), cuda) for _ in range(2))
+        ks = vs = None
+    table = torch.from_numpy(rng.permutation(b * mp).reshape(b, mp).astype(
+        np.int32) + 1).to(cuda)
+    pk, pv = _pool(k, table, p), _pool(v, table, p)
+    pks, pvs = (None, None) if not int8 else (_pool(ks, table, p),
+                                              _pool(vs, table, p))
+    q = _bf16(rng, (b, hq, d), cuda)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    for window in (None, SPLIT + 30):
+        dense = att.flash_decode(q, k, v, 1, lens, ks, vs, window=window)
+        paged = att.flash_decode_paged(q, pk, pv, 1, lens, table, pks, pvs,
+                                       window=window)
+        want = att.flash_decode_plain(q, k, v, 1, lens, ks, vs,
+                                      window=window)
+        torch.cuda.synchronize()
+        assert torch.equal(dense, paged)
+        assert torch.equal(dense[0], torch.zeros_like(dense[0]))
+        assert attn_err(dense[1:], want[1:], d)[1] <= 1.0
+        for r, n in enumerate(lengths):  # a scalar length: the same bits
+            one = att.flash_decode(q[r:r + 1], k[:, r:r + 1].contiguous(),
+                                   v[:, r:r + 1].contiguous(), 1, n,
+                                   None if ks is None
+                                   else ks[:, r:r + 1].contiguous(),
+                                   None if vs is None
+                                   else vs[:, r:r + 1].contiguous(),
+                                   window=window)
+            assert torch.equal(one[0], dense[r]), (n, window)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_split_decode_scalar_equals_tensor_lengths(cuda, int8):
+    """One length as an int and as an int32 [B] tensor (grids of
+    ceil(length / SPLIT) and ceil(S / SPLIT) splits): bit-identical, dense
+    and paged."""
+    rng = np.random.default_rng(11 + int8)
+    b, hq, hkv, d, p, smax = 3, 8, 2, 128, 128, 1024
+    mp = smax // p
+    if int8:
+        k, ks = _int8_kv(rng, (1, b, hkv, smax, d), cuda)
+        v, vs = _int8_kv(rng, (1, b, hkv, smax, d), cuda)
+    else:
+        k, v = (_bf16(rng, (1, b, hkv, smax, d), cuda) for _ in range(2))
+        ks = vs = None
+    table = torch.from_numpy(rng.permutation(b * mp).reshape(b, mp).astype(
+        np.int32) + 1).to(cuda)
+    pk, pv = _pool(k, table, p), _pool(v, table, p)
+    pks, pvs = (None, None) if not int8 else (_pool(ks, table, p),
+                                              _pool(vs, table, p))
+    q = _bf16(rng, (b, hq, d), cuda)
+    for n in SPLIT_LENGTHS:
+        lens = torch.full((b,), n, dtype=torch.int32, device=cuda)
+        dense = att.flash_decode(q, k, v, 0, n, ks, vs)
+        assert torch.equal(dense, att.flash_decode(q, k, v, 0, lens, ks, vs))
+        assert torch.equal(dense, att.flash_decode_paged(
+            q, pk, pv, 0, n, table, pks, pvs))
+        assert torch.equal(dense, att.flash_decode_paged(
+            q, pk, pv, 0, lens, table, pks, pvs))
+
+
+@pytest.mark.parametrize("g", [32, 128])
+@pytest.mark.parametrize("scale_dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("m", [1, 8, 9, 64, 65, 130, 497])
+def test_int4_matmul_routes_match_plain(cuda, m, scale_dtype, g):
+    """Both routes of int4_matmul against the plain version: the band
+    route at M <= 8, the tile route (wgmma) from 9 rows; K = 1280 (five
+    superblocks: ten pipeline stages, the 4-stage ring wraps) and
+    N = 392 (not a multiple of 128: the last tile's columns are masked);
+    stacked layers 0 and last (a pointer offset), and one unstacked."""
+    rng = np.random.default_rng(m + g)
+    k, n, layers = 1280, 392, 3
+    lins = [quantized_linear(rng.standard_normal((n, k)).astype(np.float32)
+                             * 0.02, g, scale_dtype) for _ in range(layers)]
+    packed = torch.stack([p.packed for p in lins]).to(cuda)
+    scales = torch.stack([p.scales for p in lins]).to(cuda)
+    x = _bf16(rng, (m, k), cuda)
+    assert im.int4_route(m, k, n, True)[0] == ("band" if m <= 8 else "tile")
+    _build.reset_launches()
+    for li in (0, layers - 1):
+        got = im.int4_matmul(x, packed, scales, g, layer_idx=li)
+        assert _mat_ok(got, im.int4_matmul_plain(x, packed, scales, g,
+                                                 layer_idx=li))
+    got = im.int4_matmul(x, packed[1], scales[1], g)
+    assert _mat_ok(got, im.int4_matmul_plain(x, packed[1], scales[1], g))
+    assert _build.LAUNCHES["int4_matmul"] == 3
+
+
+@pytest.mark.parametrize("m,rows", [(8, (1, 2, 7)),
+                                    (497, (9, 64, 65, 130, 200))])
+def test_int4_matmul_rows_are_independent(cuda, m, rows):
+    """Within a route an output row's bits depend on its x row alone:
+    int4_matmul(x)[:r] equals int4_matmul(x[:r]) bit for bit (band route
+    from 8 rows, tile route from 497)."""
+    rng = np.random.default_rng(m)
+    packed, scales = _int4_stack(rng, 1024, 640, "bf16", cuda)
+    x = _bf16(rng, (m, 1024), cuda)
+    full = im.int4_matmul(x, packed, scales, 128, layer_idx=1)
+    for r in rows:
+        assert im.int4_route(r, 1024, 640, True)[0] \
+            == im.int4_route(m, 1024, 640, True)[0]
+        part = im.int4_matmul(x[:r], packed, scales, 128, layer_idx=1)
+        assert torch.equal(part, full[:r]), r
+
+
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("k,n", [(14336, 2048), (14336, 4096)])
+def test_int4_matmul_band_route_ragged_last_band(cuda, m, k, n):
+    """The band route where the superblocks do not divide into whole bands
+    (56 superblocks in bands of 3 at N = 2048, of 6 at llama3_8b's down,
+    N = 4096): the last band holds the remainder. Against the plain
+    version, stacked at the last layer and unstacked."""
+    per, bands = im.band_split(k, n)
+    assert (k // 256) % per and im.int4_route(m, k, n, True) \
+        == ("band", (per, bands))
+    gen = torch.Generator(device=cuda).manual_seed(m + n)
+    packed = torch.randint(0, 256, (2, k // 2, n), dtype=torch.uint8,
+                           device=cuda, generator=gen)
+    scales = (torch.rand((2, k // 128, n), device=cuda, generator=gen)
+              * 0.02 + 0.005).to(torch.bfloat16)
+    x = torch.randn((m, k), device=cuda, generator=gen).to(torch.bfloat16)
+    got = im.int4_matmul(x, packed, scales, 128, layer_idx=1)
+    assert _mat_ok(got, im.int4_matmul_plain(x, packed, scales, 128,
+                                             layer_idx=1))
+    got = im.int4_matmul(x, packed[1], scales[1], 128)
+    assert _mat_ok(got, im.int4_matmul_plain(x, packed[1], scales[1], 128))

@@ -202,3 +202,29 @@ def test_rms_norm_and_rotary_match_jax():
         np.asarray(cos)[pos]), torch.from_numpy(np.asarray(sin)[pos]))
     np.testing.assert_allclose(_f32(tq), _f32(jq), rtol=8e-3, atol=1e-6)
     np.testing.assert_allclose(_f32(tk), _f32(jk), rtol=8e-3, atol=1e-6)
+
+
+@pytest.mark.parametrize("stacked", [True, False])
+def test_int4_matmul_route_choice(monkeypatch, stacked):
+    """A CUDA call of int4_matmul picks its route from M: the band route at
+    M <= 8, stacked or not (the unstacked lm_head too), the tile route from
+    9 rows; a shape listed in DECODE_KOUTER goes to the K-outer kernel
+    first, as JAX's gate says (stacked only). The band's split comes from K
+    and N alone and keeps about two blocks per SM streaming the weight."""
+    monkeypatch.setattr(tim, "DECODE_KOUTER", {})
+    shapes = ((4096, 6144), (4096, 28672), (14336, 4096), (4096, 129024),
+              (512, 392))
+    for kw, n in shapes:
+        for m in range(1, 9):
+            route, (per, bands) = tim.int4_route(m, kw, n, stacked)
+            assert route == "band" and (per, bands) == tim.band_split(kw, n)
+            nsb = kw // tpack.SUPERBLOCK
+            assert per * bands >= nsb > per * (bands - 1)
+            assert bands == nsb or -(-n // 128) * bands >= 264
+        for m in (9, 64, 65, 130, 497, 2048):
+            assert tim.int4_route(m, kw, n, stacked) == ("tile", None)
+    monkeypatch.setattr(tim, "DECODE_KOUTER", {(4096, 28672): (2048, 1024)})
+    for m in (1, 8, 9, 496):
+        assert tim.int4_route(m, 4096, 28672, stacked)[0] == (
+            "kouter" if stacked else "band" if m <= 8 else "tile")
+    assert tim.int4_route(497, 4096, 28672, stacked) == ("tile", None)

@@ -54,6 +54,10 @@ struct KVStore<__nv_bfloat16> {
   __device__ static __forceinline__ void stage(uint32_t w, uint32_t* dst) {
     dst[0] = w;
   }
+  // a 16-byte vector (8 values) into 4 staged words (16-byte aligned)
+  __device__ static __forceinline__ void stage16(uint4 w, uint32_t* dst) {
+    *reinterpret_cast<uint4*>(dst) = w;
+  }
 };
 
 template <>
@@ -68,6 +72,16 @@ struct KVStore<int8_t> {
           static_cast<float>(static_cast<int8_t>((w >> (16 * h + 8)) & 0xffu)));
       dst[h] = *reinterpret_cast<const uint32_t*>(&p);
     }
+  }
+  // a 16-byte vector (16 codes) into 8 staged words (16-byte aligned)
+  __device__ static __forceinline__ void stage16(uint4 w, uint32_t* dst) {
+    uint32_t o[8];
+    stage(w.x, o);
+    stage(w.y, o + 2);
+    stage(w.z, o + 4);
+    stage(w.w, o + 6);
+    *reinterpret_cast<uint4*>(dst) = make_uint4(o[0], o[1], o[2], o[3]);
+    *reinterpret_cast<uint4*>(dst + 4) = make_uint4(o[4], o[5], o[6], o[7]);
   }
 };
 

@@ -5,8 +5,9 @@ position), ``flash_prefill`` (a causal prompt chunk),
 their plain PyTorch versions.
 
 Counterpart of the JAX package's ``ops/attention.py``. The kernels are
-``csrc/flash_decode.cu``, ``csrc/flash_prefill.cu`` and
-``csrc/flash_decode_paged.cu``: fp32 online softmax,
+``csrc/flash_decode.cu`` and ``csrc/flash_decode_paged.cu`` (thin entry
+points over one body, ``csrc/flash_decode.cuh``) and
+``csrc/flash_prefill.cu``: fp32 online softmax,
 probabilities rounded to bf16 before the PV product, and only the valid key
 range visited (so the TPU path's ``ctx_cap`` is accepted and ignored). Each
 source holds a bf16 kernel and an int8 one (launch counters
@@ -18,6 +19,14 @@ v_scale rounded to bf16 against the exact V codes.
 ``csrc/int8_decode.cu`` keeps the Int8OPT dataflow: int32 scores, a
 softmax against the row's final stats, probabilities requantized x127 to
 int8, an int32 PV product.
+
+Decode splits each row's key range over blocks: chunks of ``DECODE_SPLIT``
+keys counted from position 0, one partial softmax
+each, merged in ascending order by a second kernel. The partition depends
+on key positions alone, so dense and paged decode, and a scalar or a
+device ``[B]`` length, give bit-identical outputs; the wrapper sizes the
+grid from the scalar length, S or ``max_pages * P`` (``decode_splits``)
+and never reads device lengths on the host.
 
 The plain versions have ``attention_xla``'s semantics and cast points:
 dense masked scores in f32, softmax, probabilities cast to the cache's
@@ -34,6 +43,16 @@ from tinychatengine_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# keys per split of the decode kernels (csrc/flash_decode.cuh's SPLIT)
+DECODE_SPLIT = 128
+
+
+def decode_splits(cap: int) -> int:
+    """The decode kernels' grid depth for rows of at most ``cap`` keys:
+    ceil(cap / DECODE_SPLIT), at least 1 (a scalar length of 0 still
+    launches one empty split, and the merge writes zeros)."""
+    return max(1, -(-int(cap) // DECODE_SPLIT))
 
 
 def attention_plain(q, cache_k, cache_v, positions, kv_valid_len,
@@ -170,6 +189,13 @@ def _kv_args(kernel, int8, cache_k, cache_v, k_scale, v_scale, layer_idx):
     return f"{kernel}_int8", f"tce_{kernel}_s8", ptrs
 
 
+def _split_workspace(b: int, hq: int, d: int, n_split: int, device):
+    """The decode kernels' f32 scratch: each (row, query head, split)'s
+    unnormalised [D] sum, then its (m, l)."""
+    return torch.empty(b * hq * n_split * (d + 2), dtype=torch.float32,
+                       device=device)
+
+
 def flash_decode(q, cache_k, cache_v, layer_idx, lengths, k_scale=None,
                  v_scale=None, *, sm_scale: float | None = None,
                  window: int | None = None, ctx_cap: int | None = None
@@ -179,8 +205,10 @@ def flash_decode(q, cache_k, cache_v, layer_idx, lengths, k_scale=None,
     [B]) take part, and with ``window`` only the last ``window`` of them.
     int8 cache: k_scale/v_scale [L, B, Hkv, S_max] f32. Returns
     [B, Hq, D] in q.dtype. CUDA: ``csrc/flash_decode.cu`` (counter
-    ``flash_decode`` or ``flash_decode_int8``); CPU: ``flash_decode_plain``.
-    ``ctx_cap`` is accepted and ignored."""
+    ``flash_decode`` or ``flash_decode_int8``), the key range split over
+    ``decode_splits(length or S_max)`` blocks a row and merged by a second
+    kernel; CPU: ``flash_decode_plain``. ``ctx_cap`` is accepted and
+    ignored."""
     del ctx_cap  # the kernel's loop already stops at lengths[b]
     if not q.is_cuda:
         return flash_decode_plain(q, cache_k, cache_v, layer_idx, lengths,
@@ -192,15 +220,17 @@ def flash_decode(q, cache_k, cache_v, layer_idx, lengths, k_scale=None,
         raise ValueError(f"q {tuple(q.shape)} does not fit cache "
                          f"{tuple(cache_k.shape)} (Hq a multiple of Hkv)")
     len_ptr, len_scalar = _lengths_arg(lengths, b, q.device, smax)
+    n_split = decode_splits(smax if len_ptr is not None else len_scalar)
     qb = q.to(torch.bfloat16).contiguous()
     out = torch.empty_like(qb)
+    ws = _split_workspace(b, hq, d, n_split, q.device)
     name, entry, kv = _kv_args("flash_decode", int8, cache_k, cache_v,
                                k_scale, v_scale, layer_idx)
-    fn = _build.bind(name, entry, [_P] * (2 + len(kv))
-                     + [_I, _I, _I, _I, _I, _P, _I, _I, _F, _P])
-    _build.check(fn(qb.data_ptr(), *kv, out.data_ptr(), b, hq, hkv,
-                    smax, d, len_ptr, len_scalar, window or 0,
-                    sm_scale or 1.0 / d ** 0.5,
+    fn = _build.bind(name, entry, [_P] * (3 + len(kv))
+                     + [_I, _I, _I, _I, _I, _P, _I, _I, _F, _I, _P])
+    _build.check(fn(qb.data_ptr(), *kv, out.data_ptr(), ws.data_ptr(), b, hq,
+                    hkv, smax, d, len_ptr, len_scalar, window or 0,
+                    sm_scale or 1.0 / d ** 0.5, n_split,
                     torch.cuda.current_stream(q.device).cuda_stream), name)
     _build.LAUNCHES[name] += 1
     return out.to(q.dtype)
@@ -289,7 +319,9 @@ def flash_decode_paged(q, pages_k, pages_v, layer_idx, lengths, page_table,
     [B, Hq, D] in q.dtype; int8 pages: k_scale/v_scale [L, n_pages, Hkv, P]
     f32. CUDA: ``csrc/flash_decode_paged.cu`` (counter
     ``flash_decode_paged`` or ``flash_decode_paged_int8``; a row of length
-    0 gives zeros); CPU: ``flash_decode_paged_plain``."""
+    0 gives zeros), ``flash_decode``'s body and split (grid depth
+    ``decode_splits(length or max_pages * P)``), bit-identical to it on the
+    same keys; CPU: ``flash_decode_paged_plain``."""
     if not q.is_cuda:
         return flash_decode_paged_plain(q, pages_k, pages_v, layer_idx,
                                         lengths, page_table, k_scale, v_scale,
@@ -307,15 +339,19 @@ def flash_decode_paged(q, pages_k, pages_v, layer_idx, lengths, page_table,
                          f"max_pages] tensor on {q.device}")
     max_pages = page_table.shape[1]
     len_ptr, len_scalar = _lengths_arg(lengths, b, q.device, max_pages * p)
+    n_split = decode_splits(max_pages * p if len_ptr is not None
+                            else len_scalar)
     qb = q.to(torch.bfloat16).contiguous()
     out = torch.empty_like(qb)
+    ws = _split_workspace(b, hq, d, n_split, q.device)
     name, entry, kv = _kv_args("flash_decode_paged", int8, pages_k, pages_v,
                                k_scale, v_scale, layer_idx)
-    fn = _build.bind(name, entry, [_P] * (2 + len(kv))
-                     + [_I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _F, _P])
-    _build.check(fn(qb.data_ptr(), *kv, out.data_ptr(), b, hq,
+    fn = _build.bind(name, entry, [_P] * (3 + len(kv))
+                     + [_I, _I, _I, _I, _I, _P, _I, _P, _I, _I, _F, _I, _P])
+    _build.check(fn(qb.data_ptr(), *kv, out.data_ptr(), ws.data_ptr(), b, hq,
                     hkv, p, d, page_table.data_ptr(), max_pages, len_ptr,
                     len_scalar, window or 0, sm_scale or 1.0 / d ** 0.5,
+                    n_split,
                     torch.cuda.current_stream(q.device).cuda_stream), name)
     _build.LAUNCHES[name] += 1
     return out.to(q.dtype)

@@ -15,9 +15,15 @@ handled by zero-padding x: the pad rows hold the zero-point code and
 dequantize to 0.
 
 Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor takes
-the plain version. The plain versions keep the JAX fallbacks' cast points
-(``int4_matmul_xla`` / ``int4_matmul_a8_xla``); the fused one follows the
-TPU kernel's body (``_fused_kernel``) instead.
+the plain version. ``int4_matmul`` on the card takes one of three routes
+(``int4_route``): the K-outer kernel where ``DECODE_KOUTER`` lists the
+call; else, from M alone, the band route at M <= 8 (the split-K band
+contraction the K-outer kernel runs, memory-bound) or the tile route at
+M >= 9 (wgmma tensor-core tiles fed by TMA). Within a route an output
+row's bits depend on its x row alone; the routes' cast points differ, so
+across M = 8 / 9 they do not. The plain versions keep the JAX
+fallbacks' cast points (``int4_matmul_xla`` / ``int4_matmul_a8_xla``); the
+fused one follows the TPU kernel's body (``_fused_kernel``) instead.
 
 ``FUSED_DECODE`` is the fused decode switch (the JAX package's flag of the
 same name): the model forwards read it at call time and, when it is on, run
@@ -93,6 +99,39 @@ def kouter_route(m: int, kw: int, n: int, stacked: bool):
     if stacked and m + (-m) % 16 < 512:
         return DECODE_KOUTER.get((kw, n))
     return None
+
+
+# rows at and below which a CUDA call of int4_matmul takes the band route;
+# above, the tile route (the kernel takes the choice as ``bands``)
+BAND_MAX_ROWS = 8
+# the band route splits K until about this many blocks stream the weight
+# (two per SM of the H100's 132)
+_BAND_TARGET_BLOCKS = 264
+
+
+def band_split(kw: int, n: int) -> tuple[int, int]:
+    """(superblocks per band, bands) of the band route for packed K ``kw``
+    and ``n`` columns: from K and N alone, never from M, so that a row's
+    bits do not depend on how many rows ride along."""
+    nsb = kw // SUPERBLOCK
+    tiles = -(-n // 128)
+    want = max(1, min(nsb, -(-_BAND_TARGET_BLOCKS // tiles)))
+    per = nsb // want  # at least ``want`` bands
+    return per, -(-nsb // per)
+
+
+def int4_route(m: int, kw: int, n: int, stacked: bool):
+    """The route a CUDA call of ``int4_matmul`` at ``m`` rows, packed K
+    ``kw`` and ``n`` columns takes: ``("kouter", (block_n, block_k))``
+    where ``kouter_route`` lists it; else ``("band", (superblocks per band,
+    bands))`` at M <= ``BAND_MAX_ROWS``, stacked or not; else
+    ``("tile", None)``."""
+    blocks = kouter_route(m, kw, n, stacked)
+    if blocks is not None:
+        return "kouter", blocks
+    if m <= BAND_MAX_ROWS:
+        return "band", band_split(kw, n)
+    return "tile", None
 
 
 def _check_layout(x, packed, scales, group_size, layer_idx):
@@ -186,26 +225,35 @@ def int4_matmul_plain(x, packed, scales, group_size: int = 128, *,
 
 def int4_matmul(x, packed, scales, group_size: int = 128, *,
                 layer_idx=None) -> torch.Tensor:
-    """y[..., N] = x[..., K] @ ((q - 8) * d), bf16 out. CUDA: the W4A16
-    kernel (``csrc/int4_matmul.cu``), or the K-outer kernel where
-    ``kouter_route`` lists the call; CPU: ``int4_matmul_plain``."""
+    """y[..., N] = x[..., K] @ ((q - 8) * d), bf16 out. CUDA
+    (``int4_route``): the K-outer kernel where ``kouter_route`` lists the
+    call, else ``csrc/int4_matmul.cu``: the band route at M <= 8 (split-K
+    bands of whole superblocks, exact codes times f32 scales, band sums in
+    K order), the tile route at M >= 9 (wgmma on bf16((q - 8) * d) tiles,
+    x by TMA); CPU: ``int4_matmul_plain``."""
     if not x.is_cuda:
         return int4_matmul_plain(x, packed, scales, group_size,
                                  layer_idx=layer_idx)
-    blocks = kouter_route(x.numel() // x.shape[-1], 2 * packed.shape[-2],
-                          packed.shape[-1], layer_idx is not None)
-    if blocks is not None:
+    route, arg = int4_route(x.numel() // x.shape[-1], 2 * packed.shape[-2],
+                            packed.shape[-1], layer_idx is not None)
+    if route == "kouter":
         return int4_matmul_kouter(x, packed, scales, group_size,
-                                  layer_idx=layer_idx, block_n=blocks[0],
-                                  block_k=blocks[1])
+                                  layer_idx=layer_idx, block_n=arg[0],
+                                  block_k=arg[1])
     x2, w_ptr, s_ptr, kw, n = _cuda_args(x, packed, scales, group_size,
                                          layer_idx)
+    if x2.data_ptr() % 16:  # TMA reads x from a 16-byte aligned address
+        x2 = x2.clone()
     m = x2.shape[0]
+    per, bands = arg if route == "band" else (0, 0)
+    part = torch.empty((bands, m, n) if bands else (1,), dtype=torch.float32,
+                       device=x.device)
     y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     fn = _build.bind("int4_matmul", "tce_int4_matmul",
-                     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+                     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P])
     _build.check(fn(x2.data_ptr(), w_ptr, s_ptr, y.data_ptr(), m, kw, n,
                     group_size, int(scales.dtype == torch.bfloat16),
+                    part.data_ptr(), per, bands,
                     torch.cuda.current_stream(x.device).cuda_stream),
                  "int4_matmul")
     _build.LAUNCHES["int4_matmul"] += 1

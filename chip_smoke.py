@@ -7,7 +7,8 @@ Phases (any failure ends the run with a non-zero exit code):
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles every kernel under ``tinychatengine_tpu_torch/csrc``
    with nvcc, one process per source, all at once; ``int4_matmul``'s SASS
-   must hold HGMMA instructions (its tile route on the tensor cores);
+   must hold HGMMA instructions (its tile route on the tensor cores) and
+   ``flash_prefill``'s HMMA or HGMMA (both products on the tensor cores);
 3. kernels: each kernel against its plain PyTorch version on the card at
    llama3_8b's main-path and serving shapes (B = 8 slots, ragged lengths,
    a shuffled page table), with the stated tolerance, and timed beside its
@@ -17,9 +18,14 @@ Phases (any failure ends the run with a non-zero exit code):
    over 1..4095 keys (a
    4608-key cache); paged and dense
    decode of the same keys must be bit-identical, also at StarCoder's
-   multi-query shape (48 query heads on one KV head); ``int8_decode`` at
+   multi-query shape (48 query heads on one KV head); ``flash_prefill`` at
+   2048 rows, 64 rows over a long prefix, the batched admission (8 ragged
+   prompts of phase 5's mix in the 512-row bucket) and a 512-row chunk at
+   start 3072, each start-0 case also timed beside causal SDPA
+   (``library_causal_ms``); ``int8_decode`` at
    opt_6.7b's decode and serving shapes and at D = 64, held in units of
-   pv_alpha (``int8_err``); ``int4_matmul_fused`` at the fused decode's
+   pv_alpha (``int8_err``), its structure and splits a row printed;
+   ``int4_matmul_fused`` at the fused decode's
    llama3_8b and StarCoder shapes (``FUSED_CASES``; the roped and the
    pass-through columns held apart); the int8-KV kernels
    (``flash_decode_int8``, ``flash_prefill_int8``,
@@ -403,9 +409,12 @@ def check_kernels(gen):
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     qt, kr, vr, attn_mask=mask),
                 2 * s * hq * d * 2 + 2 * hkv * length * d * 2,
-                4.0 * hq * pairs * d, BF16_FLOP_S)
+                4.0 * hq * pairs * d, BF16_FLOP_S,
+                library_causal_ms=causal_ms(qt, kr, vr, it) if start == 0
+                else None)
         del ck, cv
         torch.cuda.empty_cache()
+    check_prefill_cases(gen, add)
     check_long_decode(gen, add)
     check_serving_kernels(gen, add)
     check_int8_kernels(gen, add)
@@ -413,6 +422,85 @@ def check_kernels(gen):
     check_int8_kv_kernels(gen, add)
     check_split_k_kernels(gen, add)
     return cases
+
+
+def causal_ms(qt, k, v, iters: int) -> float:
+    """SDPA with ``is_causal=True`` (PyTorch's flash backend) on a start-0
+    chunk's q [B, Hq, S, D] and its keys: the causal yardstick beside the
+    masked call that is the table's ``library_ms``."""
+    return graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, k, v, is_causal=True, enable_gqa=True), iters)
+
+
+def admission_lengths(n: int, vocab: int, seed: int = 0,
+                      plen=(32, 320)) -> list:
+    """The prompt lengths of ``serving_load``'s first ``n`` requests
+    (phase 5's mix: the same draws from ``default_rng(seed)``)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        k = int(rng.integers(*plen))
+        rng.integers(100, vocab - 100, k)
+        out.append(k)
+    return out
+
+
+def check_prefill_cases(gen, add):
+    """``flash_prefill`` at two more main-path shapes (llama3_8b: Hq 32,
+    Hkv 8, D 128, bf16, 32 layers cycled): phase 5's batched admission (8
+    rows at start 0 with ragged lengths from its prompt mix, in the 512-row
+    bucket, rows past a length attending to its whole prefix) and a 512-row
+    chunk of a long-context prompt at start 3072 (phase 4d's admission, a
+    4608-key cache). Library: SDPA with the same mask; causal: SDPA with
+    ``is_causal`` over the ragged batch's full 512-row squares."""
+    from tinychatengine_tpu_torch.ops import attention as att
+    dev = torch.device("cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    L, hq, hkv, d = 32, 32, 8, 128
+    lens = admission_lengths(8, model_config("llama3_8b").vocab_size)
+    for b, s, smax, start, lengths in ((8, 512, 512, 0, lens),
+                                       (1, 512, 4608, 3072, (3584,))):
+        ck = torch.randn((L, b, hkv, smax, d), device=dev, generator=gen).to(torch.bfloat16)
+        cv = torch.randn((L, b, hkv, smax, d), device=dev, generator=gen).to(torch.bfloat16)
+        q = torch.randn((b, s, hq, d), device=dev, generator=gen).to(torch.bfloat16)
+        length = (torch.tensor(lengths, dtype=torch.int32, device=dev)
+                  if b > 1 else lengths[0])
+        st = torch.zeros(b, dtype=torch.int32, device=dev) if b > 1 else start
+        err = share = 0.0
+        for li in (0, L - 1):
+            y = att.flash_prefill(q, ck, cv, li, st, length)
+            assert not torch.isnan(y).any(), "NaN in flash_prefill output"
+            e, sh = attn_err(y, att.flash_prefill_plain(q, ck, cv, li, st,
+                                                        length), d)
+            err, share = max(err, e), max(share, sh)
+        state = {"li": 0}
+
+        def run(q=q, ck=ck, cv=cv, st=st, length=length):
+            state["li"] = (state["li"] + 1) % L
+            att.flash_prefill(q, ck, cv, state["li"], st, length)
+        plain_ms = time_ms(lambda: att.flash_prefill_plain(
+            q, ck, cv, 0, st, length), 3)
+        qt = q.transpose(1, 2)
+        qpos = start + torch.arange(s, device=dev)[:, None]
+        lim = torch.tensor(lengths, device=dev)[:, None, None]
+        mask = (torch.arange(smax, device=dev)[None, None]
+                < torch.minimum(qpos[None] + 1, lim))[:, None]
+        pairs = sum(min(start + r + 1, n) for n in lengths for r in range(s))
+        keys = sum(lengths)
+        if b > 1:
+            case = f"B={b} S={s} start=0 Hq={hq} Hkv={hkv} D={d} ragged " \
+                   f"{min(lengths)}..{max(lengths)}"
+        else:
+            case = f"B=1 S={s} start={start} Hq={hq} Hkv={hkv} D={d}"
+        add("flash_prefill", case, err, share, ATTN_TOL_TEXT, run, 10,
+            plain_ms, lambda: sdpa(qt, ck[0], cv[0], attn_mask=mask,
+                                   enable_gqa=True),
+            2 * b * s * hq * d * 2 + 2 * hkv * keys * d * 2 + 8 * b,
+            4.0 * hq * pairs * d, BF16_FLOP_S,
+            library_causal_ms=causal_ms(qt, ck[0], cv[0], 10) if b > 1
+            else None)
+        del ck, cv
+        torch.cuda.empty_cache()
 
 
 def check_long_decode(gen, add):
@@ -570,7 +658,8 @@ INT8_CASES = (  # (case, layers stacked, H, D, S_max, lengths)
 
 def check_int8_kernels(gen, add):
     """``int8_decode`` against ``int8_decode_plain`` at opt_6.7b's decode
-    shape, its serving shape and byteopt_4m's D = 64, over a layer stack
+    shape, its serving shapes (ragged to 2047 keys, and phase 8's tick of
+    short rows) and byteopt_4m's D = 64, over a layer stack
     that the timing loop cycles through (the keys come from HBM, not L2).
     Library: SDPA over the same keys cast to bf16, the nearest call (it has
     no x127 requant, so it is not the same function)."""
@@ -578,7 +667,13 @@ def check_int8_kernels(gen, add):
     dev = torch.device("cuda")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qk_alpha, pv_alpha = 3e-5, 1e-3  # scores of std ~2: a spread of codes
-    for case, n_layers, h, d, smax, lengths in INT8_CASES:
+    # phase 8's tick: 8 slots holding the serving mix's first prompts, 32
+    # tokens into their decode, in the 2048-key slot cache (short rows)
+    tick = tuple(n + 32 for n in admission_lengths(
+        8, model_config("opt_6.7b").vocab_size))
+    for case, n_layers, h, d, smax, lengths in INT8_CASES + (
+            (f"B=8 H=32 D=128 serving tick {min(tick)}..{max(tick)}", 32, 32,
+             128, 2048, tick),):
         b = len(lengths)
 
         def s8(shape):
@@ -618,6 +713,10 @@ def check_int8_kernels(gen, add):
         add("int8_decode", case, err, share, INT8_TOL_TEXT, run, 64,
             plain_ms, lib, 2 * h * keys * d + 5 * b * h * d + 4 * b,
             4.0 * h * keys * d, INT8_OP_S, differing_pairs=pairs)
+        n_split = att.int8_splits(lengths[0] if b == 1 else smax)
+        log(f"int8_decode {case}: structure (a), one launch, a row's "
+            f"{n_split} splits of {att.INT8_SPLIT} keys on one cluster of "
+            f"{att.int8_cluster(n_split, b > 1)} blocks")
         del ck, cv, kb, vb
         torch.cuda.empty_cache()
 
@@ -792,7 +891,9 @@ def check_int8_kv_kernels(gen, add):
             f"Hkv={hkv} D={d}", err, share, ATTN_TOL_TEXT, run, 5, plain_ms,
             lambda: sdpa(qt, kd, vd, attn_mask=causal, enable_gqa=True),
             2 * s * hq * d * 2 + kv_bytes(hkv, d, length),
-            4.0 * hq * pairs * d, BF16_FLOP_S)
+            4.0 * hq * pairs * d, BF16_FLOP_S,
+            library_causal_ms=causal_ms(qt, kd, vd, 5) if start == 0
+            else None)
         del kd, vd
     del k, v, ks, vs
     torch.cuda.empty_cache()
@@ -2453,6 +2554,12 @@ def main(argv=None) -> int:
     log(f"int4_matmul SASS (cuobjdump -sass): {hgmma} HGMMA instructions")
     if not hgmma:
         raise SystemExit("int4_matmul's tile route has no HGMMA in its SASS")
+    mma = {op: sass_count(libs["flash_prefill"], op) for op in ("HMMA", "HGMMA")}
+    log(f"flash_prefill SASS (cuobjdump -sass): {mma['HMMA']} HMMA, "
+        f"{mma['HGMMA']} HGMMA instructions")
+    if not any(mma.values()):
+        raise SystemExit("flash_prefill runs no product on the tensor cores "
+                         "(no HMMA or HGMMA in its SASS)")
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:

@@ -340,28 +340,58 @@ def test_int8_cast_points_match_tpu_paged_decode():
     assert _int8_err(got[:, 0], want) <= 1.0
 
 
-@pytest.mark.parametrize("start", [0, 192])
-def test_int8_cast_points_match_tpu_prefill(start):
-    """A causal prompt chunk over the int8 cache, at position 0 and at a
-    prefix hit's start = 192 (the cache holding an earlier prefill's
-    codes): ``_kernel_like`` with the TPU kernel's 64-key blocks against
-    ``flash_prefill`` in interpret mode; rows past the true length attend
-    to the whole prefix."""
-    rng = np.random.default_rng(9 + start)
+def _prefill_cast_points(int8, start, window, seed):
+    """``_kernel_like`` over the prefill kernel's 64-key tiles against the
+    TPU kernel's ``flash_prefill`` in interpret mode with 64-key blocks: a
+    causal prompt chunk of 64 rows, 50 of them real (rows past the true
+    length attend to the whole prefix), bf16 or int8 KV, GQA 2:1, D = 64.
+    Returns (model, TPU kernel)."""
+    rng = np.random.default_rng(seed)
     L, B, hq, hkv, S, D = 1, 2, 4, 2, 320, 64
-    jc, tc = _caches(rng, L, B, hkv, S, D, quantized=True)
+    jc, tc = _caches(rng, L, B, hkv, S, D, quantized=int8)
     s_q, true_len = 64, 50
     q = _bf16(rng, (B, s_q, hq, D))
     length = start + true_len
     want = jatt.flash_prefill(jnp.asarray(q), jc.k, jc.v, jnp.int32(0),
                               jnp.int32(start), jnp.int32(length),
                               jc.k_scale, jc.v_scale, interpret=True,
-                              block_q=64, block_s=64)
+                              block_q=64, block_s=64, window=window)
     qpos = start + torch.arange(s_q)[:, None]
-    allowed = torch.arange(S) < torch.clamp(qpos + 1, max=length)
-    ck, cv, ks, vs = _int8_layer(tc, 0)
-    got = _kernel_like(_t(q), ck, cv, allowed, ks, vs, tile=64)
-    assert _int8_err(got, want) <= 1.0
+    col = torch.arange(S)
+    allowed = col < torch.clamp(qpos + 1, max=length)
+    if window:
+        allowed = allowed & (col > qpos - window)
+    if int8:
+        ck, cv, ks, vs = _int8_layer(tc, 0)
+    else:
+        (ck, cv), ks, vs = (tc.k[0], tc.v[0]), None, None
+    return _kernel_like(_t(q), ck, cv, allowed, ks, vs, tile=64), want
+
+
+@pytest.mark.parametrize("start", [0, 192])
+def test_int8_cast_points_match_tpu_prefill(start):
+    """A causal prompt chunk over the int8 cache, at position 0 and at a
+    prefix hit's start = 192 (the cache holding an earlier prefill's
+    codes), with and without a 70-key window: the kernel's cast points over
+    its 64-key tiles (``_prefill_cast_points``) against ``flash_prefill``
+    in interpret mode."""
+    for window in (None, 70):
+        got, want = _prefill_cast_points(True, start, window, 9 + start)
+        assert _int8_err(got, want) <= 1.0, window
+
+
+@pytest.mark.parametrize("window", [None, 70])
+@pytest.mark.parametrize("start", [0, 192])
+def test_bf16_cast_points_match_tpu_prefill(start, window):
+    """The bf16 twin: the prefill kernel's cast points over its 64-key
+    tiles against ``flash_prefill`` in interpret mode, at start 0 and 192,
+    with and without a window. The same tiles, so only the f32 sums' order
+    differs, which can move an output by one bf16 step: up to 2^-7 of the
+    element, past ``_int8_err``'s 2^-8 where the row's values are small
+    (one element of 512 rows reads 1.2 of it), so held to ``_split_err``
+    (2^-7 of the element plus 2^-9 of the row's largest value)."""
+    got, want = _prefill_cast_points(False, start, window, 13 + start)
+    assert _split_err(got, want) <= 1.0
 
 
 def test_attention_tolerance_passes_rounding_and_fails_mask_faults():

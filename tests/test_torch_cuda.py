@@ -334,6 +334,95 @@ def test_int8_decode_kernel_matches_plain(cuda, d):
         att.int8_decode(q, ck.to(torch.bfloat16), cv, 0, lengths, 3e-5, 1e-3)
 
 
+def test_int8_decode_split_bits_depend_on_key_positions_only(cuda):
+    """int8_decode's split: a row alone (a scalar length, so a grid of
+    int8_splits(length) chunks) gives the same bits as the same row inside a
+    B = 8 batch (device lengths, int8_splits(S) chunks), lengths about the
+    64-key chunk edges and past the old kernel's 4096-key chunk, a row of
+    length 0 gives zeros, a scalar length equals a tensor of it, and the
+    counter moves once per call."""
+    rng = np.random.default_rng(41)
+    lengths = (0, 1, 63, 64, 65, 320, 2047, 4500)
+    b, h, d, smax = len(lengths), 4, 128, 4608
+
+    def s8(shp):
+        return torch.from_numpy(rng.integers(-127, 128, shp).astype(np.int8)
+                                ).to(cuda)
+    ck, cv, q = s8((2, b, h, smax, d)), s8((2, b, h, smax, d)), s8((b, h, d))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    _build.reset_launches()
+    batch = att.int8_decode(q, ck, cv, 1, lens, 3e-5, 1e-3)
+    assert _build.LAUNCHES["int8_decode"] == 1
+    want = att.int8_decode_plain(q, ck, cv, 1, lens, 3e-5, 1e-3)
+    torch.cuda.synchronize()
+    assert int8_err(batch, want, 1e-3)[2] <= 1.0
+    assert torch.equal(batch[0], torch.zeros_like(batch[0]))
+    for r, n in enumerate(lengths):
+        one = att.int8_decode(q[r:r + 1], ck[:, r:r + 1].contiguous(),
+                              cv[:, r:r + 1].contiguous(), 1, n, 3e-5, 1e-3)
+        assert torch.equal(one[0], batch[r]), n
+    assert _build.LAUNCHES["int8_decode"] == 1 + len(lengths)
+    for n in (65, 4500):
+        same = torch.full((b,), n, dtype=torch.int32, device=cuda)
+        assert torch.equal(att.int8_decode(q, ck, cv, 0, n, 3e-5, 1e-3),
+                           att.int8_decode(q, ck, cv, 0, same, 3e-5, 1e-3))
+
+
+# flash_prefill's cases: (D, Hq, Hkv); S = 100 rows (not a multiple of the
+# 64-row query tile), ragged device starts and lengths at B = 4 with rows
+# past their true length, with and without a window
+PREFILL_HEADS = [(128, 8, 2), (64, 8, 2), (128, 48, 1)]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("d,hq,hkv", PREFILL_HEADS)
+def test_flash_prefill_kernel_ragged_window_and_heads(cuda, d, hq, hkv,
+                                                      int8):
+    """flash_prefill (bf16 and int8 KV) against its plain version
+    (attn_err) over ragged device start/length, a window, D = 64, MQA and
+    S = 100; rows with no allowed key (past the true length, beyond the
+    window) give zeros; a row run alone with scalar start/length gives the
+    batch's bits."""
+    rng = np.random.default_rng(d + hq + int8)
+    b, s, smax = 4, 100, 384
+    starts, true_len = (0, 37, 130, 250), (100, 60, 17, 100)
+    if int8:
+        k, ks = _int8_kv(rng, (2, b, hkv, smax, d), cuda)
+        v, vs = _int8_kv(rng, (2, b, hkv, smax, d), cuda)
+    else:
+        k, v = (_bf16(rng, (2, b, hkv, smax, d), cuda) for _ in range(2))
+        ks = vs = None
+    q = _bf16(rng, (b, s, hq, d), cuda)
+    st = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    ln = st + torch.tensor(true_len, dtype=torch.int32, device=cuda)
+    name = "flash_prefill_int8" if int8 else "flash_prefill"
+    col = torch.arange(smax, device=cuda)
+    qpos = st[:, None, None].long() + torch.arange(s, device=cuda)[:, None]
+    for window in (None, 70):
+        _build.reset_launches()
+        got = att.flash_prefill(q, k, v, 1, st, ln, ks, vs, window=window)
+        want = att.flash_prefill_plain(q, k, v, 1, st, ln, ks, vs,
+                                       window=window)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES[name] == 1
+        allowed = (col < torch.minimum(qpos + 1, ln[:, None, None])) & (
+            col > qpos - (window or smax + 1))
+        some = allowed.any(-1)  # [B, S]: rows with an allowed key
+        assert not torch.isnan(got).any()
+        assert attn_err(got[some], want[some], d)[1] <= 1.0
+        assert not got[~some].any()
+        assert window or some.all()
+        for r in range(b):
+            one = att.flash_prefill(
+                q[r:r + 1], k[:, r:r + 1].contiguous(),
+                v[:, r:r + 1].contiguous(), 1, starts[r],
+                starts[r] + true_len[r],
+                None if ks is None else ks[:, r:r + 1].contiguous(),
+                None if vs is None else vs[:, r:r + 1].contiguous(),
+                window=window)
+            assert torch.equal(one[0], got[r]), (r, window)
+
+
 def _int4_stack(rng, k, n, scale_dtype, dev, layers=2):
     lins = [quantized_linear(rng.standard_normal((n, k)).astype(np.float32)
                              * 0.02, 128, scale_dtype) for _ in range(layers)]

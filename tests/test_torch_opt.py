@@ -243,6 +243,69 @@ def test_int8_decode_plain_matches_jax_kernel():
         assert not got[2].any()
 
 
+def _int8_split_model(q, ck, cv, li, lengths, qk_alpha, pv_alpha):
+    """``int8_decode``'s split on the CPU (``csrc/int8_decode.cu``): chunks
+    of INT8_SPLIT keys from position 0, each with its (m_c, l_c) over its
+    valid keys ((-1e30, 0) when it has none); the row's m = max m_c and l =
+    sum l_c exp(m_c - m), merged in ascending chunk order; the probabilities
+    requantized x127 against (m, l); each chunk's int32 PV partial, summed,
+    times pv_alpha. Returns f32 [B, H, D]."""
+    split = att.INT8_SPLIT
+    k, v = ck[li].float(), cv[li].float()  # [B, H, S, D], exact codes
+    s = torch.einsum("bhd,bhtd->bht", q.float(), k) * torch.tensor(
+        qk_alpha, dtype=torch.float32)
+    valid = torch.arange(k.shape[2])[None, None] < torch.as_tensor(
+        lengths).reshape(-1, 1, 1)
+    s = torch.where(valid, s, torch.tensor(-1e30))
+    stats = []
+    for c0 in range(0, k.shape[2], split):
+        sc, ok = s[..., c0:c0 + split], valid[..., c0:c0 + split]
+        m_c = sc.amax(-1)
+        l_c = torch.where(ok, torch.exp(sc - m_c[..., None]), 0.0).sum(-1)
+        stats.append((m_c, l_c))
+    m = torch.stack([m_c for m_c, _ in stats]).amax(0)
+    l = torch.zeros_like(m)
+    for m_c, l_c in stats:
+        l = l + l_c * torch.exp(m_c - m)
+    p = torch.exp(s - m[..., None]) / torch.clamp(l, min=1e-30)[..., None]
+    p_s8 = torch.where(valid, torch.clamp(torch.round(p * 127.0), -128, 127),
+                       0.0).to(torch.int64)
+    total = torch.zeros(q.shape, dtype=torch.int64)
+    for c0 in range(0, k.shape[2], split):  # exact int partials
+        total += torch.einsum("bht,bhtd->bhd", p_s8[..., c0:c0 + split],
+                              cv[li][:, :, c0:c0 + split].to(torch.int64))
+    return total.to(torch.float32) * torch.tensor(pv_alpha,
+                                                  dtype=torch.float32)
+
+
+def test_int8_decode_split_matches_jax_kernel():
+    """The CUDA kernel's split (``_int8_split_model``) against the TPU
+    kernel in interpret mode, at lengths on, just before and just after the
+    64-key chunk edges, a row of S_max keys and a row of length 0 (zeros on
+    both sides): held to ``chip_smoke.int8_err``'s two limits (each element
+    within 256 units of pv_alpha, at most 1 % of (row, head) pairs
+    differing at all). The merged l rounds in another order than the TPU
+    kernel's running sum, which can move one p * 127 across a .5 boundary."""
+    import chip_smoke
+    from tinychatengine_tpu.ops.attention import int8_decode as j_int8_decode
+    split = att.INT8_SPLIT
+    lengths = (0, 1, split - 1, split, split + 1, 2 * split - 1, 2 * split,
+               2 * split + 1, 320, 512)
+    q, ck, cv, ln = _int8_inputs(seed=4, lengths=lengths)
+    qk_alpha, pv_alpha = 3e-5, 1e-3
+    for li in range(2):
+        want = np.asarray(j_int8_decode(
+            jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv), jnp.int32(li),
+            jnp.asarray(ln), qk_alpha, pv_alpha, interpret=True))
+        got = _int8_split_model(torch.from_numpy(q), torch.from_numpy(ck),
+                                torch.from_numpy(cv), li,
+                                torch.from_numpy(ln), qk_alpha, pv_alpha)
+        assert not got[0].any() and not want[0].any()
+        assert chip_smoke.int8_err(got, torch.from_numpy(want),
+                                   pv_alpha)[2] <= 1.0
+        assert int(got.abs().max()) > 0
+
+
 def test_int8_decode_plain_matches_the_dense_w8a8_branch():
     """At one query position the plain decode is the model's dense int8
     dataflow restricted to each row's valid length: the int8 requant of

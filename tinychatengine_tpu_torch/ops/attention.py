@@ -18,7 +18,9 @@ k_scale; max and sum over the unscaled probabilities; probabilities times
 v_scale rounded to bf16 against the exact V codes.
 ``csrc/int8_decode.cu`` keeps the Int8OPT dataflow: int32 scores, a
 softmax against the row's final stats, probabilities requantized x127 to
-int8, an int32 PV product.
+int8, an int32 PV product; its key range is split into chunks of
+``INT8_SPLIT`` keys from position 0, the chunks' statistics merged in a
+fixed order, the int32 partials summed exactly.
 
 Decode splits each row's key range over blocks: chunks of ``DECODE_SPLIT``
 keys counted from position 0, one partial softmax
@@ -378,6 +380,26 @@ def int8_probs(logits: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(p * 127.0), -128, 127)
 
 
+# keys per chunk of int8_decode's split (csrc/int8_decode.cu's CH)
+INT8_SPLIT = 64
+
+
+def int8_splits(cap: int) -> int:
+    """``int8_decode``'s chunks for rows of at most ``cap`` keys:
+    ceil(cap / INT8_SPLIT), at least 1."""
+    return max(1, -(-int(cap) // INT8_SPLIT))
+
+
+def int8_cluster(n_chunks: int, device_lengths: bool) -> int:
+    """The blocks of one ``int8_decode`` row (one thread-block cluster): up
+    to 8 when the length is a host int (every block then holds keys), up to
+    4 when the lengths live on the device and the grid covers S_max (a
+    short row leaves fewer blocks empty: on an H100, 8 short rows in a
+    2048-key cache ran 0.0148 ms at 4 and 0.0187 at 8, rows to 2047 keys
+    0.0335 and 0.0285). A row's bits do not depend on it."""
+    return min(n_chunks, 4 if device_lengths else 8)
+
+
 def _alpha(value, device) -> torch.Tensor:
     return torch.as_tensor(value, dtype=torch.float32, device=device)
 
@@ -421,7 +443,8 @@ def int8_decode(q_s8, cache_k, cache_v, layer_idx, lengths, qk_alpha,
     scales live in the alphas); keys at positions < lengths[b] (int or
     int32 [B]) take part. qk_alpha / pv_alpha: floats or one-element f32
     tensors. Returns the pre-requant output f32 [B, H, D]. CUDA:
-    ``csrc/int8_decode.cu``; CPU: ``int8_decode_plain``."""
+    ``csrc/int8_decode.cu``, ``int8_splits(length or S_max)`` chunks a row
+    over one cluster of ``int8_cluster`` blocks; CPU: ``int8_decode_plain``."""
     if not q_s8.is_cuda:
         return int8_decode_plain(q_s8, cache_k, cache_v, layer_idx, lengths,
                                  qk_alpha, pv_alpha)
@@ -444,15 +467,17 @@ def int8_decode(q_s8, cache_k, cache_v, layer_idx, lengths, qk_alpha,
     len_ptr, len_scalar = _lengths_arg(lengths, b, q_s8.device, smax)
     qk_ptr, qk_scalar = _alpha_arg(qk_alpha, q_s8.device)
     pv_ptr, pv_scalar = _alpha_arg(pv_alpha, q_s8.device)
+    n_chunks = int8_splits(smax if len_ptr is not None else len_scalar)
     qc = q_s8.contiguous()
     out = torch.empty((b, h, d), dtype=torch.float32, device=q_s8.device)
     fn = _build.bind("int8_decode", "tce_int8_decode",
                      [_P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _F, _P, _F,
-                      _P])
+                      _I, _I, _P])
     _build.check(fn(qc.data_ptr(), _layer_ptr(cache_k, layer_idx),
                     _layer_ptr(cache_v, layer_idx), out.data_ptr(), b, h,
                     smax, d, len_ptr, len_scalar, qk_ptr, qk_scalar, pv_ptr,
-                    pv_scalar,
+                    pv_scalar, n_chunks,
+                    int8_cluster(n_chunks, len_ptr is not None),
                     torch.cuda.current_stream(q_s8.device).cuda_stream),
                  "int8_decode")
     _build.LAUNCHES["int8_decode"] += 1

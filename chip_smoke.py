@@ -7,8 +7,10 @@ Phases (any failure ends the run with a non-zero exit code):
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles every kernel under ``tinychatengine_tpu_torch/csrc``
    with nvcc, one process per source, all at once; ``int4_matmul``'s SASS
-   must hold HGMMA instructions (its tile route on the tensor cores) and
-   ``flash_prefill``'s HMMA or HGMMA (both products on the tensor cores);
+   must hold HGMMA instructions (its tile route on the tensor cores), and
+   ``flash_prefill``'s (both products), ``int4_matmul_kouter``'s and
+   ``int4_matmul_fused``'s (the contraction of ``csrc/int4_mma.cuh``)
+   HMMA or HGMMA;
 3. kernels: each kernel against its plain PyTorch version on the card at
    llama3_8b's main-path and serving shapes (B = 8 slots, ragged lengths,
    a shuffled page table), with the stated tolerance, and timed beside its
@@ -26,15 +28,17 @@ Phases (any failure ends the run with a non-zero exit code):
    opt_6.7b's decode and serving shapes and at D = 64, held in units of
    pv_alpha (``int8_err``), its structure and splits a row printed;
    ``int4_matmul_fused`` at the fused decode's
-   llama3_8b and StarCoder shapes (``FUSED_CASES``; the roped and the
-   pass-through columns held apart); the int8-KV kernels
+   llama3_8b and StarCoder shapes at M = 1 and at a serving tick's 8 rows
+   (``FUSED_CASES``: StarCoder's five call sites, llama3_8b's gate_up; the
+   roped and the pass-through columns held apart); the int8-KV kernels
    (``flash_decode_int8``, ``flash_prefill_int8``,
    ``flash_decode_paged_int8``) at llama3_8b's decode (320 and 4095 keys),
    MQA, D = 64 with a window, B = 8 ragged over 1..4607 keys dense and
    paged (bit-identical), a 2048-token prefill and a 512-token tail at
    start 2048; the split-K kernels at llama3_8b's widths:
-   ``int4_matmul_kouter`` (phase 4f's qkv, wo, gate_up and down at M = 1
-   and 64, ``KOUTER_BLOCKS``), ``int4_matmul_glu`` (down from gu at M = 1
+   ``int4_matmul_kouter`` (phase 4f's qkv, wo, gate_up and down at M = 1,
+   16, 64 and 496, ``KOUTER_BLOCKS``; 496 leaves a partial 64-row tile),
+   ``int4_matmul_glu`` (down from gu at M = 1
    and 8; also against int4_matmul -> silu * up -> int4_matmul within
    ``GLU_COMPOSITION_TOL``), ``mlp_fused`` (the whole MLP at M = 1 and 16)
    and ``int3_matmul`` (gate_up and down widths at M = 1, f32 scales);
@@ -125,7 +129,8 @@ Phases (any failure ends the run with a non-zero exit code):
    ``ServingEngine`` (bench_serving's mix cut to 16 requests x 64 tokens,
    8 slots), dense then paged: every request ends at its length,
    ``flash_decode_paged`` launches in the paged run only and
-   ``int4_matmul_fused`` 161 times per decode tick.
+   ``int4_matmul_fused`` 161 times per decode tick; its kernels' device ms
+   per tick of a profiled burst is printed (``FUSED_KERNEL_NAMES``).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. ``--kernels-only`` stops after phase 3.
@@ -900,7 +905,8 @@ def check_int8_kv_kernels(gen, add):
 
 
 # int4_matmul_fused at the decode shapes of the fused paths: (model, linear,
-# M, K, N, fused parts); M = 8 is a StarCoder serving tick over 8 slots
+# M, K, N, fused parts); M = 8 is a serving tick over 8 slots: StarCoder's
+# five call sites (models/gptbigcode.py) and llama3_8b's gate_up
 FUSED_CASES = (
     ("llama3_8b", "qkv", 1, 4096, 6144, ("rmsnorm", "rope")),
     ("llama3_8b", "gate_up", 1, 4096, 28672, ("rmsnorm",)),
@@ -909,6 +915,11 @@ FUSED_CASES = (
     ("starcoder", "c_attn", 1, 6144, 6400, ("layernorm", "bias")),
     ("starcoder", "fc_out", 1, 24576, 6144, ("bias", "residual")),
     ("starcoder", "c_attn", 8, 6144, 6400, ("layernorm", "bias")),
+    ("starcoder", "c_proj", 8, 6144, 6144, ("bias", "residual")),
+    ("starcoder", "fc_in", 8, 6144, 24576, ("layernorm", "bias")),
+    ("starcoder", "fc_out", 8, 24576, 6144, ("bias", "residual")),
+    ("starcoder", "lm_head", 8, 6144, 49152, ("layernorm", "bias")),
+    ("llama3_8b", "gate_up", 8, 4096, 28672, ("rmsnorm",)),
 )
 LLAMA_QK_COLS = 5120  # llama3_8b's roped q|k columns: (32 + 8) heads of 128
 FUSED_TOL_TEXT = (f"{MAT_TOL} * max|plain|, the RoPE and the pass-through "
@@ -984,7 +995,7 @@ def check_fused_kernels(gen, add):
         add("int4_matmul_fused", f"{model} {name} M={m} K={k} N={n} "
             + "+".join(parts), err, share, FUSED_TOL_TEXT, run, 50, plain_ms,
             lambda: torch.matmul(x, w_lib), bytes_moved, 2.0 * m * n * k,
-            BF16_FLOP_S, ksplit=im.fused_split(m, n, k)[1])
+            BF16_FLOP_S, ksplit=im.fused_kernel_split(m, n, k)[1])
         del packed, scales, w_lib, kw
         torch.cuda.empty_cache()
 
@@ -1050,10 +1061,11 @@ def check_split_k_kernels(gen, add):
         return run
 
     # ---- int4_matmul_kouter: phase 4f's four stacked shapes at decode
-    # (M = 1) and at its prompt bucket (M = 64)
+    # (M = 1), at 16 rows, at its prompt bucket (M = 64) and at the largest
+    # bucket the route takes (496: a partial last 64-row tile)
     shapes = (("gate_up", 4096, 28672), ("down", 14336, 4096),
               ("qkv", 4096, 6144), ("wo", 4096, 4096))
-    for (name, k, n), m in itertools.product(shapes, (1, 64)):
+    for (name, k, n), m in itertools.product(shapes, (1, 16, 64, 496)):
         packed, scales = int4_stack(gen, k, n)
         nl = packed.shape[0]
         w_lib = dequantize_int4(packed[0], scales[0], 128, torch.bfloat16)
@@ -2191,10 +2203,19 @@ def device_ms_by_kernel(prof) -> dict:
     return by_name
 
 
+# the kernels int4_matmul_fused launches (csrc/int4_matmul_fused.cu: the
+# norm, the tensor-core contraction of csrc/int4_mma.cuh, the epilogue), by
+# their names in device_ms_by_kernel
+FUSED_KERNEL_NAMES = ("fused_norm_kernel", "tce::mma4::mma_band_kernel",
+                      "fused_epilogue_kernel")
+
+
 def burst_profile(srv, cfg, n_ticks: int = 16) -> dict:
     """One decode burst of ``n_ticks`` ticks over 8 busy slots: wall and
     device time per tick (torch.profiler), timed once without and once
-    with the profiler. Returns {"burst": {...}}."""
+    with the profiler, and the device time per tick of
+    ``int4_matmul_fused``'s kernels (0 where the fused decode is off).
+    Returns {"burst": {...}}."""
     from torch.profiler import ProfilerActivity, profile
     # each request: its first token, a burst in the admitting step, then
     # the timed burst and the profiled burst
@@ -2226,6 +2247,8 @@ def burst_profile(srv, cfg, n_ticks: int = 16) -> dict:
         ticks=ticks, tick_wall_ms=wall * 1e3 / ticks,
         tick_device_ms=busy / ticks_p,
         busy_share=busy / ticks_p / (wall * 1e3 / ticks),
+        fused_device_ms_per_tick=sum(by_name.get(k, 0.0)
+                                     for k in FUSED_KERNEL_NAMES) / ticks_p,
         top_kernels_ms_per_tick={k: v / ticks_p for k, v in top})}
 
 
@@ -2560,6 +2583,13 @@ def main(argv=None) -> int:
     if not any(mma.values()):
         raise SystemExit("flash_prefill runs no product on the tensor cores "
                          "(no HMMA or HGMMA in its SASS)")
+    for lib in ("int4_matmul_kouter", "int4_matmul_fused"):
+        mma = {op: sass_count(libs[lib], op) for op in ("HMMA", "HGMMA")}
+        log(f"{lib} SASS (cuobjdump -sass): {mma['HMMA']} HMMA, "
+            f"{mma['HGMMA']} HGMMA instructions")
+        if not any(mma.values()):
+            raise SystemExit(f"{lib} runs no product on the tensor cores (no "
+                             "HMMA or HGMMA in its SASS)")
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -2693,6 +2723,15 @@ def main(argv=None) -> int:
             f"ticks {json.dumps(m['tick_stats'])}"
             + (f", prefix {json.dumps(m['prefix_stats'])}"
                if m.get("prefix_stats") else ""))
+    for mode in ("dense", "paged"):
+        m = sc_serving[mode]
+        log(f"starcoder_15.5b fused serving {mode} on {smi}: "
+            f"int4_matmul_fused "
+            f"{m['burst'].get('fused_device_ms_per_tick', 'not measured')} "
+            f"device ms per tick of "
+            f"{m['burst'].get('tick_device_ms', 'not measured')}, "
+            f"{m['launches']['int4_matmul_fused'] / m['decode_ticks']} "
+            f"launches per tick")
     log("w8a8 linears at M = 1:", json.dumps(linears))
     log("phase seconds:", json.dumps(phase_s))
     log(smi)

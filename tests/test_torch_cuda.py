@@ -271,12 +271,15 @@ FUSED_VARIANTS = {  # the parts each model's call sites fold in
 @pytest.mark.parametrize("variant", list(FUSED_VARIANTS))
 @pytest.mark.parametrize("m,group_size,scale_dtype",
                          [(1, 128, "bf16"), (1, 32, "f32"), (8, 64, "bf16"),
-                          (11, 128, "f32")])
+                          (11, 128, "f32"), (2, 32, "bf16"), (5, 128, "f32"),
+                          (8, 128, "f32")])
 def test_int4_matmul_fused_matches_plain(cuda, variant, m, group_size,
                                          scale_dtype):
     """K = 1024 (four superblocks, split over blocks at these M) and
     N = 512; the roped q|k columns and the pass-through columns are held
-    apart, each to its own largest value (chip_smoke.py's check)."""
+    apart, each to its own largest value (chip_smoke.py's check). Every
+    row count runs the tensor-core contraction (11 rows: a 16-row
+    tile)."""
     rng = np.random.default_rng(m + group_size)
     k, n, qk = 1024, 512, 384
     ops = _fused_operands(rng, m, k, n, group_size, scale_dtype, cuda)
@@ -423,9 +426,10 @@ def test_flash_prefill_kernel_ragged_window_and_heads(cuda, d, hq, hkv,
             assert torch.equal(one[0], got[r]), (r, window)
 
 
-def _int4_stack(rng, k, n, scale_dtype, dev, layers=2):
+def _int4_stack(rng, k, n, scale_dtype, dev, layers=2, group_size=128):
     lins = [quantized_linear(rng.standard_normal((n, k)).astype(np.float32)
-                             * 0.02, 128, scale_dtype) for _ in range(layers)]
+                             * 0.02, group_size, scale_dtype)
+            for _ in range(layers)]
     return (torch.stack([p.packed for p in lins]).to(dev),
             torch.stack([p.scales for p in lins]).to(dev))
 
@@ -456,6 +460,84 @@ def test_kouter_route_runs_the_kernel(cuda, monkeypatch, m, k, scale_dtype):
     want = im.int4_matmul_kouter_plain(x, packed, scales, 128, layer_idx=1,
                                        block_n=256, block_k=512)
     assert _mat_ok(got, want)
+
+
+@pytest.mark.parametrize("scale_dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("g", [32, 64, 128])
+@pytest.mark.parametrize("m", [1, 2, 16, 64, 130, 496])
+def test_kouter_tensor_core_route_matches_plain(cuda, m, g, scale_dtype):
+    """The K-outer kernel's tensor-core contraction against its plain version:
+    K = 2048 in bands of 512 (four bands of two superblocks), N = 384
+    (three column tiles), layers 0 and 2 of a stack; 130 and 496 rows
+    leave the last 64-row tile partial. (The table's block_k divides K, so
+    a K-outer band is never ragged; the fused kernel's ragged split runs
+    the same routine below.)"""
+    rng = np.random.default_rng(m + g)
+    packed, scales = _int4_stack(rng, 2048, 384, scale_dtype, cuda, 3, g)
+    x = _bf16(rng, (m, 2048), cuda)
+    kw = dict(block_n=128, block_k=512)
+    _build.reset_launches()
+    for li in (0, 2):
+        got = im.int4_matmul_kouter(x, packed, scales, g, layer_idx=li, **kw)
+        assert _mat_ok(got, im.int4_matmul_kouter_plain(
+            x, packed, scales, g, layer_idx=li, **kw))
+    assert _build.LAUNCHES["int4_matmul_kouter"] == 2
+
+
+def test_int4_matmul_fused_ragged_last_split(cuda):
+    """Eight rows where the K split does not divide the superblocks: K =
+    2816 (11 superblocks) over N = 24576 splits in 6 ranges of 2, the last
+    holding one; G = 32, LayerNorm, bias and residual folded in; random
+    packed bytes made on the card."""
+    m, k, n, g = 8, 2816, 24576, 32
+    per, ksplit = im.fused_kernel_split(m, n, k)
+    assert (k // 256) % per and (per, ksplit) == (2, 6)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    packed = torch.randint(0, 256, (2, k // 2, n), dtype=torch.uint8,
+                           device=cuda, generator=gen)
+    scales = (torch.rand((2, k // g, n), device=cuda, generator=gen) * 0.02
+              + 0.005).to(torch.bfloat16)
+
+    def randn(*shape):
+        return torch.randn(shape, device=cuda, generator=gen)
+    x = (randn(m, k) * 2.0 + 0.5).to(torch.bfloat16)
+    kw = dict(norm_w=(randn(2, k) * 0.3 + 1.0).to(torch.bfloat16),
+              norm_b=(randn(2, k) * 0.2).to(torch.bfloat16),
+              bias=randn(2, n) * 0.05,
+              residual=randn(m, n).to(torch.bfloat16))
+    got = im.int4_matmul_fused(x, packed, scales, g, layer_idx=1, **kw)
+    assert _mat_ok(got, im.int4_matmul_fused_plain(x, packed, scales, g,
+                                                   layer_idx=1, **kw))
+
+
+@pytest.mark.parametrize("kernel,m,rows",
+                         [("kouter", 496, (1, 2, 7, 16, 64, 130)),
+                          ("fused", 8, (1, 2, 5, 7))])
+def test_tensor_core_rows_are_independent(cuda, kernel, m, rows):
+    """An output row's bits depend on its x row alone: the kernel on x[:r]
+    equals its rows of the kernel on x bit for bit, whatever row tile (8 to
+    64 rows) each call takes, one row included."""
+    rng = np.random.default_rng(m)
+    if kernel == "kouter":
+        packed, scales = _int4_stack(rng, 1024, 640, "bf16", cuda,
+                                     group_size=64)
+        x = _bf16(rng, (m, 1024), cuda)
+
+        def call(xr):
+            return im.int4_matmul_kouter(xr, packed, scales, 64, layer_idx=1,
+                                         block_n=128, block_k=512)
+    else:
+        ops = _fused_operands(rng, m, 1024, 512, 128, "f32", cuda)
+        x = ops["x"]
+
+        def call(xr):
+            return im.int4_matmul_fused(
+                xr, ops["packed"], ops["scales"], 128, layer_idx=1,
+                norm_w=ops["norm_w"], norm_b=ops["norm_b"], bias=ops["bias"],
+                residual=ops["residual"][:xr.shape[0]])
+    full = call(x)
+    for r in rows:
+        assert torch.equal(call(x[:r]), full[:r]), r
 
 
 @pytest.mark.parametrize("scale_dtype", ["bf16", "f32"])

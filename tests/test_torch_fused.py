@@ -29,6 +29,7 @@ from tinychatengine_tpu_torch.ops import _build
 from tinychatengine_tpu_torch.ops import int4_matmul as tim
 from tinychatengine_tpu_torch.quant.packing import numpy_to_torch
 from tinychatengine_tpu_torch.runtime import paged as tpaged
+from test_torch_kouter import mma_contraction
 
 # JAX's tests/test_fused_decode.py config: the smallest llama whose every
 # matmul passes the fused gate (K a superblock multiple with K/G % 8 == 0,
@@ -69,15 +70,15 @@ def _bf16(a) -> np.ndarray:
     return np.asarray(a, np.float32).astype(ml_dtypes.bfloat16)
 
 
-def _operands(rng, m, scale_dtype):
-    """Two stacked layers of weights, norm weights, biases, a residual and
-    per-row RoPE tables, as numpy."""
+def _operands(rng, m, scale_dtype, gs=128):
+    """Two stacked layers of weights (group ``gs``), norm weights, biases,
+    a residual and per-row RoPE tables, as numpy."""
     packs, scales = [], []
     for _ in range(2):
         w = (rng.standard_normal((N, K)) * 0.02).astype(np.float32)
-        q, s = jnum.quantize_groupwise_int4(w, 128)
-        packs.append(jpack.pack_qm_tpu(q, 128))
-        scales.append(jpack.pack_scales(s, scale_dtype, 128))
+        q, s = jnum.quantize_groupwise_int4(w, gs)
+        packs.append(jpack.pack_qm_tpu(q, gs))
+        scales.append(jpack.pack_scales(s, scale_dtype, gs))
     cos, sin = jref.make_rope_cache(D, 64)
     pos = rng.integers(0, 64, m)
     return dict(
@@ -142,6 +143,45 @@ def test_fused_plain_matches_jax_kernel(variant, m, scale_dtype):
             w = want[:, cols]
             np.testing.assert_allclose(_f32(got)[:, cols], w, rtol=8e-3,
                                        atol=8e-3 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("gs,scale_dtype", [(32, "bf16"), (64, "f32"),
+                                             (128, "f32")])
+@pytest.mark.parametrize("m", [2, 8])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_fused_mma_model_matches_jax_kernel(monkeypatch, variant, m, gs,
+                                            scale_dtype):
+    """The CUDA kernel's arithmetic on the CPU: the plain version with its
+    contraction replaced by ``mma_contraction`` (k16 steps into per-group
+    f32 sums folded by fma, the K split of ``fused_kernel_split`` summed in
+    K order), the norm, RoPE, bias and residual as the plain version takes
+    them, against interpret-mode Pallas ``int4_matmul_fused``: within one
+    bf16 step of the element or of the output's largest value, the
+    tolerance of the plain version's own test (the two round to bf16 after
+    f32 sums taken in other orders)."""
+    rng = np.random.default_rng(len(variant) * 100 + m + gs)
+    ops = _operands(rng, m, scale_dtype, gs)
+    parts = VARIANTS[variant]
+    want = _f32(jim.int4_matmul_fused(
+        jnp.asarray(ops["x"]), jnp.asarray(ops["packed"]),
+        jnp.asarray(ops["scales"]), gs, layer_idx=1, interpret=True,
+        **_kwargs(ops, parts, jnp.asarray)))
+    per = tim.fused_kernel_split(m, N, K)[0]
+    monkeypatch.setattr(
+        tim, "factored_int4",
+        lambda xb, packed, scales, group_size: mma_contraction(
+            xb, packed, scales, group_size, per))
+    got = _f32(tim.int4_matmul_fused_plain(
+        numpy_to_torch(ops["x"]), numpy_to_torch(ops["packed"]),
+        numpy_to_torch(ops["scales"]), gs, layer_idx=1,
+        **_kwargs(ops, parts, numpy_to_torch)))
+    regions = ((slice(0, QK), slice(QK, N)) if "rope" in parts
+               else (slice(0, N),))
+    for cols in regions:
+        w = want[:, cols]
+        np.testing.assert_allclose(got[:, cols], w, rtol=8e-3,
+                                   atol=8e-3 * np.abs(w).max())
+    assert tim.fused_kernel_split(m, N, K)[1] > 1  # the splits' sums added
 
 
 def test_fused_plain_against_the_unfused_composition():

@@ -1,7 +1,9 @@
 """The K-outer W4A16 route and the GLU down projection against the JAX
 package on the CPU: the plain versions of ``int4_matmul_kouter`` and
-``int4_matmul_glu`` against the TPU kernels in interpret mode, the route's
-gate against the conditions JAX's ``int4_matmul`` tests, the
+``int4_matmul_glu`` against the TPU kernels in interpret mode, a CPU model
+of the CUDA kernels' tensor-core arithmetic (``mma_contraction``) against
+the TPU kernel, the route's gate against the conditions JAX's
+``int4_matmul`` tests, the row tiles and K splits the wrappers pick, the
 ``TINYCHAT_DECODE_KOUTER`` parser against JAX's (the 2-layer W4A16 forward
 with the table filled is a case of tests/test_torch_llama.py's forward
 test). Inputs are made with numpy from a seed and fed to both sides."""
@@ -12,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import MAT_TOL
 from tinychatengine_tpu.ops import int4_matmul as jim
 from tinychatengine_tpu.quant import numerics as jnum
 from tinychatengine_tpu.quant import packing as jpack
@@ -19,7 +22,8 @@ from tinychatengine_tpu_torch.core.config import ModelConfig, QuantConfig
 from tinychatengine_tpu_torch.models import llama
 from tinychatengine_tpu_torch.ops import _build
 from tinychatengine_tpu_torch.ops import int4_matmul as tim
-from tinychatengine_tpu_torch.quant.packing import numpy_to_torch
+from tinychatengine_tpu_torch.ops.ref import ZERO_POINT, unpack_int4
+from tinychatengine_tpu_torch.quant.packing import SUPERBLOCK, numpy_to_torch
 
 # the smallest llama whose four stacked linears the K-outer kernel takes
 # (K/G a multiple of 8: E = F = 1024 at G = 128)
@@ -119,6 +123,103 @@ def test_kouter_plain_takes_a_pack_padded_k():
                                  numpy_to_torch(scales), 128, layer_idx=1,
                                  block_n=256, block_k=1024)
     _within_a_bf16_step(got, want)
+
+
+def mma_contraction(xb: torch.Tensor, packed: torch.Tensor,
+                    scales: torch.Tensor, group_size: int,
+                    sb_per_band: int) -> torch.Tensor:
+    """The arithmetic of the CUDA kernels' tensor-core contraction
+    (``csrc/int4_mma.cuh``) on the CPU, f32 [M, N]: bf16 x [M, K] against
+    one layer's exact codes q - 8; each k16 step's 16 products (exact in
+    f32) summed and added to its group's fresh f32 sum, steps in K order;
+    at the group's end ``acc = fma(dot, d, acc)`` with the f32 scale (the
+    product and sum taken in f64 and rounded once to f32); bands of
+    ``sb_per_band`` superblocks summed apart, then added in K order."""
+    m, k = xb.shape
+    x = xb.float()
+    q = (unpack_int4(packed).float() - ZERO_POINT)
+    d = scales.float()
+    band_k = sb_per_band * SUPERBLOCK
+    y = torch.zeros((m, packed.shape[-1]), dtype=torch.float32)
+    for b0 in range(0, k, band_k):
+        acc = torch.zeros_like(y)
+        for g0 in range(b0, min(b0 + band_k, k), group_size):
+            dot = torch.zeros_like(y)
+            for s0 in range(g0, g0 + group_size, 16):
+                dot = dot + x[:, s0:s0 + 16] @ q[s0:s0 + 16]
+            acc = (acc.double() + dot.double()
+                   * d[g0 // group_size].double()).float()
+        y = y + acc
+    return y
+
+
+@pytest.mark.parametrize("scale_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("gs", [32, 64, 128])
+@pytest.mark.parametrize("m", [2, 8, 16, 64])
+def test_mma_contraction_matches_jax_kernel(m, gs, scale_dtype):
+    """The CUDA kernels' arithmetic against interpret-mode Pallas
+    ``_int4_matmul_kouter`` with f32 output (the TPU kernel before its one
+    bf16 rounding), K = 1024 in two bands: the two sum the same exact
+    terms in other orders (the TPU subtracts 8 sum x from each group's dot
+    over raw codes 0..15), so they differ by f32 roundings: held within
+    2^-22 of the terms' absolute sum, sum over k of |x| * 15 * |d| (4 f32
+    ulps of it; these inputs part by at most 0.14). Rounded to bf16, both
+    lie within MAT_TOL of the plain version."""
+    rng = np.random.default_rng(m * gs)
+    packed, scales = _weights(rng, 1024, 256, scale_dtype=scale_dtype,
+                              gs=gs)
+    x = _bf16(rng.standard_normal((m, 1024)))
+    xp = np.pad(x.astype(np.float32), ((0, (-m) % 16), (0, 0)))
+    want = np.asarray(jim._int4_matmul_kouter(
+        jnp.asarray(xp, jnp.bfloat16), jnp.asarray(packed),
+        jnp.asarray(scales), jnp.int32(1), group_size=gs, block_m=16,
+        block_n=256, block_k=512, interpret=True,
+        out_dtype=jnp.float32))[:m].copy()
+    tp, ts = numpy_to_torch(packed)[1], numpy_to_torch(scales)[1]
+    xt = numpy_to_torch(x)
+    got = mma_contraction(xt, tp, ts, gs, 512 // SUPERBLOCK)
+    terms = (xt.float().abs() @ (15.0 * ts.float().abs()
+                                 .repeat_interleave(gs, dim=0))).numpy()
+    assert np.all(np.abs(got.numpy() - want) <= 2.0 ** -22 * terms)
+    plain = tim.int4_matmul_kouter_plain(
+        xt, numpy_to_torch(packed), numpy_to_torch(scales), gs, layer_idx=1,
+        block_n=256, block_k=512).float()
+    for y in (got, torch.from_numpy(want)):
+        err = (y.to(torch.bfloat16).float() - plain).abs().max()
+        assert err <= MAT_TOL * plain.abs().max()
+
+
+@pytest.mark.parametrize("m,tile", [(1, 8), (2, 8), (8, 8), (9, 16),
+                                    (16, 16), (17, 32), (33, 64), (496, 64),
+                                    (497, None)])
+def test_kouter_rows_and_route_at_the_boundaries(monkeypatch, m, tile):
+    """With llama3_8b's gate_up listed, ``int4_matmul`` on the card takes
+    the K-outer kernel from 1 to 496 rows, each block covering
+    ``mma_row_tile(M)`` of them (one route, no row-count boundary), and the
+    tile route from 497 rows (padded to 512)."""
+    monkeypatch.setattr(tim, "DECODE_KOUTER", {(4096, 28672): (2048, 1024)})
+    route, blocks = tim.int4_route(m, 4096, 28672, True)
+    if tile is None:
+        assert route == "tile"
+    else:
+        assert (route, blocks) == ("kouter", (2048, 1024))
+        assert tim.mma_row_tile(m) == tile
+
+
+@pytest.mark.parametrize("k,n", [(6144, 6400), (6144, 6144), (6144, 24576),
+                                 (24576, 6144), (6144, 49152), (4096, 28672),
+                                 (14336, 4096), (4096, 129024)])
+def test_fused_split_depends_on_k_and_n_alone_up_to_eight_rows(k, n):
+    """``int4_matmul_fused``'s K split at StarCoder's and llama3_8b's
+    decode shapes is the same at 1..8 rows (one 8-row tile), so a serving
+    row's bits do not depend on how many slots are active; every split
+    holds whole superblocks and the last one at least one."""
+    splits = {tim.fused_kernel_split(m, n, k) for m in range(1, 9)}
+    assert len(splits) == 1 and {tim.mma_row_tile(m) for m in range(1, 9)} \
+        == {8}
+    per, ksplit = splits.pop()
+    nsb = k // SUPERBLOCK
+    assert per * (ksplit - 1) < nsb <= per * ksplit
 
 
 @pytest.mark.parametrize("stacked", [True, False])

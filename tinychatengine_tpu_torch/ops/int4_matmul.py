@@ -31,6 +31,12 @@ their one-token steps through ``int4_matmul_fused``. Off by default, as in
 JAX; the environment variable ``TINYCHAT_DECODE_FUSED=1`` turns it on at
 import, and code may set the attribute at any time.
 
+``int4_matmul_kouter`` and ``int4_matmul_fused`` run the tensor-core
+contraction of ``csrc/int4_mma.cuh`` at every row count (exact codes q - 8
+in bf16, mma.sync into a per-group f32 sum folded with its f32 scale, the
+TPU kernels' cast point; a block covers ``mma_row_tile(M)`` rows), so a
+row's bits do not depend on how many rows ride along.
+
 ``DECODE_KOUTER`` is the K-outer route's table (the JAX package's table of
 the same name), ``(K, N) -> (block_n, block_k)`` with K the packed K: a
 stacked CUDA call of ``int4_matmul`` at fewer than 512 (16-padded) rows
@@ -99,6 +105,23 @@ def kouter_route(m: int, kw: int, n: int, stacked: bool):
     if stacked and m + (-m) % 16 < 512:
         return DECODE_KOUTER.get((kw, n))
     return None
+
+
+def mma_row_tile(m: int) -> int:
+    """Rows one block of the K-outer and fused kernels' tensor-core
+    contraction covers at ``m`` rows (the C side's ``row_tile``): 8, 16,
+    32, or 64 with the rest as grid rows."""
+    return 8 if m <= 8 else 16 if m <= 16 else 32 if m <= 32 else 64
+
+
+def _mma_operand(x2, w_ptr, s_ptr, n):
+    """The tensor-core contraction copies x, weights and scales 16 bytes at
+    a time: checks N % 16 == 0 and the weight and scale pointers' alignment,
+    and returns x2 at a 16-byte aligned address (a copy where it is not)."""
+    if n % 16 or (w_ptr | s_ptr) % 16:
+        raise ValueError(f"the K-outer and fused kernels need N % 16 == 0 "
+                         f"and 16-byte aligned weights and scales; got N={n}")
+    return x2.clone() if x2.data_ptr() % 16 else x2
 
 
 # rows at and below which a CUDA call of int4_matmul takes the band route;
@@ -404,18 +427,29 @@ def _vec_arg(t, li: int, width: int, device, what: str):
 # split K over blocks until about this many blocks are in flight (two per SM
 # of the H100's 132), as int4_matmul_a8 does
 _FUSED_TARGET_BLOCKS = 264
+# int4_matmul_fused's blocks are lighter (128 threads, four share an SM): it
+# splits K until about eight blocks per SM are launched
+_MMA_TARGET_BLOCKS = 1056
 
 
-def fused_split(m: int, n: int, k: int,
-                unit: int = SUPERBLOCK) -> tuple[int, int]:
+def fused_split(m: int, n: int, k: int, unit: int = SUPERBLOCK,
+                target: int = _FUSED_TARGET_BLOCKS) -> tuple[int, int]:
     """(K units per split, number of splits) of a split-K grid of 128
     columns and 8 rows (1 at M = 1) per block, the K units being
-    superblocks (the fused and GLU kernels) or ``unit`` rows."""
+    superblocks (the fused and GLU kernels) or ``unit`` rows, until about
+    ``target`` blocks are launched."""
     tiles = -(-n // 128) * -(-m // (1 if m == 1 else 8))
     nsb = k // unit
-    want = max(1, min(nsb, -(-_FUSED_TARGET_BLOCKS // tiles)))
+    want = max(1, min(nsb, -(-target // tiles)))
     per = -(-nsb // want)
     return per, -(-nsb // per)
+
+
+def fused_kernel_split(m: int, n: int, k: int) -> tuple[int, int]:
+    """(superblocks per split, splits) of ``int4_matmul_fused``'s kernel at
+    ``m`` rows: a function of K and N alone at M <= 8, so a serving row's
+    bits do not depend on how many slots are active."""
+    return fused_split(m, n, k, target=_MMA_TARGET_BLOCKS)
 
 
 def int4_matmul_fused(x, packed, scales, group_size: int = 128, *,
@@ -433,8 +467,10 @@ def int4_matmul_fused(x, packed, scales, group_size: int = 128, *,
     along. rope_cos / rope_sin [M, head_dim]: rotate-half RoPE on the
     leading ``rope_qk_cols`` output columns. bias [L, N] (or [N]); residual
     shaped like the output (the JAX package's arguments, less its TPU
-    tiling and interpret mode). CUDA: ``csrc/int4_matmul_fused.cu``; CPU:
-    ``int4_matmul_fused_plain``."""
+    tiling and interpret mode). CUDA: ``csrc/int4_matmul_fused.cu`` (the
+    norm by a first kernel into a bf16 [M, K] workspace, the tensor-core
+    contraction split over K by ``fused_kernel_split``, the epilogues);
+    CPU: ``int4_matmul_fused_plain``."""
     args = dict(layer_idx=layer_idx, norm_w=norm_w, norm_b=norm_b,
                 norm_eps=norm_eps, rope_cos=rope_cos, rope_sin=rope_sin,
                 rope_qk_cols=rope_qk_cols, head_dim=head_dim, bias=bias,
@@ -444,8 +480,6 @@ def int4_matmul_fused(x, packed, scales, group_size: int = 128, *,
     packed, scales, li, norm_w, norm_b, bias = _fused_operands(
         x, packed, scales, group_size, layer_idx, norm_w, norm_b, bias)
     x2, w_ptr, s_ptr, k, n = _cuda_args(x, packed, scales, group_size, li)
-    if x2.data_ptr() % 16:  # the kernel reads x 16 bytes at a time
-        x2 = x2.clone()
     m, dev = x2.shape[0], x.device
     nw_ptr, nw_bf16 = _vec_arg(norm_w, li, k, dev, "norm_w")
     nb_ptr, nb_bf16 = _vec_arg(norm_b, li, k, dev, "norm_b")
@@ -465,12 +499,16 @@ def int4_matmul_fused(x, packed, scales, group_size: int = 128, *,
     if residual is not None:
         res = residual.reshape(m, n).to(device=dev, dtype=torch.bfloat16
                                         ).contiguous()
-    per, ksplit = fused_split(m, n, k)
+    x2 = _mma_operand(x2, w_ptr, s_ptr, n)
+    per, ksplit = fused_kernel_split(m, n, k)
+    xn = None
+    if norm_w is not None:
+        xn = torch.empty((m, k), dtype=torch.bfloat16, device=dev)
     partial = torch.empty((ksplit, m, n), dtype=torch.float32, device=dev)
     y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     fn = _build.bind("int4_matmul_fused", "tce_int4_matmul_fused",
                      [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                      _P, _I, _P, _I, _F, _P, _P, _I, _I, _P, _I, _P, _P])
+                      _P, _I, _P, _I, _F, _P, _P, _I, _I, _P, _I, _P, _P, _P])
     _build.check(fn(x2.data_ptr(), w_ptr, s_ptr,
                     int(scales.dtype == torch.bfloat16), partial.data_ptr(),
                     y.data_ptr(), m, k, n, group_size, per, ksplit,
@@ -479,6 +517,7 @@ def int4_matmul_fused(x, packed, scales, group_size: int = 128, *,
                     None if sin is None else sin.data_ptr(), qk_cols,
                     int(head_dim), b_ptr, b_bf16,
                     None if res is None else res.data_ptr(),
+                    None if xn is None else xn.data_ptr(),
                     torch.cuda.current_stream(dev).cuda_stream),
                  "int4_matmul_fused")
     _build.LAUNCHES["int4_matmul_fused"] += 1
@@ -525,8 +564,9 @@ def int4_matmul_kouter(x, packed, scales, group_size: int = 128, *,
     """y[..., N] = x[..., K] @ ((q - 8) * d) over stacked weights, bf16
     out, with K walked in bands of ``block_k`` rows (the K-outer kernel,
     the JAX package's ``_int4_matmul_kouter``). CUDA:
-    ``csrc/int4_matmul_kouter.cu``: one block per (128 columns, 8 rows or
-    1, K band), f32 band sums summed in K order by a second kernel; CPU:
+    ``csrc/int4_matmul_kouter.cu``: one block per (128 columns,
+    ``mma_row_tile(M)`` rows, K band) on the tensor cores, f32 band sums
+    summed in K order by a second kernel; CPU:
     ``int4_matmul_kouter_plain``. ``block_n`` is checked as JAX checks it
     (the table's syntax and refusals stay JAX's) and otherwise ignored: the
     kernel tiles N in 128 columns whatever it is."""
@@ -539,6 +579,7 @@ def int4_matmul_kouter(x, packed, scales, group_size: int = 128, *,
     _check_kouter(packed, group_size, layer_idx, block_n, block_k)
     m, dev = x2.shape[0], x.device
     bands = kw // block_k
+    x2 = _mma_operand(x2, w_ptr, s_ptr, n)
     partial = torch.empty((bands, m, n), dtype=torch.float32, device=dev)
     y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     fn = _build.bind("int4_matmul_kouter", "tce_int4_matmul_kouter",

@@ -7,14 +7,17 @@ Phases (any failure ends the run with a non-zero exit code):
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles every kernel under ``tinychatengine_tpu_torch/csrc``
    with nvcc, one process per source, all at once; ``int4_matmul``'s SASS
-   must hold HGMMA instructions (its tile route on the tensor cores), and
-   ``flash_prefill``'s (both products), ``int4_matmul_kouter``'s and
-   ``int4_matmul_fused``'s (the contraction of ``csrc/int4_mma.cuh``)
-   HMMA or HGMMA;
+   must hold HGMMA instructions (its tile route on the tensor cores),
+   ``flash_prefill``'s (both products), ``int4_matmul_kouter``'s,
+   ``int4_matmul_fused``'s and ``mlp_fused``'s (the contraction of
+   ``csrc/int4_mma.cuh``) HMMA or HGMMA, and ``int4_matmul_a8``'s (the
+   int8 tensor cores) IMMA or IGMMA;
 3. kernels: each kernel against its plain PyTorch version on the card at
    llama3_8b's main-path and serving shapes (B = 8 slots, ragged lengths,
    a shuffled page table), with the stated tolerance, and timed beside its
-   plain version, one PyTorch library call and its bound: ``int4_matmul``'s
+   plain version, one PyTorch library call and its bound:
+   ``int4_matmul_a8`` at qkv, wo, gate_up, down and the lm_head at M = 1,
+   8 and 64, and gate_up at M = 100 (``A8_MAX_ROWS``); ``int4_matmul``'s
    tile route at 2048 and 64 rows (and gate_up at 512), its band route at
    M = 1 (qkv, wo, gate_up, down and the 129024-column lm_head); decode
    over 1..4095 keys (a
@@ -130,7 +133,8 @@ Phases (any failure ends the run with a non-zero exit code):
    8 slots), dense then paged: every request ends at its length,
    ``flash_decode_paged`` launches in the paged run only and
    ``int4_matmul_fused`` 161 times per decode tick; its kernels' device ms
-   per tick of a profiled burst is printed (``FUSED_KERNEL_NAMES``).
+   per tick of a profiled burst is printed (``FUSED_KERNEL_NAMES``), as
+   phase 5's W4A8 kernel's is (``A8_KERNEL_NAMES``).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. ``--kernels-only`` stops after phase 3.
@@ -316,9 +320,11 @@ def check_kernels(gen):
         scales = ((torch.rand((n_layers, k // 128, n), device=dev,
                               generator=gen) + 0.5) * 0.005).to(torch.bfloat16)
         w_lib = dequantize_int4(packed[0], scales[0], 128, torch.bfloat16)
-        # M = 1: Engine decode; 8: serving decode over 8 slots; 64: prompt
+        # M = 1: Engine decode; 8: serving decode over 8 slots; 64: prompt;
+        # 100: the most rows W4A8 takes (A8_MAX_ROWS), at gate_up
+        a8_rows = (1, 8, 64, 100) if name == "gate_up" else (1, 8, 64)
         runs = [("int4_matmul_a8", im.int4_matmul_a8, im.int4_matmul_a8_plain,
-                 m, INT8_OP_S) for m in (1, 8, 64)]
+                 m, INT8_OP_S) for m in a8_rows]
         # int4_matmul's tile route at the 2048-token prefill, at the 64-row
         # prompt bucket of phases 4b and 4f (one partial 128-row tile) and
         # at gate_up's 512-row admission chunk; its band route at M = 1 at
@@ -2208,14 +2214,18 @@ def device_ms_by_kernel(prof) -> dict:
 # their names in device_ms_by_kernel
 FUSED_KERNEL_NAMES = ("fused_norm_kernel", "tce::mma4::mma_band_kernel",
                       "fused_epilogue_kernel")
+# the kernels int4_matmul_a8 launches (csrc/int4_matmul_a8.cu: the
+# quantizer, the int8 tensor-core contraction)
+A8_KERNEL_NAMES = ("a8_quant_kernel", "a8_mma_kernel")
 
 
 def burst_profile(srv, cfg, n_ticks: int = 16) -> dict:
     """One decode burst of ``n_ticks`` ticks over 8 busy slots: wall and
     device time per tick (torch.profiler), timed once without and once
     with the profiler, and the device time per tick of
-    ``int4_matmul_fused``'s kernels (0 where the fused decode is off).
-    Returns {"burst": {...}}."""
+    ``int4_matmul_fused``'s kernels (0 where the fused decode is off) and of
+    ``int4_matmul_a8``'s (0 where the model is not W4A8). Returns {"burst":
+    {...}}."""
     from torch.profiler import ProfilerActivity, profile
     # each request: its first token, a burst in the admitting step, then
     # the timed burst and the profiled burst
@@ -2249,6 +2259,8 @@ def burst_profile(srv, cfg, n_ticks: int = 16) -> dict:
         busy_share=busy / ticks_p / (wall * 1e3 / ticks),
         fused_device_ms_per_tick=sum(by_name.get(k, 0.0)
                                      for k in FUSED_KERNEL_NAMES) / ticks_p,
+        a8_device_ms_per_tick=sum(by_name.get(k, 0.0)
+                                  for k in A8_KERNEL_NAMES) / ticks_p,
         top_kernels_ms_per_tick={k: v / ticks_p for k, v in top})}
 
 
@@ -2583,13 +2595,17 @@ def main(argv=None) -> int:
     if not any(mma.values()):
         raise SystemExit("flash_prefill runs no product on the tensor cores "
                          "(no HMMA or HGMMA in its SASS)")
-    for lib in ("int4_matmul_kouter", "int4_matmul_fused"):
-        mma = {op: sass_count(libs[lib], op) for op in ("HMMA", "HGMMA")}
-        log(f"{lib} SASS (cuobjdump -sass): {mma['HMMA']} HMMA, "
-            f"{mma['HGMMA']} HGMMA instructions")
+    for lib, ops in (("int4_matmul_kouter", ("HMMA", "HGMMA")),
+                     ("int4_matmul_fused", ("HMMA", "HGMMA")),
+                     ("mlp_fused", ("HMMA", "HGMMA")),
+                     ("int4_matmul_a8", ("IMMA", "IGMMA"))):
+        mma = {op: sass_count(libs[lib], op) for op in ops}
+        log(f"{lib} SASS (cuobjdump -sass): "
+            + ", ".join(f"{n} {op}" for op, n in mma.items())
+            + " instructions")
         if not any(mma.values()):
             raise SystemExit(f"{lib} runs no product on the tensor cores (no "
-                             "HMMA or HGMMA in its SASS)")
+                             f"{' or '.join(ops)} in its SASS)")
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -2732,6 +2748,13 @@ def main(argv=None) -> int:
             f"{m['burst'].get('tick_device_ms', 'not measured')}, "
             f"{m['launches']['int4_matmul_fused'] / m['decode_ticks']} "
             f"launches per tick")
+    for mode in ("dense", "paged"):
+        b = serving[mode]["burst"]
+        log(f"llama3_8b w4a8 serving {mode} on {smi}: int4_matmul_a8 "
+            f"{b.get('a8_device_ms_per_tick', 'not measured')} device ms per "
+            f"tick of {b.get('tick_device_ms', 'not measured')}, "
+            f"{serving[mode]['launches']['int4_matmul_a8']} launches over "
+            f"{serving[mode]['decode_ticks']} ticks")
     log("w8a8 linears at M = 1:", json.dumps(linears))
     log("phase seconds:", json.dumps(phase_s))
     log(smi)

@@ -541,6 +541,61 @@ def test_tensor_core_rows_are_independent(cuda, kernel, m, rows):
 
 
 @pytest.mark.parametrize("scale_dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("g", [32, 64, 128])
+@pytest.mark.parametrize("m", [1, 2, 8, 9, 16, 64, 65, 100])
+def test_int4_matmul_a8_tensor_core_matches_plain(cuda, m, g, scale_dtype):
+    """The W4A8 kernel on the int8 tensor cores against its plain version:
+    K = 2048 over N = 384 (``a8_split``: 8 bands of one superblock, one
+    cluster a tile), layers 0 and 2 of a stack; 9, 65 and 100 rows leave
+    the last row tile partial."""
+    rng = np.random.default_rng(m + g)
+    packed, scales = _int4_stack(rng, 2048, 384, scale_dtype, cuda, 3, g)
+    assert im.a8_split(2048, 384) == (1, 8)
+    x = _bf16(rng, (m, 2048), cuda)
+    _build.reset_launches()
+    for li in (0, 2):
+        got = im.int4_matmul_a8(x, packed, scales, g, layer_idx=li)
+        assert _mat_ok(got, im.int4_matmul_a8_plain(x, packed, scales, g,
+                                                    layer_idx=li))
+    assert _build.LAUNCHES["int4_matmul_a8"] == 2
+
+
+@pytest.mark.parametrize("k,n,g,split", [(2816, 384, 32, (2, 6)),
+                                         (1280, 512, 32, (1, 5)),
+                                         (256, 640, 64, (1, 1)),
+                                         (1152, 512, 64, (1, 6))])
+def test_int4_matmul_a8_ragged_bands(cuda, k, n, g, split):
+    """Band splits the llama shapes do not reach: 11 superblocks in 6
+    bands (the last holding one; a cluster of 6), a cluster of 5, one
+    superblock (one band, no cluster), and K = 1152 pack-padded to 1536
+    at G = 64, at 1 and 37 rows."""
+    rng = np.random.default_rng(k + n)
+    packed, scales = _int4_stack(rng, k, n, "bf16", cuda, 2, g)
+    assert im.a8_split(2 * packed.shape[-2], n) == split
+    for m in (1, 37):
+        x = _bf16(rng, (m, k), cuda)
+        got = im.int4_matmul_a8(x, packed, scales, g, layer_idx=1)
+        assert _mat_ok(got, im.int4_matmul_a8_plain(x, packed, scales, g,
+                                                    layer_idx=1))
+
+
+def test_int4_matmul_a8_rows_are_independent(cuda):
+    """An output row's bits depend on its x row alone: the kernel on x[:r]
+    equals its rows of the kernel on all 100 rows bit for bit, whatever
+    row tile (8 to 64 rows) each call takes."""
+    rng = np.random.default_rng(100)
+    packed, scales = _int4_stack(rng, 2048, 640, "bf16", cuda,
+                                 group_size=64)
+    x = _bf16(rng, (100, 2048), cuda)
+
+    def call(xr):
+        return im.int4_matmul_a8(xr, packed, scales, 64, layer_idx=1)
+    full = call(x)
+    for r in (1, 2, 7, 8, 9, 16, 33, 64, 65):
+        assert torch.equal(call(x[:r]), full[:r]), r
+
+
+@pytest.mark.parametrize("scale_dtype", ["bf16", "f32"])
 @pytest.mark.parametrize("m", [1, 9])
 def test_int4_matmul_glu_matches_plain(cuda, m, scale_dtype):
     rng = np.random.default_rng(m)
@@ -554,7 +609,7 @@ def test_int4_matmul_glu_matches_plain(cuda, m, scale_dtype):
     assert _build.LAUNCHES["int4_matmul_glu"] == 2
 
 
-@pytest.mark.parametrize("m", [1, 16])
+@pytest.mark.parametrize("m", [1, 16, 5])
 def test_mlp_fused_matches_plain_and_replays_in_a_graph(cuda, m):
     """The cooperative launch against its plain version, then captured in
     a CUDA graph and replayed (chip_smoke.py times it so)."""

@@ -1,5 +1,7 @@
-// The split-K int4 contraction shared by the K-outer, GLU and fused-MLP
-// kernels: one block computes the f32 sum of y[m, n] over a band of K
+// The split-K int4 contraction on the CUDA cores, shared by
+// ``int4_matmul``'s band route, the GLU kernel and (its partial writer and
+// band reduction) the int3 kernel: one block computes the f32 sum of y[m,
+// n] over a band of K
 // (whole superblocks) for up to MT rows and 128 columns, and writes it to a
 // [bands, M, N] scratch; ``reduce_bands`` sums the bands in K order and
 // rounds to bf16 (deterministic, no atomics).
@@ -14,7 +16,7 @@
 //   acc += (sum_i x_i * (q_i - 8)) * d.
 // The activation rows of a superblock are staged into shared memory as f32
 // by a source functor (``XRows``: bf16 x; ``GluRows``: silu(gate) * up from
-// a gate_up product), so the K-outer, GLU and MLP kernels share one loop.
+// a gate_up product), so the band route and the GLU kernel share one loop.
 #pragma once
 
 #include <type_traits>
@@ -39,28 +41,16 @@ struct XRows {
   }
 };
 
-// f32 band sums are written by other blocks of the same launch (the MLP
-// kernel): read them at L2, past the SM's own L1
-__device__ __forceinline__ float load_l2(const float* p) { return __ldcg(p); }
-__device__ __forceinline__ float load_l2(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
 // act[m, k] = bf16(sigmoid(g) * g * u) in f32, g and u F columns apart in
-// rows of 2F, each summed over ``parts`` [M, 2F] partial arrays (1 for the
-// GLU kernel's bf16 gu; the MLP kernel's f32 band sums of gu otherwise).
+// the rows of the bf16 gate_up output gu [M, 2F] (the GLU kernel).
 // sigmoid(g) = 1 / (1 + exp(-g)); no contraction into FMAs.
-template <typename T>
 struct GluRows {
-  const T* gu;
-  int F, M, parts;
+  const __nv_bfloat16* gu;
+  int F;
   __device__ __forceinline__ float operator()(int m, int k) const {
-    float g = 0.f, u = 0.f;
-    for (int p = 0; p < parts; ++p) {
-      const T* row = gu + ((size_t)p * M + m) * 2 * F;
-      g = __fadd_rn(g, load_l2(row + k));
-      u = __fadd_rn(u, load_l2(row + F + k));
-    }
+    const __nv_bfloat16* row = gu + (size_t)m * 2 * F;
+    const float g = __bfloat162float(row[k]);
+    const float u = __bfloat162float(row[F + k]);
     const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-g)));
     return round_bf16(__fmul_rn(__fmul_rn(sig, g), u));
   }

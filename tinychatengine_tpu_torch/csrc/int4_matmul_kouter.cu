@@ -75,8 +75,7 @@ extern "C" int tce_int4_matmul_glu(const void* gu, const void* w,
                                    const void* s, int scale_bf16, void* part,
                                    void* y, int M, int F, int N, int G,
                                    int sb_per_band, int bands, void* stream) {
-  const GluRows<__nv_bfloat16> src{static_cast<const __nv_bfloat16*>(gu), F,
-                                   M, 1};
+  const GluRows src{static_cast<const __nv_bfloat16*>(gu), F};
   float* p = static_cast<float*>(part);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return scale_bf16 ? tce::band::launch_bands<__nv_bfloat16>(

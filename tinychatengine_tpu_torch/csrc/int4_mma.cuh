@@ -1,9 +1,10 @@
 // The split-K int4 contraction on the tensor cores, shared by the K-outer
-// kernel and the fused decode kernel at every row count: one block
-// computes the f32 sum of y[m, n] over a band of K (whole superblocks) for
-// a tile of up to 64 rows and 128 columns and writes it to a [bands, M, N]
-// scratch, as ``band_partial`` (int4_band.cuh) does on the CUDA cores;
-// the caller sums the bands in K order and rounds once.
+// kernel and the fused decode kernel at every row count and by the fused
+// MLP's two products (``band_item`` inside its persistent blocks): one work
+// item computes the f32 sum of y[m, n] over a band of K (whole
+// superblocks) for a tile of up to 64 rows and 128 columns and writes it to
+// a [bands, M, N] scratch, as ``band_partial`` (int4_band.cuh) does on the
+// CUDA cores; the caller sums the bands in K order and rounds once.
 //
 // Arithmetic (the TPU kernels' cast point: bf16 x, exact codes, a per-group
 // f32 dot, f32 scales): the codes enter as bf16 q - 8 (exact: -8..7), each
@@ -142,15 +143,14 @@ __device__ __forceinline__ void load_scales(const __nv_bfloat16* p,
   d[2] = __low2float(hi), d[3] = __high2float(hi);
 }
 
-// superblock sb's weight slab, the block's x rows and the scale rows into
-// one ring stage: every loop has a trip count known at compile time, so the
-// per-thread offsets and predicates are computed once per block (the x
-// loop of a 64-row tile is left rolled: see Cfg)
+// superblock sb's weight slab and scale rows into one ring stage: every
+// loop has a trip count known at compile time, so the per-thread offsets
+// and predicates are computed once per block
 template <typename ST, int G, class C>
-__device__ __forceinline__ void load_stage(
-    uint8_t* st, const __nv_bfloat16* __restrict__ x,
-    const uint8_t* __restrict__ w, const ST* __restrict__ s, int M, int K,
-    int N, int m0, int n0, int sb) {
+__device__ __forceinline__ void load_weights(uint8_t* st,
+                                             const uint8_t* __restrict__ w,
+                                             const ST* __restrict__ s, int N,
+                                             int n0, int sb) {
   const int tid = threadIdx.x;
   constexpr int WCH = C::BN / 16;  // 16-byte chunks of a packed row
   static_assert(PLANE * WCH % C::THREADS == 0, "whole weight chunks");
@@ -161,23 +161,6 @@ __device__ __forceinline__ void load_stage(
     const bool in = n0 + c * 16 < N;
     cp_async16(smem_u32(st + C::W_OFF + r * C::WS + c * 16),
                w + (size_t)(sb * PLANE + r) * N + (in ? n0 + c * 16 : 0), in);
-  }
-  uint8_t* xs = st;
-  constexpr int XCH = SB / 8;  // 16-byte chunks of a staged x row
-  static_assert(C::MT * XCH % C::THREADS == 0, "whole x chunks");
-  auto x_chunk = [&](int j) {
-    const int i = tid + j * C::THREADS;
-    const int r = i / XCH, c = i % XCH;
-    const bool in = m0 + r < M;
-    cp_async16(smem_u32(xs + (r * C::XS + c * 8) * 2),
-               x + (size_t)(in ? m0 + r : 0) * K + sb * SB + c * 8, in);
-  };
-  if constexpr (C::ROLL_X) {
-#pragma unroll 1
-    for (int j = 0; j < C::MT * XCH / C::THREADS; ++j) x_chunk(j);
-  } else {
-#pragma unroll
-    for (int j = 0; j < C::MT * XCH / C::THREADS; ++j) x_chunk(j);
   }
   uint8_t* ss = st + C::S_OFF;
   constexpr int PER = 16 / sizeof(ST);  // scale columns per chunk
@@ -192,6 +175,31 @@ __device__ __forceinline__ void load_stage(
       cp_async16(smem_u32(ss + (r * C::BN + c * PER) * sizeof(ST)),
                  s + (size_t)(sb * SB / G + r) * N + (in ? n0 + c * PER : 0),
                  in);
+  }
+}
+
+// the block's x rows of superblock sb into one ring stage (the loop of a
+// 64-row tile is left rolled: see Cfg)
+template <class C>
+__device__ __forceinline__ void load_x(uint8_t* st,
+                                       const __nv_bfloat16* __restrict__ x,
+                                       int M, int K, int m0, int sb) {
+  const int tid = threadIdx.x;
+  constexpr int XCH = SB / 8;  // 16-byte chunks of a staged x row
+  static_assert(C::MT * XCH % C::THREADS == 0, "whole x chunks");
+  auto x_chunk = [&](int j) {
+    const int i = tid + j * C::THREADS;
+    const int r = i / XCH, c = i % XCH;
+    const bool in = m0 + r < M;
+    cp_async16(smem_u32(st + (r * C::XS + c * 8) * 2),
+               x + (size_t)(in ? m0 + r : 0) * K + sb * SB + c * 8, in);
+  };
+  if constexpr (C::ROLL_X) {
+#pragma unroll 1
+    for (int j = 0; j < C::MT * XCH / C::THREADS; ++j) x_chunk(j);
+  } else {
+#pragma unroll
+    for (int j = 0; j < C::MT * XCH / C::THREADS; ++j) x_chunk(j);
   }
 }
 
@@ -289,21 +297,20 @@ __device__ __forceinline__ void compute_stage(const uint8_t* st,
   }
 }
 
-// one (128 columns, MT rows, band) item of a [N/128, M/MT, bands] grid:
-// the band's sums into part[band]
+// one work item: the f32 sums of rows m0.. (at most MT) and columns n0..
+// n0 + 127 over ``count`` superblocks from sb0, written to part[band]
+// [M, N]. ``weights_staged``: stage 0's weights and scales are already
+// requested (``load_weights``, committed) by the caller. Ends with every
+// copy landed; the caller synchronises the block before it reuses smem.
 template <typename ST, int G, int NT>
-__global__ void __launch_bounds__(128)
-    mma_band_kernel(const __nv_bfloat16* __restrict__ x,
-                    const uint8_t* __restrict__ w, const ST* __restrict__ s,
-                    float* __restrict__ part, int M, int K, int N,
-                    int sb_per_band) {
+__device__ __forceinline__ void band_item(
+    const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
+    const ST* __restrict__ s, float* __restrict__ part, int M, int K, int N,
+    int m0, int n0, int sb0, int count, int band, uint8_t* smem,
+    bool weights_staged = false) {
   using C = Cfg<NT>;
   constexpr int STAGES = C::STAGES;
-  extern __shared__ __align__(16) uint8_t smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n0 = blockIdx.x * C::BN, m0 = blockIdx.y * C::MT;
-  const int sb0 = blockIdx.z * sb_per_band;
-  const int count = min(sb_per_band, K / SB - sb0);
 
   float acc[2][NT][4];
 #pragma unroll
@@ -315,21 +322,26 @@ __global__ void __launch_bounds__(128)
 
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) {
-    if (i < count)
-      load_stage<ST, G, C>(smem + i * C::STAGE, x, w, s, M, K, N, m0, n0,
-                           sb0 + i);
+    if (i < count) {
+      if (i > 0 || !weights_staged)
+        load_weights<ST, G, C>(smem + i * C::STAGE, w, s, N, n0, sb0 + i);
+      load_x<C>(smem + i * C::STAGE, x, M, K, m0, sb0 + i);
+    }
     cp_async_commit();
   }
   for (int i = 0; i < count; ++i) {
     cp_async_wait<STAGES - 2>();
     __syncthreads();  // stage i landed; stage i - 1 is free again
     const int nx = i + STAGES - 1;
-    if (nx < count)
-      load_stage<ST, G, C>(smem + (nx % STAGES) * C::STAGE, x, w, s, M, K, N,
-                           m0, n0, sb0 + nx);
+    if (nx < count) {
+      uint8_t* st = smem + (nx % STAGES) * C::STAGE;
+      load_weights<ST, G, C>(st, w, s, N, n0, sb0 + nx);
+      load_x<C>(st, x, M, K, m0, sb0 + nx);
+    }
     cp_async_commit();
     compute_stage<ST, G, C, NT>(smem + (i % STAGES) * C::STAGE, acc, warp);
   }
+  cp_async_wait<0>();
 
   // row 2t + e of n8 tile nt: columns 4g .. 4g + 3 as one 16-byte store
   const int g = lane / 4, t = lane % 4;
@@ -340,11 +352,25 @@ __global__ void __launch_bounds__(128)
     for (int e = 0; e < 2; ++e) {
       const int m = m0 + nt * 8 + 2 * t + e;
       if (m < M && n < N)
-        *reinterpret_cast<float4*>(part + ((size_t)blockIdx.z * M + m) * N +
-                                   n) =
+        *reinterpret_cast<float4*>(part + ((size_t)band * M + m) * N + n) =
             make_float4(acc[0][nt][e], acc[0][nt][2 + e], acc[1][nt][e],
                         acc[1][nt][2 + e]);
     }
+}
+
+// one (128 columns, MT rows, band) item of a [N/128, M/MT, bands] grid:
+// the band's sums into part[band]
+template <typename ST, int G, int NT>
+__global__ void __launch_bounds__(128)
+    mma_band_kernel(const __nv_bfloat16* __restrict__ x,
+                    const uint8_t* __restrict__ w, const ST* __restrict__ s,
+                    float* __restrict__ part, int M, int K, int N,
+                    int sb_per_band) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int sb0 = blockIdx.z * sb_per_band;
+  band_item<ST, G, NT>(x, w, s, part, M, K, N, blockIdx.y * Cfg<NT>::MT,
+                       blockIdx.x * Cfg<NT>::BN, sb0,
+                       min(sb_per_band, K / SB - sb0), blockIdx.z, smem);
 }
 
 // rows a block of the tensor-core route covers at M rows (the wrapper's

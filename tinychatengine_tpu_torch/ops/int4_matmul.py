@@ -35,7 +35,10 @@ import, and code may set the attribute at any time.
 contraction of ``csrc/int4_mma.cuh`` at every row count (exact codes q - 8
 in bf16, mma.sync into a per-group f32 sum folded with its f32 scale, the
 TPU kernels' cast point; a block covers ``mma_row_tile(M)`` rows), so a
-row's bits do not depend on how many rows ride along.
+row's bits do not depend on how many rows ride along. ``int4_matmul_a8``
+runs the TPU kernel's W4A8 arithmetic on the int8 tensor cores (exact
+int32 group dots by mma.sync m16n8k32, the same row tiles, a K split
+from K and N alone: ``a8_split``), with the same property.
 
 ``DECODE_KOUTER`` is the K-outer route's table (the JAX package's table of
 the same name), ``(K, N) -> (block_n, block_k)`` with K the packed K: a
@@ -115,12 +118,12 @@ def mma_row_tile(m: int) -> int:
 
 
 def _mma_operand(x2, w_ptr, s_ptr, n):
-    """The tensor-core contraction copies x, weights and scales 16 bytes at
-    a time: checks N % 16 == 0 and the weight and scale pointers' alignment,
+    """The tensor-core kernels copy x, weights and scales 16 bytes at a
+    time: checks N % 16 == 0 and the weight and scale pointers' alignment,
     and returns x2 at a 16-byte aligned address (a copy where it is not)."""
     if n % 16 or (w_ptr | s_ptr) % 16:
-        raise ValueError(f"the K-outer and fused kernels need N % 16 == 0 "
-                         f"and 16-byte aligned weights and scales; got N={n}")
+        raise ValueError(f"the tensor-core kernels need N % 16 == 0 and "
+                         f"16-byte aligned weights and scales; got N={n}")
     return x2.clone() if x2.data_ptr() % 16 else x2
 
 
@@ -301,37 +304,51 @@ def int4_matmul_a8_plain(x, packed, scales, group_size: int = 128, *,
     return y.to(torch.bfloat16).reshape(*x.shape[:-1], -1)
 
 
-# split K over blocks until about this many blocks are in flight
-# (two per SM of the H100's 132)
-_A8_TARGET_BLOCKS = 264
+# the W4A8 kernel splits K until about this many blocks are launched (one
+# an SM of the H100's 132: more ran slower at 64 rows, where two 64-row
+# blocks fill an SM, and at 1-8 rows gained only at down; PERF.md), in at
+# most A8_MAX_BANDS bands: a tile's bands form one thread-block cluster (8
+# is the portable size)
+_A8_TARGET_BLOCKS = 132
+A8_MAX_BANDS = 8
+
+
+def a8_split(kw: int, n: int) -> tuple[int, int]:
+    """(superblocks per band, bands) of ``int4_matmul_a8``'s kernel for
+    packed K ``kw`` and ``n`` columns: from K and N alone, never from M,
+    so a row's bits do not depend on how many rows ride along."""
+    nsb = kw // SUPERBLOCK
+    tiles = -(-n // 128)
+    want = max(1, min(nsb, A8_MAX_BANDS, -(-_A8_TARGET_BLOCKS // tiles)))
+    per = -(-nsb // want)
+    return per, -(-nsb // per)
 
 
 def int4_matmul_a8(x, packed, scales, group_size: int = 128, *,
                    layer_idx=None) -> torch.Tensor:
     """W4A8: activations quantized to int8 per (row, group) at run time,
-    int32 group dots. CUDA: ``csrc/int4_matmul_a8.cu``; CPU:
+    exact int32 group dots. CUDA: ``csrc/int4_matmul_a8.cu`` (a quantize
+    kernel, then mma.sync m16n8k32 on the int8 tensor cores over blocks of
+    128 columns and ``mma_row_tile(M)`` rows, K split by ``a8_split`` with
+    a tile's bands summed in K order inside one cluster); CPU:
     ``int4_matmul_a8_plain``."""
     if not x.is_cuda:
         return int4_matmul_a8_plain(x, packed, scales, group_size,
                                     layer_idx=layer_idx)
     x2, w_ptr, s_ptr, kw, n = _cuda_args(x, packed, scales, group_size,
                                          layer_idx)
-    m = x2.shape[0]
-    dev = x.device
-    mt = 1 if m == 1 else 8
-    blocks = -(-n // 128) * -(-m // mt)
-    ksplit = max(1, min(_A8_TARGET_BLOCKS // blocks, kw // SUPERBLOCK))
+    _mma_operand(x2, w_ptr, s_ptr, n)
+    m, dev = x2.shape[0], x.device
+    per, bands = a8_split(kw, n)
     qa = torch.empty((m, kw), dtype=torch.int8, device=dev)
-    ascale = torch.empty((m, kw // group_size), dtype=torch.float32, device=dev)
-    partial = torch.empty((ksplit, m, n) if ksplit > 1 else (1,),
-                          dtype=torch.float32, device=dev)
+    aux = torch.empty((m, kw // group_size, 2), dtype=torch.int32, device=dev)
     y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     fn = _build.bind("int4_matmul_a8", "tce_int4_matmul_a8",
-                     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
-    _build.check(fn(x2.data_ptr(), w_ptr, s_ptr, qa.data_ptr(),
-                    ascale.data_ptr(), partial.data_ptr(), y.data_ptr(), m, kw,
-                    n, group_size, int(scales.dtype == torch.bfloat16), ksplit,
-                    torch.cuda.current_stream(dev).cuda_stream),
+                     [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+    _build.check(fn(x2.data_ptr(), w_ptr, s_ptr,
+                    int(scales.dtype == torch.bfloat16), qa.data_ptr(),
+                    aux.data_ptr(), y.data_ptr(), m, kw, n, group_size, per,
+                    bands, torch.cuda.current_stream(dev).cuda_stream),
                  "int4_matmul_a8")
     _build.LAUNCHES["int4_matmul_a8"] += 1
     return y.reshape(*x.shape[:-1], n)
@@ -425,7 +442,7 @@ def _vec_arg(t, li: int, width: int, device, what: str):
 
 
 # split K over blocks until about this many blocks are in flight (two per SM
-# of the H100's 132), as int4_matmul_a8 does
+# of the H100's 132)
 _FUSED_TARGET_BLOCKS = 264
 # int4_matmul_fused's blocks are lighter (128 threads, four share an SM): it
 # splits K until about eight blocks per SM are launched

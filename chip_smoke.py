@@ -8,10 +8,10 @@ Phases (any failure ends the run with a non-zero exit code):
 2. build: compiles every kernel under ``tinychatengine_tpu_torch/csrc``
    with nvcc, one process per source, all at once; ``int4_matmul``'s SASS
    must hold HGMMA instructions (its tile route on the tensor cores),
-   ``flash_prefill``'s (both products), ``int4_matmul_kouter``'s,
-   ``int4_matmul_fused``'s and ``mlp_fused``'s (the contraction of
-   ``csrc/int4_mma.cuh``) HMMA or HGMMA, and ``int4_matmul_a8``'s (the
-   int8 tensor cores) IMMA or IGMMA;
+   ``flash_prefill``'s (both products), ``int4_matmul_kouter``'s (K-outer
+   and GLU), ``int4_matmul_fused``'s and ``mlp_fused``'s (the contraction
+   of ``csrc/int4_mma.cuh``) and ``int3_matmul``'s HMMA or HGMMA, and
+   ``int4_matmul_a8``'s (the int8 tensor cores) IMMA or IGMMA;
 3. kernels: each kernel against its plain PyTorch version on the card at
    llama3_8b's main-path and serving shapes (B = 8 slots, ragged lengths,
    a shuffled page table), with the stated tolerance, and timed beside its
@@ -41,10 +41,11 @@ Phases (any failure ends the run with a non-zero exit code):
    start 2048; the split-K kernels at llama3_8b's widths:
    ``int4_matmul_kouter`` (phase 4f's qkv, wo, gate_up and down at M = 1,
    16, 64 and 496, ``KOUTER_BLOCKS``; 496 leaves a partial 64-row tile),
-   ``int4_matmul_glu`` (down from gu at M = 1
-   and 8; also against int4_matmul -> silu * up -> int4_matmul within
+   ``int4_matmul_glu`` (down from gu at M = 1, 8
+   and 64; also against int4_matmul -> silu * up -> int4_matmul within
    ``GLU_COMPOSITION_TOL``), ``mlp_fused`` (the whole MLP at M = 1 and 16)
-   and ``int3_matmul`` (gate_up and down widths at M = 1, f32 scales);
+   and ``int3_matmul`` (gate_up and down widths at M = 1, 8 and 64, f32
+   scales);
    then opt_6.7b's W8A8 linears at M = 1, timed beside their bound, their
    int32 products checked against the CPU's;
 4. main path: llama3_8b W4A8 at full width (all 32 layers, random packed
@@ -1011,6 +1012,9 @@ def check_fused_kernels(gen, add):
 # function (silu * up rounded to bf16 by torch or by the kernel, sums in
 # other orders), held as JAX's own test holds them
 GLU_COMPOSITION_TOL = 0.06
+# row counts of phase 3's GLU and int3 cases: decode, a serving tick's 8
+# slots, a 64-row prompt bucket
+GLU_ROWS = INT3_ROWS = (1, 8, 64)
 
 
 def int4_stack(gen, k, n, dtype=torch.bfloat16, n_layers=None):
@@ -1097,13 +1101,14 @@ def check_split_k_kernels(gen, add):
         del packed, scales, w_lib
         torch.cuda.empty_cache()
 
-    # ---- int4_matmul_glu: llama3_8b's down from gu, decode and 8 slots;
-    # then against the unfused composition on a gu made by int4_matmul
+    # ---- int4_matmul_glu: llama3_8b's down from gu, decode, 8 slots and a
+    # 64-row prompt bucket; then against the unfused composition on a gu
+    # made by int4_matmul
     f, n = 14336, 4096
     packed, scales = int4_stack(gen, f, n)
     nl = packed.shape[0]
     w_lib = dequantize_int4(packed[0], scales[0], 128, torch.bfloat16)
-    for m in (1, 8):
+    for m in GLU_ROWS:
         gu = torch.randn((m, 2 * f), device=dev, generator=gen).to(
             torch.bfloat16)
         err = share = 0.0
@@ -1122,7 +1127,7 @@ def check_split_k_kernels(gen, add):
             50, plain_ms,
             lambda: torch.matmul(silu(gu[:, :f]) * gu[:, f:], w_lib),
             m * 2 * f * 2 + f * n // 2 + (f // 128) * n * 2 + m * n * 2,
-            2.0 * m * n * f, BF16_FLOP_S)
+            2.0 * m * n * f, BF16_FLOP_S, bands=im.glu_split(m, n, f)[1])
     wgu, sgu = int4_stack(gen, 4096, 2 * f, n_layers=1)
     x = torch.randn((8, 4096), device=dev, generator=gen).to(torch.bfloat16)
     gu = im.int4_matmul(x, wgu, sgu, 128, layer_idx=0)
@@ -1173,8 +1178,10 @@ def check_split_k_kernels(gen, add):
     del wgu, sgu, wdn, sdn, lin_gu, lin_dn, lib_gu, lib_dn
     torch.cuda.empty_cache()
 
-    # ---- int3_matmul: llama3_8b's gate_up and down widths, f32 scales
-    for name, k, n in (("gate_up", 4096, 28672), ("down", 14336, 4096)):
+    # ---- int3_matmul: llama3_8b's gate_up and down widths, f32 scales, at
+    # decode, 8 slots and a 64-row prompt bucket
+    for (name, k, n), m in itertools.product(
+            (("gate_up", 4096, 28672), ("down", 14336, 4096)), INT3_ROWS):
         nl = max(2, -(-200_000_000 // (k * n * 3 // 8)))
         layers = [(torch.randint(0, 256, (k // 4, n), dtype=torch.uint8,
                                  device=dev, generator=gen),
@@ -1183,19 +1190,19 @@ def check_split_k_kernels(gen, add):
                    (torch.rand((k // 128, n), device=dev, generator=gen)
                     + 0.5) * 0.01) for _ in range(nl)]
         w_lib = int3_dequant(*layers[0])
-        x = torch.randn((1, k), device=dev, generator=gen).to(torch.bfloat16)
+        x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
         err = share = 0.0
         for li in (0, nl - 1):
             e_, sh = mat_err(i3.int3_matmul(x, *layers[li]),
                              i3.int3_matmul_plain(x, *layers[li]))
             err, share = max(err, e_), max(share, sh)
         plain_ms = time_ms(lambda: i3.int3_matmul_plain(x, *layers[0]), 3)
-        add("int3_matmul", f"{name} M=1 K={k} N={n}", err, share,
+        add("int3_matmul", f"{name} M={m} K={k} N={n}", err, share,
             f"{MAT_TOL} * max|plain|",
             cycle(nl, lambda li: i3.int3_matmul(x, *layers[li])), 50,
             plain_ms, lambda: torch.matmul(x, w_lib),
-            k * n * 3 // 8 + (k // 128) * n * 4 + k * 2 + n * 2,
-            2.0 * n * k, BF16_FLOP_S)
+            k * n * 3 // 8 + (k // 128) * n * 4 + m * k * 2 + m * n * 2,
+            2.0 * m * n * k, BF16_FLOP_S, bands=i3.int3_split(m, n, k)[1])
         del layers, w_lib
         torch.cuda.empty_cache()
 
@@ -2598,6 +2605,7 @@ def main(argv=None) -> int:
     for lib, ops in (("int4_matmul_kouter", ("HMMA", "HGMMA")),
                      ("int4_matmul_fused", ("HMMA", "HGMMA")),
                      ("mlp_fused", ("HMMA", "HGMMA")),
+                     ("int3_matmul", ("HMMA", "HGMMA")),
                      ("int4_matmul_a8", ("IMMA", "IGMMA"))):
         mma = {op: sass_count(libs[lib], op) for op in ops}
         log(f"{lib} SASS (cuobjdump -sass): "

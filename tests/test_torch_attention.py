@@ -2,6 +2,7 @@
 package's flash kernels in interpret mode and its dense ``attention_xla``.
 Caches and queries come from numpy with a seed and are fed to both sides."""
 
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -34,16 +35,28 @@ def _t(a):
     return from_bf16_bits(np.asarray(a).view(np.uint16))
 
 
+# the JAX cache write as its forwards run it, under jit (the int8 scales'
+# division by 127 is then XLA's product by the f32 reciprocal)
+_jax_update_layer = jax.jit(jkvc.update_layer)
+
+
 def _caches(rng, L, B, H, S, D, quantized=False):
-    """The same filled cache on both sides (bf16 or int8 + scales)."""
+    """The same filled cache on both sides (bf16 or int8 + scales): the JAX
+    package's cache written by its update_layer, the port's holding the
+    same arrays, so the attention tests read identical codes and scales.
+    The port's own writes are held to the jitted JAX write by
+    ``test_kv_cache_update_matches_jax``."""
     k, v = _bf16(rng, (B, S, H, D)), _bf16(rng, (B, S, H, D))
     jc = jkvc.init_cache(L, B, S, H, D, quantized=quantized)
-    tc = tkvc.init_cache(L, B, S, H, D, quantized=quantized,
-                         device="cpu")
     for li in range(L):
         jc = jkvc.update_layer(jc, jnp.asarray(k), jnp.asarray(v), li,
                                jnp.int32(0))
-        tkvc.update_layer(tc, _t(k), _t(v), li, 0)
+    if quantized:
+        k_, v_, ks, vs = (torch.from_numpy(np.array(a)) for a in
+                          (jc.k, jc.v, jc.k_scale, jc.v_scale))
+        tc = tkvc.KVCache(k=k_, v=v_, k_scale=ks, v_scale=vs)
+    else:
+        tc = tkvc.KVCache(k=_t(jc.k), v=_t(jc.v))
     return jc, tc
 
 
@@ -136,12 +149,20 @@ def test_flash_prefill_plain_ragged_starts():
 
 
 def test_kv_cache_update_matches_jax():
-    """In-place writes and int8 quantization equal the JAX cache's."""
+    """In-place writes and int8 quantization equal the JAX cache's (its
+    write jitted, as the JAX forwards run it)."""
     rng = np.random.default_rng(4)
     for quantized in (False, True):
-        jc, tc = _caches(rng, 2, 1, 2, 64, 64, quantized=quantized)
+        jc = jkvc.init_cache(2, 1, 64, 2, 64, quantized=quantized)
+        tc = tkvc.init_cache(2, 1, 64, 2, 64, quantized=quantized,
+                             device="cpu")
+        k, v = _bf16(rng, (1, 64, 2, 64)), _bf16(rng, (1, 64, 2, 64))
+        for li in range(2):
+            jc = _jax_update_layer(jc, jnp.asarray(k), jnp.asarray(v), li,
+                                   jnp.int32(0))
+            tkvc.update_layer(tc, _t(k), _t(v), li, 0)
         k, v = _bf16(rng, (1, 5, 2, 64)), _bf16(rng, (1, 5, 2, 64))
-        jc = jkvc.update_layer(jc, jnp.asarray(k), jnp.asarray(v), 1,
+        jc = _jax_update_layer(jc, jnp.asarray(k), jnp.asarray(v), 1,
                                jnp.int32(30))
         same = tkvc.update_layer(tc, _t(k), _t(v), 1, 30)
         assert same is tc  # in place

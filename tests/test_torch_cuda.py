@@ -16,6 +16,7 @@ import torch
 from chip_smoke import attn_err, int8_err
 from tinychatengine_tpu_torch.ops import _build
 from tinychatengine_tpu_torch.ops import attention as att
+from tinychatengine_tpu_torch.ops import int3_matmul as i3
 from tinychatengine_tpu_torch.ops import int4_matmul as im
 from tinychatengine_tpu_torch.ops.linear import quantized_linear
 from tinychatengine_tpu_torch.ops.ref import make_rope_cache
@@ -512,13 +513,29 @@ def test_int4_matmul_fused_ragged_last_split(cuda):
 
 @pytest.mark.parametrize("kernel,m,rows",
                          [("kouter", 496, (1, 2, 7, 16, 64, 130)),
-                          ("fused", 8, (1, 2, 5, 7))])
+                          ("fused", 8, (1, 2, 5, 7)),
+                          ("glu", 8, (1, 2, 5, 7)),
+                          ("int3", 8, (1, 2, 5, 7))])
 def test_tensor_core_rows_are_independent(cuda, kernel, m, rows):
     """An output row's bits depend on its x row alone: the kernel on x[:r]
     equals its rows of the kernel on x bit for bit, whatever row tile (8 to
-    64 rows) each call takes, one row included."""
+    64 rows) each call takes, one row included (the GLU and int3 kernels'
+    K splits are the same from 1 to 8 rows)."""
     rng = np.random.default_rng(m)
-    if kernel == "kouter":
+    if kernel == "glu":
+        packed, scales = _int4_stack(rng, 2048, 256, "bf16", cuda,
+                                     group_size=64)
+        x = _bf16(rng, (m, 4096), cuda)
+
+        def call(xr):
+            return im.int4_matmul_glu(xr, packed, scales, 64, layer_idx=1)
+    elif kernel == "int3":
+        pa, pb, scales = _int3_weights(rng, 2048, 272, 32, cuda)
+        x = _bf16(rng, (m, 2048), cuda)
+
+        def call(xr):
+            return i3.int3_matmul(xr, pa, pb, scales, group_size=32)
+    elif kernel == "kouter":
         packed, scales = _int4_stack(rng, 1024, 640, "bf16", cuda,
                                      group_size=64)
         x = _bf16(rng, (m, 1024), cuda)
@@ -609,6 +626,42 @@ def test_int4_matmul_glu_matches_plain(cuda, m, scale_dtype):
     assert _build.LAUNCHES["int4_matmul_glu"] == 2
 
 
+@pytest.mark.parametrize("scale_dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("g", [32, 64, 128])
+@pytest.mark.parametrize("m", [1, 2, 8, 9, 16, 33, 64, 100])
+def test_int4_matmul_glu_tensor_core_matches_plain(cuda, m, g, scale_dtype):
+    """The GLU kernel (activation kernel, then the tensor-core contraction
+    under programmatic dependent launch) against its plain version: F =
+    2048, N = 384 (three column tiles), layers 0 and 2 of a stack; 100 rows
+    leave the last 64-row tile partial."""
+    rng = np.random.default_rng(m + g)
+    packed, scales = _int4_stack(rng, 2048, 384, scale_dtype, cuda, 3, g)
+    gu = (_bf16(rng, (m, 4096), cuda).float() * 2.0).to(torch.bfloat16)
+    _build.reset_launches()
+    for li in (0, 2):
+        got = im.int4_matmul_glu(gu, packed, scales, g, layer_idx=li)
+        assert _mat_ok(got, im.int4_matmul_glu_plain(gu, packed, scales, g,
+                                                     layer_idx=li))
+    assert _build.LAUNCHES["int4_matmul_glu"] == 2
+
+
+@pytest.mark.parametrize("target,split", [(2, (9, 1)), (8, (3, 3)),
+                                          (10, (2, 5))])
+def test_int4_matmul_glu_ragged_bands(cuda, monkeypatch, target, split):
+    """F = 2304 (9 superblocks) over N = 256 in one band, three, and five
+    with a last band of one superblock (the split targets forced low), at
+    8 rows and at 1: against the plain version."""
+    monkeypatch.setattr(im, "_GLU_TARGET_BLOCKS", target)
+    assert im.glu_split(8, 256, 2304) == split
+    rng = np.random.default_rng(target)
+    packed, scales = _int4_stack(rng, 2304, 256, "f32", cuda, 2, 32)
+    for m in (8, 1):
+        gu = _bf16(rng, (m, 4608), cuda)
+        got = im.int4_matmul_glu(gu, packed, scales, 32, layer_idx=1)
+        assert _mat_ok(got, im.int4_matmul_glu_plain(gu, packed, scales, 32,
+                                                     layer_idx=1))
+
+
 @pytest.mark.parametrize("m", [1, 16, 5])
 def test_mlp_fused_matches_plain_and_replays_in_a_graph(cuda, m):
     """The cooperative launch against its plain version, then captured in
@@ -646,6 +699,48 @@ def test_int3_matmul_matches_plain(cuda, m, g):
     got = i3.int3_matmul(x, pa, pb, scales, group_size=g)
     assert _mat_ok(got, i3.int3_matmul_plain(x, pa, pb, scales, group_size=g))
     assert _build.LAUNCHES["int3_matmul"] == 1
+
+
+def _int3_weights(rng, k, n, g, dev):
+    """QM_TPU3 planes and f32 scales [K/G, N] of a random [N, K] weight on
+    the card."""
+    from tinychatengine_tpu_torch.quant.numerics import quantize_groupwise_int3
+    q, d = quantize_groupwise_int3(
+        rng.standard_normal((n, k)).astype(np.float32) * 0.08, g)
+    pa, pb = (torch.from_numpy(a).to(dev) for a in i3.pack_qm_tpu3(q))
+    return pa, pb, torch.from_numpy(np.ascontiguousarray(d.T)).to(dev)
+
+
+@pytest.mark.parametrize("g", [32, 64, 128])
+@pytest.mark.parametrize("m", [1, 2, 8, 9, 16, 33, 64, 100])
+def test_int3_tensor_core_matches_plain(cuda, m, g):
+    """The int3 kernel on the tensor cores against its plain version: K =
+    3072 (three chunks), N = 272 (a partial last column tile), every row
+    tile; 100 rows leave the last 64-row tile partial."""
+    rng = np.random.default_rng(m + g)
+    pa, pb, scales = _int3_weights(rng, 3072, 272, g, cuda)
+    x = _bf16(rng, (m, 3072), cuda)
+    _build.reset_launches()
+    got = i3.int3_matmul(x, pa, pb, scales, group_size=g)
+    assert _mat_ok(got, i3.int3_matmul_plain(x, pa, pb, scales, group_size=g))
+    assert _build.LAUNCHES["int3_matmul"] == 1
+
+
+@pytest.mark.parametrize("target,split", [(2, (5, 1)), (4, (3, 2)),
+                                          (10, (1, 5))])
+def test_int3_ragged_bands(cuda, monkeypatch, target, split):
+    """K = 5120 (five chunks) over N = 256 in one band, two with a ragged
+    last band, and five (the split target forced low), at 8 rows and at 1:
+    against the plain version."""
+    monkeypatch.setattr(i3, "_INT3_TARGET_BLOCKS", target)
+    assert i3.int3_split(8, 256, 5120) == split
+    rng = np.random.default_rng(target)
+    pa, pb, scales = _int3_weights(rng, 5120, 256, 64, cuda)
+    for m in (8, 1):
+        x = _bf16(rng, (m, 5120), cuda)
+        got = i3.int3_matmul(x, pa, pb, scales, group_size=64)
+        assert _mat_ok(got, i3.int3_matmul_plain(x, pa, pb, scales,
+                                                 group_size=64))
 
 
 SPLIT = att.DECODE_SPLIT

@@ -396,6 +396,56 @@ def test_glu_wrapper_refuses_what_jax_refuses():
         tim.int4_matmul_glu(gu, p2, s2, 128, layer_idx=0)
 
 
+def glu_activation(gu: torch.Tensor, f: int) -> torch.Tensor:
+    """The GLU kernel's activation (``glu_act_kernel``): bf16(sigmoid(g) *
+    g * u) in f32 with sigmoid(g) = 1 / (1 + exp(-g)), g and u the two
+    halves of bf16 gu [M, 2F]."""
+    g, u = gu[:, :f].float(), gu[:, f:].float()
+    return (1.0 / (1.0 + torch.exp(-g)) * g * u).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("scale_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("gs", [32, 128])
+@pytest.mark.parametrize("m", [1, 8, 16, 64])
+def test_glu_mma_model_matches_jax_kernel(m, gs, scale_dtype):
+    """The CUDA GLU kernel's arithmetic on the CPU (its activation, then
+    ``mma_contraction`` over the bands ``glu_split`` picks) against
+    interpret-mode ``int4_matmul_glu``, both layers, within one bf16
+    step."""
+    rng = np.random.default_rng(100 + m + gs)
+    f, n = 1024, 256
+    packed, scales = _weights(rng, f, n, scale_dtype=scale_dtype, gs=gs)
+    gu = _bf16(rng.standard_normal((m, 2 * f)) * 2.0)
+    per, _ = tim.glu_split(m, n, f)
+    act = glu_activation(numpy_to_torch(gu), f)
+    for li in (0, 1):
+        want = jim.int4_matmul_glu(jnp.asarray(gu), jnp.asarray(packed),
+                                   jnp.asarray(scales), gs,
+                                   layer_idx=jnp.int32(li), interpret=True)
+        got = mma_contraction(act, numpy_to_torch(packed)[li],
+                              numpy_to_torch(scales)[li], gs, per)
+        _within_a_bf16_step(got.to(torch.bfloat16), want)
+
+
+@pytest.mark.parametrize("f,n", [(14336, 4096), (24576, 6144), (11008, 4096),
+                                 (1024, 256), (512, 128)])
+def test_glu_split_depends_on_f_and_n_alone_up_to_eight_rows(f, n):
+    """``glu_split`` at llama3_8b's, StarCoder's and the tests' down shapes
+    is the same at 1..8 rows (one 8-row tile), so a serving row's bits do
+    not depend on how many slots are active; every band holds whole
+    superblocks and the last one at least one; wider row tiles split F no
+    finer."""
+    splits = {tim.glu_split(m, n, f) for m in range(1, 9)}
+    assert len(splits) == 1
+    per, bands = splits.pop()
+    nsb = f // SUPERBLOCK
+    assert per * (bands - 1) < nsb <= per * bands
+    for m in (16, 64, 100):
+        per_m, bands_m = tim.glu_split(m, n, f)
+        assert per_m * (bands_m - 1) < nsb <= per_m * bands_m
+        assert bands_m <= bands
+
+
 def test_chip_smoke_kouter_phase_rehearses_on_cpu():
     """chip_smoke.py's phase 4f on the CPU at a 2-layer size the K-outer
     kernel takes: the table is filled for the run and restored after, the

@@ -4,6 +4,7 @@ package. Pages, caches, queries and weights come from numpy with a seed and
 are fed to both sides; the port gets them through ``paged_cache_from_numpy``
 and ``params_from_numpy``."""
 
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -136,7 +137,8 @@ def test_allocator_alloc_free_cycle():
 def test_paged_writes_match_jax_leaf_by_leaf(quantized):
     """insert_prefix, then token-by-token paged_update_layer across a page
     boundary (inactive rows on one dead page): every leaf bit-equal to the
-    JAX pool's; gather_contiguous gives the same view."""
+    JAX pool's (its writes jitted, as its ServingEngine runs them);
+    gather_contiguous gives the same view."""
     rng = np.random.default_rng(7 + quantized)
     L, H, P, D, B = 2, 2, 16, 64, 3
     jc = jpg.init_paged_cache(L, 8, H, P, D, quantized=quantized)
@@ -168,9 +170,9 @@ def test_paged_writes_match_jax_leaf_by_leaf(quantized):
         k[1:] = k[1]  # dead rows write the same value to the dead page
         v[1:] = v[1]
         layer = t % L
-        jc = jpg.paged_update_layer(jc, jnp.asarray(k), jnp.asarray(v),
-                                    jnp.int32(layer), jnp.asarray(lengths),
-                                    jnp.asarray(table))
+        jc = jax.jit(jpg.paged_update_layer)(
+            jc, jnp.asarray(k), jnp.asarray(v), jnp.int32(layer),
+            jnp.asarray(lengths), jnp.asarray(table))
         tpg.paged_update_layer(tc, _t(k), _t(v), layer,
                                torch.from_numpy(lengths),
                                torch.from_numpy(table))
@@ -185,7 +187,8 @@ def test_paged_writes_match_jax_leaf_by_leaf(quantized):
 @pytest.mark.parametrize("quantized", [False, True])
 def test_ragged_kv_update_matches_jax(quantized):
     """update_layer with a [B] start (decode S = 1 and a ragged chunk)
-    equals JAX's ``_update_layer_per_slot`` bit for bit, in place; a
+    equals JAX's ``_update_layer_per_slot`` (jitted, as its forwards run
+    it) bit for bit, in place; a
     ragged chunk's positions past max_len are dropped."""
     rng = np.random.default_rng(3)
     L, B, H, S, D = 2, 3, 2, 32, 64
@@ -194,8 +197,8 @@ def test_ragged_kv_update_matches_jax(quantized):
     for s_new, starts in ((1, [0, 9, 31]), (5, [2, 20, 11])):
         k, v = _bf16(rng, (B, s_new, H, D)), _bf16(rng, (B, s_new, H, D))
         st = np.array(starts, np.int32)
-        jc = jkvc.update_layer(jc, jnp.asarray(k), jnp.asarray(v), 1,
-                               jnp.asarray(st))
+        jc = jax.jit(jkvc.update_layer)(jc, jnp.asarray(k), jnp.asarray(v),
+                                        1, jnp.asarray(st))
         assert tkvc.update_layer(tc, _t(k), _t(v), 1,
                                  torch.from_numpy(st)) is tc
         for got, want in ((tc.k, jc.k), (tc.v, jc.v),

@@ -1,10 +1,9 @@
-// The split-K int4 contraction on the CUDA cores, shared by
-// ``int4_matmul``'s band route, the GLU kernel and (its partial writer and
-// band reduction) the int3 kernel: one block computes the f32 sum of y[m,
-// n] over a band of K
-// (whole superblocks) for up to MT rows and 128 columns, and writes it to a
-// [bands, M, N] scratch; ``reduce_bands`` sums the bands in K order and
-// rounds to bf16 (deterministic, no atomics).
+// The split-K int4 contraction on the CUDA cores: ``int4_matmul``'s band
+// route (M <= 8). One block computes the f32 sum of y[m, n] over a band of
+// K (whole superblocks) for up to MT rows and 128 columns, and writes it to
+// a [bands, M, N] scratch; ``reduce_bands`` sums the bands in K order and
+// rounds to bf16 (deterministic, no atomics). ``reduce_bands`` also ends
+// the tensor-core kernels that write band sums (K-outer, GLU, int3).
 //
 // Weights in the QM_TPU layout [K/2, N] uint8, read as stored: byte row i
 // of superblock sb holds k = 256 sb + i in its low nibble and 256 sb + 128
@@ -14,12 +13,9 @@
 // a warp's rows of each nibble plane lie in one group (G in 32, 64, 128)
 // and the scale is applied once per 16 rows:
 //   acc += (sum_i x_i * (q_i - 8)) * d.
-// The activation rows of a superblock are staged into shared memory as f32
-// by a source functor (``XRows``: bf16 x; ``GluRows``: silu(gate) * up from
-// a gate_up product), so the band route and the GLU kernel share one loop.
+// The bf16 activation rows of a superblock are staged into shared memory
+// as f32.
 #pragma once
-
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -31,30 +27,6 @@ constexpr int WARPS = THREADS / 32;
 constexpr int COLS = 128;                   // columns per block: 32 lanes x 4
 constexpr int SB = 256;                     // K rows per superblock
 constexpr int ROWS_PER_WARP = 128 / WARPS;  // packed rows of a superblock each
-
-// rows of a bf16 activation x [M, K]
-struct XRows {
-  const __nv_bfloat16* x;
-  int K;
-  __device__ __forceinline__ float operator()(int m, int k) const {
-    return __bfloat162float(x[(size_t)m * K + k]);
-  }
-};
-
-// act[m, k] = bf16(sigmoid(g) * g * u) in f32, g and u F columns apart in
-// the rows of the bf16 gate_up output gu [M, 2F] (the GLU kernel).
-// sigmoid(g) = 1 / (1 + exp(-g)); no contraction into FMAs.
-struct GluRows {
-  const __nv_bfloat16* gu;
-  int F;
-  __device__ __forceinline__ float operator()(int m, int k) const {
-    const __nv_bfloat16* row = gu + (size_t)m * 2 * F;
-    const float g = __bfloat162float(row[k]);
-    const float u = __bfloat162float(row[F + k]);
-    const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-g)));
-    return round_bf16(__fmul_rn(__fmul_rn(sig, g), u));
-  }
-};
 
 template <int MT>
 struct Smem {
@@ -90,13 +62,14 @@ __device__ __forceinline__ void write_partial(
   __syncthreads();
 }
 
-// f32 sum over superblocks [sb0, sb1) of rows m0.. (at most MT) and
-// columns of tile n_tile into part[band]; ends with the block synchronised
-template <typename ST, int MT, typename Src>
+// f32 sum over superblocks [sb0, sb1) of rows m0.. (at most MT) of x [M,
+// K] and columns of tile n_tile into part[band]; ends with the block
+// synchronised
+template <typename ST, int MT>
 __device__ __forceinline__ void band_partial(
-    const Src& src, const uint8_t* __restrict__ w, const ST* __restrict__ s,
-    float* __restrict__ part, int M, int N, int G, int m0, int n_tile,
-    int sb0, int sb1, int band, Smem<MT>& sm) {
+    const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
+    const ST* __restrict__ s, float* __restrict__ part, int M, int K, int N,
+    int G, int m0, int n_tile, int sb0, int sb1, int band, Smem<MT>& sm) {
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int rows = min(MT, M - m0);
   const int col = n_tile * COLS + lane * 4;
@@ -106,7 +79,9 @@ __device__ __forceinline__ void band_partial(
   for (int sb = sb0; sb < sb1; ++sb) {
     for (int i = tid; i < MT * SB; i += THREADS) {
       const int r = i / SB, c = i % SB;
-      sm.xs[r][c] = r < rows ? src(m0 + r, sb * SB + c) : 0.f;
+      sm.xs[r][c] =
+          r < rows ? __bfloat162float(x[(size_t)(m0 + r) * K + sb * SB + c])
+                   : 0.f;
     }
     __syncthreads();
     uint32_t b[ROWS_PER_WARP];
@@ -147,15 +122,17 @@ __device__ __forceinline__ void band_partial(
 }
 
 // one (columns, rows, band) item of a [N/128, M/MT, bands] grid
-template <typename ST, int MT, typename Src>
+template <typename ST, int MT>
 __global__ void __launch_bounds__(THREADS) band_kernel(
-    Src src, const uint8_t* __restrict__ w, const ST* __restrict__ s,
-    float* __restrict__ part, int M, int K, int N, int G, int sb_per_band) {
+    const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
+    const ST* __restrict__ s, float* __restrict__ part, int M, int K, int N,
+    int G, int sb_per_band) {
   __shared__ Smem<MT> sm;
   const int nsb = K / SB;
   const int sb0 = blockIdx.z * sb_per_band;
-  band_partial<ST, MT>(src, w, s, part, M, N, G, blockIdx.y * MT, blockIdx.x,
-                       sb0, min(sb0 + sb_per_band, nsb), blockIdx.z, sm);
+  band_partial<ST, MT>(x, w, s, part, M, K, N, G, blockIdx.y * MT,
+                       blockIdx.x, sb0, min(sb0 + sb_per_band, nsb),
+                       blockIdx.z, sm);
 }
 
 // y[i] = bf16(sum over bands of part[band][i]), bands in K order
@@ -169,38 +146,29 @@ __global__ void __launch_bounds__(THREADS) reduce_bands(
   y[i] = __float2bfloat16(v);
 }
 
-// ``launch(mt, grid)`` launches a kernel of MT = mt rows a block over a
-// [N/128, M/MT, bands] grid, at 8 rows (1 at M = 1); then ``reduce_bands``
+// the band grid over x [M, K]: blocks of 128 columns and 8 rows (1 at M =
+// 1) in ``bands`` bands of sb_per_band superblocks, then ``reduce_bands``
 // sums part into y. Returns cudaGetLastError()
-template <typename Launch>
-int launch_split(const Launch& launch, const float* part, void* y, int M,
-                 int N, int bands, cudaStream_t st) {
+template <typename ST>
+int launch_bands(const void* x, const void* w, const void* s, float* part,
+                 void* y, int M, int K, int N, int G, int sb_per_band,
+                 int bands, cudaStream_t st) {
+  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  const auto* wp = static_cast<const uint8_t*>(w);
+  const auto* sp = static_cast<const ST*>(s);
   const int tiles = (N + COLS - 1) / COLS;
   if (M == 1)
-    launch(std::integral_constant<int, 1>{}, dim3(tiles, 1, bands));
+    band_kernel<ST, 1><<<dim3(tiles, 1, bands), THREADS, 0, st>>>(
+        xp, wp, sp, part, M, K, N, G, sb_per_band);
   else
-    launch(std::integral_constant<int, 8>{}, dim3(tiles, (M + 7) / 8, bands));
+    band_kernel<ST, 8><<<dim3(tiles, (M + 7) / 8, bands), THREADS, 0, st>>>(
+        xp, wp, sp, part, M, K, N, G, sb_per_band);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int mn = M * N;
   reduce_bands<<<(mn + THREADS - 1) / THREADS, THREADS, 0, st>>>(
       part, static_cast<__nv_bfloat16*>(y), mn, bands);
   return (int)cudaGetLastError();
-}
-
-// the band grid (``band_kernel``) through ``launch_split``
-template <typename ST, typename Src>
-int launch_bands(const Src& src, const void* w, const void* s, float* part,
-                 void* y, int M, int K, int N, int G, int sb_per_band,
-                 int bands, cudaStream_t st) {
-  const auto* wp = static_cast<const uint8_t*>(w);
-  const auto* sp = static_cast<const ST*>(s);
-  return launch_split(
-      [&](auto mt, dim3 grid) {
-        band_kernel<ST, decltype(mt)::value, Src><<<grid, THREADS, 0, st>>>(
-            src, wp, sp, part, M, K, N, G, sb_per_band);
-      },
-      part, y, M, N, bands, st);
 }
 
 }  // namespace band

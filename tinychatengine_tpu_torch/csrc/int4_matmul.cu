@@ -14,9 +14,9 @@
 //
 // M <= 8, the band route: memory-bound (the N * K / 2 weight bytes over
 // 3.35 TB/s; a weight byte feeds at most 16 multiply-adds). The split-K
-// band contraction of csrc/int4_band.cuh, which the K-outer kernel runs:
-// one block per (128 columns, the rows, a band of whole superblocks), f32
-// band sums added in K order by a second kernel. The wrapper picks the
+// band contraction of csrc/int4_band.cuh on the CUDA cores: one block per
+// (128 columns, the rows, a band of whole superblocks), f32 band sums
+// added in K order by a second kernel. The wrapper picks the
 // band from K and N (never from M) so that at least two blocks per SM
 // stream the weight; an unstacked weight (the lm_head, [2048, 129024]
 // bytes) is one layer at offset 0. The TPU kernel's cast point: the exact
@@ -416,12 +416,11 @@ extern "C" int tce_int4_matmul(const void* x, const void* w, const void* s,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bands > 0) {
-    const tce::band::XRows src{static_cast<const __nv_bfloat16*>(x), K};
     float* p = static_cast<float*>(part);
     return scale_bf16
                ? tce::band::launch_bands<__nv_bfloat16>(
-                     src, w, s, p, y, M, K, N, G, sb_per_band, bands, st)
-               : tce::band::launch_bands<float>(src, w, s, p, y, M, K, N, G,
+                     x, w, s, p, y, M, K, N, G, sb_per_band, bands, st)
+               : tce::band::launch_bands<float>(x, w, s, p, y, M, K, N, G,
                                                 sb_per_band, bands, st);
   }
   return scale_bf16 ? launch_tile<__nv_bfloat16>(x, w, s, y, M, K, N, G, st)

@@ -1,5 +1,6 @@
 // W4A16 matmul at small M with K walked in bands (the K-outer route), and
-// the down projection with silu(gate) * up folded into its prologue.
+// the down projection from the fused gate_up output (silu(gate) * up made
+// by a first kernel, then the same contraction).
 //
 // Replaces: tinychatengine_tpu/ops/int4_matmul.py · _int4_matmul_kouter
 // (body _kouter_kernel, pallas_call site :394) and · int4_matmul_glu
@@ -34,16 +35,67 @@
 // mma.sync rate.
 //
 // GLU: y = bf16(silu(g) * u) @ ((q - 8) * d), g and u the two halves of the
-// fused gate_up output gu [M, 2F] (bf16), F columns apart. Each block makes
-// its superblock of the activation from g and u as it stages it into
-// shared memory (sigmoid in f32, rounded to bf16 as the TPU kernel does), so
-// no [M, F] activation goes through device memory; K splits over bands as
-// in the fused decode kernel. It keeps the CUDA-core loop.
+// fused gate_up output gu [M, 2F] (bf16), F columns apart. The TPU kernel
+// makes its K tile of the activation in VMEM before each product; here a
+// first kernel (``glu_act_kernel``) makes the whole bf16 activation act
+// [M, F] once (sigmoid in f32, rounded to bf16 as the TPU kernel does;
+// 229 KB at 8 rows), and the K-outer kernel's tensor-core contraction
+// (``mma_band_kernel``) runs on it, F split over bands from F and N alone
+// up to 8 rows (the wrapper's ``glu_split``), ``reduce_bands`` adding the
+// bands in K order. The CUDA-core loop this replaced remade the activation
+// in every column tile's blocks, but its time went to the loop's f32 FMAs
+// and to re-reading the weights once per 8 rows: it ran as long as the
+// same loop on an activation made in advance (PERF.md). The contraction is
+// launched with programmatic dependent launch: each block requests its
+// first weights and scales while the activation kernel runs, then waits
+// for it (griddepcontrol.wait) before it requests act. Bound as K-outer
+// at down: the 29.4 MB of codes and scales, 0.009 ms; the activation adds
+// 2 bytes an element of gu read and of act written and read.
 
 #include "int4_band.cuh"
 #include "int4_mma.cuh"
 
-using tce::band::GluRows;
+namespace {
+
+constexpr int ACT_THREADS = 256;
+
+// act[m, f] = bf16(sigmoid(g) * g * u), g = gu[m, f], u = gu[m, F + f]:
+// sigmoid(g) = 1 / (1 + exp(-g)) in f32, no contraction into FMAs; one
+// thread 8 elements (16 bytes of g, of u and of act). Lets the dependent
+// contraction start at once: it waits for this grid before it reads act.
+__global__ void __launch_bounds__(ACT_THREADS) glu_act_kernel(
+    const __nv_bfloat16* __restrict__ gu, __nv_bfloat16* __restrict__ act,
+    int M, int F) {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const size_t i = ((size_t)blockIdx.x * ACT_THREADS + threadIdx.x) * 8;
+  if (i >= (size_t)M * F) return;
+  const size_t m = i / F, f = i % F;
+  const uint4 graw = *reinterpret_cast<const uint4*>(gu + m * 2 * F + f);
+  const uint4 uraw = *reinterpret_cast<const uint4*>(gu + m * 2 * F + F + f);
+  const __nv_bfloat16* g8 = reinterpret_cast<const __nv_bfloat16*>(&graw);
+  const __nv_bfloat16* u8 = reinterpret_cast<const __nv_bfloat16*>(&uraw);
+  uint4 out;
+  __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(&out);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float g = __bfloat162float(g8[j]);
+    const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-g)));
+    o[j] = __float2bfloat16(__fmul_rn(__fmul_rn(sig, g),
+                                      __bfloat162float(u8[j])));
+  }
+  *reinterpret_cast<uint4*>(act + i) = out;
+}
+
+// y[i] = bf16(sum over bands of part[band][i]), bands in K order
+int reduce(float* part, void* y, int M, int N, int bands, cudaStream_t st) {
+  const int mn = M * N;
+  tce::band::reduce_bands<<<(mn + tce::band::THREADS - 1) / tce::band::THREADS,
+                            tce::band::THREADS, 0, st>>>(
+      part, static_cast<__nv_bfloat16*>(y), mn, bands);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 // x [M, K] bf16 (K the packed K); w [K/2, N] uint8; s [K/G, N] (bf16 when
 // scale_bf16 != 0, else f32); x, w and s 16-byte aligned; part [bands, M,
@@ -61,25 +113,32 @@ extern "C" int tce_int4_matmul_kouter(const void* x, const void* w,
                             x, w, s, p, M, K, N, G, sb_per_band, bands, st)
                       : tce::mma4::launch_mma<float>(x, w, s, p, M, K, N, G,
                                                      sb_per_band, bands, st);
-  if (err) return err;
-  const int mn = M * N;
-  tce::band::reduce_bands<<<(mn + tce::band::THREADS - 1) / tce::band::THREADS,
-                            tce::band::THREADS, 0, st>>>(
-      p, static_cast<__nv_bfloat16*>(y), mn, bands);
-  return (int)cudaGetLastError();
+  return err ? err : reduce(p, y, M, N, bands, st);
 }
 
-// gu [M, 2F] bf16; w [F/2, N] uint8; s [F/G, N]; part [bands, M, N] f32;
-// y [M, N] bf16. Needs F % 256 == 0, N % 4 == 0, G in {32, 64, 128}.
+// gu [M, 2F] bf16; w [F/2, N] uint8; s [F/G, N] (bf16 when scale_bf16 !=
+// 0, else f32); gu, w and s 16-byte aligned; act [M, F] bf16 and part
+// [bands, M, N] f32 scratch; y [M, N] bf16. F splits into bands of
+// sb_per_band superblocks. Needs F % 256 == 0, N % 16 == 0, G in {32, 64,
+// 128}.
 extern "C" int tce_int4_matmul_glu(const void* gu, const void* w,
-                                   const void* s, int scale_bf16, void* part,
-                                   void* y, int M, int F, int N, int G,
-                                   int sb_per_band, int bands, void* stream) {
-  const GluRows src{static_cast<const __nv_bfloat16*>(gu), F};
-  float* p = static_cast<float*>(part);
+                                   const void* s, int scale_bf16, void* act,
+                                   void* part, void* y, int M, int F, int N,
+                                   int G, int sb_per_band, int bands,
+                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return scale_bf16 ? tce::band::launch_bands<__nv_bfloat16>(
-                          src, w, s, p, y, M, F, N, G, sb_per_band, bands, st)
-                    : tce::band::launch_bands<float>(src, w, s, p, y, M, F, N,
-                                                     G, sb_per_band, bands, st);
+  const size_t threads = (size_t)M * F / 8;
+  glu_act_kernel<<<(unsigned)((threads + ACT_THREADS - 1) / ACT_THREADS),
+                   ACT_THREADS, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(gu), static_cast<__nv_bfloat16*>(act),
+      M, F);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  float* p = static_cast<float*>(part);
+  const int err =
+      scale_bf16 ? tce::mma4::launch_mma<__nv_bfloat16, true>(
+                       act, w, s, p, M, F, N, G, sb_per_band, bands, st)
+                 : tce::mma4::launch_mma<float, true>(
+                       act, w, s, p, M, F, N, G, sb_per_band, bands, st);
+  return err ? err : reduce(p, y, M, N, bands, st);
 }

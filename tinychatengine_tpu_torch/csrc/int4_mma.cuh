@@ -1,6 +1,7 @@
 // The split-K int4 contraction on the tensor cores, shared by the K-outer
-// kernel and the fused decode kernel at every row count and by the fused
-// MLP's two products (``band_item`` inside its persistent blocks): one work
+// kernel, the fused decode kernel and the GLU kernel's down product at
+// every row count and by the fused MLP's two products (``band_item``
+// inside its persistent blocks): one work
 // item computes the f32 sum of y[m, n] over a band of K (whole
 // superblocks) for a tile of up to 64 rows and 128 columns and writes it to
 // a [bands, M, N] scratch, as ``band_partial`` (int4_band.cuh) does on the
@@ -359,18 +360,27 @@ __device__ __forceinline__ void band_item(
 }
 
 // one (128 columns, MT rows, band) item of a [N/128, M/MT, bands] grid:
-// the band's sums into part[band]
-template <typename ST, int G, int NT>
+// the band's sums into part[band]. PDL: the kernel is launched as a
+// programmatic dependent of the kernel that writes x, so it requests its
+// first superblock's weights and scales, then waits for that kernel
+// (griddepcontrol.wait) before it requests x
+template <typename ST, int G, int NT, bool PDL>
 __global__ void __launch_bounds__(128)
     mma_band_kernel(const __nv_bfloat16* __restrict__ x,
                     const uint8_t* __restrict__ w, const ST* __restrict__ s,
                     float* __restrict__ part, int M, int K, int N,
                     int sb_per_band) {
+  using C = Cfg<NT>;
   extern __shared__ __align__(16) uint8_t smem[];
   const int sb0 = blockIdx.z * sb_per_band;
-  band_item<ST, G, NT>(x, w, s, part, M, K, N, blockIdx.y * Cfg<NT>::MT,
-                       blockIdx.x * Cfg<NT>::BN, sb0,
-                       min(sb_per_band, K / SB - sb0), blockIdx.z, smem);
+  const int n0 = blockIdx.x * C::BN;
+  if constexpr (PDL) {
+    load_weights<ST, G, C>(smem, w, s, N, n0, sb0);
+    cp_async_commit();
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  }
+  band_item<ST, G, NT>(x, w, s, part, M, K, N, blockIdx.y * C::MT, n0, sb0,
+                       min(sb_per_band, K / SB - sb0), blockIdx.z, smem, PDL);
 }
 
 // rows a block of the tensor-core route covers at M rows (the wrapper's
@@ -379,12 +389,12 @@ inline int row_tile(int M) {
   return M <= 8 ? 8 : M <= 16 ? 16 : M <= 32 ? 32 : 64;
 }
 
-template <typename ST, int G, int NT>
+template <typename ST, int G, int NT, bool PDL>
 int launch_cfg(const void* x, const void* w, const void* s, float* part,
                int M, int K, int N, int sb_per_band, int bands,
                cudaStream_t st) {
   using C = Cfg<NT>;
-  auto kernel = mma_band_kernel<ST, G, NT>;
+  auto kernel = mma_band_kernel<ST, G, NT, PDL>;
   static bool configured = false;  // once, outside any CUDA graph capture
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -392,47 +402,60 @@ int launch_cfg(const void* x, const void* w, const void* s, float* part,
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  const dim3 grid((N + C::BN - 1) / C::BN, (M + C::MT - 1) / C::MT, bands);
-  kernel<<<grid, C::THREADS, C::SMEM, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(w),
-      static_cast<const ST*>(s), part, M, K, N, sb_per_band);
-  return (int)cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + C::BN - 1) / C::BN, (M + C::MT - 1) / C::MT, bands);
+  cfg.blockDim = dim3(C::THREADS);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = PDL ? 1 : 0;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const __nv_bfloat16*>(x),
+      static_cast<const uint8_t*>(w), static_cast<const ST*>(s), part, M, K,
+      N, sb_per_band);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
-template <typename ST, int G>
+template <typename ST, int G, bool PDL>
 int launch_g(const void* x, const void* w, const void* s, float* part, int M,
              int K, int N, int sb_per_band, int bands, cudaStream_t st) {
   switch (row_tile(M)) {
     case 8:
-      return launch_cfg<ST, G, 1>(x, w, s, part, M, K, N, sb_per_band, bands,
-                                  st);
+      return launch_cfg<ST, G, 1, PDL>(x, w, s, part, M, K, N, sb_per_band,
+                                       bands, st);
     case 16:
-      return launch_cfg<ST, G, 2>(x, w, s, part, M, K, N, sb_per_band, bands,
-                                  st);
+      return launch_cfg<ST, G, 2, PDL>(x, w, s, part, M, K, N, sb_per_band,
+                                       bands, st);
     case 32:
-      return launch_cfg<ST, G, 4>(x, w, s, part, M, K, N, sb_per_band, bands,
-                                  st);
+      return launch_cfg<ST, G, 4, PDL>(x, w, s, part, M, K, N, sb_per_band,
+                                       bands, st);
     default:
-      return launch_cfg<ST, G, 8>(x, w, s, part, M, K, N, sb_per_band, bands,
-                                  st);
+      return launch_cfg<ST, G, 8, PDL>(x, w, s, part, M, K, N, sb_per_band,
+                                       bands, st);
   }
 }
 
 // the band sums of x [M, K] @ W into part [bands, M, N]; x 16-byte
 // aligned, w and s 16-byte aligned, K % 256 == 0, N % 16 == 0, G in {32,
-// 64, 128}. Returns cudaGetLastError()
-template <typename ST>
+// 64, 128}. PDL: launched as a programmatic dependent of the kernel that
+// writes x (see mma_band_kernel). Returns cudaGetLastError()
+template <typename ST, bool PDL = false>
 int launch_mma(const void* x, const void* w, const void* s, float* part,
                int M, int K, int N, int G, int sb_per_band, int bands,
                cudaStream_t st) {
   switch (G) {
     case 32:
-      return launch_g<ST, 32>(x, w, s, part, M, K, N, sb_per_band, bands, st);
+      return launch_g<ST, 32, PDL>(x, w, s, part, M, K, N, sb_per_band, bands,
+                                   st);
     case 64:
-      return launch_g<ST, 64>(x, w, s, part, M, K, N, sb_per_band, bands, st);
+      return launch_g<ST, 64, PDL>(x, w, s, part, M, K, N, sb_per_band, bands,
+                                   st);
     default:
-      return launch_g<ST, 128>(x, w, s, part, M, K, N, sb_per_band, bands,
-                               st);
+      return launch_g<ST, 128, PDL>(x, w, s, part, M, K, N, sb_per_band,
+                                    bands, st);
   }
 }
 

@@ -22,6 +22,7 @@ import torch
 
 from tinychatengine_tpu_torch.core.device import resolve_device
 from tinychatengine_tpu_torch.ops.attention import read_cache_layer
+from tinychatengine_tpu_torch.ops.ref import xla_recip
 
 
 @dataclasses.dataclass
@@ -59,10 +60,12 @@ def init_cache(num_layers: int, batch: int, max_len: int, num_kv_heads: int,
 
 
 def _quantize_kv(x: torch.Tensor):
-    """Per (head, position) symmetric int8: scale = absmax/127 over D.
+    """Per (head, position) symmetric int8: scale = absmax/127 over D, the
+    division by 127 run as jitted JAX runs it (``xla_recip``).
     x [..., D] → (int8 codes, f32 scales [...])."""
     xf = x.float()
-    scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-8)
+    scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True)
+                        * xla_recip(127.0), min=1e-8)
     q = torch.clamp(torch.round(xf / scale), -128, 127).to(torch.int8)
     return q, scale[..., 0]
 

@@ -15,14 +15,18 @@ semantics of the reference's ``sample_*`` functions are kept:
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from tinychatengine_tpu_torch.core.device import resolve_device
+from tinychatengine_tpu_torch.ops.ref import xla_recip
 
 NEG_INF = -1e30
+# the factor of JAX's ``/ jnp.log(2.0)`` under jit (f32 ln 2, then its f32
+# reciprocal): surprise in bits
+_RECIP_LN2 = xla_recip(np.log(np.float32(2.0)))
 
 
 def _token_counts(last_tokens: torch.Tensor, vocab: int) -> torch.Tensor:
@@ -39,7 +43,8 @@ def apply_repetition_penalty(logits, last_tokens, penalty: float):
     if penalty == 1.0:
         return logits
     hit = _token_counts(last_tokens, logits.shape[-1]) > 0
-    penalized = torch.where(logits > 0, logits / penalty, logits * penalty)
+    penalized = torch.where(logits > 0, logits * xla_recip(penalty),
+                            logits * penalty)
     return torch.where(hit, penalized, logits)
 
 
@@ -77,7 +82,7 @@ def greedy_penalized(logits, last_tokens, gcfg) -> torch.Tensor:
     raw, cidx = torch.topk(logits, c, dim=-1)
     cnt = ((cidx[:, :, None] == last_tokens[:, None, :])
            & (last_tokens[:, None, :] >= 0)).sum(-1).float()
-    pen = torch.where(raw > 0, raw / gcfg.repeat_penalty,
+    pen = torch.where(raw > 0, raw * xla_recip(gcfg.repeat_penalty),
                       raw * gcfg.repeat_penalty)
     cvals = torch.where(cnt > 0, pen, raw)
     cvals = (cvals - cnt * gcfg.frequency_penalty
@@ -90,7 +95,13 @@ def greedy_penalized(logits, last_tokens, gcfg) -> torch.Tensor:
 
 
 def apply_temperature(logits, temp: float):
-    return logits / max(temp, 1e-6)
+    return logits * xla_recip(max(temp, 1e-6))
+
+
+def surprise_bits(log_probs: torch.Tensor) -> torch.Tensor:
+    """-log_probs in bits: JAX's ``-log_probs / jnp.log(2.0)`` as jitted
+    JAX runs it (a product by the f32 reciprocal of f32 ln 2)."""
+    return -log_probs * _RECIP_LN2
 
 
 def top_k_mask(logits, k: int):
@@ -191,7 +202,7 @@ def mirostat_v2_step(logits, state: SamplerState, tau: float, eta: float,
     """Truncate tokens with surprise > mu (the argmax always survives),
     sample, then mu -= eta * (surprise_drawn - tau)."""
     logits = apply_temperature(logits, temp)
-    surprise = -torch.log_softmax(logits, dim=-1) / math.log(2.0)
+    surprise = surprise_bits(torch.log_softmax(logits, dim=-1))
     masked = torch.where(surprise > state.mu[:, None], NEG_INF, logits)
     best = torch.argmax(logits, dim=-1, keepdim=True)
     masked = masked.scatter(-1, best, torch.gather(logits, -1, best))
@@ -222,8 +233,8 @@ def mirostat_v1_step(logits, state: SamplerState, tau: float, eta: float,
                                 device=logits.device).expand_as(order))
     masked = torch.where(ranks < k[:, None], logits, NEG_INF)
     tok = sample_token(masked, state.gen)
-    s_drawn = -torch.gather(torch.log_softmax(logits, dim=-1), -1,
-                            tok[:, None].long())[:, 0] / math.log(2.0)
+    s_drawn = surprise_bits(torch.gather(torch.log_softmax(logits, dim=-1),
+                                         -1, tok[:, None].long())[:, 0])
     return tok, SamplerState(gen=state.gen,
                              mu=state.mu - eta * (s_drawn - tau))
 
@@ -564,7 +575,7 @@ def _sample_rows_tail(logits, masked, s_logits, greedy_tok, keys, params,
     # above; all three draws share the row's (key, step)
     lt = logits / params.temp.clamp(min=1e-6)[:, None]
     log_probs_t = torch.log_softmax(lt, dim=-1)
-    surprise = -log_probs_t / math.log(2.0)                   # bits
+    surprise = surprise_bits(log_probs_t)
 
     # v2: truncate tokens whose surprise exceeds mu; the argmax survives
     m2 = torch.where(surprise > mu[:, None], NEG_INF, lt)

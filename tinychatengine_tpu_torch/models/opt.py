@@ -177,7 +177,8 @@ def forward(params: OPTParams, cfg: ModelConfig, input_ids: torch.Tensor,
         else:
             ck, cv = kvc.read_layer(cache, li)  # [B, H, S_max, D]
             logits = _masked(torch.einsum("bshd,bhtd->bhst", q.float(),
-                                          ck.float()) / (d ** 0.5),
+                                          ck.float())
+                             * ref.xla_recip(d ** 0.5),
                              positions, kv_valid)
             attn = torch.einsum("bhst,bhtd->bshd", torch.softmax(logits, -1),
                                 cv.float()).reshape(b, s, hq * d)

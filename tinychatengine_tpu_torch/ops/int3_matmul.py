@@ -13,8 +13,10 @@ Codes q = A + 4B in [0, 7], dequant (q - 4) * d (``quant/numerics.py``).
 The kernels fold the zero point and the B plane out of the per-element path:
 x . ((A + 4B - 4) d) = d (x . A) + 4 d (x . B) - 4 d sum x.
 
-The kernel is ``csrc/int3_matmul.cu``; a CUDA tensor launches it (or
-raises), a CPU tensor takes ``int3_matmul_plain``.
+The kernel is ``csrc/int3_matmul.cu`` (the codes as bf16 A + 4B - 4 on
+the tensor cores, per-group f32 sums folded with their scales, K split by
+``int3_split``); a CUDA tensor launches it (or raises), a CPU tensor takes
+``int3_matmul_plain``.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import numpy as np
 import torch
 
 from tinychatengine_tpu_torch.ops import _build
-from tinychatengine_tpu_torch.ops.int4_matmul import _P, _I, fused_split
+from tinychatengine_tpu_torch.ops.int4_matmul import (_I, _P, mma_row_tile,
+                                                      split_k)
 
 PLANE = 128
 SB_A = 4 * PLANE     # input rows per A-plane superblock
@@ -128,11 +131,30 @@ def int3_matmul_plain(x, packed_a, packed_b, scales, *, group_size: int = 128,
     return acc.to(torch.bfloat16)
 
 
+# the int3 kernel splits K until about this many blocks are launched: two
+# 8-row blocks share an SM (94-107 KB of shared memory each), one block of
+# 16 rows or more
+_INT3_TARGET_BLOCKS = 264
+_INT3_TARGET_BLOCKS_WIDE = 132
+
+
+def int3_split(m: int, n: int, k: int) -> tuple[int, int]:
+    """(chunks of ``SB_B`` rows per band, bands) of ``int3_matmul``'s kernel
+    at ``m`` rows over blocks of 128 columns and ``mma_row_tile(m)`` rows: a
+    function of K and N alone up to 8 rows (one row tile), so a row's bits
+    do not depend on how many rows ride along."""
+    tile = mma_row_tile(m)
+    target = _INT3_TARGET_BLOCKS if tile == 8 else _INT3_TARGET_BLOCKS_WIDE
+    return split_k(k // SB_B, -(-n // 128) * -(-m // tile), target)
+
+
 def int3_matmul(x, packed_a, packed_b, scales, *, group_size: int = 128,
                 block_k: int = 2048) -> torch.Tensor:
     """y = x @ dequant(W3): x [M, K] → [M, N] bf16. Unstacked 2-D weights,
     f32 scales; ``block_k`` is the JAX op's K block, which here only
-    decides what it refuses. CUDA: ``csrc/int3_matmul.cu``; CPU:
+    decides what it refuses. CUDA: ``csrc/int3_matmul.cu`` (mma.sync over
+    blocks of 128 columns and ``mma_row_tile(M)`` rows, K split by
+    ``int3_split``, the bands added in K order); CPU:
     ``int3_matmul_plain``."""
     if not x.is_cuda:
         return int3_matmul_plain(x, packed_a, packed_b, scales,
@@ -145,18 +167,23 @@ def int3_matmul(x, packed_a, packed_b, scales, *, group_size: int = 128,
     if scales.device != dev or scales.dtype != torch.float32 \
             or not scales.is_contiguous():
         raise ValueError(f"scales must be contiguous f32 on {dev}")
-    if n % 4 or group_size not in (32, 64, 128):
-        raise ValueError(f"kernel needs N % 4 == 0 and G in (32, 64, 128); "
+    if n % 16 or group_size not in (32, 64, 128):
+        raise ValueError(f"kernel needs N % 16 == 0 and G in (32, 64, 128); "
                          f"got N={n}, G={group_size}")
+    if (packed_a.data_ptr() | packed_b.data_ptr() | scales.data_ptr()) % 16:
+        raise ValueError("the int3 kernel needs 16-byte aligned planes and "
+                         "scales")
     x2 = x.to(torch.bfloat16).contiguous()
-    per, ksplit = fused_split(m, n, k, SB_B)  # K in chunks of SB_B rows
-    partial = torch.empty((ksplit, m, n), dtype=torch.float32, device=dev)
+    if x2.data_ptr() % 16:
+        x2 = x2.clone()
+    per, bands = int3_split(m, n, k)
+    partial = torch.empty((bands, m, n), dtype=torch.float32, device=dev)
     y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     fn = _build.bind("int3_matmul", "tce_int3_matmul",
                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
     _build.check(fn(x2.data_ptr(), packed_a.data_ptr(), packed_b.data_ptr(),
                     scales.data_ptr(), partial.data_ptr(), y.data_ptr(), m, k,
-                    n, group_size, per, ksplit,
+                    n, group_size, per, bands,
                     torch.cuda.current_stream(dev).cuda_stream),
                  "int3_matmul")
     _build.LAUNCHES["int3_matmul"] += 1

@@ -31,11 +31,12 @@ their one-token steps through ``int4_matmul_fused``. Off by default, as in
 JAX; the environment variable ``TINYCHAT_DECODE_FUSED=1`` turns it on at
 import, and code may set the attribute at any time.
 
-``int4_matmul_kouter`` and ``int4_matmul_fused`` run the tensor-core
-contraction of ``csrc/int4_mma.cuh`` at every row count (exact codes q - 8
-in bf16, mma.sync into a per-group f32 sum folded with its f32 scale, the
-TPU kernels' cast point; a block covers ``mma_row_tile(M)`` rows), so a
-row's bits do not depend on how many rows ride along. ``int4_matmul_a8``
+``int4_matmul_kouter``, ``int4_matmul_fused`` and ``int4_matmul_glu`` run
+the tensor-core contraction of ``csrc/int4_mma.cuh`` at every row count
+(exact codes q - 8 in bf16, mma.sync into a per-group f32 sum folded with
+its f32 scale, the TPU kernels' cast point; a block covers
+``mma_row_tile(M)`` rows), so a row's bits do not depend on how many rows
+ride along. ``int4_matmul_a8``
 runs the TPU kernel's W4A8 arithmetic on the int8 tensor cores (exact
 int32 group dots by mma.sync m16n8k32, the same row tiles, a K split
 from K and N alone: ``a8_split``), with the same property.
@@ -57,7 +58,7 @@ import torch
 
 from tinychatengine_tpu_torch.ops import _build
 from tinychatengine_tpu_torch.ops.ref import (ZERO_POINT, dequantize_int4,
-                                              unpack_int4)
+                                              unpack_int4, xla_recip)
 from tinychatengine_tpu_torch.quant.packing import PLANE, SUPERBLOCK
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -286,17 +287,26 @@ def int4_matmul(x, packed, scales, group_size: int = 128, *,
     return y.reshape(*x.shape[:-1], n)
 
 
+def a8_quantize_plain(x2: torch.Tensor, group_size: int):
+    """The W4A8 activation quantizer of ``int4_matmul_a8_xla``: per row and
+    group of f32 x [M, K], a_scale = max(absmax, 1e-8) / 127 (the division
+    as jitted JAX runs it, ``xla_recip``) and q_a = clip(round(x /
+    a_scale), -127, 127), half to even. Returns (q_a [M, K/G, G] f32,
+    a_scale [M, K/G, 1] f32)."""
+    m, k = x2.shape
+    g = x2.reshape(m, k // group_size, group_size)
+    absmax = g.abs().amax(dim=-1, keepdim=True)
+    a_scale = torch.clamp(absmax, min=1e-8) * xla_recip(127.0)
+    return torch.clamp(torch.round(g / a_scale), -127, 127), a_scale
+
+
 def int4_matmul_a8_plain(x, packed, scales, group_size: int = 128, *,
                          layer_idx=None) -> torch.Tensor:
-    """Fake-quantized int8 activations (per row and group: absmax/127,
-    round half to even, clip to +-127) times the f32-dequantized weights,
-    bf16 out (``int4_matmul_a8_xla``)."""
+    """Fake-quantized int8 activations (``a8_quantize_plain``) times the
+    f32-dequantized weights, bf16 out (``int4_matmul_a8_xla``)."""
     k, _, _ = _check_layout(x, packed, scales, group_size, layer_idx)
     x2 = x.reshape(-1, k).float()
-    g = x2.reshape(x2.shape[0], k // group_size, group_size)
-    absmax = g.abs().amax(dim=-1, keepdim=True)
-    a_scale = torch.clamp(absmax, min=1e-8) / 127.0
-    q_a = torch.clamp(torch.round(g / a_scale), -127, 127)
+    q_a, a_scale = a8_quantize_plain(x2, group_size)
     xq = (q_a * a_scale).reshape(x2.shape)
     w = dequantize_int4(_layer(packed, layer_idx), _layer(scales, layer_idx),
                         group_size, torch.float32)[:k]
@@ -441,32 +451,28 @@ def _vec_arg(t, li: int, width: int, device, what: str):
             int(t.dtype == torch.bfloat16))
 
 
-# split K over blocks until about this many blocks are in flight (two per SM
-# of the H100's 132)
-_FUSED_TARGET_BLOCKS = 264
-# int4_matmul_fused's blocks are lighter (128 threads, four share an SM): it
+# int4_matmul_fused's blocks are light (128 threads, four share an SM): it
 # splits K until about eight blocks per SM are launched
 _MMA_TARGET_BLOCKS = 1056
 
 
-def fused_split(m: int, n: int, k: int, unit: int = SUPERBLOCK,
-                target: int = _FUSED_TARGET_BLOCKS) -> tuple[int, int]:
-    """(K units per split, number of splits) of a split-K grid of 128
-    columns and 8 rows (1 at M = 1) per block, the K units being
-    superblocks (the fused and GLU kernels) or ``unit`` rows, until about
-    ``target`` blocks are launched."""
-    tiles = -(-n // 128) * -(-m // (1 if m == 1 else 8))
-    nsb = k // unit
-    want = max(1, min(nsb, -(-target // tiles)))
-    per = -(-nsb // want)
-    return per, -(-nsb // per)
+def split_k(units: int, tiles: int, target: int) -> tuple[int, int]:
+    """(K units per band, bands) of a split-K grid of ``tiles`` output
+    tiles over ``units`` K units (superblocks, or int3's 1024-row chunks),
+    until about ``target`` blocks are launched: whole units, the last band
+    at least one."""
+    want = max(1, min(units, -(-target // tiles)))
+    per = -(-units // want)
+    return per, -(-units // per)
 
 
 def fused_kernel_split(m: int, n: int, k: int) -> tuple[int, int]:
     """(superblocks per split, splits) of ``int4_matmul_fused``'s kernel at
-    ``m`` rows: a function of K and N alone at M <= 8, so a serving row's
-    bits do not depend on how many slots are active."""
-    return fused_split(m, n, k, target=_MMA_TARGET_BLOCKS)
+    ``m`` rows (the tiles counted as 128 columns by 8 rows, 1 at M = 1): a
+    function of K and N alone at M <= 8, so a serving row's bits do not
+    depend on how many slots are active."""
+    tiles = -(-n // 128) * -(-m // (1 if m == 1 else 8))
+    return split_k(k // SUPERBLOCK, tiles, _MMA_TARGET_BLOCKS)
 
 
 def int4_matmul_fused(x, packed, scales, group_size: int = 128, *,
@@ -646,30 +652,51 @@ def int4_matmul_glu_plain(gu, packed, scales, group_size: int = 128, *,
     return y.to(torch.bfloat16).reshape(*gu.shape[:-1], n)
 
 
+# the GLU kernel splits F until about this many blocks are launched: at
+# 8-row tiles as ``int4_matmul_fused`` (four blocks share an SM), at larger
+# row tiles about two an SM, since the f32 band sums grow with the rows
+_GLU_TARGET_BLOCKS = _MMA_TARGET_BLOCKS
+_GLU_TARGET_BLOCKS_WIDE = 264
+
+
+def glu_split(m: int, n: int, f: int) -> tuple[int, int]:
+    """(superblocks per band, bands) of ``int4_matmul_glu``'s contraction
+    at ``m`` rows, F = ``f`` and ``n`` columns over blocks of 128 columns
+    and ``mma_row_tile(m)`` rows: a function of F and N alone up to 8 rows
+    (one row tile), so a serving row's bits do not depend on how many
+    slots are active."""
+    tile = mma_row_tile(m)
+    target = _GLU_TARGET_BLOCKS if tile == 8 else _GLU_TARGET_BLOCKS_WIDE
+    return split_k(f // SUPERBLOCK, -(-n // 128) * -(-m // tile), target)
+
+
 def int4_matmul_glu(gu, packed, scales, group_size: int = 128, *,
                     layer_idx) -> torch.Tensor:
     """y = silu(gu[..., :F]) * gu[..., F:] @ ((q - 8) * d) with W_down
     stacked [L, F/2, N] at ``layer_idx``; gu is the fused gate_up output
     [..., 2F]. Returns [..., N] bf16 (the JAX package's signature). CUDA:
-    ``csrc/int4_matmul_kouter.cu`` (each block makes its K tile of the
-    activation in shared memory; no [M, F] activation in device memory);
-    CPU: ``int4_matmul_glu_plain``."""
+    ``csrc/int4_matmul_kouter.cu``: a first kernel makes the bf16
+    activation [M, F] once in device memory, then the K-outer kernel's
+    tensor-core contraction runs on it, F split by ``glu_split``, the bands
+    added in K order; CPU: ``int4_matmul_glu_plain``."""
     if not gu.is_cuda:
         return int4_matmul_glu_plain(gu, packed, scales, group_size,
                                      layer_idx=layer_idx)
     f, n = _glu_operands(gu, packed, scales, group_size, layer_idx)
     w_ptr, s_ptr = _cuda_weights(gu, packed, scales, group_size, layer_idx)
     g2 = gu.reshape(-1, 2 * f).to(torch.bfloat16).contiguous()
+    g2 = _mma_operand(g2, w_ptr, s_ptr, n)
     m, dev = g2.shape[0], gu.device
-    per, ksplit = fused_split(m, n, f)
-    partial = torch.empty((ksplit, m, n), dtype=torch.float32, device=dev)
+    per, bands = glu_split(m, n, f)
+    act = torch.empty((m, f), dtype=torch.bfloat16, device=dev)
+    partial = torch.empty((bands, m, n), dtype=torch.float32, device=dev)
     y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
     fn = _build.bind("int4_matmul_glu", "tce_int4_matmul_glu",
-                     [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+                     [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
     _build.check(fn(g2.data_ptr(), w_ptr, s_ptr,
-                    int(scales.dtype == torch.bfloat16), partial.data_ptr(),
-                    y.data_ptr(), m, f, n, group_size, per, ksplit,
-                    torch.cuda.current_stream(dev).cuda_stream),
+                    int(scales.dtype == torch.bfloat16), act.data_ptr(),
+                    partial.data_ptr(), y.data_ptr(), m, f, n, group_size,
+                    per, bands, torch.cuda.current_stream(dev).cuda_stream),
                  "int4_matmul_glu")
     _build.LAUNCHES["int4_matmul_glu"] += 1
     return y.reshape(*gu.shape[:-1], n)

@@ -6,11 +6,21 @@ results back in the input dtype.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from tinychatengine_tpu_torch.quant.packing import PLANE
 
 ZERO_POINT = 8
+
+
+def xla_recip(c: float) -> float:
+    """The factor jitted JAX multiplies by where its code divides by the
+    constant ``c``: XLA's simplifier rewrites ``x / c`` as ``x * (f32(1) /
+    f32(c))``. ``x * xla_recip(c)`` on an f32 tensor gives the jitted
+    function's bits, on the CPU and on the card alike (``1.0 / c`` in
+    Python is the f64 reciprocal of the f64 ``c``, another number)."""
+    return float(np.float32(1) / np.float32(c))
 
 
 def unpack_int4(packed: torch.Tensor) -> torch.Tensor:

@@ -137,6 +137,20 @@ Phases (any failure ends the run with a non-zero exit code):
    per tick of a profiled burst is printed (``FUSED_KERNEL_NAMES``), as
    phase 5's W4A8 kernel's is (``A8_KERNEL_NAMES``).
 
+The Engine and the server run their captured CUDA graphs
+(``generation/cuda_graph.py``): in phases 4, 4b, 4c, 4f, 7 and 10 the
+prompt chunks and the decode step of ``generate_device`` replay graphs
+(TTFT and the 2048-token prefill replay their prompt graphs, each timed
+once captured), and an eager Engine (``cuda_graphs=False``) on the same
+weights must choose the same greedy token at every step; phase 4 also
+times the eager loop's decode rate. ``decode_profile`` replays the
+captured step: its device ms by CUDA events and by kernel, busy share and
+graph nodes a step. The serving phases replay the captured tick (bursts
+and single ticks; admission stays eager); phase 6b runs each server again
+with ``cuda_graphs=False`` and needs identical tokens, dense and paged.
+Launch counts and plain-version counts are per replay
+(``_build.record_launches``), so every exact count keeps its meaning.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. ``--kernels-only`` stops after phase 3.
 Each phase prints its seconds.
@@ -1261,7 +1275,7 @@ def w8a8_linear_times(gen):
 def plain_calls():
     """Counts the calls of the ported kernels' plain versions while open (on
     the card a wrapper launches its kernel or raises: the counts must stay
-    0)."""
+    0), per replay of a graph captured meanwhile (``_build.counting``)."""
     from tinychatengine_tpu_torch.ops import attention as att
     from tinychatengine_tpu_torch.ops import int3_matmul as i3
     from tinychatengine_tpu_torch.ops import int4_matmul as im
@@ -1272,6 +1286,7 @@ def plain_calls():
              (im, "int4_matmul_fused_plain"), (im, "int4_matmul_kouter_plain"),
              (im, "int4_matmul_glu_plain"), (mf, "mlp_fused_plain"),
              (i3, "int3_matmul_plain")]
+    from tinychatengine_tpu_torch.ops import _build
     counts = dict.fromkeys((n for _, n in names), 0)
     saved = [(mod, n, getattr(mod, n)) for mod, n in names]
     for mod, n, fn in saved:
@@ -1279,8 +1294,9 @@ def plain_calls():
             counts[_n] += 1
             return _fn(*a, **kw)
         setattr(mod, n, counted)
-    try:
-        yield counts
+    try:  # registered: a graph captured meanwhile adds its calls per replay
+        with _build.counting(counts):
+            yield counts
     finally:
         for mod, n, fn in saved:
             setattr(mod, n, fn)
@@ -1401,17 +1417,20 @@ def cut_params(p, n_layers: int, where):
 
 
 def main_path(model="llama3_8b", dev="cuda", long_len=2048, fused=False,
-              model_params=None, n_predict=256):
+              model_params=None, n_predict=256, eager_rate=False):
     """Phase 4 (llama3_8b W4A8), 7 (opt_6.7b W8A8) or one mode of
     ``fused_ab`` (phases 4b and 10): ``model`` (a registry name or a
     ``ModelConfig``) at full width through the Engine, with
     ``FUSED_DECODE`` set to ``fused``. ``model_params``: (params, qcfg) of a
-    model already on ``dev``, else a random one is made. Returns (launches
-    of the run, launches of one decode step, metrics). The arguments shrink
+    model already on ``dev``, else a random one is made. The Engine runs
+    its captured graphs; an eager Engine (``cuda_graphs=False``) on the
+    same weights must choose the same greedy tokens at every step, and
+    with ``eager_rate`` its decode rate is timed too. Returns (launches of
+    the run, launches of one decode step, metrics). The arguments shrink
     the run for a rehearsal on the CPU (tests)."""
     with fused_decode(fused):
         return _engine_run(model_config(model), dev, long_len, model_params,
-                           n_predict)
+                           n_predict, eager_rate)
 
 
 def greedy_config(n_predict):
@@ -1421,7 +1440,32 @@ def greedy_config(n_predict):
                             repeat_last_n=64)
 
 
-def _engine_run(cfg, dev, long_len, model_params, n_predict):
+DECODE_TRIALS = 3  # decode_rate's trials: each time is their median
+
+
+def decode_rate(eng, prompt, gcfg, n_predict, sync):
+    """(n - 1) / (t(n tokens) - t(1 token)) of ``eng.generate_device``,
+    each time the median of ``DECODE_TRIALS`` runs (a 1-token run, then an
+    n-token run, in turn), with the n-token runs' tokens (which must not
+    change from trial to trial) and both times."""
+    def gen_s(n):
+        sync()
+        t = time.perf_counter()
+        out = eng.generate_device(prompt, gcfg, n_tokens=n).cpu()
+        return time.perf_counter() - t, out
+    t1s, tns, runs = [], [], []
+    for _ in range(DECODE_TRIALS):
+        t1s.append(gen_s(1)[0])
+        tn, toks = gen_s(n_predict)
+        tns.append(tn)
+        runs.append(toks)
+    if any(not torch.equal(r, runs[0]) for r in runs):
+        raise SystemExit("greedy decode tokens changed from trial to trial")
+    t1, tn = float(np.median(t1s)), float(np.median(tns))
+    return (n_predict - 1) / (tn - t1), runs[0], t1, tn
+
+
+def _engine_run(cfg, dev, long_len, model_params, n_predict, eager_rate):
     from tinychatengine_tpu_torch.generation import sampling
     from tinychatengine_tpu_torch.generation.engine import (
         Engine, forward_for_family)
@@ -1441,59 +1485,77 @@ def _engine_run(cfg, dev, long_len, model_params, n_predict):
     prompt = rng.integers(0, cfg.vocab_size, (1, 64))
     long_prompt = rng.integers(0, cfg.vocab_size, (1, long_len))
     gcfg = greedy_config(n_predict)
-
-    def gen_s(n):
-        sync()
-        t = time.perf_counter()
-        toks = eng.generate_device(prompt, gcfg, n_tokens=n)
-        out = toks.cpu()
-        return time.perf_counter() - t, out
+    # the timed prompts' caches (the graphs run in the engine's own cache
+    # and copy the prompt's positions out to these)
+    pre_cache, ttft_cache = eng.new_cache(), eng.new_cache()
 
     def prefill_s():
-        cache = eng.new_cache()
+        pre_cache.length = 0
         sync()
         t = time.perf_counter()
-        logits, cache = eng.prefill(long_prompt, cache)
+        logits, cache = eng.prefill(long_prompt, pre_cache)
         sync()
         return time.perf_counter() - t, logits, cache
 
     def ttft_s():
-        cache = eng.new_cache()
+        ttft_cache.length = 0
         sync()
         t = time.perf_counter()
-        logits, _ = eng.prefill(prompt, cache)
+        logits, _ = eng.prefill(prompt, ttft_cache)
         state = sampling.SamplerState.init(0, 1, 5.0, dev)
         tok, _ = sampling.sample(logits, state, gcfg, None)
         tok.cpu()
         return time.perf_counter() - t
 
-    gen_s(2)  # warm-up: allocator, library loads
-    prefill_s()
+    # the plain calls are counted from before the warm-up, which captures
+    # every graph the timed runs replay (prompt buckets, the decode step):
+    # a plain version captured into a graph counts at each replay
     with plain_calls() as plain:
+        eng.generate_device(prompt, gcfg, n_tokens=2)
+        prefill_s()
+        ttft_s()
         _build.reset_launches()
-        t1, _ = gen_s(1)
-        tn, toks = gen_s(n_predict)
+        rate, toks, t1, tn = decode_rate(eng, prompt, gcfg, n_predict, sync)
         ttft = ttft_s()
         t_pre, logits, cache = prefill_s()
         launches = dict(_build.LAUNCHES)
     log(f"{label} main-path launches:", json.dumps(launches),
         "plain calls:", json.dumps(plain))
+    # the eager loop on the same weights: the same greedy token at every
+    # step (and, for phase 4, its decode rate beside the graphs')
+    eager = Engine(params, cfg, qcfg, batch=1, max_len=long_len, device=dev,
+                   cuda_graphs=False)
+    if eager_rate:
+        eager.generate_device(prompt, gcfg, n_tokens=2)
+        eager_tok_s, eager_toks, _, _ = decode_rate(eager, prompt, gcfg,
+                                                    n_predict, sync)
+    else:
+        eager_toks = eager.generate_device(prompt, gcfg,
+                                           n_tokens=n_predict).cpu()
+    del eager
+    same = next((i for i, (a, b) in enumerate(
+        zip(toks[0].tolist(), eager_toks[0].tolist())) if a != b), None)
+    log(f"{label} graph vs eager greedy tokens: "
+        + ("equal at every step" if same is None else f"part at step {same}"))
+    if same is not None:
+        raise SystemExit(f"{label}: graph tokens part from the eager loop's "
+                         f"at step {same}")
 
-    with torch.inference_mode():  # launches of one decode step
-        cache1 = eng.new_cache()
-        eng.prefill(prompt, cache1)
+    with torch.inference_mode():  # launches of one (eager) decode step
+        eng.prefill(prompt, ttft_cache)
         _build.reset_launches()
-        forward(params, cfg, torch.tensor([[1]], device=dev), cache1, 64)
+        forward(params, cfg, torch.tensor([[1]], device=dev), ttft_cache, 64)
     per_step = dict(_build.LAUNCHES)
     if dev == "cuda":
         if any(plain.values()):
             raise SystemExit(f"plain versions ran on the card: {plain}")
         # opt: int8_decode once per layer per decode step (1 + n_predict
-        # steps), and nothing else; W4A16: each linear (4 per layer and the
-        # head) through one matmul kernel per step, fused or not, and one
-        # flash_decode per layer
+        # steps a trial), and nothing else; W4A16: each linear (4 per layer
+        # and the head) through one matmul kernel per step, fused or not,
+        # and one flash_decode per layer
         nl = cfg.num_layers
-        want = ({"int8_decode": (n_predict + 1) * nl}
+        n_prefills = 2 * DECODE_TRIALS + 2  # the trials', TTFT, long prompt
+        want = ({"int8_decode": DECODE_TRIALS * (n_predict + 1) * nl}
                 if cfg.family == "opt" else None)
         if want is not None and {k: v for k, v in launches.items() if v} \
                 != want:
@@ -1507,12 +1569,13 @@ def _engine_run(cfg, dev, long_len, model_params, n_predict):
                   "int4_matmul_fused" if fused else "int4_matmul")
             step_want = {mm: 4 * nl + 1, "flash_decode_int8": nl}
             if any(launches[k] for k in INT8_KV) or launches[
-                    "flash_prefill_int8"] != 4 * nl or {
+                    "flash_prefill_int8"] != n_prefills * nl or {
                         k: v for k, v in per_step.items() if v} != step_want:
                 raise SystemExit(f"{label}: launches {launches}, per decode "
                                  f"step {per_step}, want {step_want} per "
-                                 f"step and {4 * nl} flash_prefill_int8 "
-                                 "(4 prefills)")
+                                 f"step and {n_prefills * nl} "
+                                 f"flash_prefill_int8 ({n_prefills} "
+                                 "prefills)")
         if want is None and not all(launches[k] > 0 for k in kernels):
             raise SystemExit(f"a kernel was never launched on the main path: "
                              f"{launches}")
@@ -1533,14 +1596,18 @@ def _engine_run(cfg, dev, long_len, model_params, n_predict):
             or cache.length != long_len:
         raise SystemExit("bad long-prompt prefill output")
 
-    decode_tok_s = (n_predict - 1) / (tn - t1)
+    decode_tok_s = rate
     metrics = dict(decode_tok_s=decode_tok_s, ttft_ms=ttft * 1e3,
                    prefill_tok_s=long_len / t_pre, gen_n_s=tn, gen1_s=t1,
-                   prefill_s=t_pre)
+                   prefill_s=t_pre, graph_eq_eager=same is None)
+    if eager_rate:
+        metrics["eager_decode_tok_s"] = eager_tok_s
     if dev == "cuda":
         metrics["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        metrics.update(decode_profile(params, cfg, eng, prompt, gcfg,
-                                      1e3 / decode_tok_s))
+        metrics.update(decode_profile(eng, 1e3 / decode_tok_s))
+    if eng.graphs is not None:  # what the captures cost, once an engine
+        metrics.update(graph_captures=eng.graphs.captures,
+                       graph_capture_s=eng.graphs.capture_s)
     log(f"{label} main-path metrics:", json.dumps(metrics))
     metrics["tokens"] = toks[0].tolist()  # the greedy run, for comparisons
 
@@ -1613,7 +1680,8 @@ def first_step_diff(params, cfg, a, b, dev, prefill_table=None):
     for qcfg, fused, *table in (a, b):
         table = table[0] if table else {}
         with fused_decode(fused), torch.inference_mode():
-            eng = Engine(params, cfg, qcfg, max_len=128, device=dev)
+            eng = Engine(params, cfg, qcfg, max_len=128, device=dev,
+                         cuda_graphs=False)
             cache = eng.new_cache()
             with kouter_table(table if prefill_table is None
                               else prefill_table):
@@ -1669,7 +1737,8 @@ def teacher_forced(params, cfg, qcfg, dev, tokens, table, prefill_table):
     forward = forward_for_family(cfg.family)
     seen, choice, margin = [], [], []
     with kouter_table(table), torch.inference_mode():
-        eng = Engine(params, cfg, qcfg, max_len=64 + len(tokens), device=dev)
+        eng = Engine(params, cfg, qcfg, max_len=64 + len(tokens), device=dev,
+                     cuda_graphs=False)
         with kouter_table(prefill_table):
             logits, cache = eng.prefill(prompt, eng.new_cache())
         last = torch.as_tensor(prompt, device=dev)  # the 64-token window
@@ -1889,10 +1958,9 @@ def _serving_run(cfg, dev, n_requests, n_predict, max_len):
                             gcfg=gcfg, admission_chunk=512, tick_batch=16,
                             forward_fn=forward_for_family(cfg.family),
                             paged=mode == "paged", device=dev)
-        serving_load(srv, cfg, 2, n_predict, seed=1)  # warm-up
-        srv.run()
         reqs, m = timed_run(
-            srv, lambda: serving_load(srv, cfg, n_requests, n_predict), dev)
+            srv, lambda: serving_load(srv, cfg, n_requests, n_predict), dev,
+            warmup=lambda: serving_load(srv, cfg, 2, n_predict, seed=1))
         launches, ticks = m["launches"], m["decode_ticks"]
         log(f"{model} serving {mode}:", json.dumps(m))
         check_lengths(reqs, n_predict, f"serving {mode}")
@@ -1940,17 +2008,22 @@ def _serving_run(cfg, dev, n_requests, n_predict, max_len):
     return out
 
 
-def timed_run(srv, submit, dev):
-    """Drain the requests ``submit()`` queues through ``srv`` from zeroed
-    tick counters and launch counts: wall clock, tokens/s, TTFT p50 / p95
-    (first token - submit), decode ticks, the tick mix, kernel launches and
-    plain-version calls. Returns (requests, metrics)."""
+def timed_run(srv, submit, dev, warmup=None):
+    """Drain the requests ``warmup()`` queues (untimed), then those
+    ``submit()`` queues, through ``srv``, the second from zeroed tick
+    counters and launch counts: wall clock, tokens/s, TTFT p50 / p95
+    (first token - submit), decode ticks, the tick mix, kernel launches,
+    and the plain-version calls of both (the warm-up captures the ticks
+    that the timed run replays). Returns (requests, metrics)."""
     from tinychatengine_tpu_torch.ops import _build
     sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
-    srv.done.clear()
-    for k in srv.tick_stats:
-        srv.tick_stats[k] = 0
     with plain_calls() as plain:
+        if warmup is not None:
+            warmup()
+            srv.run()
+        srv.done.clear()
+        for k in srv.tick_stats:
+            srv.tick_stats[k] = 0
         sync()
         _build.reset_launches()
         t0 = time.perf_counter()
@@ -2024,10 +2097,9 @@ def long_serving(model, model_params, dev="cuda", n_requests=8, n_predict=64,
             params, cfg, dataclasses.replace(qcfg, kv_cache_dtype=kv),
             slots=8, max_len=max_len, gcfg=gcfg, admission_chunk=512,
             tick_batch=16, paged=mode == "paged", device=dev)
-        serving_load(srv, cfg, 2, 8, seed=1)  # warm-up
-        srv.run()
         reqs, m = timed_run(srv, lambda: serving_load(
-            srv, cfg, n_requests, n_predict, plen=plen), dev)
+            srv, cfg, n_requests, n_predict, plen=plen), dev,
+            warmup=lambda: serving_load(srv, cfg, 2, 8, seed=1))
         name = f"{kv} {mode}"
         log(f"{cfg.name} long-context serving {name}:", json.dumps(m))
         check_lengths(reqs, n_predict, f"long-context serving {name}")
@@ -2099,7 +2171,9 @@ def prefix_serving(model, model_params, dev="cuda", n_requests=8,
 
 def real_weights_serving(dev="cuda"):
     """Phase 6b: the bytellama_5m goldens through ServingEngine (2 slots),
-    dense and paged, fp and w4a8. Returns {config: tokens matched}."""
+    dense and paged, fp and w4a8, on its captured ticks and then with
+    ``cuda_graphs=False``: the two must give identical tokens. Returns
+    {config: tokens matched}."""
     from tinychatengine_tpu_torch.core.config import (GenerationConfig,
                                                       QuantConfig,
                                                       get_model_config)
@@ -2132,6 +2206,20 @@ def real_weights_serving(dev="cuda"):
                 launches = dict(_build.LAUNCHES)
             key = f"{scheme} {mode}"
             outs[key] = [r.output_ids for r in reqs]
+            eager = ServingEngine(params, cfg, qcfg, slots=2,
+                                  max_len=cfg.max_sqlen, gcfg=g,
+                                  paged=mode == "paged", page_size=16,
+                                  device=dev, cuda_graphs=False)
+            ereqs = [eager.submit(tok.encode(gd["prompt"])) for gd in golds]
+            eager.run()
+            same = outs[key] == [r.output_ids for r in ereqs]
+            log(f"bytellama_5m serving {key}: graph ticks "
+                f"({srv.graphs.captures if srv.graphs else 0} captures, "
+                f"{json.dumps(srv.tick_stats)}) vs eager ticks: tokens "
+                f"{'identical' if same else 'differ'}")
+            if not same:
+                raise SystemExit(f"bytellama_5m serving {key}: graph and "
+                                 "eager serving tokens differ")
             matched[key] = [next((i for i, (a, b) in enumerate(
                 zip(r.output_ids, gd["token_ids"])) if a != b), len(gd["token_ids"]))
                 for r, gd in zip(reqs, golds)]
@@ -2216,6 +2304,20 @@ def device_ms_by_kernel(prof) -> dict:
     return by_name
 
 
+def device_busy_ms(prof) -> float:
+    """Device time (ms) with at least one kernel or copy running in a
+    torch.profiler run: the union of their intervals, so kernels that
+    overlap (programmatic dependent launch) count once."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(b - max(a, end), 0.0)
+        end = max(end, b)
+    return busy / 1e3
+
+
 # the kernels int4_matmul_fused launches (csrc/int4_matmul_fused.cu: the
 # norm, the tensor-core contraction of csrc/int4_mma.cuh, the epilogue), by
 # their names in device_ms_by_kernel
@@ -2255,7 +2357,7 @@ def burst_profile(srv, cfg, n_ticks: int = 16) -> dict:
     srv.run()
     srv.done.clear()
     by_name = device_ms_by_kernel(prof)
-    busy = sum(by_name.values())
+    busy = device_busy_ms(prof)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     if ticks != n_ticks or ticks_p != n_ticks or busy == 0.0:
         return {"burst": {"ticks": [ticks, ticks_p], "device_ms": busy,
@@ -2263,6 +2365,7 @@ def burst_profile(srv, cfg, n_ticks: int = 16) -> dict:
     return {"burst": dict(
         ticks=ticks, tick_wall_ms=wall * 1e3 / ticks,
         tick_device_ms=busy / ticks_p,
+        tick_kernel_sum_ms=sum(by_name.values()) / ticks_p,
         busy_share=busy / ticks_p / (wall * 1e3 / ticks),
         fused_device_ms_per_tick=sum(by_name.get(k, 0.0)
                                      for k in FUSED_KERNEL_NAMES) / ticks_p,
@@ -2271,44 +2374,52 @@ def burst_profile(srv, cfg, n_ticks: int = 16) -> dict:
         top_kernels_ms_per_tick={k: v / ticks_p for k, v in top})}
 
 
-def decode_profile(params, cfg, eng, prompt, gcfg, step_ms: float,
-                   steps: int = 16) -> dict:
-    """Device time of the decode steps by kernel, from a torch.profiler
-    trace of ``steps`` steps (sampling included), and the device operations
-    (kernels and copies) per step; the busy share divides the time by the
-    unprofiled step time ``step_ms``."""
+def decode_profile(eng, step_ms: float, steps: int = 16) -> dict:
+    """The captured decode step of ``eng``'s last ``generate_device``,
+    replayed ``steps`` more times: its device ms by CUDA events over the
+    back-to-back replays (and the host's ms to issue one replay), then by
+    kernel from a torch.profiler trace, with
+    the graph nodes a step (the kernels and copies traced per replay); the
+    device ms is the traced time with a kernel running (``device_busy_ms``;
+    the kernels' summed times beside it), the busy share that over the
+    unprofiled step time ``step_ms`` of the timed run."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from tinychatengine_tpu_torch.generation import sampling
-    from tinychatengine_tpu_torch.generation.engine import forward_for_family
-    forward = forward_for_family(cfg.family)
+    step = next(st for key, st in reversed(eng.graphs.steps.items())
+                if key[0] == "decode")
     with torch.inference_mode():
-        cache = eng.new_cache()
-        logits, _ = eng.prefill(prompt, cache)
-        state = sampling.SamplerState.init(0, 1, 5.0, "cuda")
-        last = torch.full((1, 64), -1, dtype=torch.long, device="cuda")
         torch.cuda.synchronize()
+        t0, t1 = _events()
+        t0.record()
+        host = time.perf_counter()
+        for _ in range(steps):
+            step.replay()
+        host = time.perf_counter() - host
+        t1.record()
+        torch.cuda.synchronize()
+        replay_ms = t0.elapsed_time(t1) / steps
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for i in range(steps):
-                tok, state = sampling.sample(logits, state, gcfg, last)
-                last = torch.cat([last[:, 1:], tok[:, None].long()], dim=1)
-                logits, _ = forward(params, cfg, tok[:, None].long(), cache,
-                                    64 + i)
+            for _ in range(steps):
+                step.replay()
             torch.cuda.synchronize()
-    from torch.autograd import DeviceType
     by_name = device_ms_by_kernel(prof)
-    busy_ms = sum(by_name.values()) / steps
+    busy_ms = device_busy_ms(prof) / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     for name, ms in top:
         log(f"  decode step device time {ms / steps:8.4f} ms  {name}")
+    out = dict(decode_replay_ms_per_step=replay_ms,
+               decode_host_ms_per_replay=host * 1e3 / steps)
     if busy_ms == 0.0:
-        log("  decode profile: no device time traced (not measured)")
-        return {}
+        log("  decode profile: no device time traced in the replays (not "
+            "measured)")
+        return out
     ops = sum(e.device_type == DeviceType.CUDA for e in prof.events())
-    return dict(decode_device_ms_per_step=busy_ms,
-                decode_busy_share=busy_ms / step_ms,
-                decode_device_ops_per_step=ops / steps)
+    out.update(decode_device_ms_per_step=busy_ms,
+               decode_kernel_sum_ms_per_step=sum(by_name.values()) / steps,
+               decode_busy_share=busy_ms / step_ms,
+               decode_graph_nodes_per_step=ops / steps)
+    return out
 
 
 def real_weights(dev="cuda"):
@@ -2638,7 +2749,7 @@ def main(argv=None) -> int:
                                                       get_model_config)
     llama = random_model(get_model_config("llama3_8b"), "cuda")
     launches, per_step, metrics = phase("llama main path", main_path,
-                                        model_params=llama)
+                                        model_params=llama, eager_rate=True)
     w4a16 = (as_w4a16(llama[0]), QuantConfig(scheme="w4a16"))
     llama_ab = phase("llama w4a16 fused decode", fused_ab, "llama3_8b",
                      model_params=w4a16, n_predict=SHORT_DECODE)
@@ -2720,13 +2831,22 @@ def main(argv=None) -> int:
         log(f"{model} first decode step, fused vs unfused:",
             json.dumps(ab["first_step"]))
     for model, m in engine_runs:
-        log(f"{model} main path on {smi}: decode {m['decode_tok_s']:.2f} "
-            f"tok/s, TTFT {m['ttft_ms']:.1f} ms, prefill "
-            f"{m['prefill_tok_s']:.1f} tok/s, device "
-            f"{m.get('decode_device_ms_per_step', 'not measured')} ms per "
-            f"step, busy share {m.get('decode_busy_share', 'not measured')}, "
-            f"device ops per step "
-            f"{m.get('decode_device_ops_per_step', 'not measured')}")
+        log(f"{model} main path (CUDA graphs) on {smi}: decode "
+            f"{m['decode_tok_s']:.2f} tok/s, TTFT {m['ttft_ms']:.1f} ms, "
+            f"prefill {m['prefill_tok_s']:.1f} tok/s, replayed step "
+            f"{m.get('decode_replay_ms_per_step', 'not measured')} ms, "
+            f"device {m.get('decode_device_ms_per_step', 'not measured')} "
+            f"ms per step, busy share "
+            f"{m.get('decode_busy_share', 'not measured')}, graph nodes per "
+            f"step {m.get('decode_graph_nodes_per_step', 'not measured')} "
+            f"(kernel sum "
+            f"{m.get('decode_kernel_sum_ms_per_step', 'not measured')} ms), "
+            f"{m.get('graph_captures')} captures in "
+            f"{m.get('graph_capture_s')} s; tokens equal to the eager "
+            f"loop's: {m['graph_eq_eager']}")
+    log(f"llama3_8b w4a8 decode on {smi}: CUDA graphs "
+        f"{metrics['decode_tok_s']:.2f} tok/s, eager loop "
+        f"{metrics['eager_decode_tok_s']:.2f} tok/s")
     log("llama3_8b first decode step, int8 vs bf16 KV:",
         json.dumps(kv8[2]["first_step_vs_bf16_kv"]))
     log("llama3_8b first decode step, K-outer vs int4_matmul:",

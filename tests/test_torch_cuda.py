@@ -891,3 +891,219 @@ def test_int4_matmul_band_route_ragged_last_band(cuda, m, k, n):
                                              layer_idx=1))
     got = im.int4_matmul(x, packed[1], scales[1], 128)
     assert _mat_ok(got, im.int4_matmul_plain(x, packed[1], scales[1], 128))
+
+
+# ---- the captured device loops (generation/cuda_graph.py) -----------------
+
+GRAPH_LLAMA = dict(name="tiny_graph", family="llama", num_heads=4,
+                   num_kv_heads=2, num_layers=2, max_sqlen=256,
+                   embed_dim=256, hidden_dim=512, vocab_size=512)
+GRAPH_PROMPT = np.random.default_rng(0).integers(0, 512, (1, 20))
+
+
+def _tiny_llama(cuda, scheme="w4a8", kv="bf16"):
+    from tinychatengine_tpu_torch.core.config import ModelConfig, QuantConfig
+    from tinychatengine_tpu_torch.models import llama
+    cfg = ModelConfig(**GRAPH_LLAMA)
+    qcfg = QuantConfig(scheme=scheme, group_size=128, kv_cache_dtype=kv)
+    return cfg, qcfg, llama.init_random_params(cfg, qcfg, seed=0,
+                                               device=cuda)
+
+
+def _engines(cuda, scheme="w4a8", kv="bf16"):
+    """(graph engine, eager engine) on one tiny random llama."""
+    from tinychatengine_tpu_torch.generation.engine import Engine
+    cfg, qcfg, params = _tiny_llama(cuda, scheme, kv)
+    return (Engine(params, cfg, qcfg, device=cuda),
+            Engine(params, cfg, qcfg, device=cuda, cuda_graphs=False))
+
+
+@pytest.mark.parametrize("scheme,kv", [("w4a8", "bf16"), ("w4a8", "int8"),
+                                       ("w4a16", "bf16"), ("fp", "bf16")])
+def test_graph_tokens_equal_eager_tokens(cuda, scheme, kv):
+    """``generate_device`` through the captured prompt and step graphs
+    gives the eager loop's greedy tokens (with a repeat penalty) at every
+    step, and the captured prefill the eager prefill's logits bit for
+    bit."""
+    from tinychatengine_tpu_torch.core.config import GenerationConfig
+    graph, eager = _engines(cuda, scheme, kv)
+    g = GenerationConfig(temp=0.0, repeat_penalty=1.1, repeat_last_n=16)
+    want = eager.generate_device(GRAPH_PROMPT, g, n_tokens=40)
+    for _ in range(2):  # the capture's call, then a replay's
+        got = graph.generate_device(GRAPH_PROMPT, g, n_tokens=40)
+        assert torch.equal(got, want)
+    la, _ = graph.prefill(GRAPH_PROMPT, graph.new_cache())
+    lb, _ = eager.prefill(GRAPH_PROMPT, eager.new_cache())
+    assert torch.equal(la, lb)
+
+
+def test_second_generate_device_call_captures_nothing(cuda):
+    """One capture each for the prompt bucket and the step; a second call
+    with the same shapes (another prompt, another length) replays them,
+    and the launch counters count every replay: one step's kernels per
+    token, one prefill's per prompt."""
+    from tinychatengine_tpu_torch.core.config import GenerationConfig
+    graph, _ = _engines(cuda)
+    g = GenerationConfig(temp=0.0, repeat_penalty=1.0, repeat_last_n=1)
+    graph.generate_device(GRAPH_PROMPT, g, n_tokens=8)
+    assert graph.graphs.captures == 2
+    nl = GRAPH_LLAMA["num_layers"]
+    _build.reset_launches()
+    graph.generate_device(GRAPH_PROMPT[:, ::-1].copy(), g, n_tokens=5)
+    torch.cuda.synchronize()
+    assert graph.graphs.captures == 2
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {
+        "flash_prefill": nl, "flash_decode": 5 * nl,
+        "int4_matmul_a8": 6 * (4 * nl + 1)}
+
+
+def _kv_equal(a, b, n: int) -> bool:
+    """Positions [0, n) of every buffer of two caches are equal."""
+    pairs = [(a.k, b.k), (a.v, b.v)]
+    if a.k_scale is not None:
+        pairs += [(a.k_scale, b.k_scale), (a.v_scale, b.v_scale)]
+    return all(torch.equal(x[:, :, :, :n], y[:, :, :, :n]) for x, y in pairs)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_graph_caches_equal_eager_caches(cuda, kv):
+    """The graphs run in the engine's own cache, never handed out: with
+    ``return_cache`` the capturing call and a replaying call each return a
+    fresh cache (no two share storage) whose length and written positions
+    equal the eager loop's. A caller's cache, one that already has a
+    length, is filled in place to the eager loop's length and contents,
+    and replays without a capture; so does a prefill that continues a
+    caller's cache at a later start, copying its head in."""
+    from tinychatengine_tpu_torch.core.config import GenerationConfig
+    graph, eager = _engines(cuda, kv=kv)
+    g = GenerationConfig(temp=0.0, repeat_penalty=1.0, repeat_last_n=1)
+    n = GRAPH_PROMPT.shape[1] + 12
+    want_toks, want = eager.generate_device(GRAPH_PROMPT, g, n_tokens=12,
+                                            return_cache=True)
+    got = []
+    for _ in range(2):  # the capturing call, then a replaying call
+        toks, c = graph.generate_device(GRAPH_PROMPT, g, n_tokens=12,
+                                        return_cache=True)
+        assert torch.equal(toks, want_toks)
+        assert c.length == want.length == n and _kv_equal(c, want, n)
+        got.append(c)
+    assert graph.graphs.captures == 2
+    assert len({c.k.data_ptr() for c in got}
+               | {graph._cache.k.data_ptr()}) == 3
+    outs = []
+    for eng in (graph, eager):
+        cache = eng.new_cache()
+        cache.length = 5
+        toks, out = eng.generate_device(GRAPH_PROMPT, g, n_tokens=12,
+                                        cache=cache, return_cache=True)
+        assert out is cache and torch.equal(toks, want_toks)
+        outs.append(out)
+    assert outs[0].length == outs[1].length == 5 + n
+    assert _kv_equal(*outs, n) and graph.graphs.captures == 2
+    head, tail = GRAPH_PROMPT[:, :12], GRAPH_PROMPT[:, 12:]
+    logits, caches = [], []
+    for eng in (graph, eager):
+        cache = eng.new_cache()
+        eng.prefill(head, cache)
+        lg, cache = eng.prefill(tail, cache, start=12)
+        logits.append(lg)
+        caches.append(cache)
+    assert torch.equal(*logits) and caches[0].length == caches[1].length
+    assert _kv_equal(*caches, GRAPH_PROMPT.shape[1])
+
+
+def test_plain_call_captured_in_a_step_counts_at_each_replay(cuda,
+                                                             monkeypatch):
+    """A plain version that a captured step calls is counted by
+    ``chip_smoke.plain_calls`` at the step's eager first run and again at
+    every replay, though Python calls it only at the capture: the counter
+    chip_smoke holds at 0 sees a plain fallback baked into a graph."""
+    import chip_smoke
+    from tinychatengine_tpu_torch.generation import cuda_graph as cg
+    monkeypatch.setattr(att, "flash_decode_plain", lambda t: t * 2)
+    x = torch.ones(8, device=cuda)
+    y = torch.zeros(8, device=cuda)
+
+    def body():
+        y.copy_(att.flash_decode_plain(x))
+        x.add_(1)
+    graphs = cg.Graphs(cuda)
+    with chip_smoke.plain_calls() as plain:
+        step = graphs.step("planted", lambda: cg.Step(body, None))
+        for _ in range(4):  # the eager run and the capture, 3 replays
+            graphs.run(step)
+        torch.cuda.synchronize()
+    assert graphs.captures == 1 and graphs.capture_s > 0
+    assert plain["flash_decode_plain"] == 4
+    assert float(x[0]) == 5.0 and float(y[0]) == 8.0
+
+
+@pytest.mark.parametrize("name", ["top_k_top_p", "mirostat2", "typical"])
+def test_sampled_graph_draws_equal_eager_draws(cuda, name):
+    """The step's generator is registered with its graph: each replay
+    draws what the eager step draws for the same seed (temperature with
+    top-k and top-p, mirostat 2 with its mu carried in place, tail-free
+    and typical)."""
+    from tinychatengine_tpu_torch.core.config import GenerationConfig
+    graph, eager = _engines(cuda)
+    g = {"top_k_top_p": GenerationConfig(temp=0.9, top_k=40, top_p=0.9,
+                                         seed=7),
+         "mirostat2": GenerationConfig(temp=1.0, mirostat=2, seed=7,
+                                       repeat_penalty=1.0),
+         "typical": GenerationConfig(temp=0.8, tfs_z=0.95, typical_p=0.9,
+                                     seed=9, logit_bias={3: 2.0})}[name]
+    want = eager.generate_device(GRAPH_PROMPT, g, n_tokens=32)
+    for _ in range(2):
+        assert torch.equal(graph.generate_device(GRAPH_PROMPT, g,
+                                                 n_tokens=32), want)
+    assert len(set(want[0].tolist())) > 4  # the draws are not all greedy
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_ctx_cap_leaves_flash_decode_bits(cuda, int8):
+    """Device lengths with a ``ctx_cap`` above every length: the grid
+    drops only empty splits, so the output equals the full grid's bit for
+    bit."""
+    rng = np.random.default_rng(21 + int8)
+    b, hq, hkv, d, smax = 3, 8, 2, 128, 2048
+    if int8:
+        k, ks = _int8_kv(rng, (1, b, hkv, smax, d), cuda)
+        v, vs = _int8_kv(rng, (1, b, hkv, smax, d), cuda)
+    else:
+        k, v = (_bf16(rng, (1, b, hkv, smax, d), cuda) for _ in range(2))
+        ks = vs = None
+    q = _bf16(rng, (b, hq, d), cuda)
+    for lens, cap in (([1, 200, 512], 512), ([700, 3, 1024], 1024),
+                      ([5, 6, 7], 128), ([2048, 1, 9], 4096)):
+        lt = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        full = att.flash_decode(q, k, v, 0, lt, ks, vs)
+        assert torch.equal(att.flash_decode(q, k, v, 0, lt, ks, vs,
+                                            ctx_cap=cap), full)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_serving_graph_ticks_equal_eager_ticks(cuda, paged):
+    """The serving burst and single ticks through the captured tick give
+    the eager server's tokens for a mixed load (greedy with a penalty,
+    top-p, top-k), dense and paged."""
+    from tinychatengine_tpu_torch.core.config import GenerationConfig
+    from tinychatengine_tpu_torch.runtime.serving import ServingEngine
+    cfg, qcfg, params = _tiny_llama(cuda)
+    g = GenerationConfig(temp=0.0, n_predict=24, repeat_penalty=1.1,
+                         repeat_last_n=8, seed=4)
+    mix = [None, GenerationConfig(temp=1.1, top_p=0.9, n_predict=24,
+                                  repeat_penalty=1.0, repeat_last_n=4,
+                                  seed=33),
+           GenerationConfig(temp=0.7, top_k=5, n_predict=24, seed=8)]
+    outs = []
+    for graphs in (True, False):
+        srv = ServingEngine(params, cfg, qcfg, slots=4, gcfg=g, tick_batch=8,
+                            paged=paged, page_size=64, device=cuda,
+                            cuda_graphs=graphs)
+        reqs = [srv.submit(GRAPH_PROMPT[0, :5 + 3 * i], gcfg=mix[i % 3])
+                for i in range(6)]
+        srv.run()
+        outs.append([r.output_ids for r in reqs])
+        if graphs:
+            assert srv.graphs.captures >= 1 and srv.tick_stats["bursts"] > 0
+    assert outs[0] == outs[1]

@@ -22,7 +22,8 @@ def _port_modules():
 
 def test_every_port_module_imports_without_jax():
     mods = ["tinychatengine_tpu_torch"] + _port_modules()
-    assert "tinychatengine_tpu_torch.generation.engine" in mods
+    assert {"tinychatengine_tpu_torch.generation.engine",
+            "tinychatengine_tpu_torch.generation.cuda_graph"} <= set(mods)
     assert {"tinychatengine_tpu_torch.runtime.paged",
             "tinychatengine_tpu_torch.runtime.serving",
             "tinychatengine_tpu_torch.models.opt",
@@ -49,7 +50,9 @@ def _imports(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
-                         [REPO / "chip_smoke.py"],
+                         [REPO / "chip_smoke.py",
+                          REPO / "scripts" / "bench_torch.py",
+                          REPO / "scripts" / "decode_gap.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_package_import(path):
     for name in _imports(path):

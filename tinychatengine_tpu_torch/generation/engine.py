@@ -5,9 +5,16 @@
   prompt longer than ``CHUNK`` runs chunk by chunk against the cache.
 - **generate**: the host loop, one forward and one sample per token, the
   token fetched to the host each step (stop tokens, streaming callback).
-- **generate_device**: tokens stay on the card; a Python loop of forward +
-  sample steps that synchronises once, at the end.
+- **generate_device**: tokens stay on the card and the host synchronises
+  once, at the end.
 
+On the card each prompt chunk (bucket, start) and the decode step (sample,
+penalty window, forward at a device position) run as captured CUDA graphs
+(``generation/cuda_graph.py``), the counterpart of JAX's jitted prefill
+and its ``lax.scan``: ``generate_device`` replays the step n_tokens times,
+``prefill`` one graph per chunk, all in one cache the engine owns.
+``cuda_graphs=False`` keeps the eager loops on the card, for comparisons;
+on the CPU the loops are eager.
 Sampling runs on the device in both loops (generation/sampling.py). The
 family's forward comes from ``forward_for_family`` (llama, opt,
 gptbigcode).
@@ -25,6 +32,7 @@ import torch
 from tinychatengine_tpu_torch.core.config import (GenerationConfig,
                                                   ModelConfig, QuantConfig)
 from tinychatengine_tpu_torch.core.device import resolve_device
+from tinychatengine_tpu_torch.generation import cuda_graph as cg
 from tinychatengine_tpu_torch.generation import kv_cache as kvc
 from tinychatengine_tpu_torch.generation import sampling
 from tinychatengine_tpu_torch.models import gptbigcode, llama, opt
@@ -58,6 +66,15 @@ def _bucket(n: int) -> int:
     raise ValueError(f"prompt length {n} exceeds largest bucket")
 
 
+def ctx_cap_for(needed: int, max_len: int) -> int:
+    """JAX's static decode bound: the power of two >= 512 covering
+    ``needed`` positions, capped at ``max_len``."""
+    cap = 512
+    while cap < needed:
+        cap *= 2
+    return min(cap, max_len)
+
+
 @dataclasses.dataclass
 class GenerationResult:
     tokens: list  # per-sequence list of generated token ids
@@ -66,11 +83,107 @@ class GenerationResult:
     decode_s: float
     cache: object = None
 
+    @property
+    def tokens_per_s(self) -> float:
+        n = len(self.tokens[0]) if self.tokens else 0
+        return n / self.decode_s if self.decode_s > 0 else 0.0
+
 
 def _penalty_window(gcfg: GenerationConfig) -> int:
     # -1 = context size; 0 disables penalties (the window stays all -1)
     return max(gcfg.n_ctx if gcfg.repeat_last_n < 0 else gcfg.repeat_last_n,
                1)
+
+
+def _static_fields(gcfg: GenerationConfig) -> tuple:
+    """The sampling fields a captured step bakes in: all but the seed (the
+    generator is seeded before each run) and n_predict."""
+    out = []
+    for f in dataclasses.fields(gcfg):
+        v = getattr(gcfg, f.name)
+        if f.name in ("seed", "n_predict"):
+            continue
+        if f.name == "logit_bias" and v:
+            v = tuple(sorted((int(t), float(b)) for t, b in (
+                v.items() if hasattr(v, "items") else v)))
+        out.append((f.name, v))
+    return tuple(out)
+
+
+class DecodeStep:
+    """``generate_device``'s step over static buffers: sample from
+    ``logits`` (with the penalty window ``last``), write the token at
+    column ``index`` of ``out``, update the window, run the forward at the
+    device positions ``pos`` [B] int32, advance both. ``body`` is what the
+    card captures; it runs eagerly anywhere (the CPU tests)."""
+
+    def __init__(self, eng: "Engine", cache, logits_shape, gcfg, ctx_cap):
+        dev = eng.device
+        b = logits_shape[0]
+        # the engine's model, not the engine: no reference cycle through
+        # its graphs
+        self.model = (eng._forward, eng.params, eng.cfg)
+        self.cache, self.gcfg, self.ctx_cap = cache, gcfg, ctx_cap
+        self.logits = torch.zeros(logits_shape, dtype=torch.float32,
+                                  device=dev)
+        self.last = torch.full((b, _penalty_window(gcfg)), -1,
+                               dtype=torch.int64, device=dev)
+        self.pos = torch.zeros((b,), dtype=torch.int32, device=dev)
+        self.index = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.out = torch.zeros((b, cache.max_len), dtype=torch.int32,
+                               device=dev)
+        self.sampler = sampling.SamplerState.init(gcfg.seed, b,
+                                                  gcfg.mirostat_tau, dev)
+        self.bias = sampling.logit_bias_tensors(gcfg, dev)
+
+    def reset(self, logits, last: np.ndarray, pos: int, seed: int) -> None:
+        """A run's start: the prefill's logits, the prompt's window, the
+        first decode position, a fresh generator and mirostat mu."""
+        self.logits.copy_(logits)
+        self.last.copy_(torch.from_numpy(last))
+        self.pos.fill_(pos)
+        self.index.zero_()
+        self.sampler.mu.fill_(2.0 * self.gcfg.mirostat_tau)
+        self.sampler.gen.manual_seed(max(seed, 0))
+
+    def body(self) -> None:
+        tok, state = sampling.sample(self.logits, self.sampler, self.gcfg,
+                                     self.last, bias=self.bias)
+        if state.mu is not self.sampler.mu:
+            self.sampler.mu.copy_(state.mu)
+        self.out.index_copy_(1, self.index, tok[:, None])
+        if self.gcfg.repeat_last_n != 0:  # 0 = penalties disabled
+            self.last.copy_(torch.cat([self.last[:, 1:], tok[:, None].long()],
+                                      dim=1))
+        forward, params, cfg = self.model
+        logits, _ = forward(params, cfg, tok[:, None].long(), self.cache,
+                            self.pos, ctx_cap=self.ctx_cap)
+        self.logits.copy_(logits)
+        self.pos.add_(1)
+        self.index.add_(1)
+
+
+class PrefillStep:
+    """One prompt chunk of ``bucket`` ids at host position ``start`` over
+    static buffers: ``ids`` [B, bucket], ``true_len`` (0-d int32, read on
+    the device only), ``logits`` [B, V] of each row's last real position."""
+
+    def __init__(self, eng: "Engine", cache, b: int, bucket: int,
+                 start: int):
+        dev = eng.device
+        self.model = (eng._forward, eng.params, eng.cfg)
+        self.cache, self.start = cache, start
+        self.ids = torch.zeros((b, bucket), dtype=torch.int64, device=dev)
+        self.true_len = torch.zeros((), dtype=torch.int32, device=dev)
+        self.logits = None
+
+    def body(self) -> None:
+        forward, params, cfg = self.model
+        logits, _ = forward(params, cfg, self.ids, self.cache, self.start,
+                            true_len=self.true_len)
+        if self.logits is None:  # made outside the capture: the eager run
+            self.logits = torch.empty_like(logits)
+        self.logits.copy_(logits)
 
 
 class Engine:
@@ -79,13 +192,23 @@ class Engine:
 
     ``device`` defaults to the card and raises when there is none; CPU
     runs pass ``device="cpu"`` (params must already lie there).
-    ``forward_fn`` defaults to the family's forward."""
+    ``forward_fn`` defaults to the family's forward. ``kv_dtype``: the
+    cache's storage dtype, stored raw with no scales (JAX's ``kv_dtype``;
+    default None: OPT W8A8's raw int8, else bf16, or int8 with scales under
+    ``qcfg.kv_cache_dtype="int8"``). ``cuda_graphs``: on the card,
+    ``prefill`` and ``generate_device`` replay captured CUDA graphs
+    (``graphs``); False keeps the eager loops, for comparisons. The graphs
+    run in one cache the engine owns (its storage is what they captured),
+    so every call replays them: a caller's cache is copied in (the
+    positions the call reads) and out (the positions it wrote), and a cache
+    handed back is the caller's or a fresh copy, never the engine's."""
 
     CHUNK = 2048  # long prompts prefill in chunks of this many tokens
 
     def __init__(self, params, cfg: ModelConfig,
                  qcfg: Optional[QuantConfig] = None, batch: int = 1,
-                 max_len: Optional[int] = None, device=None, forward_fn=None):
+                 max_len: Optional[int] = None, device=None, forward_fn=None,
+                 kv_dtype=None, cuda_graphs: bool = True):
         self._forward = forward_fn or forward_for_family(cfg.family)
         self.device = resolve_device(device)
         self.params = params
@@ -93,34 +216,100 @@ class Engine:
         self.qcfg = qcfg or QuantConfig()
         self.batch = batch
         self.max_len = max_len or cfg.max_sqlen
+        self.kv_dtype = kv_dtype
+        if kv_dtype is None and raw_int8_kv(cfg, self.qcfg):
+            self.kv_dtype = torch.int8
         self.profiler = Profiler()
+        self.graphs = (cg.Graphs(self.device)
+                       if cuda_graphs and self.device.type == "cuda" else None)
+        self._cache = None  # the graph path's own cache (``_own_cache``)
+        self._cache_default = True  # made by new_cache, not like a caller's
 
     def new_cache(self) -> kvc.KVCache:
-        raw = raw_int8_kv(self.cfg, self.qcfg)
+        if self.kv_dtype is not None:
+            return kvc.init_cache(
+                self.cfg.num_layers, self.batch, self.max_len,
+                self.cfg.num_kv_heads, self.cfg.head_dim,
+                dtype=self.kv_dtype, device=self.device)
         return kvc.init_cache(
             self.cfg.num_layers, self.batch, self.max_len,
             self.cfg.num_kv_heads, self.cfg.head_dim,
-            dtype=torch.int8 if raw else torch.bfloat16,
-            quantized=not raw and self.qcfg.kv_cache_dtype == "int8",
+            quantized=self.qcfg.kv_cache_dtype == "int8",
             device=self.device)
+
+    def _own_cache(self, like: Optional[kvc.KVCache] = None
+                   ) -> kvc.KVCache:
+        """The graph path's cache, of ``like``'s layout (the engine's own,
+        ``new_cache``'s, without one). Another layout remakes it and drops
+        the steps captured on the old one."""
+        own = self._cache
+        if own is not None and (not self._cache_default if like is None else
+                                kvc.layout(like) != kvc.layout(own)):
+            self.graphs.steps.clear()
+            own = self._cache = None
+        if own is None:
+            own = self.new_cache() if like is None else kvc.fresh_like(like)
+            self._cache, self._cache_default = own, like is None
+        return own
 
     @torch.inference_mode()
     def prefill(self, input_ids: np.ndarray, cache: kvc.KVCache,
                 start: int = 0):
         """input_ids [B, L] (unpadded). Returns (last-position logits
-        [B, V], cache)."""
+        [B, V], cache). On the graph path the chunks run in the engine's
+        cache: positions [0, start) are copied in from ``cache`` and the
+        prompt's positions back out to it."""
+        if self.graphs is None:
+            return self._prefill(input_ids, cache, start)
+        own = self._own_cache(cache)
+        kvc.copy_positions(cache, own, 0, start)
+        own.length = cache.length
+        logits, _ = self._prefill(input_ids, own, start)
+        kvc.copy_positions(own, cache, start, start + np.shape(input_ids)[1])
+        cache.length = own.length
+        return logits, cache
+
+    def _prefill(self, input_ids: np.ndarray, cache: kvc.KVCache,
+                 start: int):
+        """The chunks of ``prefill`` in ``cache``: through their graphs
+        (the engine's cache only) or eager."""
         b, n = input_ids.shape
         while n > self.CHUNK:
             head, input_ids = input_ids[:, :self.CHUNK], input_ids[:, self.CHUNK:]
-            _, cache = self._forward(
-                self.params, self.cfg, self._ids(head), cache, start,
-                true_len=self.CHUNK)
+            if self.graphs is not None:
+                self._prefill_graph(head, cache, start, self.CHUNK)
+            else:
+                _, cache = self._forward(
+                    self.params, self.cfg, self._ids(head), cache, start,
+                    true_len=self.CHUNK)
             start += self.CHUNK
             n -= self.CHUNK
         ids = np.zeros((b, _bucket(n)), np.int64)
         ids[:, :n] = input_ids
+        if self.graphs is not None:
+            return self._prefill_graph(ids, cache, start, n), cache
         return self._forward(self.params, self.cfg, self._ids(ids), cache,
                              start, true_len=n)
+
+    def _prefill_graph(self, ids: np.ndarray, cache: kvc.KVCache, start: int,
+                       n: int) -> torch.Tensor:
+        """One chunk through its captured graph, keyed by (cache, batch,
+        bucket, start): ids and the real length go into the static
+        buffers; the cache's host length advances by n, as the eager
+        forward advances it."""
+        b, bucket = ids.shape
+        key = ("prefill", cg.storage_key(cache.k, cache.v, cache.k_scale),
+               b, bucket, start, cg.routes())
+
+        def build():
+            st = PrefillStep(self, cache, b, bucket, start)
+            return cg.Step(st.body, st)
+        step = self.graphs.step(key, build)
+        step.state.ids.copy_(torch.from_numpy(np.asarray(ids, np.int64)))
+        step.state.true_len.fill_(n)
+        self.graphs.run(step)
+        cache.length += n
+        return step.state.logits.clone()
 
     def _ids(self, ids) -> torch.Tensor:
         return torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
@@ -200,18 +389,43 @@ class Engine:
         """Prefill + n_tokens decode steps with the tokens kept on the card;
         nothing is fetched to the host inside the loop. Returns tokens
         [B, n_tokens] int32 on the engine's device (and the cache with
-        return_cache). No early stop: the caller checks stop tokens."""
+        return_cache). No early stop: the caller checks stop tokens.
+        n_prompt + n_tokens > max_len raises ``ValueError`` before any
+        step. On the card the step is one captured graph (``DecodeStep``),
+        replayed n_tokens times in the engine's cache, whose positions
+        [0, n_prompt + n_tokens) are then copied to ``cache`` (or to a
+        fresh copy with return_cache); ``ctx_cap`` (``ctx_cap_for``) bounds
+        the attention grid as in JAX."""
         input_ids = np.atleast_2d(np.asarray(input_ids, np.int64))
         b, n_prompt = input_ids.shape
         n_tokens = n_tokens or gcfg.n_predict
-        if cache is None:
-            cache = self.new_cache()
+        base = 0 if cache is None else cache.length
+        max_len = self.max_len if cache is None else cache.max_len
+        if n_prompt + n_tokens > max_len:
+            raise ValueError(f"KV cache full: {n_prompt} prompt + {n_tokens} "
+                             f"decode positions > max_len {max_len}")
+        ctx_cap = ctx_cap_for(base + n_prompt + n_tokens, self.max_len)
+        window = self._prompt_window(input_ids, gcfg)
         # as in the JAX package: the prompt lands at position 0 and decode
         # continues from n_prompt, whatever the cache held before
+        if self.graphs is not None:
+            own = self._own_cache(cache)
+            own.length = base
+            logits, _ = self._prefill(input_ids, own, 0)
+            tokens = self._decode_graph(own, logits, window, n_prompt,
+                                        n_tokens, gcfg, ctx_cap)
+            if cache is not None:
+                kvc.copy_positions(own, cache, 0, n_prompt + n_tokens)
+                cache.length = own.length
+            elif return_cache:
+                cache = kvc.clone(own)
+            return (tokens, cache) if return_cache else tokens
+        if cache is None:
+            cache = self.new_cache()
         logits, cache = self.prefill(input_ids, cache)
         state = sampling.SamplerState.init(gcfg.seed, b, gcfg.mirostat_tau,
                                            self.device)
-        last = self._ids(self._prompt_window(input_ids, gcfg))
+        last = self._ids(window)
         pos = n_prompt
         toks = []
         for _ in range(n_tokens):
@@ -220,7 +434,31 @@ class Engine:
             if gcfg.repeat_last_n != 0:
                 last = torch.cat([last[:, 1:], tok[:, None].long()], dim=1)
             logits, cache = self._forward(self.params, self.cfg,
-                                          tok[:, None].long(), cache, pos)
+                                          tok[:, None].long(), cache, pos,
+                                          ctx_cap=ctx_cap)
             pos += 1
         tokens = torch.stack(toks, dim=1)
         return (tokens, cache) if return_cache else tokens
+
+    def _decode_graph(self, cache, logits, window, n_prompt: int,
+                      n_tokens: int, gcfg, ctx_cap: int) -> torch.Tensor:
+        """n_tokens replays of the decode step keyed by (cache, logits
+        shape, ctx_cap, the sampler's static fields); the cache's host
+        length ends n_tokens on, as the eager loop's forwards leave it (a
+        capture runs the body twice, eager and captured, and each run's
+        forward advances it)."""
+        key = ("decode", cg.storage_key(cache.k, cache.v, cache.k_scale),
+               tuple(logits.shape), ctx_cap, _static_fields(gcfg),
+               cg.routes())
+
+        def build():
+            st = DecodeStep(self, cache, tuple(logits.shape), gcfg, ctx_cap)
+            gens = (st.sampler.gen,) if gcfg.temp > 0 else ()
+            return cg.Step(st.body, st, gens)
+        step = self.graphs.step(key, build)
+        step.state.reset(logits, window, n_prompt, gcfg.seed)
+        length = cache.length
+        for _ in range(n_tokens):
+            self.graphs.run(step)
+        cache.length = length + n_tokens
+        return step.state.out[:, :n_tokens].clone()

@@ -136,3 +136,41 @@ def read_layer(cache: KVCache, layer_idx: int):
 def advance(cache: KVCache, n: int) -> KVCache:
     cache.length += int(n)
     return cache
+
+
+def _buffers(cache: KVCache) -> tuple:
+    return tuple(t for t in (cache.k, cache.v, cache.k_scale, cache.v_scale)
+                 if t is not None)
+
+
+def layout(cache: KVCache) -> tuple:
+    """(shape, dtype, device) of each buffer: caches of one layout can
+    take each other's positions (``copy_positions``)."""
+    return tuple((tuple(t.shape), t.dtype, t.device) for t in _buffers(cache))
+
+
+def fresh_like(cache: KVCache) -> KVCache:
+    """A cache of ``cache``'s layout as ``init_cache`` makes one (zero
+    codes, unit scales), length 0."""
+    ones = (None if t is None else torch.ones_like(t)
+            for t in (cache.k_scale, cache.v_scale))
+    return KVCache(torch.zeros_like(cache.k), torch.zeros_like(cache.v), 0,
+                   *ones)
+
+
+def clone(cache: KVCache) -> KVCache:
+    """A copy of ``cache`` (every buffer and its length)."""
+    return KVCache(cache.k.clone(), cache.v.clone(), cache.length,
+                   *(None if t is None else t.clone()
+                     for t in (cache.k_scale, cache.v_scale)))
+
+
+def copy_positions(src: KVCache, dst: KVCache, lo: int, hi: int) -> KVCache:
+    """Positions [lo, hi) of every layer, row and head (codes and scales)
+    from ``src`` into ``dst`` of the same layout, in place; ``length`` is
+    the caller's."""
+    hi = min(hi, dst.max_len)
+    if hi > lo:
+        for s, d in zip(_buffers(src), _buffers(dst)):
+            d[:, :, :, lo:hi].copy_(s[:, :, :, lo:hi])
+    return dst

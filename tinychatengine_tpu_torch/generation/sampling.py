@@ -239,19 +239,33 @@ def mirostat_v1_step(logits, state: SamplerState, tau: float, eta: float,
                              mu=state.mu - eta * (s_drawn - tau))
 
 
+def logit_bias_tensors(gcfg, device=None):
+    """``gcfg.logit_bias`` (a dict or (id, bias) pairs) as (ids [N] int64,
+    biases [N] f32) on ``device``, or None without one: built once per
+    configuration, outside a captured step (a host list copied to the card
+    inside a CUDA graph capture is refused)."""
+    if not gcfg.logit_bias:
+        return None
+    items = (gcfg.logit_bias.items() if hasattr(gcfg.logit_bias, "items")
+             else gcfg.logit_bias)
+    items = list(items)
+    dev = resolve_device(device)
+    return (torch.tensor([int(t) for t, _ in items], device=dev),
+            torch.tensor([float(b) for _, b in items], device=dev))
+
+
 def sample(logits: torch.Tensor, state: SamplerState, gcfg,
-           last_tokens: Optional[torch.Tensor] = None):
+           last_tokens: Optional[torch.Tensor] = None, bias=None):
     """Full pipeline in the reference's order: penalties → [greedy |
     mirostat | top_k → tfs → typical → top_p → temp → draw].
-    logits [B, V]; last_tokens [B, T] int (-1 = empty). Returns
-    (token [B] int32, new state)."""
+    logits [B, V]; last_tokens [B, T] int (-1 = empty); bias:
+    ``logit_bias_tensors(gcfg)`` built in advance (else built here from
+    ``gcfg.logit_bias``). Returns (token [B] int32, new state)."""
     logits = logits.float()
-    if gcfg.logit_bias:
-        items = (gcfg.logit_bias.items() if hasattr(gcfg.logit_bias, "items")
-                 else gcfg.logit_bias)
-        ids = torch.tensor([int(t) for t, _ in items], device=logits.device)
-        biases = torch.tensor([float(b) for _, b in items],
-                              device=logits.device)
+    if bias is None:
+        bias = logit_bias_tensors(gcfg, logits.device)
+    if bias is not None:
+        ids, biases = bias
         logits = logits.index_add(1, ids, biases.expand(logits.shape[0], -1))
     if gcfg.temp <= 0:
         return greedy_penalized(logits, last_tokens, gcfg), state

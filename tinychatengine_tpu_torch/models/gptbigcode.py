@@ -30,7 +30,7 @@ import torch
 from tinychatengine_tpu_torch.core.config import ModelConfig, QuantConfig
 from tinychatengine_tpu_torch.core.device import resolve_device
 from tinychatengine_tpu_torch.generation import kv_cache as kvc
-from tinychatengine_tpu_torch.models.llama import fusable
+from tinychatengine_tpu_torch.models.llama import fusable, last_rows
 from tinychatengine_tpu_torch.models.opt import stack_layers
 from tinychatengine_tpu_torch.ops import int4_matmul as int4m
 from tinychatengine_tpu_torch.ops import ref
@@ -84,12 +84,16 @@ def fused_group_size(lyr: GPTBigCodeLayerParams, s: int) -> int:
 
 def forward(params: GPTBigCodeParams, cfg: ModelConfig,
             input_ids: torch.Tensor, cache, start, full_logits: bool = False,
-            true_len=None, page_table: Optional[torch.Tensor] = None):
+            true_len=None, page_table: Optional[torch.Tensor] = None,
+            ctx_cap: Optional[int] = None, return_hidden: bool = False):
     """Same contract as ``models.llama.forward``: one forward pass (prefill
     S > 1 or decode S = 1) writing the new K/V into ``cache`` in place.
     ``start``: a host int or an int32 [B] tensor (per-row positions);
-    ``true_len``: an int or a ragged [B] sequence; ``page_table``: the
-    paged decode (S = 1, per-row ``start``). Returns (logits [B, V] f32 of
+    ``true_len``: an int, a ragged [B] sequence or a device tensor
+    (``llama.last_rows``); ``page_table``: the paged decode (S = 1, per-row
+    ``start``); ``ctx_cap``: ``flash_decode``'s static bound on every
+    row's context; ``return_hidden``: the states before the final
+    LayerNorm [B, S, E] instead of logits. Returns (logits [B, V] f32 of
     the last position, or [B, S, V] with full_logits, and the cache)."""
     b, s = input_ids.shape
     dev = params.wte.device
@@ -142,8 +146,8 @@ def forward(params: GPTBigCodeParams, cfg: ModelConfig,
             kvc.update_layer(cache, k, v, li, start)
             if s == 1:
                 attn = flash_decode(q[:, 0], cache.k, cache.v, li, kv_len,
-                                    cache.k_scale, cache.v_scale
-                                    ).reshape(b, 1, hq * d)
+                                    cache.k_scale, cache.v_scale,
+                                    ctx_cap=ctx_cap).reshape(b, 1, hq * d)
             else:
                 attn = flash_prefill(q, cache.k, cache.v, li, start, kv_len,
                                      cache.k_scale, cache.v_scale)
@@ -164,18 +168,10 @@ def forward(params: GPTBigCodeParams, cfg: ModelConfig,
         else:
             x = x + apply_linear(lyr.fc_out, f, layer_idx=li).to(x.dtype)
 
-    if true_len is None or np.ndim(true_len) == 0:
-        n_new = s if true_len is None else int(true_len)
-        if page_table is None:
-            kvc.advance(cache, n_new)
-        if not full_logits:  # the lm_head runs on the last real position
-            x = x[:, n_new - 1:n_new]
-    else:  # ragged rows: each row's last real position
-        lens = torch.as_tensor(true_len, dtype=torch.long, device=dev)
-        kvc.advance(cache, int(lens.max()))
-        if not full_logits:
-            idx = (lens - 1)[:, None, None].expand(b, 1, x.shape[-1])
-            x = torch.gather(x, 1, idx)
+    x = last_rows(x, cache, true_len, s, full_logits or return_hidden,
+                  page_table is None)
+    if return_hidden:
+        return x, cache
     head = params.lm_head
     if gs and fusable(head, bias_ok=True):  # lnf in the head's prologue
         logits = fused(x, head.packed, head.scales, head.group_size,

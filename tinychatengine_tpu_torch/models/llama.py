@@ -109,7 +109,8 @@ class LlamaParams:
 
 def forward(params: LlamaParams, cfg: ModelConfig, input_ids: torch.Tensor,
             cache, start, full_logits: bool = False, true_len=None,
-            page_table: Optional[torch.Tensor] = None):
+            page_table: Optional[torch.Tensor] = None,
+            ctx_cap: Optional[int] = None, return_hidden: bool = False):
     """One forward pass (prefill S > 1 or decode S = 1), writing the new
     K/V into ``cache`` in place.
 
@@ -117,12 +118,19 @@ def forward(params: LlamaParams, cfg: ModelConfig, input_ids: torch.Tensor,
     row) or an int32 [B] tensor on the device (per-row positions, RoPE,
     cache writes and attention lengths: the serving path).
     true_len: for a prompt right-padded to a bucket, its unpadded length,
-    an int or an int [B] sequence or tensor (ragged rows of a batched
-    admission): the cache advances by true_len (by its largest row) and
-    the last-position logits are taken at each row's true_len - 1.
+    an int or an int [B] sequence (ragged rows of a batched admission):
+    the cache advances by true_len (by its largest row) and the
+    last-position logits are taken at each row's true_len - 1. A 0-d or
+    [B] int tensor on the device (a captured prefill) is never read on the
+    host: the rows are gathered on the device and the cache's host length
+    is the caller's to advance (``last_rows``).
     page_table: int32 [B, max_pages] on the device. The cache is then a
     ``runtime.paged.PagedKVCache``, S must be 1 and ``start`` carries the
     per-row lengths; the pool has no length to advance.
+    ctx_cap: JAX's static bound on every row's context in a decode step
+    with per-row ``start`` (``flash_decode``'s grid); the caller keeps
+    start + 1 <= ctx_cap. return_hidden: the states before the final norm
+    [B, S, E] instead of logits.
     Returns (logits [B, V] f32 of the last position, or [B, S, V] with
     full_logits, and the cache)."""
     b, s = input_ids.shape
@@ -189,8 +197,8 @@ def forward(params: LlamaParams, cfg: ModelConfig, input_ids: torch.Tensor,
             kvc.update_layer(cache, k, v, li, start)
             if s == 1:
                 attn = flash_decode(q[:, 0], cache.k, cache.v, li, kv_len,
-                                    cache.k_scale, cache.v_scale,
-                                    window=win).reshape(b, 1, hq * d)
+                                    cache.k_scale, cache.v_scale, window=win,
+                                    ctx_cap=ctx_cap).reshape(b, 1, hq * d)
             else:
                 attn = flash_prefill(q, cache.k, cache.v, li, start, kv_len,
                                      cache.k_scale, cache.v_scale, window=win)
@@ -212,18 +220,10 @@ def forward(params: LlamaParams, cfg: ModelConfig, input_ids: torch.Tensor,
         else:
             x = x + apply_linear(lyr.down, act, layer_idx=li)
 
-    if true_len is None or np.ndim(true_len) == 0:
-        n_new = s if true_len is None else int(true_len)
-        if page_table is None:
-            kvc.advance(cache, n_new)
-        if not full_logits:  # the lm_head runs on the last real position
-            x = x[:, n_new - 1:n_new]
-    else:  # ragged rows: each row's last real position
-        lens = torch.as_tensor(true_len, dtype=torch.long, device=dev)
-        kvc.advance(cache, int(lens.max()))
-        if not full_logits:
-            idx = (lens - 1)[:, None, None].expand(b, 1, x.shape[-1])
-            x = torch.gather(x, 1, idx)
+    x = last_rows(x, cache, true_len, s, full_logits or return_hidden,
+                  page_table is None)
+    if return_hidden:
+        return x, cache
     head = params.lm_head
     if gs and fusable(head):  # the final norm in the head's prologue
         logits = fused(x, head.packed, head.scales, head.group_size,
@@ -233,6 +233,38 @@ def forward(params: LlamaParams, cfg: ModelConfig, input_ids: torch.Tensor,
         logits = apply_linear(head, x)
     logits = logits.float()[..., :cfg.vocab_size]
     return (logits if full_logits else logits[:, 0]), cache
+
+
+def last_rows(x: torch.Tensor, cache, true_len, s: int, keep_all: bool,
+              advance: bool) -> torch.Tensor:
+    """The end of every family's forward: advance the cache's host length
+    (when ``advance``) by the chunk's real length and, unless ``keep_all``,
+    keep each row's last real position of x [B, S, E] ([B, 1, E]).
+    true_len: None (all S rows are real), a host int, a ragged [B] host
+    sequence (the cache advances by its largest row), or an int tensor on
+    x's device, 0-d or [B], which is never read on the host: its rows are
+    gathered on the device and the cache is not advanced (a captured
+    prefill; its caller sets the host length)."""
+    b = x.shape[0]
+    if isinstance(true_len, torch.Tensor):
+        if keep_all:
+            return x
+        idx = (true_len.long().reshape(-1) - 1).expand(b)
+        return torch.gather(x, 1, idx[:, None, None].expand(b, 1, x.shape[-1]))
+    if true_len is None or np.ndim(true_len) == 0:
+        n_new = s if true_len is None else int(true_len)
+        if advance:
+            kvc.advance(cache, n_new)
+        # the lm_head runs on the last real position
+        return x if keep_all else x[:, n_new - 1:n_new]
+    lens = torch.as_tensor(np.asarray(true_len), dtype=torch.long,
+                           device=x.device)
+    if advance:
+        kvc.advance(cache, int(lens.max()))
+    if keep_all:
+        return x
+    idx = (lens - 1)[:, None, None].expand(b, 1, x.shape[-1])
+    return torch.gather(x, 1, idx)
 
 
 def params_from_numpy(flat: dict, cfg: ModelConfig, qcfg: QuantConfig,

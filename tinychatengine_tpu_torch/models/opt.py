@@ -33,7 +33,7 @@ import torch
 from tinychatengine_tpu_torch.core.config import ModelConfig, QuantConfig
 from tinychatengine_tpu_torch.core.device import resolve_device
 from tinychatengine_tpu_torch.generation import kv_cache as kvc
-from tinychatengine_tpu_torch.models.llama import lmhead_padded
+from tinychatengine_tpu_torch.models.llama import last_rows, lmhead_padded
 from tinychatengine_tpu_torch.ops import ref
 from tinychatengine_tpu_torch.ops.attention import (NEG_INF,
                                                    exact_f32_products,
@@ -105,9 +105,10 @@ def forward(params: OPTParams, cfg: ModelConfig, input_ids: torch.Tensor,
             return_hidden: bool = False, page_table=None):
     """Same contract as ``models.llama.forward``: one forward pass writing
     the new K/V into ``cache`` in place. ``start``: a host int or an int32
-    [B] tensor (per-row positions); ``true_len``: an int or a ragged [B]
-    sequence. The container types pick the path. ``ctx_cap`` is accepted
-    and ignored (the kernels stop at each row's length). ``return_hidden``
+    [B] tensor (per-row positions); ``true_len``: an int, a ragged [B]
+    sequence or a device tensor (``llama.last_rows``). The container types
+    pick the path. ``ctx_cap`` reaches ``flash_decode`` (the fp and int4
+    decode; ``int8_decode`` takes none, as in JAX). ``return_hidden``
     returns the pre-final-LN states [B, S, E] instead of logits. OPT has
     no paged path: a ``page_table`` raises, as do ``tp_axis`` and
     ``input_embeds``."""
@@ -143,7 +144,7 @@ def forward(params: OPTParams, cfg: ModelConfig, input_ids: torch.Tensor,
     if use_flash:  # bucket padding may reach past the cache
         kv_len = kv_len.clamp(max=cache.max_len) if ragged \
             else min(kv_len, cache.max_len)
-    kv_valid = torch.as_tensor(kv_len, device=dev)
+    kv_valid = kv_len if ragged else torch.full((), kv_len, device=dev)
     for li in range(cfg.num_layers):
         if int8_path:
             h = ref.layer_norm_q_ref(x, lyr.attn_ln_w[li], lyr.attn_ln_b[li])
@@ -169,7 +170,8 @@ def forward(params: OPTParams, cfg: ModelConfig, input_ids: torch.Tensor,
             qb = q.to(torch.bfloat16)
             if s == 1:
                 attn = flash_decode(qb[:, 0], cache.k, cache.v, li, kv_len,
-                                    cache.k_scale, cache.v_scale)
+                                    cache.k_scale, cache.v_scale,
+                                    ctx_cap=ctx_cap)
             else:
                 attn = flash_prefill(qb, cache.k, cache.v, li, start, kv_len,
                                      cache.k_scale, cache.v_scale)
@@ -195,21 +197,9 @@ def forward(params: OPTParams, cfg: ModelConfig, input_ids: torch.Tensor,
                 apply_linear(lyr.fc1, h2, layer_idx=li).float(), 0.0)
         x = x + apply_linear(lyr.fc2, f, layer_idx=li).float()
 
-    if true_len is None or np.ndim(true_len) == 0:
-        n_new = s if true_len is None else int(true_len)
-        kvc.advance(cache, n_new)
-        if return_hidden:
-            return x, cache
-        if not full_logits:  # the lm_head runs on the last real position
-            x = x[:, n_new - 1:n_new]
-    else:  # ragged rows: each row's last real position
-        lens = torch.as_tensor(true_len, dtype=torch.long, device=dev)
-        kvc.advance(cache, int(lens.max()))
-        if return_hidden:
-            return x, cache
-        if not full_logits:
-            idx = (lens - 1)[:, None, None].expand(b, 1, x.shape[-1])
-            x = torch.gather(x, 1, idx)
+    x = last_rows(x, cache, true_len, s, full_logits or return_hidden, True)
+    if return_hidden:
+        return x, cache
     x = ref.layer_norm_ref(x, params.final_ln_w, params.final_ln_b)
     logits = apply_linear(params.lm_head,
                           x.to(torch.bfloat16)).float()[..., :cfg.vocab_size]

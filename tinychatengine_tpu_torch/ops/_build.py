@@ -8,11 +8,14 @@ launch counter; the int8-KV attention kernels live in their bf16 kernels'
 sources and the GLU kernel in the K-outer kernel's (``SOURCES``).
 ``build_all`` starts one ``nvcc`` per source at once and waits for all of
 them. Every C entry point returns ``cudaGetLastError()`` after its launch;
-``check`` raises on a non-zero code.
+``check`` raises on a non-zero code. ``LAUNCHES`` counts the launches that
+ran on the card; a CUDA graph's capture records what its body added
+(``record_launches``) and adds it again at each replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -41,11 +44,59 @@ BUILD_LOG: dict[str, str] = {}  # source -> nvcc's output (ptxas register use)
 
 # launches per kernel: each wrapper adds one where it launches its kernel
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
+# the counters a captured CUDA graph adds to at every replay: LAUNCHES and
+# any that ``counting`` registers (name -> count dicts)
+COUNTERS: list[dict] = [LAUNCHES]
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def counting(counter: dict):
+    """Registers ``counter`` beside LAUNCHES while open, so a graph
+    captured meanwhile adds its calls there at every replay."""
+    COUNTERS.append(counter)
+    try:
+        yield counter
+    finally:
+        COUNTERS.remove(counter)
+
+
+class LaunchDelta:
+    """What one captured body added to each registered counter. The
+    capture launched nothing on the card, so ``record_launches`` takes the
+    counts back; ``add`` puts them in again at each replay, and the
+    counters keep meaning calls that ran on the card."""
+
+    def __init__(self):
+        self.deltas: list[tuple[dict, dict]] = []
+
+    def add(self) -> None:
+        for counter, delta in self.deltas:
+            for name, n in delta.items():
+                counter[name] = counter.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def record_launches():
+    """Around a capture: yields a ``LaunchDelta`` that holds, on exit, what
+    the body added to every registered counter, and restores the counters
+    to their values on entry (also when the body raises)."""
+    before = [(c, dict(c)) for c in COUNTERS]
+    delta = LaunchDelta()
+    try:
+        yield delta
+    finally:
+        for counter, snap in before:
+            d = {k: v - snap.get(k, 0) for k, v in counter.items()
+                 if v != snap.get(k, 0)}
+            if d:
+                delta.deltas.append((counter, d))
+            counter.clear()
+            counter.update(snap)
 
 
 def _nvcc() -> str:

@@ -9,7 +9,7 @@ Counterpart of the JAX package's ``ops/attention.py``. The kernels are
 points over one body, ``csrc/flash_decode.cuh``) and
 ``csrc/flash_prefill.cu``: fp32 online softmax,
 probabilities rounded to bf16 before the PV product, and only the valid key
-range visited (so the TPU path's ``ctx_cap`` is accepted and ignored). Each
+range visited. Each
 source holds a bf16 kernel and an int8 one (launch counters
 ``flash_decode_int8``, ``flash_prefill_int8``, ``flash_decode_paged_int8``)
 for the int8 cache with per-position f32 scales, with the TPU kernels'
@@ -28,7 +28,10 @@ each, merged in ascending order by a second kernel. The partition depends
 on key positions alone, so dense and paged decode, and a scalar or a
 device ``[B]`` length, give bit-identical outputs; the wrapper sizes the
 grid from the scalar length, S or ``max_pages * P`` (``decode_splits``)
-and never reads device lengths on the host.
+and never reads device lengths on the host. With device lengths,
+``flash_decode`` takes JAX's static ``ctx_cap`` (a bound on every length):
+the grid covers ``min(ctx_cap, S)`` keys, which drops only split blocks
+that hold no key, so the output bits do not change.
 
 The plain versions have ``attention_xla``'s semantics and cast points:
 dense masked scores in f32, softmax, probabilities cast to the cache's
@@ -209,9 +212,10 @@ def flash_decode(q, cache_k, cache_v, layer_idx, lengths, k_scale=None,
     [B, Hq, D] in q.dtype. CUDA: ``csrc/flash_decode.cu`` (counter
     ``flash_decode`` or ``flash_decode_int8``), the key range split over
     ``decode_splits(length or S_max)`` blocks a row and merged by a second
-    kernel; CPU: ``flash_decode_plain``. ``ctx_cap`` is accepted and
-    ignored."""
-    del ctx_cap  # the kernel's loop already stops at lengths[b]
+    kernel; CPU: ``flash_decode_plain``. ``ctx_cap``: a static bound on
+    every device length (the caller's to keep), which cuts the grid to
+    ``decode_splits(min(ctx_cap, S_max))``; a host length sizes the grid
+    itself, and the plain version needs no bound."""
     if not q.is_cuda:
         return flash_decode_plain(q, cache_k, cache_v, layer_idx, lengths,
                                   k_scale, v_scale, window=window)
@@ -222,7 +226,8 @@ def flash_decode(q, cache_k, cache_v, layer_idx, lengths, k_scale=None,
         raise ValueError(f"q {tuple(q.shape)} does not fit cache "
                          f"{tuple(cache_k.shape)} (Hq a multiple of Hkv)")
     len_ptr, len_scalar = _lengths_arg(lengths, b, q.device, smax)
-    n_split = decode_splits(smax if len_ptr is not None else len_scalar)
+    cap = smax if ctx_cap is None else min(int(ctx_cap), smax)
+    n_split = decode_splits(cap if len_ptr is not None else len_scalar)
     qb = q.to(torch.bfloat16).contiguous()
     out = torch.empty_like(qb)
     ws = _split_workspace(b, hq, d, n_split, q.device)

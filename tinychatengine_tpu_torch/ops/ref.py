@@ -124,3 +124,56 @@ def silu_ref(x: torch.Tensor) -> torch.Tensor:
 def gelu_ref(x: torch.Tensor) -> torch.Tensor:
     """tanh-approximated GELU (GPTBigCode's MLP), in x's dtype."""
     return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+def int4_matmul_ref(x: torch.Tensor, packed: torch.Tensor,
+                    scales: torch.Tensor, group_size: int) -> torch.Tensor:
+    """W4A16 linear oracle: y = x @ dequant(W) in f32 (pack-time K padding
+    dropped), in x.dtype. x [..., IC]; packed [IC//2, OC] uint8; scales
+    [IC//G, OC]."""
+    w = dequantize_int4(packed, scales, group_size, dtype=torch.float32)
+    w = w[:x.shape[-1]]
+    return torch.einsum("...k,kn->...n", x.to(torch.float32), w).to(x.dtype)
+
+
+def quantize_act_int8(x: torch.Tensor):
+    """Dynamic per-tensor int8 activation quantization: scale =
+    max(absmax / 127, 1e-8) (the division as jitted JAX runs it,
+    ``xla_recip``), q = clip(round(x / scale)). Returns (int8 q, scale in
+    x.dtype)."""
+    scale = torch.clamp(x.abs().amax() * xla_recip(127.0), min=1e-8)
+    q = torch.clamp(torch.round(x / scale), -128, 127).to(torch.int8)
+    return q, scale
+
+
+def rotary_embed_ref(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
+                     sin: torch.Tensor, positions: torch.Tensor):
+    """Rotate-half RoPE from the cos/sin tables [max_pos, D] at positions
+    [B, S]; q [B, S, Hq, D], k [B, S, Hk, D] (GQA)."""
+    return apply_rotary(q, k, cos[positions], sin[positions])
+
+
+def softmax_ref(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Max-subtracted softmax in f32, result in x.dtype."""
+    xf = x.to(torch.float32)
+    e = torch.exp(xf - xf.amax(dim=dim, keepdim=True))
+    return (e / e.sum(dim=dim, keepdim=True)).to(x.dtype)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: torch.Tensor | None, scale: float) -> torch.Tensor:
+    """Dense masked attention oracle: q [B, Hq, Sq, D]; k/v [B, Hk, Sk, D]
+    (GQA: Hq % Hk == 0, each KV head repeated for its query heads); mask
+    additive, broadcastable to [B, 1, Sq, Sk]. f32 scores and PV, result
+    in q.dtype."""
+    hq, hk = q.shape[1], k.shape[1]
+    if hk != hq:
+        k = k.repeat_interleave(hq // hk, dim=1)
+        v = v.repeat_interleave(hq // hk, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    if mask is not None:
+        logits = logits + mask.to(torch.float32)
+    p = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, v.to(torch.float32))
+    return o.to(q.dtype)

@@ -17,7 +17,11 @@ the JAX package's ``runtime/serving.py``).
   page, and their outputs are discarded;
 - **bursts**: when no admission can run, K decode+sample ticks run back to
   back with no host synchronisation inside, and the [K, B] tokens are
-  fetched once;
+  fetched once. On the card a tick with the per-row sampler is one
+  captured CUDA graph (``Tick``, keyed by the sampler's stage gates and
+  the dense ``ctx_cap`` bucket), replayed K times, and once for a single
+  tick (``cuda_graphs=False`` keeps the eager ticks); admission, the
+  prefix cache and the engine-global sampler stay eager;
 - **prefix cache** (``prefix_cache_entries > 0``): after an admission the
   prompt's KV head is kept in a pool of entries (the scratch cache's
   storage: bf16, int8 codes with their scales, or OPT's raw int8); a later
@@ -54,9 +58,11 @@ import torch
 from tinychatengine_tpu_torch.core.config import (GenerationConfig,
                                                   ModelConfig, QuantConfig)
 from tinychatengine_tpu_torch.core.device import resolve_device
+from tinychatengine_tpu_torch.generation import cuda_graph as cg
 from tinychatengine_tpu_torch.generation import kv_cache as kvc
 from tinychatengine_tpu_torch.generation import sampling
 from tinychatengine_tpu_torch.generation.engine import (Engine, _bucket,
+                                                        ctx_cap_for,
                                                         raw_int8_kv)
 from tinychatengine_tpu_torch.models import llama
 from tinychatengine_tpu_torch.runtime import paged as pg
@@ -115,7 +121,11 @@ class ServingEngine:
     length - 1, so a tail remains to give the first token's logits) copies
     that KV into its prefill and prefills only the rest. Causality makes
     KV[0:m) a function of tokens[0:m) alone. LRU eviction; counters in
-    ``prefix_stats``. A hit bypasses batched admission."""
+    ``prefix_stats``. A hit bypasses batched admission.
+
+    cuda_graphs: on the card, the per-row decode tick replays a captured
+    graph (``Tick``; ``graphs`` holds them); False keeps it eager, for
+    comparisons."""
 
     def __init__(self, params, cfg: ModelConfig,
                  qcfg: Optional[QuantConfig] = None, slots: int = 8,
@@ -127,7 +137,8 @@ class ServingEngine:
                  tick_batch: int = 8, speculative: bool = False,
                  prefix_cache_entries: int = 0,
                  prefix_cache_len: Optional[int] = None,
-                 prefix_min: int = 64, sp_mesh=None, device=None):
+                 prefix_min: int = 64, sp_mesh=None, device=None,
+                 cuda_graphs: bool = True):
         if speculative or sp_mesh is not None:
             raise NotImplementedError(
                 "speculative ticks and sequence-parallel admission are not "
@@ -177,7 +188,8 @@ class ServingEngine:
         self._prefill_engine = Engine(params, cfg, self.qcfg, batch=1,
                                       max_len=self.max_len,
                                       device=self.device,
-                                      forward_fn=forward_fn)
+                                      forward_fn=forward_fn,
+                                      cuda_graphs=False)
         self._scratch = self._prefill_engine.new_cache()
 
         self.slots = [_Slot() for _ in range(slots)]
@@ -211,6 +223,8 @@ class ServingEngine:
         self._state = sampling.SamplerState.init(
             self.gcfg.seed, slots, self.gcfg.mirostat_tau, self.device)
         self.tick_batch = max(int(tick_batch), 1)
+        self.graphs = (cg.Graphs(self.device)
+                       if cuda_graphs and self.device.type == "cuda" else None)
         # batched admission: R queue-head single-chunk prompts in one ragged
         # prefill (dense cache, per-row sampler and llama only, as in JAX)
         self._batch_admit = (self._per_row and not paged
@@ -395,38 +409,72 @@ class ServingEngine:
             p2 *= 2
         return p2
 
+    def _keep_mask(self) -> np.ndarray:
+        """[B, W]: the positions of each row's penalty window."""
+        window = self._last.shape[1]
+        return (np.arange(window)[None, :]
+                >= (window - self._row_window[:, None]))
+
+    def _ctx_cap(self, k: int):
+        """JAX's ``_cap_bucket`` for K dense ticks; paged ticks take none."""
+        if self.paged:
+            return None
+        return ctx_cap_for(max(s.length for s in self.slots) + k,
+                           self.max_len)
+
+    def _tick_graph(self, k: int) -> np.ndarray:
+        """K replays of the captured tick; returns the [K, B] tokens."""
+        gates = self._row_features()
+        cap = self._ctx_cap(k)
+        key = ("tick", tuple(sorted(gates.items())), cap, cg.routes())
+
+        def build():
+            t = Tick(self, gates, cap)
+            return cg.Step(t.body, t)
+        step = self.graphs.step(key, build)
+        step.state.load(self)
+        for _ in range(k):
+            self.graphs.run(step)
+        return step.state.seq[:k].cpu().numpy()
+
     def _decode_burst(self, k: int):
         """K decode+sample ticks issued back to back with no host sync; the
         [K, B] tokens are fetched once, then emitted in order (a slot that
         stopped mid-burst discards its overshoot)."""
-        window = self._last.shape[1]
-        keep_mask = torch.as_tensor(
-            np.arange(window)[None, :] >= (window - self._row_window[:, None]),
-            device=self.device)
+        active0 = [s.active for s in self.slots]
+        if self.graphs is not None:
+            seq = self._tick_graph(k)
+        else:
+            seq = self._eager_burst(k)
+        for t in range(k):
+            for i, slot in enumerate(self.slots):
+                if active0[i] and slot.active:
+                    slot.length += 1
+                    self._emit(i, int(seq[t, i]))
+
+    def _eager_burst(self, k: int) -> np.ndarray:
+        keep_mask = torch.as_tensor(self._keep_mask(), device=self.device)
         lengths = self._lengths()
         tables = self._table_tensor() if self.paged else None
-        active0 = [s.active for s in self.slots]
         gates = self._row_features()
+        cap = self._ctx_cap(k)
         toks = torch.as_tensor(self._next_tok, device=self.device)
         last = torch.as_tensor(self._last, device=self.device)
         seq = []
         for _ in range(k):
             logits, _ = self._forward(
                 self.params, self.cfg, toks[:, None], self._kv(), lengths,
-                page_table=tables)
-            tok, self._keys, self._mu = sampling.sample_rows(
+                page_table=tables, ctx_cap=cap)
+            tok, keys, mu = sampling.sample_rows(
                 logits, self._keys, self._row_params, last, self._mu, **gates)
+            self._keys.copy_(keys)
+            self._mu.copy_(mu)
             toks = tok.long()
             last = torch.where(
                 keep_mask, torch.cat([last[:, 1:], toks[:, None]], 1), -1)
             lengths = lengths + 1
             seq.append(tok)
-        seq = torch.stack(seq).cpu().numpy()                   # [K, B]
-        for t in range(k):
-            for i, slot in enumerate(self.slots):
-                if active0[i] and slot.active:
-                    slot.length += 1
-                    self._emit(i, int(seq[t, i]))
+        return torch.stack(seq).cpu().numpy()                  # [K, B]
 
     def _decode_once(self):
         if self.paged:
@@ -453,23 +501,32 @@ class ServingEngine:
                             "paged KV pool exhausted with one sequence")
                     self._preempt(victim)
                 self._add_page(i, self.allocator.alloc(1)[0])
-        toks = torch.as_tensor(self._next_tok, device=self.device)
-        last = torch.as_tensor(self._last, device=self.device)
-        logits, _ = self._forward(
-            self.params, self.cfg, toks[:, None], self._kv(), self._lengths(),
-            page_table=self._table_tensor() if self.paged else None)
-        if self._per_row:
-            tok, self._keys, self._mu = sampling.sample_rows(
-                logits, self._keys, self._row_params, last, self._mu,
-                **self._row_features())
+        if self._per_row and self.graphs is not None:
+            tok_host = self._tick_graph(1)[0]
         else:
-            tok, self._state = sampling.sample(logits, self._state,
-                                               self.gcfg, last)
-        tok_host = tok.cpu().numpy()
+            tok_host = self._eager_tick()
         for i, slot in enumerate(self.slots):
             if slot.active:
                 slot.length += 1
                 self._emit(i, int(tok_host[i]))
+
+    def _eager_tick(self) -> np.ndarray:
+        toks = torch.as_tensor(self._next_tok, device=self.device)
+        last = torch.as_tensor(self._last, device=self.device)
+        logits, _ = self._forward(
+            self.params, self.cfg, toks[:, None], self._kv(), self._lengths(),
+            page_table=self._table_tensor() if self.paged else None,
+            ctx_cap=self._ctx_cap(1))
+        if self._per_row:
+            tok, keys, mu = sampling.sample_rows(
+                logits, self._keys, self._row_params, last, self._mu,
+                **self._row_features())
+            self._keys.copy_(keys)
+            self._mu.copy_(mu)
+        else:
+            tok, self._state = sampling.sample(logits, self._state,
+                                               self.gcfg, last)
+        return tok.cpu().numpy()
 
     def _cancel_admission(self):
         """Abort the in-flight chunked admission: requeue its request at
@@ -805,6 +862,65 @@ class ServingEngine:
         slot.length = 0  # frozen; dead-row writes land at position 0
         if self.paged:
             self._release_pages(slot_idx)
+
+
+class Tick:
+    """The serving decode tick over static buffers (JAX ``_decode_multi``'s
+    scan body): the forward at per-row ``lengths`` (dense with
+    ``ctx_cap``, or through the page table), ``sample_rows`` with the
+    server's row keys, params and mu (updated in place), the token written
+    at row ``tick`` of ``seq``, the penalty window moved under ``keep``,
+    lengths + 1. ``gates``: ``sample_rows``' static stage gates. ``body``
+    is what the card captures; it runs eagerly anywhere (the CPU tests).
+    It holds the server's model and per-row state, not the server (no
+    reference cycle through the server's graphs)."""
+
+    def __init__(self, srv: "ServingEngine", gates: dict, ctx_cap):
+        dev, b = srv.device, srv.n_slots
+        w = srv._last.shape[1]
+        self.gates, self.ctx_cap = dict(gates), ctx_cap
+        self.model = (srv._forward, srv.params, srv.cfg, srv._kv())
+        self.rows = (srv._keys, srv._row_params, srv._mu)
+        self.toks = torch.zeros((b,), dtype=torch.int64, device=dev)
+        self.last = torch.full((b, w), -1, dtype=torch.int64, device=dev)
+        self.keep = torch.zeros((b, w), dtype=torch.bool, device=dev)
+        self.lengths = torch.zeros((b,), dtype=torch.int32, device=dev)
+        self.tables = (torch.zeros((b, srv.max_pages), dtype=torch.int32,
+                                   device=dev) if srv.paged else None)
+        self.seq = torch.zeros((srv.tick_batch, b), dtype=torch.int32,
+                               device=dev)
+        self.tick = torch.zeros((1,), dtype=torch.int64, device=dev)
+
+    def load(self, srv: "ServingEngine") -> None:
+        """A burst's start: the host's next tokens, windows, lengths and
+        page table into the static buffers."""
+        self.toks.copy_(torch.from_numpy(srv._next_tok))
+        self.last.copy_(torch.from_numpy(srv._last))
+        self.keep.copy_(torch.from_numpy(srv._keep_mask()))
+        self.lengths.copy_(torch.tensor([s.length for s in srv.slots],
+                                        dtype=torch.int32))
+        if self.tables is not None:
+            self.tables.copy_(torch.from_numpy(srv._tables))
+        self.tick.zero_()
+
+    def body(self) -> None:
+        forward, params, cfg, kv = self.model
+        keys0, row_params, mu0 = self.rows
+        logits, _ = forward(params, cfg, self.toks[:, None], kv,
+                            self.lengths, page_table=self.tables,
+                            ctx_cap=self.ctx_cap)
+        tok, keys, mu = sampling.sample_rows(
+            logits, keys0, row_params, self.last, mu0, **self.gates)
+        keys0.copy_(keys)
+        if mu is not mu0:
+            mu0.copy_(mu)
+        self.seq.index_copy_(0, self.tick, tok[None])
+        self.tick.add_(1)
+        self.toks.copy_(tok)
+        self.last.copy_(torch.where(
+            self.keep, torch.cat([self.last[:, 1:], self.toks[:, None]], 1),
+            -1))
+        self.lengths.add_(1)
 
 
 _KMAX_BUCKETS = (8, 64, 256, 1024)

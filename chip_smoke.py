@@ -45,7 +45,13 @@ Phases (any failure ends the run with a non-zero exit code):
    and 64; also against int4_matmul -> silu * up -> int4_matmul within
    ``GLU_COMPOSITION_TOL``), ``mlp_fused`` (the whole MLP at M = 1 and 16)
    and ``int3_matmul`` (gate_up and down widths at M = 1, 8 and 64, f32
-   scales);
+   scales); the shapes of phases 12 and 13 (``check_vlm_spec_kernels``):
+   ``flash_prefill`` at the speculative verify (8 slots of 8 rows at the
+   per-row starts of phase 5's mix) and at VILA-7B's 608-token image
+   prompt in the 1024 bucket (Hq = Hkv = 32), ``flash_decode`` at
+   Hq = Hkv = 32 over 672 keys, ``int4_matmul_a8`` at VILA-7B's five
+   linears at M = 1 and 64 and ``int4_matmul``'s tile route at its gate_up
+   and down at 1024 rows;
    then opt_6.7b's W8A8 linears at M = 1, timed beside their bound, their
    int32 products checked against the CPU's;
 4. main path: llama3_8b W4A8 at full width (all 32 layers, random packed
@@ -135,7 +141,23 @@ Phases (any failure ends the run with a non-zero exit code):
    ``flash_decode_paged`` launches in the paged run only and
    ``int4_matmul_fused`` 161 times per decode tick; its kernels' device ms
    per tick of a profiled burst is printed (``FUSED_KERNEL_NAMES``), as
-   phase 5's W4A8 kernel's is (``A8_KERNEL_NAMES``).
+   phase 5's W4A8 kernel's is (``A8_KERNEL_NAMES``);
+12. logprobs and speculation (``spec_logprobs_serving``) on phase 4's
+   llama3_8b W4A8 weights: phase 5's mix (8 requests x 32 tokens, every
+   second with ``logprobs=5``) dense and paged through the captured ticks
+   and once eager (identical), tokens equal to a run without logprobs,
+   each logprob within ``LP_CARD_TOL`` of the teacher-forced eager
+   forward; speculative serving (8 greedy requests on 32-token segments
+   tiled to 256, x 64) against the same server without it: drafts
+   accepted, tokens equal up to the first parting, which needs a plain
+   top-2 margin within ``SPEC_TIE_TOL``; ``generate_pld`` (64-token
+   repetitive prompt, 128 tokens, K = 7) against ``generate_device``;
+13. the VLM path (``vlm_path``): CLIP ViT-L/14-336 at f32 and VILA-7B
+   W4A8, a 480 x 640 image encoded at bf16, an 8 + 576 + 24-token prompt
+   through ``generate_with_image``, ``generate_device`` (graphs) and an
+   eager Engine (identical, 64 greedy tokens, exact launches), a second
+   image, one ServingEngine request with the embeds, 2-layer cuts of the
+   decoder and the tower against the CPU.
 
 The Engine and the server run their captured CUDA graphs
 (``generation/cuda_graph.py``): in phases 4, 4b, 4c, 4f, 7 and 10 the
@@ -208,6 +230,25 @@ SHORT_DECODE = 64
 # layer or row) moves the logits by O(1)
 KOUTER_BLOCKS = (2048, 1024)
 KOUTER_STEP_TOL = 0.03
+# phase 12, logprobs: |served - log_softmax(teacher-forced eager forward)|
+# in nats. The teacher replays the server's arithmetic (the prompt in the
+# admission's 512-row bucket on the tile route, then one-row decode steps:
+# int4_matmul_a8 and flash_decode give a row bits of its own at any batch)
+# and may part only where the batched admission's rows round otherwise
+LP_CARD_TOL = 0.05
+# phase 12, speculation: a verify computes its tokens through
+# flash_prefill and int4_matmul_a8 at 64 rows, plain decode through
+# flash_decode at 8 rows: the attention rounds in another order (a few bf16
+# steps of a row, chip_smoke.attn_err), which 32 layers carry to the
+# logits as phase 4f's two cast points do (KOUTER_STEP_TOL). The greedy
+# tokens may part only at a step whose plain top-2 logit margin is within
+# this share of max |logit|
+SPEC_TIE_TOL = KOUTER_STEP_TOL
+# phase 13: the tower's 2-layer cut at f32 (``encode_hidden``, f32 out;
+# TF32 off: the same products summed in another order), max |diff| over
+# max |ref|. (Its bf16 cut, through ``encode_image``, ends in a bf16
+# rounding, a step of 2^-8 of an element: CUT_TOL.)
+CLIP_F32_CUT_TOL = 1e-3
 # the table empty after its own prefill: the 64-row prompt runs
 # int4_matmul's tile route on bf16-rounded weights, so its cache differs;
 # uniform random bytes put -0.5 d sum(x) into every product, the logits'
@@ -313,33 +354,67 @@ def case_recorder(cases: list):
     return add
 
 
+def int4_cases(gen, add, name, k, n, a8_rows, w4_rows, label=""):
+    """``int4_matmul_a8`` at ``a8_rows`` and ``int4_matmul`` at ``w4_rows``
+    rows against their plain versions on one random [K, N] weight stacked
+    over enough layers that a timing loop cycling through them does not
+    run out of the 50 MB L2; library: bf16 ``torch.matmul`` on the
+    dequantized weight. ``label`` prefixes the case names."""
+    from tinychatengine_tpu_torch.ops import int4_matmul as im
+    from tinychatengine_tpu_torch.ops.ref import dequantize_int4
+    dev = torch.device("cuda")
+    n_layers = max(2, -(-200_000_000 // (k * n // 2)))
+    packed = torch.randint(0, 256, (n_layers, k // 2, n), dtype=torch.uint8,
+                           device=dev, generator=gen)
+    scales = ((torch.rand((n_layers, k // 128, n), device=dev,
+                          generator=gen) + 0.5) * 0.005).to(torch.bfloat16)
+    w_lib = dequantize_int4(packed[0], scales[0], 128, torch.bfloat16)
+    runs = [("int4_matmul_a8", im.int4_matmul_a8, im.int4_matmul_a8_plain,
+             m, INT8_OP_S) for m in a8_rows]
+    runs += [("int4_matmul", im.int4_matmul, im.int4_matmul_plain, m,
+              BF16_FLOP_S) for m in w4_rows]
+    for kernel, fn, plain, m, rate in runs:
+        x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
+        err = share = 0.0
+        for li in (0, n_layers - 1):  # stacked layer_idx
+            y = fn(x, packed, scales, 128, layer_idx=li).float()
+            ref = plain(x, packed, scales, 128, layer_idx=li).float()
+            e = float((y - ref).abs().max())
+            err = max(err, e)
+            share = max(share, e / (MAT_TOL * float(ref.abs().max())))
+        it = 5 if m >= 512 else 50
+        state = {"li": 0}
+
+        def run(fn=fn, x=x):
+            state["li"] = (state["li"] + 1) % n_layers
+            fn(x, packed, scales, 128, layer_idx=state["li"])
+        plain_ms = time_ms(lambda: plain(x, packed, scales, 128,
+                                         layer_idx=0), 3 if m >= 512 else 10)
+        bytes_moved = m * k * 2 + k * n // 2 + (k // 128) * n * 2 + m * n * 2
+        add(kernel, f"{label}{name} M={m} K={k} N={n}", err, share,
+            f"{MAT_TOL} * max|plain|", run, it, plain_ms,
+            lambda: torch.matmul(x, w_lib), bytes_moved, 2.0 * m * n * k,
+            rate)
+    del packed, scales, w_lib
+    torch.cuda.empty_cache()
+
+
 def check_kernels(gen):
     """Phase 3: every kernel against its plain version at the main path's
     shapes, timed. Returns one row per case."""
     from tinychatengine_tpu_torch.ops import attention as att
-    from tinychatengine_tpu_torch.ops import int4_matmul as im
-    from tinychatengine_tpu_torch.ops.ref import dequantize_int4
     dev = torch.device("cuda")
     cases = []
     add = case_recorder(cases)
 
-    # ---- int4 matmuls: weights stacked over enough layers that a timing
-    # loop cycling through them does not run out of the 50 MB L2
+    # ---- int4 matmuls (``int4_cases``)
     shapes = {"qkv": (4096, 6144), "wo": (4096, 4096),
               "gate_up": (4096, 28672), "down": (14336, 4096),
               "lm_head": (4096, 129024)}
     for name, (k, n) in shapes.items():
-        n_layers = max(2, -(-200_000_000 // (k * n // 2)))
-        packed = torch.randint(0, 256, (n_layers, k // 2, n), dtype=torch.uint8,
-                               device=dev, generator=gen)
-        scales = ((torch.rand((n_layers, k // 128, n), device=dev,
-                              generator=gen) + 0.5) * 0.005).to(torch.bfloat16)
-        w_lib = dequantize_int4(packed[0], scales[0], 128, torch.bfloat16)
         # M = 1: Engine decode; 8: serving decode over 8 slots; 64: prompt;
         # 100: the most rows W4A8 takes (A8_MAX_ROWS), at gate_up
         a8_rows = (1, 8, 64, 100) if name == "gate_up" else (1, 8, 64)
-        runs = [("int4_matmul_a8", im.int4_matmul_a8, im.int4_matmul_a8_plain,
-                 m, INT8_OP_S) for m in a8_rows]
         # int4_matmul's tile route at the 2048-token prefill, at the 64-row
         # prompt bucket of phases 4b and 4f (one partial 128-row tile) and
         # at gate_up's 512-row admission chunk; its band route at M = 1 at
@@ -347,31 +422,7 @@ def check_kernels(gen):
         # leave a ragged last band) and the K-outer path's lm_head
         w4 = {"lm_head": (1,), "gate_up": (2048, 512, 64, 1),
               "down": (2048, 64, 1)}.get(name, (2048, 1))
-        runs += [("int4_matmul", im.int4_matmul, im.int4_matmul_plain, m,
-                  BF16_FLOP_S) for m in w4]
-        for kernel, fn, plain, m, rate in runs:
-            x = torch.randn((m, k), device=dev, generator=gen).to(torch.bfloat16)
-            err = share = 0.0
-            for li in (0, n_layers - 1):  # stacked layer_idx
-                y = fn(x, packed, scales, 128, layer_idx=li).float()
-                ref = plain(x, packed, scales, 128, layer_idx=li).float()
-                e = float((y - ref).abs().max())
-                err = max(err, e)
-                share = max(share, e / (MAT_TOL * float(ref.abs().max())))
-            it = 5 if m >= 512 else 50
-            state = {"li": 0}
-
-            def run(fn=fn, x=x):
-                state["li"] = (state["li"] + 1) % n_layers
-                fn(x, packed, scales, 128, layer_idx=state["li"])
-            plain_ms = time_ms(lambda: plain(x, packed, scales, 128,
-                                             layer_idx=0), 3 if m >= 512 else 10)
-            bytes_moved = m * k * 2 + k * n // 2 + (k // 128) * n * 2 + m * n * 2
-            add(kernel, f"{name} M={m} K={k} N={n}", err, share,
-                f"{MAT_TOL} * max|plain|", run, it, plain_ms, lambda: torch.matmul(x, w_lib), bytes_moved,
-                2.0 * m * n * k, rate)
-        del packed, scales, w_lib
-        torch.cuda.empty_cache()
+        int4_cases(gen, add, name, k, n, a8_rows, w4)
 
     # ---- attention over a 32-layer stacked cache (B=1, Hkv=8, S=2048)
     # (and StarCoder's MQA: 48 query heads on one KV head, 6 blocks a row)
@@ -447,7 +498,108 @@ def check_kernels(gen):
     check_fused_kernels(gen, add)
     check_int8_kv_kernels(gen, add)
     check_split_k_kernels(gen, add)
+    check_vlm_spec_kernels(gen, add)
     return cases
+
+
+# phase 12's speculative verify: K drafts and the last token per slot
+SPEC_K = 7
+# phase 13's VILA-7B prompt: scripts/bench_vlm.py's 8 text tokens, CLIP's
+# 576 patch embeddings and 24 text tokens, prefilled in the 1024 bucket
+VLM_PRE, VLM_IMG, VLM_POST = 8, 576, 24
+VLM_PROMPT = VLM_PRE + VLM_IMG + VLM_POST
+
+
+def check_vlm_spec_kernels(gen, add):
+    """The shapes phases 12 and 13 add (llama3_8b's serving verify and
+    VILA-7B's group-1 attention and widths): ``flash_prefill`` at the
+    speculative verify (8 slots of K + 1 = 8 rows at the per-row starts of
+    phase 5's mix, 32 layers of a 2048-position slot cache) and at VILA's
+    prompt (S 1024 holding the 608-token prompt, Hq = Hkv = 32);
+    ``flash_decode`` at Hq = Hkv = 32 over 672 keys (the prompt and 64
+    decode steps); ``int4_matmul_a8`` at VILA's five linears at M = 1 and
+    64 (the speculative verify's rows); ``int4_matmul``'s tile route at
+    VILA's gate_up and down at 1024 rows (the image prompt's bucket)."""
+    from tinychatengine_tpu_torch.ops import attention as att
+    dev = torch.device("cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    vila = model_config("vila_7b")
+    e, f, v = vila.embed_dim, vila.hidden_dim, 32768   # lm_head N padded
+    hq = vila.num_heads
+    for name, (k, n) in {"qkv": (e, 3 * e), "wo": (e, e),
+                         "gate_up": (e, 2 * f), "down": (f, e),
+                         "lm_head": (e, v)}.items():
+        w4 = (1024,) if name in ("gate_up", "down") else ()
+        int4_cases(gen, add, name, k, n, (1, 8 * (SPEC_K + 1)), w4,
+                   label="vila_7b ")
+    L, d = 32, 128
+    starts = admission_lengths(8, model_config("llama3_8b").vocab_size)
+    for b, s, smax, hq_, hkv, st, lengths, label in (
+            (8, SPEC_K + 1, 2048, 32, 8, starts,
+             [x + SPEC_K + 1 for x in starts],
+             "spec verify B=8 S=8 Hq=32 Hkv=8 D=128 starts "
+             f"{min(starts)}..{max(starts)}"),
+            (1, 1024, 2048, hq, hq, [0], [VLM_PROMPT],
+             f"vila_7b B=1 S=1024 length={VLM_PROMPT} Hq=32 Hkv=32 "
+             "D=128")):
+        ck = torch.randn((L, b, hkv, smax, d), device=dev,
+                         generator=gen).to(torch.bfloat16)
+        cv = torch.randn((L, b, hkv, smax, d), device=dev,
+                         generator=gen).to(torch.bfloat16)
+        q = torch.randn((b, s, hq_, d), device=dev,
+                        generator=gen).to(torch.bfloat16)
+        st_t = torch.tensor(st, dtype=torch.int32, device=dev)
+        len_t = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        err = share = 0.0
+        for li in (0, L - 1):
+            y = att.flash_prefill(q, ck, cv, li, st_t, len_t)
+            assert not torch.isnan(y).any(), "NaN in flash_prefill output"
+            e_, sh = attn_err(y, att.flash_prefill_plain(q, ck, cv, li, st_t,
+                                                         len_t), d)
+            err, share = max(err, e_), max(share, sh)
+        state = {"li": 0}
+
+        def run(q=q, ck=ck, cv=cv, st_t=st_t, len_t=len_t):
+            state["li"] = (state["li"] + 1) % L
+            att.flash_prefill(q, ck, cv, state["li"], st_t, len_t)
+        plain_ms = time_ms(lambda: att.flash_prefill_plain(
+            q, ck, cv, 0, st_t, len_t), 3)
+        qt = q.transpose(1, 2)
+        qpos = st_t.long()[:, None, None] + torch.arange(s, device=dev)[:, None]
+        mask = (torch.arange(smax, device=dev)[None, None]
+                < torch.minimum(qpos + 1, len_t.long()[:, None, None]))[:, None]
+        pairs = sum(min(a + r + 1, n) for a, n in zip(st, lengths)
+                    for r in range(s))
+        add("flash_prefill", label, err, share, ATTN_TOL_TEXT, run, 10,
+            plain_ms, lambda: sdpa(qt, ck[0], cv[0], attn_mask=mask,
+                                   enable_gqa=True),
+            2 * b * s * hq_ * d * 2 + 2 * hkv * sum(lengths) * d * 2 + 8 * b,
+            4.0 * hq_ * pairs * d, BF16_FLOP_S)
+        del ck, cv
+        torch.cuda.empty_cache()
+    n = VLM_PROMPT + 64
+    ck = torch.randn((L, 1, hq, 2048, d), device=dev,
+                     generator=gen).to(torch.bfloat16)
+    cv = torch.randn((L, 1, hq, 2048, d), device=dev,
+                     generator=gen).to(torch.bfloat16)
+    q = torch.randn((1, hq, d), device=dev, generator=gen).to(torch.bfloat16)
+    err = share = 0.0
+    for li in (0, L - 1):
+        e_, sh = attn_err(att.flash_decode(q, ck, cv, li, n),
+                          att.flash_decode_plain(q, ck, cv, li, n), d)
+        err, share = max(err, e_), max(share, sh)
+    state = {"li": 0}
+
+    def run_decode():
+        state["li"] = (state["li"] + 1) % L
+        att.flash_decode(q, ck, cv, state["li"], n)
+    add("flash_decode", f"vila_7b B=1 Hq={hq} Hkv={hq} D={d} length={n}",
+        err, share, ATTN_TOL_TEXT, run_decode, 64,
+        time_ms(lambda: att.flash_decode_plain(q, ck, cv, 0, n), 10),
+        lambda: sdpa(q[:, :, None], ck[0, :, :, :n], cv[0, :, :, :n]),
+        2 * hq * d * 2 + 2 * hq * n * d * 2, 4.0 * hq * n * d, BF16_FLOP_S)
+    del ck, cv
+    torch.cuda.empty_cache()
 
 
 def causal_ms(qt, k, v, iters: int) -> float:
@@ -1906,10 +2058,11 @@ def int8_kv_engine(model, model_params, dev="cuda", long_len=2048,
 
 
 def serving_load(srv, cfg, n_requests: int, n_predict: int, seed: int = 0,
-                 plen=(32, 320)):
+                 plen=(32, 320), logprobs=None):
     """scripts/bench_serving.py's load: prompts of ``plen`` tokens (32-320;
     its ``--long`` mix 3072-3967) from ``default_rng(seed)``, the engine's
-    greedy config and two sampled configs in turn."""
+    greedy config and two sampled configs in turn; every second request
+    (the first included) asks for ``logprobs``."""
     from tinychatengine_tpu_torch.core.config import GenerationConfig
     rng = np.random.default_rng(seed)
     variants = [
@@ -1923,7 +2076,8 @@ def serving_load(srv, cfg, n_requests: int, n_predict: int, seed: int = 0,
         ids = rng.integers(100, cfg.vocab_size - 100,
                            int(rng.integers(*plen)))
         reqs.append(srv.submit(ids, n_predict=n_predict,
-                               gcfg=variants[i % len(variants)]))
+                               gcfg=variants[i % len(variants)],
+                               logprobs=None if i % 2 else logprobs))
     return reqs
 
 
@@ -2167,6 +2321,454 @@ def prefix_serving(model, model_params, dev="cuda", n_requests=8,
     if not all(same.values()):
         raise SystemExit("the prefix cache changed the greedy tokens")
     return out
+
+
+def forced_logits(params, cfg, qcfg, dev, prompt, tokens, bucket=None,
+                  input_embeds=None):
+    """The eager forward teacher-forced over ``tokens`` after ``prompt``:
+    the prompt prefilled at once (right-padded to ``bucket`` rows, as a
+    server's admission pads it), then one-token decode steps. Returns the
+    logits before each token, [len(tokens), V] f32 on ``dev``."""
+    from tinychatengine_tpu_torch.generation import kv_cache as kvc
+    from tinychatengine_tpu_torch.generation.engine import _bucket
+    from tinychatengine_tpu_torch.models import llama
+    n = len(prompt)
+    bucket = bucket or _bucket(n)
+    cache = kvc.init_cache(cfg.num_layers, 1, 2048, cfg.num_kv_heads,
+                           cfg.head_dim, device=dev)
+    ids = np.zeros((1, bucket), np.int64)
+    ids[0, :n] = prompt
+    kw = {}
+    if input_embeds is not None:
+        kw["input_embeds"] = torch.nn.functional.pad(
+            input_embeds, (0, 0, 0, bucket - n))
+    out = []
+    with torch.inference_mode():
+        logits, _ = llama.forward(params, cfg, torch.as_tensor(ids, device=dev),
+                                  cache, 0, true_len=n, **kw)
+        out.append(logits[0].float())
+        for i, t in enumerate(tokens[:-1]):
+            logits, _ = llama.forward(params, cfg,
+                                      torch.tensor([[int(t)]], device=dev),
+                                      cache, n + i)
+            out.append(logits[0].float())
+    return torch.stack(out)
+
+
+def partings(name, got, want, logits_of):
+    """Greedy ``got`` against the plain run's ``want``: equal up to the
+    first parting, where the plain run's top-2 logit margin (from
+    ``logits_of(step)``, the logits that chose want[step]) must lie within
+    SPEC_TIE_TOL of max |logit|. Prints the parting; returns it or None."""
+    p = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if p is None:
+        return None
+    lg = logits_of(p)
+    top = torch.topk(lg, 2).values
+    margin, scale = float(top[0] - top[1]), float(lg.abs().max())
+    row = dict(request=name, step=p, got=int(got[p]), plain=int(want[p]),
+               plain_margin=margin, max_abs_logit=scale,
+               share=margin / (SPEC_TIE_TOL * scale))
+    log("speculation parts from plain greedy:", json.dumps(row))
+    if not margin <= SPEC_TIE_TOL * scale:
+        raise SystemExit(f"{name}: tokens part at step {p} with a plain "
+                         f"top-2 margin of {margin} (> {SPEC_TIE_TOL} of "
+                         f"max |logit| {scale})")
+    return row
+
+
+def spec_logprobs_serving(model, model_params, dev="cuda", n_requests=8,
+                          n_predict=32, spec_predict=64, max_len=2048,
+                          pld_tokens=128):
+    """Phase 12 on phase 4's llama3_8b W4A8 weights (``model_params``).
+    Logprobs: phase 5's mix (8 requests x ``n_predict``, greedy and sampled
+    configs in turn, every second request with ``logprobs=5``) through the
+    dense server's captured ticks, its paged twin and an eager dense server
+    (``cuda_graphs=False``, identical tokens and logprobs), and a dense
+    server without logprobs (identical tokens); every logprob within
+    LP_CARD_TOL of ``forced_logits``' log-softmax, tops descending, the
+    greedy top-1 the chosen token. Speculation: 8 greedy requests whose
+    prompts are 32 random tokens (``default_rng(0)``) tiled to 256, x
+    ``spec_predict``, with ``speculative=True`` and then without: spec
+    ticks > 0 and spec tokens > spec ticks, tokens parting only at a tie
+    (``partings``). PLD: ``generate_pld`` on the Engine (a 64-token
+    repetitive prompt, ``pld_tokens``, K = SPEC_K) against greedy
+    ``generate_device``, each timed on its second call. Returns metrics;
+    the arguments shrink the run for a rehearsal on the CPU."""
+    from tinychatengine_tpu_torch.core.config import GenerationConfig
+    from tinychatengine_tpu_torch.generation.engine import Engine
+    from tinychatengine_tpu_torch.generation.speculative import generate_pld
+    from tinychatengine_tpu_torch.runtime.serving import ServingEngine
+    params, qcfg = model_params
+    cfg = model_config(model)
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    greedy = GenerationConfig(temp=0.0, n_predict=n_predict,
+                              repeat_penalty=1.0, repeat_last_n=1, seed=0)
+    out, runs = {}, {}
+    for name, paged, graphs, lp in (("dense", False, True, 5),
+                                    ("dense without logprobs", False, True,
+                                     None),
+                                    ("paged", True, True, 5),
+                                    ("dense eager", False, False, 5)):
+        srv = ServingEngine(params, cfg, qcfg, slots=8, max_len=max_len,
+                            gcfg=greedy, admission_chunk=512, tick_batch=16,
+                            paged=paged, logprobs_k=8, device=dev,
+                            cuda_graphs=graphs)
+        reqs, m = timed_run(
+            srv, lambda: serving_load(srv, cfg, n_requests, n_predict,
+                                      logprobs=lp), dev,
+            warmup=lambda: serving_load(srv, cfg, 2, 8, seed=1, logprobs=lp))
+        check_lengths(reqs, n_predict, f"logprobs serving {name}")
+        if dev == "cuda":
+            check_serving_attention(m, "bf16", "paged" if paged else "dense",
+                                    f"logprobs serving {name}")
+        runs[name] = reqs
+        log(f"{cfg.name} logprobs serving {name}:", json.dumps(m))
+        out[name] = m
+        del srv
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    base = runs["dense"]
+
+    def tokens(name):
+        return [r.output_ids for r in runs[name]]
+    if tokens("dense without logprobs") != tokens("dense"):
+        raise SystemExit("logprobs serving: asking for logprobs changed the "
+                         "tokens")
+    if tokens("dense eager") != tokens("dense") or \
+            lp_of(runs["dense eager"]) != lp_of(base):
+        raise SystemExit("logprobs serving: the eager server's tokens or "
+                         "logprobs differ from the captured ticks'")
+    same = sum(a == b for a, b in zip(tokens("paged"), tokens("dense")))
+    out["paged_eq_dense"] = [same, len(base)]
+    worst = {}
+    # the teacher prefills each prompt as its admission did: dense admits
+    # the 8 at once in the 512 bucket, paged one by one in each's own
+    for name, bucket in (("dense", 512), ("paged", None)):
+        worst[name] = 0.0
+        for i, r in enumerate(runs[name]):
+            if r.logprobs is None:
+                if r.output_logprobs:
+                    raise SystemExit("logprobs returned to a request that "
+                                     "did not ask for them")
+                continue
+            lsm = torch.log_softmax(forced_logits(
+                params, cfg, qcfg, dev, r.prompt_ids, r.output_ids,
+                bucket=bucket), dim=-1)
+            chosen = lsm[torch.arange(len(r.output_ids)), torch.as_tensor(
+                r.output_ids, device=lsm.device)].cpu()
+            worst[name] = max(worst[name], float(
+                (chosen - torch.tensor(r.output_logprobs)).abs().max()))
+            for t, top in zip(r.output_ids, r.output_top_logprobs):
+                vals = [v for _, v in top]
+                if len(top) != 5 or vals != sorted(vals, reverse=True) or (
+                        r.gcfg is None and top[0][0] != t):
+                    raise SystemExit(f"logprobs {name} request {i}: bad top "
+                                     f"list {top} for token {t}")
+    out["lp_max_abs_err"] = worst
+    log(f"logprobs against the teacher-forced eager forward: max |diff| "
+        f"{json.dumps(worst)} nats (tol {LP_CARD_TOL}); paged tokens equal "
+        f"to dense in {same} of {len(base)} requests")
+    if not max(worst.values()) <= LP_CARD_TOL:
+        raise SystemExit("served logprobs disagree with the raw forward")
+
+    # ---- speculative serving
+    rng = np.random.default_rng(0)
+    prompts = [np.tile(rng.integers(100, cfg.vocab_size - 100, 32), 8)
+               for _ in range(8)]
+    sg = dataclasses.replace(greedy, n_predict=spec_predict)
+    toks, spec = {}, {}
+    for on in (True, False):
+        srv = ServingEngine(params, cfg, qcfg, slots=8, max_len=max_len,
+                            gcfg=sg, admission_chunk=512, tick_batch=16,
+                            speculative=on, device=dev)
+
+        def submit(srv=srv):
+            if on:
+                srv._spec_stats.update(ticks=0, tokens=0)
+            return [srv.submit(p) for p in prompts]
+        reqs, m = timed_run(srv, submit, dev, warmup=lambda: [
+            srv.submit(p, n_predict=16) for p in prompts[:2]])
+        check_lengths(reqs, spec_predict, f"speculative serving {on}")
+        if dev == "cuda":  # a verify is a prefill: decode may not run
+            ran = {k for k in ATTENTION if m["launches"][k]}
+            if any(m["plain_calls"].values()) or "flash_prefill" not in ran \
+                    or not ran <= {"flash_prefill", "flash_decode"} \
+                    or not m["launches"]["int4_matmul_a8"]:
+                raise SystemExit(f"speculative serving {on}: launches "
+                                 f"{m['launches']}, plain calls "
+                                 f"{m['plain_calls']}")
+        if on:
+            m["spec_stats"] = dict(srv._spec_stats)
+            st = m["spec_stats"]
+            m["tokens_per_spec_tick"] = st["tokens"] / max(st["ticks"], 1)
+            if not (st["ticks"] > 0 and st["tokens"] > st["ticks"]):
+                raise SystemExit(f"speculative serving accepted no drafts: "
+                                 f"{st}")
+        toks[on] = [r.output_ids for r in reqs]
+        spec["speculative" if on else "plain"] = m
+        log(f"{cfg.name} speculative={on} serving:", json.dumps(m))
+        del srv
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    parts = [partings(f"spec serving {i}", a, b, lambda step, i=i: forced_logits(
+        params, cfg, qcfg, dev, prompts[i], toks[False][i][:step + 1],
+        bucket=256)[step])
+             for i, (a, b) in enumerate(zip(toks[True], toks[False]))]
+    spec["partings"] = [p for p in parts if p]
+    out["speculative"] = spec
+
+    # ---- generate_pld on the Engine
+    eng = Engine(params, cfg, qcfg, batch=1, max_len=max_len, device=dev)
+    rep = np.tile(np.random.default_rng(1).integers(
+        100, cfg.vocab_size - 100, 16), 4)[None]
+    n = pld_tokens
+    pg = dataclasses.replace(greedy, n_predict=n)
+    res = {}
+    for name, fn in (("generate_device",
+                      lambda: eng.generate_device(rep, pg, n_tokens=n)[0]
+                      .tolist()),
+                     ("generate_pld",
+                      lambda: generate_pld(eng, rep, n, K=SPEC_K))):
+        fn()  # captures
+        sync()
+        t = time.perf_counter()
+        r = fn()
+        sync()
+        res[name] = (r, time.perf_counter() - t)
+    (pld, steps, _), t_pld = res["generate_pld"]
+    plain, t_plain = res["generate_device"]
+    pld_part = partings("generate_pld", pld.tolist(), plain,
+                        lambda step: forced_logits(
+                            params, cfg, qcfg, dev, rep[0], plain[:step + 1])
+                        [step])
+    out["pld"] = dict(steps=steps, tokens=n, tok_s=n / t_pld,
+                      greedy_tok_s=n / t_plain, parting=pld_part)
+    log(f"{cfg.name} generate_pld: {steps} forward steps for {n} tokens, "
+        f"{n / t_pld:.1f} tok/s against generate_device's "
+        f"{n / t_plain:.1f} (each end to end, prefill included)")
+    del eng
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def lp_of(reqs):
+    return [(r.output_logprobs, r.output_top_logprobs) for r in reqs]
+
+
+def tree_bytes(p) -> int:
+    """Bytes of every tensor leaf of a parameter dataclass tree."""
+    if p is None:
+        return 0
+    if isinstance(p, torch.Tensor):
+        return p.numel() * p.element_size()
+    return sum(tree_bytes(getattr(p, f.name)) for f in dataclasses.fields(p))
+
+
+def vlm_image(seed: int) -> np.ndarray:
+    """A 480 x 640 uint8 image from ``default_rng(seed)``: a 12 x 16 grid of
+    random 40-pixel blocks, which survives the antialiased shrink to 336
+    (pixel noise averages out to one grey, and two such images then encode
+    alike)."""
+    cells = np.random.default_rng(seed).integers(0, 256, (12, 16, 3),
+                                                 np.uint8)
+    return np.kron(cells, np.ones((40, 40, 1), np.uint8))
+
+
+def vlm_path(dev="cuda", n_predict=64, clip_model="clip_vit_large",
+             vila_model="vila_7b"):
+    """Phase 13: CLIP ViT-L/14-336 (``clip_vit_large``, the port's
+    ``init_random_params(seed=0)`` at f32) in front of VILA-7B W4A8 at
+    group 128 (32 layers, E 4096, 32 / 32 heads, F 11008, random packed
+    weights made on the card from a seed, codes centred on the zero point
+    so that the tokens follow the image, ``max_len`` 2048). A 480 x 640
+    image (``vlm_image(0)``) through preprocess and the bf16 encode
+    (timed by CUDA events), then ``generate_with_image`` on an 8 + 576 + 24
+    token prompt (scripts/bench_vlm.py's layout) and ``generate_device`` on
+    its embeds (captured graphs) = an eager Engine's tokens, n_predict
+    greedy; exact launches (flash_prefill once per layer, int4_matmul on
+    the 1024-row prompt, flash_decode and int4_matmul_a8 per step) and no
+    plain call; a second image gives other tokens; one ServingEngine
+    request with the embeds gives the Engine's tokens; 2-layer cuts of the
+    decoder (with input_embeds) and of the tower against the CPU's plain
+    path. Prints encode ms, image TTFT, decode tok/s and the weights' bytes
+    by count. Returns the launches and metrics. The arguments shrink the
+    run for a rehearsal on the CPU."""
+    from tinychatengine_tpu_torch.core.config import (GenerationConfig,
+                                                      QuantConfig)
+    from tinychatengine_tpu_torch.generation import kv_cache as kvc
+    from tinychatengine_tpu_torch.generation import vlm
+    from tinychatengine_tpu_torch.generation.engine import Engine
+    from tinychatengine_tpu_torch.models import clip, llama
+    from tinychatengine_tpu_torch.ops import _build
+    from tinychatengine_tpu_torch.runtime.serving import ServingEngine
+    from tinychatengine_tpu_torch.tokenizers.byte_fallback import (
+        ByteTokenizer)
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    ccfg, vcfg = model_config(clip_model), model_config(vila_model)
+    n_img = (ccfg.image_size // ccfg.patch_size) ** 2
+    t0 = time.perf_counter()
+    cparams = clip.init_random_params(ccfg, seed=0, device=dev)
+    qcfg = QuantConfig(scheme="w4a8", group_size=128)
+    vparams = llama.init_random_params(vcfg, qcfg, seed=0, max_pos=2048,
+                                       fast=True, device=dev, centered=True)
+    sync()
+    m = dict(init_s=time.perf_counter() - t0,
+             decoder_gb=tree_bytes(vparams) / 1e9,
+             tower_gb=tree_bytes(cparams) / 1e9)
+    log(f"vila_7b w4a8 + clip_vit_large f32 random init: {m['init_s']:.1f} s,"
+        f" weights by count: decoder {m['decoder_gb']:.3f} GB, tower "
+        f"{m['tower_gb']:.3f} GB")
+    img_a, img_b = vlm_image(0), vlm_image(1)
+
+    def encode(img):
+        return vlm.encode_image(cparams, ccfg, img)
+    emb_a = encode(img_a)
+    if emb_a.shape != (n_img, vcfg.embed_dim) or \
+            not torch.isfinite(emb_a.float()).all():
+        raise SystemExit(f"bad image embeddings {tuple(emb_a.shape)}")
+    enc = []
+    for _ in range(3):  # CUDA events on the card (host time in a rehearsal)
+        if dev == "cuda":
+            a, b = _events()
+            a.record()
+            encode(img_a)
+            b.record()
+            sync()
+            enc.append(a.elapsed_time(b))
+        else:
+            t = time.perf_counter()
+            encode(img_a)
+            enc.append((time.perf_counter() - t) * 1e3)
+    m["encode_ms"] = float(np.median(enc))
+
+    tok = ByteTokenizer()
+    prompt = "Image: " + vlm.IMAGE_MARKER + " What is in this image?\n"
+    g = GenerationConfig(temp=0.0, n_predict=n_predict, repeat_penalty=1.0,
+                         repeat_last_n=1)
+    eng = Engine(vparams, vcfg, qcfg, batch=1, max_len=2048, device=dev)
+    ids, embeds = vlm.build_multimodal_inputs(tok, vparams.embed, prompt,
+                                              emb_a)
+    if ids.shape != (1, VLM_PRE + n_img + VLM_POST):
+        raise SystemExit(f"the VLM prompt is {ids.shape[1]} tokens, not "
+                         f"{VLM_PRE} + {n_img} + {VLM_POST}")
+    res = vlm.generate_with_image(eng, cparams, ccfg, tok, prompt, img_a, g)
+    with plain_calls() as plain:
+        eng.generate_device(ids, g, n_tokens=2, input_embeds=embeds)
+        sync()
+        _build.reset_launches()
+        got = eng.generate_device(ids, g, n_tokens=n_predict,
+                                  input_embeds=embeds)[0].tolist()
+        sync()
+        launches = dict(_build.LAUNCHES)
+    nl = vcfg.num_layers
+    want = {"flash_prefill": nl, "int4_matmul": 4 * nl,
+            "flash_decode": n_predict * nl,
+            "int4_matmul_a8": n_predict * (4 * nl + 1) + 1}
+    log("vila_7b generate_device launches:", json.dumps(launches),
+        "plain calls:", json.dumps(plain))
+    if dev == "cuda" and ({k: v for k, v in launches.items() if v} != want
+                          or any(plain.values())):
+        raise SystemExit(f"vila_7b: launches {launches}, want {want}; plain "
+                         f"calls {plain}")
+    eager = Engine(vparams, vcfg, qcfg, batch=1, max_len=2048, device=dev,
+                   cuda_graphs=False)
+    want_toks = eager.generate_device(ids, g, n_tokens=n_predict,
+                                      input_embeds=embeds)[0].tolist()
+    del eager
+    m["graph_eq_eager"] = got == want_toks
+    m["generate_with_image_eq"] = res.tokens[0] == want_toks
+    if not (m["graph_eq_eager"] and m["generate_with_image_eq"]):
+        raise SystemExit("vila_7b: generate_with_image, the captured graphs "
+                         "and the eager Engine part")
+
+    def rate_s(n):
+        sync()
+        t = time.perf_counter()
+        eng.generate_device(ids, g, n_tokens=n, input_embeds=embeds).cpu()
+        return time.perf_counter() - t
+    t1 = float(np.median([rate_s(1) for _ in range(3)]))
+    tn = float(np.median([rate_s(n_predict) for _ in range(3)]))
+    m["decode_tok_s"] = (n_predict - 1) / (tn - t1)
+    cache = eng.new_cache()
+
+    def ttft_s(img):
+        cache.length = 0
+        sync()
+        t = time.perf_counter()
+        e = encode(img)
+        i, x = vlm.build_multimodal_inputs(tok, vparams.embed, prompt, e)
+        logits, _ = eng.prefill(i, cache, input_embeds=x)
+        int(logits.argmax(-1)[0])
+        return time.perf_counter() - t
+    ttft_s(img_a)
+    m["image_ttft_ms"] = float(np.median([ttft_s(img_a)
+                                          for _ in range(3)])) * 1e3
+
+    _, emb_b = vlm.build_multimodal_inputs(tok, vparams.embed, prompt,
+                                           encode(img_b))
+    other = eng.generate_device(ids, g, n_tokens=n_predict,
+                                input_embeds=emb_b)[0].tolist()
+    m["second_image_differs"] = other != got
+    if other == got:
+        raise SystemExit("vila_7b: a second image gave the same tokens")
+    srv = ServingEngine(vparams, vcfg, qcfg, slots=1, max_len=2048, gcfg=g,
+                        device=dev)
+    r = srv.submit(ids[0], n_predict=n_predict, input_embeds=embeds[0])
+    srv.run()
+    m["serving_eq_engine"] = r.output_ids == got
+    if r.output_ids != got:
+        raise SystemExit("vila_7b: the ServingEngine's embeds request parts "
+                         "from the Engine")
+    del srv, eng, cache
+
+    # 2-layer cuts at full width, the card against the CPU's plain path:
+    # the decoder on the prompt's first 64 rows (8 text, 56 image) then two
+    # decode steps; the tower's embeddings at bf16 and its hidden states
+    # at f32
+    errs = {}
+    with torch.inference_mode():
+        cut = dataclasses.replace(vcfg, num_layers=2)
+        outs = {}
+        n = min(64, ids.shape[1])
+        for where in (dev, "cpu"):
+            p = cut_params(vparams, 2, where)
+            c = kvc.init_cache(2, 1, 128, cut.num_kv_heads, cut.head_dim,
+                               device=where)
+            seq = [llama.forward(p, cut, torch.as_tensor(ids[:, :n],
+                                                         device=where),
+                                 c, 0, input_embeds=embeds[:, :n].to(where)
+                                 )[0].float().cpu()]
+            for step, t in enumerate((11, 22)):
+                seq.append(llama.forward(p, cut, torch.tensor(
+                    [[t]], device=where), c, n + step)[0].float().cpu())
+            outs[where] = seq
+        errs["decoder"] = max(float((a - b).abs().max() / b.abs().max())
+                              for a, b in zip(outs[dev], outs["cpu"]))
+        ccut = dataclasses.replace(ccfg, num_layers=2)
+        px = clip.preprocess_image(img_a, ccfg.image_size, device=dev)[None]
+        for fn, key in ((clip.encode_image, "tower bf16"),
+                        (clip.encode_hidden, "tower f32")):
+            y = [fn(cut_params(cparams, 2, where), ccut, px.to(where),
+                    dtype=torch.bfloat16 if fn is clip.encode_image
+                    else torch.float32).float().cpu()
+                 for where in (dev, "cpu")]
+            errs[key] = float((y[0] - y[1]).abs().max() / y[1].abs().max())
+    m["cut_err"] = errs
+    log("vila_7b / clip_vit_large 2-layer cuts, card vs CPU plain, max |diff|"
+        f" / max |ref|: {json.dumps(errs)} (tol {CUT_TOL}, tower f32 "
+        f"{CLIP_F32_CUT_TOL})")
+    if not (errs["decoder"] <= CUT_TOL and errs["tower bf16"] <= CUT_TOL
+            and errs["tower f32"] <= CLIP_F32_CUT_TOL):
+        raise SystemExit("a VLM 2-layer cut disagrees with the plain path")
+    m["tokens"] = got
+    log("vila_7b vlm path:", json.dumps({k: v for k, v in m.items()
+                                          if k != "tokens"}))
+    del vparams, cparams
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return launches, m
 
 
 def real_weights_serving(dev="cuda"):
@@ -2761,6 +3363,8 @@ def main(argv=None) -> int:
                      llama)
     pfx = phase("llama int8-KV prefix cache", prefix_serving, "llama3_8b",
                 llama)
+    spec = phase("llama logprobs and speculation", spec_logprobs_serving,
+                 "llama3_8b", llama)
     del llama
     torch.cuda.empty_cache()
     serving = phase("llama serving", serving_path, n_predict=64)
@@ -2776,6 +3380,7 @@ def main(argv=None) -> int:
                   n_predict=SHORT_DECODE)
     sc_serving = phase("starcoder serving", serving_path, "starcoder_15.5b",
                        n_requests=16, n_predict=64, fused=True)
+    vlm_launches, vlm = phase("vila vlm path", vlm_path)
 
     runs = {"engine": launches,  # path -> launches over its run
             "kernels": kernel_launches,
@@ -2793,7 +3398,11 @@ def main(argv=None) -> int:
             **{"long_" + k.replace(" ", "_"): m["launches"]
                for k, m in long_ctx.items()},
             **{"prefix_" + k.replace(" ", "_"): m["launches"]
-               for k, m in pfx.items() if k != "tokens_equal_uncached"}}
+               for k, m in pfx.items() if k != "tokens_equal_uncached"},
+            "logprobs_dense": spec["dense"]["launches"],
+            "logprobs_paged": spec["paged"]["launches"],
+            "spec_serving": spec["speculative"]["speculative"]["launches"],
+            "vlm_engine": vlm_launches}
     step_of = {"int8_decode": opt_step, "int4_matmul_fused": sc_ab["fused"][1],
                "int4_matmul_kouter": kouter["run"][1],
                **dict.fromkeys(INT8_KV.values(), kv8[1])}
@@ -2883,6 +3492,24 @@ def main(argv=None) -> int:
             f"tick of {b.get('tick_device_ms', 'not measured')}, "
             f"{serving[mode]['launches']['int4_matmul_a8']} launches over "
             f"{serving[mode]['decode_ticks']} ticks")
+    for mode in ("dense", "dense without logprobs", "paged", "dense eager"):
+        m = spec[mode]
+        log(f"llama3_8b w4a8 logprobs serving {mode} on {smi}: "
+            f"{m['tok_s']:.1f} tok/s, TTFT p50 {m['ttft_p50_s']:.3f} s, "
+            f"ticks {json.dumps(m['tick_stats'])}")
+    sp = spec["speculative"]
+    log(f"llama3_8b w4a8 speculative serving on {smi}: "
+        f"{sp['speculative']['tok_s']:.1f} tok/s with speculation "
+        f"({sp['speculative']['tokens_per_spec_tick']:.2f} tokens per spec "
+        f"tick, {json.dumps(sp['speculative']['spec_stats'])}), "
+        f"{sp['plain']['tok_s']:.1f} tok/s without; partings from plain "
+        f"greedy: {json.dumps(sp['partings'])}")
+    log(f"llama3_8b w4a8 generate_pld on {smi}: {json.dumps(spec['pld'])}")
+    log(f"vila_7b w4a8 + clip_vit_large on {smi}: CLIP encode "
+        f"{vlm['encode_ms']:.2f} ms (bf16, CUDA events), image TTFT "
+        f"{vlm['image_ttft_ms']:.1f} ms, decode {vlm['decode_tok_s']:.2f} "
+        f"tok/s (CUDA graphs), weights by count {vlm['decoder_gb']:.3f} + "
+        f"{vlm['tower_gb']:.3f} GB")
     log("w8a8 linears at M = 1:", json.dumps(linears))
     log("phase seconds:", json.dumps(phase_s))
     log(smi)

@@ -1107,3 +1107,83 @@ def test_serving_graph_ticks_equal_eager_ticks(cuda, paged):
         if graphs:
             assert srv.graphs.captures >= 1 and srv.tick_stats["bursts"] > 0
     assert outs[0] == outs[1]
+
+
+def test_spec_tick_graph_equals_eager(cuda):
+    """Speculative serving through the captured spec tick (one graph keyed
+    on K) gives the eager server's tokens and spec counters, and PLD
+    through the captured verify step the eager engine's tokens and
+    steps."""
+    from tinychatengine_tpu_torch.core.config import GenerationConfig
+    from tinychatengine_tpu_torch.generation.speculative import generate_pld
+    from tinychatengine_tpu_torch.runtime.serving import ServingEngine
+    cfg, qcfg, params = _tiny_llama(cuda)
+    g = GenerationConfig(temp=0.0, n_predict=32, repeat_penalty=1.0,
+                         repeat_last_n=1)
+    rep = np.tile(GRAPH_PROMPT[0, :6], 5)
+    outs = []
+    for graphs in (True, False):
+        srv = ServingEngine(params, cfg, qcfg, slots=4, gcfg=g, tick_batch=1,
+                            speculative=True, device=cuda, cuda_graphs=graphs)
+        reqs = [srv.submit(p) for p in (rep, GRAPH_PROMPT[0, :9], rep[3:])]
+        srv.run()
+        outs.append(([r.output_ids for r in reqs], dict(srv._spec_stats)))
+        if graphs:
+            assert srv._spec_stats["ticks"] > 0
+    assert outs[0] == outs[1]
+    graph, eager = _engines(cuda)
+    want = generate_pld(eager, rep[None], n_tokens=40, K=7)
+    for _ in range(2):
+        got = generate_pld(graph, rep[None], n_tokens=40, K=7)
+        assert np.array_equal(got[0], want[0]) and got[1] == want[1]
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_logprobs_tick_graph_equals_eager(cuda, paged):
+    """The captured tick's logprobs variant (bursts and single ticks) gives
+    the eager server's tokens, logprobs and top ids, dense and paged."""
+    from tinychatengine_tpu_torch.core.config import GenerationConfig
+    from tinychatengine_tpu_torch.runtime.serving import ServingEngine
+    cfg, qcfg, params = _tiny_llama(cuda)
+    g = GenerationConfig(temp=0.0, n_predict=24, repeat_penalty=1.0,
+                         repeat_last_n=1)
+    hot = GenerationConfig(temp=0.9, top_p=0.9, n_predict=24, seed=3)
+    outs = []
+    for graphs in (True, False):
+        srv = ServingEngine(params, cfg, qcfg, slots=4, gcfg=g, tick_batch=8,
+                            paged=paged, page_size=64, device=cuda,
+                            logprobs_k=5, cuda_graphs=graphs)
+        reqs = [srv.submit(GRAPH_PROMPT[0, :5 + 3 * i],
+                           gcfg=hot if i % 2 else None,
+                           logprobs=(5, None, 0)[i % 3]) for i in range(6)]
+        srv.run()
+        outs.append([(r.output_ids, r.output_logprobs,
+                      [[t for t, _ in top] for top in r.output_top_logprobs])
+                     for r in reqs])
+    assert outs[0] == outs[1]
+
+
+def test_embeds_prompt_graph_equals_eager(cuda):
+    """A prompt given as embeds replays its own prefill graph (keyed apart
+    from the ids graphs): logits bit for bit and greedy tokens as the
+    eager engine's, and the ids prompt of the same shape still replays
+    the ids graph."""
+    from tinychatengine_tpu_torch.core.config import GenerationConfig
+    graph, eager = _engines(cuda)
+    ids = GRAPH_PROMPT
+    emb = graph.params.embed[torch.as_tensor(ids, device=cuda)].float()
+    emb[:, 3:9] = torch.randn((1, 6, emb.shape[-1]), device=cuda,
+                              generator=torch.Generator(cuda).manual_seed(0)
+                              ) * 0.05
+    la, _ = graph.prefill(ids, graph.new_cache(), input_embeds=emb)
+    lb, _ = eager.prefill(ids, eager.new_cache(), input_embeds=emb)
+    assert torch.equal(la, lb)
+    lc, _ = graph.prefill(ids, graph.new_cache())
+    ld, _ = eager.prefill(ids, eager.new_cache())
+    assert torch.equal(lc, ld) and not torch.equal(la, lc)
+    g = GenerationConfig(temp=0.0, n_predict=16, repeat_penalty=1.0,
+                         repeat_last_n=1)
+    want = eager.generate_device(ids, g, input_embeds=emb)
+    assert torch.equal(graph.generate_device(ids, g, input_embeds=emb), want)
+    assert graph.generate(ids, g, input_embeds=emb).tokens[0] == \
+        want[0].tolist()

@@ -36,6 +36,7 @@ from tinychatengine_tpu_torch.generation import cuda_graph as cg
 from tinychatengine_tpu_torch.generation import sampling as tsmp
 from tinychatengine_tpu_torch.generation.engine import (DecodeStep, Engine,
                                                         GenerationResult,
+                                                        PrefillStep,
                                                         ctx_cap_for)
 from tinychatengine_tpu_torch.models import gptbigcode, llama, opt
 from tinychatengine_tpu_torch.ops import _build
@@ -193,6 +194,28 @@ def _busy_server(paged):
 
 
 @pytest.mark.parametrize("paged", [False, True])
+def test_serving_logprobs_tick_body_matches_eager_burst(paged):
+    """The tick's logprobs variant (``Tick(lp_k=...)``, what the card
+    captures when a row asks for logprobs) run K times over its static
+    buffers gives the eager burst's tokens, logprobs and top ids."""
+    srv = _busy_server(paged)
+    srv.slots[0].request.logprobs = 3
+    k = srv._burst_ticks()
+    keys0, mu0 = srv._keys.clone(), srv._mu.clone()
+    want, (lps, tops) = srv._eager_burst(k)
+    srv._keys.copy_(keys0)
+    srv._mu.copy_(mu0)
+    tick = Tick(srv, srv._row_features(), srv._ctx_cap(k), srv.logprobs_k)
+    tick.load(srv)
+    for _ in range(k):
+        tick.body()
+    assert tick.seq[:k].numpy().tolist() == want.tolist()
+    assert np.array_equal(tick.lp[:k].numpy(), lps)
+    assert tick.top_i[:k].numpy().tolist() == \
+        [[[i for i, _ in row] for row in t] for t in tops]
+
+
+@pytest.mark.parametrize("paged", [False, True])
 def test_serving_tick_body_matches_decode_burst(paged):
     """``Tick.body`` (the tick the card captures) run K times eagerly over
     its static buffers gives the eager burst's [K, B] tokens and leaves the
@@ -201,7 +224,7 @@ def test_serving_tick_body_matches_decode_burst(paged):
     k = srv._burst_ticks()
     assert k == 8 and srv.n_active == 3
     keys0, mu0 = srv._keys.clone(), srv._mu.clone()
-    want = srv._eager_burst(k)
+    want, _ = srv._eager_burst(k)  # the tokens (no row asked for logprobs)
     keys1, mu1 = srv._keys.clone(), srv._mu.clone()
     srv._keys.copy_(keys0)
     srv._mu.copy_(mu0)
@@ -268,6 +291,31 @@ def test_device_true_len_prefill_matches_host_int(kind, tol):
         jp, jnp.asarray(ids, jnp.int32), jc)
     np.testing.assert_allclose(l2.numpy(), np.asarray(jl)[:, :l2.shape[1]],
                                atol=tol, rtol=tol)
+
+
+def test_embeds_prefill_step_body_matches_eager():
+    """``PrefillStep`` with ``embed_dim`` (the captured graph of a prompt
+    given as embeds) over its static buffers: the eager prefill's logits
+    and cache bit for bit, not the ids' logits, and the cache's host
+    length left to the caller."""
+    cfg, qcfg = ModelConfig(**SERVE), QuantConfig(scheme="fp")
+    params = llama.init_random_params(cfg, qcfg, seed=0, device="cpu")
+    eng = Engine(params, cfg, qcfg, device="cpu")
+    ids = PROMPT
+    emb = params.embed[torch.from_numpy(ids)].float()
+    emb[:, 2:6] = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (1, 4, cfg.embed_dim)).astype(np.float32) * 0.05)
+    want, c1 = eng.prefill(ids, eng.new_cache(), input_embeds=emb)
+    c2 = eng.new_cache()
+    st = PrefillStep(eng, c2, 1, 16, 0, cfg.embed_dim)
+    st.ids[:, :ids.shape[1]] = torch.from_numpy(ids)
+    st.embeds[:, :ids.shape[1]] = emb.to(torch.bfloat16)
+    st.true_len.fill_(ids.shape[1])
+    st.body()
+    assert torch.equal(st.logits, want) and torch.equal(c1.k, c2.k)
+    assert c2.length == 0 and c1.length == ids.shape[1]
+    plain, _ = eng.prefill(ids, eng.new_cache())
+    assert not torch.equal(plain, want)
 
 
 def test_ctx_cap_matches_jax():

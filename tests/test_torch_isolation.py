@@ -29,6 +29,9 @@ def test_every_port_module_imports_without_jax():
             "tinychatengine_tpu_torch.models.opt",
             "tinychatengine_tpu_torch.models.gptbigcode",
             "tinychatengine_tpu_torch.tools.calibrate_opt"} <= set(mods)
+    assert {"tinychatengine_tpu_torch.models.clip",
+            "tinychatengine_tpu_torch.generation.vlm",
+            "tinychatengine_tpu_torch.generation.speculative"} <= set(mods)
     code = ("import sys\n"
             "for name in ('jax', 'jaxlib', 'ml_dtypes', 'tinychatengine_tpu'):\n"
             "    sys.modules[name] = None\n"
@@ -124,3 +127,27 @@ def test_entry_points_default_to_the_card(monkeypatch):
         Engine(None, scfg, w4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(None, scfg, w4, forward_fn=gptbigcode.forward)
+
+
+def test_clip_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """The VLM's entry points (clip.init_random_params, preprocess_image of
+    a host image, load_clip) without device= raise when no CUDA device is
+    present."""
+    import numpy as np
+
+    from tinychatengine_tpu_torch.core.config import get_model_config
+    from tinychatengine_tpu_torch.models import clip
+    from tinychatengine_tpu_torch.tools.checkpoint import load_clip, save_clip
+
+    tiny = get_model_config("clip_vit_large")
+    tiny = type(tiny)(**{**tiny.__dict__, "num_layers": 1, "embed_dim": 64,
+                         "hidden_dim": 128, "num_heads": 4, "num_kv_heads": 4,
+                         "image_size": 28, "mmproj_dim": 64})
+    save_clip(str(tmp_path), clip.init_random_params(tiny, device="cpu"), tiny)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        clip.init_random_params(tiny)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        clip.preprocess_image(np.zeros((30, 30, 3), np.uint8), 28)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_clip(str(tmp_path))

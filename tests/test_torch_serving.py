@@ -573,8 +573,9 @@ def test_stop_tokens_streaming_and_timestamps(tiny):
 
 def test_engine_global_sampler_and_unported_options(tiny):
     """An engine logit_bias table past RowParams.MAX_BIAS keeps the
-    engine-global sampler (no bursts, no per-request configs); the options
-    that are not ported raise instead of being ignored."""
+    engine-global sampler (no bursts, no per-request configs, speculation
+    off); sequence-parallel admission, still not ported, raises instead of
+    being ignored, and logprobs and input_embeds are checked at submit."""
     bias = {i: -1e9 for i in range(20, 40)}
     g = GenerationConfig(n_predict=5, logit_bias=bias, **GREEDY)
     srv = _srv(tiny, slots=2, gcfg=g, tick_batch=8)
@@ -586,13 +587,13 @@ def test_engine_global_sampler_and_unported_options(tiny):
         assert not any(20 <= t < 40 for t in r.output_ids)
     with pytest.raises(ValueError):
         srv.submit(PROMPTS[0], gcfg=GenerationConfig())
-    for kw in (dict(speculative=True), dict(sp_mesh=object())):
-        with pytest.raises(NotImplementedError):
-            _srv(tiny, **kw)
     with pytest.raises(NotImplementedError):
-        srv.submit(PROMPTS[0], logprobs=2)
-    with pytest.raises(NotImplementedError):
-        srv.submit(PROMPTS[0], input_embeds=np.zeros((3, 128)))
+        _srv(tiny, sp_mesh=object())
+    assert not _srv(tiny, gcfg=g, speculative=True).speculative
+    with pytest.raises(ValueError):
+        srv.submit(PROMPTS[0], logprobs=srv.logprobs_k + 1)
+    with pytest.raises(ValueError):
+        srv.submit(PROMPTS[0], input_embeds=np.zeros((2, 128)))
 
 
 # ---- prefix cache (CPU twins of tests/test_serving.py's prefix tests) -------

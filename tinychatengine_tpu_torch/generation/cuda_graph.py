@@ -89,6 +89,14 @@ class Graphs:
         self._pool = None
         self._stream = None
 
+    def clear(self) -> None:
+        """Drop every step, and with the last graph the memory pool: a
+        capture into a pool whose graphs were all freed trips the caching
+        allocator (``use_count > 0``), so the next capture opens a new
+        one."""
+        self.steps.clear()
+        self._pool = None
+
     def step(self, key, build: Callable[[], Step]) -> Step:
         """The step under ``key``, made by ``build()`` on first use (not yet
         captured: its first run captures)."""

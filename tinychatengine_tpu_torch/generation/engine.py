@@ -12,7 +12,11 @@ On the card each prompt chunk (bucket, start) and the decode step (sample,
 penalty window, forward at a device position) run as captured CUDA graphs
 (``generation/cuda_graph.py``), the counterpart of JAX's jitted prefill
 and its ``lax.scan``: ``generate_device`` replays the step n_tokens times,
-``prefill`` one graph per chunk, all in one cache the engine owns.
+``prefill`` one graph per chunk, all in one cache the engine owns. A
+prompt given as ``input_embeds`` (a VLM's spliced prompt, llama family)
+is chunked alongside its ids, its last chunk zero-padded to the bucket,
+and its chunks replay graphs of their own (a bf16 [B, bucket, E] buffer
+in place of the ids).
 ``cuda_graphs=False`` keeps the eager loops on the card, for comparisons;
 on the CPU the loops are eager.
 Sampling runs on the device in both loops (generation/sampling.py). The
@@ -87,6 +91,12 @@ class GenerationResult:
     def tokens_per_s(self) -> float:
         n = len(self.tokens[0]) if self.tokens else 0
         return n / self.decode_s if self.decode_s > 0 else 0.0
+
+
+def _embeds_kw(embeds) -> dict:
+    """The forward's ``input_embeds`` keyword, only when there are embeds
+    (the families without them take no such keyword)."""
+    return {} if embeds is None else {"input_embeds": embeds}
 
 
 def _penalty_window(gcfg: GenerationConfig) -> int:
@@ -166,21 +176,27 @@ class DecodeStep:
 class PrefillStep:
     """One prompt chunk of ``bucket`` ids at host position ``start`` over
     static buffers: ``ids`` [B, bucket], ``true_len`` (0-d int32, read on
-    the device only), ``logits`` [B, V] of each row's last real position."""
+    the device only), ``logits`` [B, V] of each row's last real position;
+    with ``embed_dim``, ``embeds`` [B, bucket, E] bf16 go to the forward as
+    ``input_embeds``."""
 
     def __init__(self, eng: "Engine", cache, b: int, bucket: int,
-                 start: int):
+                 start: int, embed_dim: int = 0):
         dev = eng.device
         self.model = (eng._forward, eng.params, eng.cfg)
         self.cache, self.start = cache, start
         self.ids = torch.zeros((b, bucket), dtype=torch.int64, device=dev)
+        self.embeds = (torch.zeros((b, bucket, embed_dim),
+                                   dtype=torch.bfloat16, device=dev)
+                       if embed_dim else None)
         self.true_len = torch.zeros((), dtype=torch.int32, device=dev)
         self.logits = None
 
     def body(self) -> None:
         forward, params, cfg = self.model
         logits, _ = forward(params, cfg, self.ids, self.cache, self.start,
-                            true_len=self.true_len)
+                            true_len=self.true_len,
+                            **_embeds_kw(self.embeds))
         if self.logits is None:  # made outside the capture: the eager run
             self.logits = torch.empty_like(logits)
         self.logits.copy_(logits)
@@ -245,7 +261,7 @@ class Engine:
         own = self._cache
         if own is not None and (not self._cache_default if like is None else
                                 kvc.layout(like) != kvc.layout(own)):
-            self.graphs.steps.clear()
+            self.graphs.clear()
             own = self._cache = None
         if own is None:
             own = self.new_cache() if like is None else kvc.fresh_like(like)
@@ -254,58 +270,80 @@ class Engine:
 
     @torch.inference_mode()
     def prefill(self, input_ids: np.ndarray, cache: kvc.KVCache,
-                start: int = 0):
-        """input_ids [B, L] (unpadded). Returns (last-position logits
-        [B, V], cache). On the graph path the chunks run in the engine's
-        cache: positions [0, start) are copied in from ``cache`` and the
-        prompt's positions back out to it."""
+                start: int = 0, input_embeds=None):
+        """input_ids [B, L] (unpadded); input_embeds: optional [B, L, E]
+        (a tensor or an array, cast to bf16) in place of the embedding
+        gather. Returns (last-position logits [B, V], cache). On the graph
+        path the chunks run in the engine's cache: positions [0, start) are
+        copied in from ``cache`` and the prompt's positions back out to
+        it."""
+        embeds = self._embeds(input_embeds)
         if self.graphs is None:
-            return self._prefill(input_ids, cache, start)
+            return self._prefill(input_ids, cache, start, embeds)
         own = self._own_cache(cache)
         kvc.copy_positions(cache, own, 0, start)
         own.length = cache.length
-        logits, _ = self._prefill(input_ids, own, start)
+        logits, _ = self._prefill(input_ids, own, start, embeds)
         kvc.copy_positions(own, cache, start, start + np.shape(input_ids)[1])
         cache.length = own.length
         return logits, cache
 
+    def _embeds(self, input_embeds) -> Optional[torch.Tensor]:
+        """A prompt's embeds as bf16 on the engine's device (or None)."""
+        if input_embeds is None:
+            return None
+        if not isinstance(input_embeds, torch.Tensor):
+            input_embeds = torch.from_numpy(np.asarray(input_embeds))
+        return input_embeds.to(self.device, torch.bfloat16)
+
     def _prefill(self, input_ids: np.ndarray, cache: kvc.KVCache,
-                 start: int):
+                 start: int, embeds: Optional[torch.Tensor] = None):
         """The chunks of ``prefill`` in ``cache``: through their graphs
-        (the engine's cache only) or eager."""
+        (the engine's cache only) or eager. ``embeds`` [B, L, E] bf16 are
+        cut into the same chunks, the last zero-padded to its bucket."""
         b, n = input_ids.shape
         while n > self.CHUNK:
             head, input_ids = input_ids[:, :self.CHUNK], input_ids[:, self.CHUNK:]
+            he = None
+            if embeds is not None:
+                he, embeds = embeds[:, :self.CHUNK], embeds[:, self.CHUNK:]
             if self.graphs is not None:
-                self._prefill_graph(head, cache, start, self.CHUNK)
+                self._prefill_graph(head, cache, start, self.CHUNK, he)
             else:
                 _, cache = self._forward(
                     self.params, self.cfg, self._ids(head), cache, start,
-                    true_len=self.CHUNK)
+                    true_len=self.CHUNK, **_embeds_kw(he))
             start += self.CHUNK
             n -= self.CHUNK
-        ids = np.zeros((b, _bucket(n)), np.int64)
+        bucket = _bucket(n)
+        ids = np.zeros((b, bucket), np.int64)
         ids[:, :n] = input_ids
+        if embeds is not None:
+            embeds = torch.nn.functional.pad(embeds, (0, 0, 0, bucket - n))
         if self.graphs is not None:
-            return self._prefill_graph(ids, cache, start, n), cache
+            return self._prefill_graph(ids, cache, start, n, embeds), cache
         return self._forward(self.params, self.cfg, self._ids(ids), cache,
-                             start, true_len=n)
+                             start, true_len=n, **_embeds_kw(embeds))
 
     def _prefill_graph(self, ids: np.ndarray, cache: kvc.KVCache, start: int,
-                       n: int) -> torch.Tensor:
+                       n: int, embeds: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
         """One chunk through its captured graph, keyed by (cache, batch,
-        bucket, start): ids and the real length go into the static
-        buffers; the cache's host length advances by n, as the eager
-        forward advances it."""
+        bucket, start, the embeds' width or 0): ids, the embeds and the
+        real length go into the static buffers; the cache's host length
+        advances by n, as the eager forward advances it."""
         b, bucket = ids.shape
+        e = 0 if embeds is None else embeds.shape[-1]
         key = ("prefill", cg.storage_key(cache.k, cache.v, cache.k_scale),
-               b, bucket, start, cg.routes())
+               b, bucket, start, e, cg.routes())
 
         def build():
-            st = PrefillStep(self, cache, b, bucket, start)
+            st = PrefillStep(self, cache, b, bucket, start, e)
             return cg.Step(st.body, st)
         step = self.graphs.step(key, build)
         step.state.ids.copy_(torch.from_numpy(np.asarray(ids, np.int64)))
+        if embeds is not None:
+            step.state.embeds.copy_(embeds)
         step.state.true_len.fill_(n)
         self.graphs.run(step)
         cache.length += n
@@ -328,9 +366,10 @@ class Engine:
                  stop_token_ids: Sequence[int] = (),
                  on_token: Optional[Callable[[int], None]] = None,
                  cache: Optional[kvc.KVCache] = None,
-                 start: int = 0) -> GenerationResult:
+                 start: int = 0, input_embeds=None) -> GenerationResult:
         """Streaming decode: prefill → [sample → forward]* until n_predict
-        or a stop token."""
+        or a stop token. input_embeds: the prompt's [B, L, E] embeddings
+        (``prefill``)."""
         input_ids = np.atleast_2d(np.asarray(input_ids, np.int64))
         b, n_prompt = input_ids.shape
         assert b == self.batch, (b, self.batch)
@@ -344,7 +383,8 @@ class Engine:
         last_np = self._prompt_window(input_ids, gcfg)
 
         t0 = time.perf_counter()
-        logits, cache = self.prefill(input_ids, cache, start=start)
+        logits, cache = self.prefill(input_ids, cache, start=start,
+                                     input_embeds=input_embeds)
         tok, state = sampling.sample(logits, state, gcfg,
                                      self._ids(last_np))
         tok_host = tok.cpu().numpy()
@@ -385,7 +425,7 @@ class Engine:
     def generate_device(self, input_ids, gcfg: GenerationConfig,
                         n_tokens: Optional[int] = None,
                         cache: Optional[kvc.KVCache] = None,
-                        return_cache: bool = False):
+                        return_cache: bool = False, input_embeds=None):
         """Prefill + n_tokens decode steps with the tokens kept on the card;
         nothing is fetched to the host inside the loop. Returns tokens
         [B, n_tokens] int32 on the engine's device (and the cache with
@@ -395,7 +435,8 @@ class Engine:
         replayed n_tokens times in the engine's cache, whose positions
         [0, n_prompt + n_tokens) are then copied to ``cache`` (or to a
         fresh copy with return_cache); ``ctx_cap`` (``ctx_cap_for``) bounds
-        the attention grid as in JAX."""
+        the attention grid as in JAX. input_embeds: the prompt's [B, L, E]
+        embeddings (``prefill``)."""
         input_ids = np.atleast_2d(np.asarray(input_ids, np.int64))
         b, n_prompt = input_ids.shape
         n_tokens = n_tokens or gcfg.n_predict
@@ -411,7 +452,8 @@ class Engine:
         if self.graphs is not None:
             own = self._own_cache(cache)
             own.length = base
-            logits, _ = self._prefill(input_ids, own, 0)
+            logits, _ = self._prefill(input_ids, own, 0,
+                                      self._embeds(input_embeds))
             tokens = self._decode_graph(own, logits, window, n_prompt,
                                         n_tokens, gcfg, ctx_cap)
             if cache is not None:
@@ -422,7 +464,8 @@ class Engine:
             return (tokens, cache) if return_cache else tokens
         if cache is None:
             cache = self.new_cache()
-        logits, cache = self.prefill(input_ids, cache)
+        logits, cache = self.prefill(input_ids, cache,
+                                     input_embeds=input_embeds)
         state = sampling.SamplerState.init(gcfg.seed, b, gcfg.mirostat_tau,
                                            self.device)
         last = self._ids(window)

@@ -107,7 +107,10 @@ def _update_layer_rows(cache: KVCache, layer_k, layer_v, layer_idx,
     rows = torch.arange(b, device=starts.device)[:, None].expand(b, s)
     pos = starts.long()[:, None] + torch.arange(s, device=starts.device)
     k, v = layer_k, layer_v
-    if s > 1:  # bucket padding may reach past the cache: drop it
+    # bucket padding may reach past the cache: drop it (a host read, so a
+    # captured write, a speculative verify, keeps its positions in the
+    # cache itself)
+    if s > 1 and not (k.is_cuda and torch.cuda.is_current_stream_capturing()):
         keep = pos < cache.max_len
         if not bool(keep.all()):
             rows, pos, k, v = rows[keep], pos[keep], k[keep], v[keep]

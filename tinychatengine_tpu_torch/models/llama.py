@@ -1,7 +1,7 @@
 """LLaMA-family decoder, single device (counterpart of the JAX package's
 ``models/llama.py``, with per-row positions, the paged decode of the
-serving path and the fused decode branch; no tensor, sequence or pipeline
-parallelism, no ``input_embeds``).
+serving path, the fused decode branch and ``input_embeds``, the VLM's
+spliced prompt; no tensor, sequence or pipeline parallelism).
 
 Fused decode (``ops.int4_matmul.FUSED_DECODE``, off by default): a
 one-token step of a W4A16 model whose linears pass JAX's shape gate
@@ -110,7 +110,8 @@ class LlamaParams:
 def forward(params: LlamaParams, cfg: ModelConfig, input_ids: torch.Tensor,
             cache, start, full_logits: bool = False, true_len=None,
             page_table: Optional[torch.Tensor] = None,
-            ctx_cap: Optional[int] = None, return_hidden: bool = False):
+            ctx_cap: Optional[int] = None, return_hidden: bool = False,
+            input_embeds: Optional[torch.Tensor] = None):
     """One forward pass (prefill S > 1 or decode S = 1), writing the new
     K/V into ``cache`` in place.
 
@@ -130,7 +131,10 @@ def forward(params: LlamaParams, cfg: ModelConfig, input_ids: torch.Tensor,
     ctx_cap: JAX's static bound on every row's context in a decode step
     with per-row ``start`` (``flash_decode``'s grid); the caller keeps
     start + 1 <= ctx_cap. return_hidden: the states before the final norm
-    [B, S, E] instead of logits.
+    [B, S, E] instead of logits. input_embeds: [B, S, E], cast to bf16, in
+    place of the embedding gather (a VLM prompt: text rows of the table
+    with the image's embeddings spliced in); input_ids then give only the
+    shape.
     Returns (logits [B, V] f32 of the last position, or [B, S, V] with
     full_logits, and the cache)."""
     b, s = input_ids.shape
@@ -147,7 +151,10 @@ def forward(params: LlamaParams, cfg: ModelConfig, input_ids: torch.Tensor,
             raise ValueError(f"KV cache full: position {start} >= max_len "
                              f"{cache.max_len}")
         st_col = torch.full((1, 1), start, dtype=torch.long, device=dev)
-    x = params.embed[input_ids.to(dev)].to(torch.bfloat16)
+    if input_embeds is not None:
+        x = input_embeds.to(dev, torch.bfloat16)
+    else:
+        x = params.embed[input_ids.to(dev)].to(torch.bfloat16)
     positions = (st_col + torch.arange(s, device=dev)).expand(b, s)
     # the JAX gather clamps out-of-range indices; so does this one (only
     # bucket padding past the table can reach it)
@@ -299,11 +306,15 @@ def params_from_numpy(flat: dict, cfg: ModelConfig, qcfg: QuantConfig,
 
 def init_random_params(cfg: ModelConfig, qcfg: QuantConfig, seed: int = 0,
                        max_pos: Optional[int] = None, fast: bool = False,
-                       device=None) -> LlamaParams:
+                       device=None, centered: bool = False) -> LlamaParams:
     """Random weights in the right structure (benchmarks and tests).
     fast=True makes packed bytes and scales directly on the device from a
-    seeded ``torch.Generator`` (layout-only fidelity, for full-size models);
-    otherwise weights are drawn on the host with numpy and quantized."""
+    seeded ``torch.Generator`` (layout-only fidelity, for full-size models),
+    with codes centred on the zero point when ``centered``
+    (``random_int4_linear_fast``; uniform bytes put a common offset into
+    every output, and a deep model's greedy tokens then barely depend on
+    its input); otherwise weights are drawn on the host with numpy and
+    quantized."""
     dev = resolve_device(device)
     e, f, v = cfg.embed_dim, cfg.hidden_dim, cfg.vocab_size
     hq, hkv, d, nl = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
@@ -319,7 +330,7 @@ def init_random_params(cfg: ModelConfig, qcfg: QuantConfig, seed: int = 0,
         if quant and fast:
             return as_kind(random_int4_linear_fast(
                 gen, k, n, qcfg.group_size, scale_dtype=qcfg.scale_dtype,
-                device=dev, n_layers=n_layers))
+                device=dev, n_layers=n_layers, centered=centered))
         count = 1 if n_layers is None else n_layers
         if quant:
             ps = [random_int4_linear(rng, k, n, qcfg.group_size,

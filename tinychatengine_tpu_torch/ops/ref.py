@@ -126,6 +126,11 @@ def gelu_ref(x: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.gelu(x, approximate="tanh")
 
 
+def quick_gelu_ref(x: torch.Tensor) -> torch.Tensor:
+    """quick-GELU x * sigmoid(1.702 x) (CLIP's MLP), in x's dtype."""
+    return x * torch.sigmoid(1.702 * x)
+
+
 def int4_matmul_ref(x: torch.Tensor, packed: torch.Tensor,
                     scales: torch.Tensor, group_size: int) -> torch.Tensor:
     """W4A16 linear oracle: y = x @ dequant(W) in f32 (pack-time K padding

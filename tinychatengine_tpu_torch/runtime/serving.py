@@ -26,7 +26,24 @@ the JAX package's ``runtime/serving.py``).
   prompt's KV head is kept in a pool of entries (the scratch cache's
   storage: bf16, int8 codes with their scales, or OPT's raw int8); a later
   prompt that shares at least ``prefix_min`` leading tokens with an entry
-  starts its prefill from a copy of that KV and prefills only its tail.
+  starts its prefill from a copy of that KV and prefills only its tail;
+- **logprobs** (``submit(logprobs=k)``, k <= ``logprobs_k``): each
+  emitted token's log-probability under the raw model logits (before any
+  sampling stage) and the top k alternatives, ties ordered as
+  ``lax.top_k`` orders them (value descending, then index ascending), on
+  every path that emits (the tick and the burst, whose captured graphs
+  take a logprobs variant keyed on ``logprobs_k``, and the first token of
+  each admission, single or batched, dense or paged);
+- **speculative ticks** (``speculative=True``, dense, per-row sampler):
+  while every active row is greedy with no penalty, bias or logprobs, one
+  ragged [B, K+1] forward verifies ``spec_K`` prompt-lookup drafts per row
+  (``generation/speculative.py verify``), as a captured graph keyed on K
+  on the card; a row emits its accepted drafts plus one;
+- **multimodal prompts** (``submit(input_embeds=...)``, llama family):
+  [n, E] embeddings replace the embedding gather for the whole prompt;
+  such a request takes the single admission, its chunks carry their
+  embeds, it bypasses the prefix cache, and a preempted one resumes with
+  the table rows of its emitted tokens appended.
 
 Sampling is per request (``sampling.sample_rows``): every parameter rides
 as a [slots] tensor, and each request carries its own (key, step) random
@@ -40,8 +57,8 @@ StarCoder, dense or paged, with single admissions). OPT W8A8 serves from a
 dense slot cache of raw int8 K/V; it has no paged path (``paged=True``
 raises ``NotImplementedError``, as in JAX).
 
-Not ported (they raise ``NotImplementedError``): speculative ticks,
-sequence-parallel admission, ``input_embeds`` and ``logprobs``.
+Not ported: sequence-parallel admission (``sp_mesh`` raises
+``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -61,6 +78,7 @@ from tinychatengine_tpu_torch.core.device import resolve_device
 from tinychatengine_tpu_torch.generation import cuda_graph as cg
 from tinychatengine_tpu_torch.generation import kv_cache as kvc
 from tinychatengine_tpu_torch.generation import sampling
+from tinychatengine_tpu_torch.generation import speculative as spec
 from tinychatengine_tpu_torch.generation.engine import (Engine, _bucket,
                                                         ctx_cap_for,
                                                         raw_int8_kv)
@@ -75,12 +93,20 @@ class Request:
 
     prompt_ids: np.ndarray                    # [n] int
     n_predict: int
+    # a multimodal prompt: [n, E] f32 embeddings of the whole prompt (the
+    # text's table rows with the image's spliced in); prompt_ids then hold
+    # 0 at image positions and feed only the penalty window
+    input_embeds: Optional[np.ndarray] = None
     stop_token_ids: tuple = ()
     on_token: Optional[Callable[[int, "Request"], None]] = None
     request_id: int = 0
     gcfg: Optional[GenerationConfig] = None   # per-request sampling params
+    logprobs: Optional[int] = None  # None: off; 0: chosen token only
     # filled by the engine:
     output_ids: list = dataclasses.field(default_factory=list)
+    output_logprobs: list = dataclasses.field(default_factory=list)
+    # per emitted token: [(token id, logprob)] of length ``logprobs``
+    output_top_logprobs: list = dataclasses.field(default_factory=list)
     finished: bool = False
     finish_reason: Optional[str] = None       # "stop" | "length" | ...
     submit_t: float = 0.0
@@ -123,9 +149,15 @@ class ServingEngine:
     KV[0:m) a function of tokens[0:m) alone. LRU eviction; counters in
     ``prefix_stats``. A hit bypasses batched admission.
 
-    cuda_graphs: on the card, the per-row decode tick replays a captured
-    graph (``Tick``; ``graphs`` holds them); False keeps it eager, for
-    comparisons."""
+    speculative: prompt-lookup draft-and-verify ticks of ``spec_K`` drafts
+    (dense, per-row sampler; off for paged serving and the engine-global
+    sampler, as in JAX); counters in ``_spec_stats``. logprobs_k: the
+    widest top-k a request may ask for (every logprobs variant computes
+    this many).
+
+    cuda_graphs: on the card, the per-row decode tick and the speculative
+    tick replay captured graphs (``Tick``, ``SpecTick``; ``graphs`` holds
+    them); False keeps them eager, for comparisons."""
 
     def __init__(self, params, cfg: ModelConfig,
                  qcfg: Optional[QuantConfig] = None, slots: int = 8,
@@ -135,14 +167,13 @@ class ServingEngine:
                  page_size: int = 128,
                  n_pages: Optional[int] = None, admission_chunk: int = 512,
                  tick_batch: int = 8, speculative: bool = False,
-                 prefix_cache_entries: int = 0,
+                 spec_K: int = 7, prefix_cache_entries: int = 0,
                  prefix_cache_len: Optional[int] = None,
-                 prefix_min: int = 64, sp_mesh=None, device=None,
-                 cuda_graphs: bool = True):
-        if speculative or sp_mesh is not None:
+                 prefix_min: int = 64, logprobs_k: int = 8, sp_mesh=None,
+                 device=None, cuda_graphs: bool = True):
+        if sp_mesh is not None:
             raise NotImplementedError(
-                "speculative ticks and sequence-parallel admission are not "
-                "ported")
+                "sequence-parallel admission is not ported")
         if cfg.family not in ("llama", "opt", "gptbigcode"):
             raise ValueError(f"ServingEngine serves the llama, opt and "
                              f"gptbigcode families, not {cfg.family!r}")
@@ -196,7 +227,7 @@ class ServingEngine:
         # what the scheduler spent its ticks on
         self.tick_stats = {"bursts": 0, "burst_ticks": 0, "single_ticks": 0,
                            "admit_chunks": 0, "batch_admits": 0,
-                           "batch_admit_reqs": 0}
+                           "batch_admit_reqs": 0, "spec_ticks": 0}
         self.queue: collections.deque[Request] = collections.deque()
         self.done: list[Request] = []
         self._ids = itertools.count()
@@ -246,6 +277,24 @@ class ServingEngine:
             self._pfx_lru: list[int] = list(range(self._pfx_entries))
             self.prefix_stats = {"hits": 0, "hit_tokens": 0, "stores": 0}
 
+        self.logprobs_k = int(logprobs_k)
+        # speculative (prompt-lookup) ticks: each row's lookup history lives
+        # on the device; a row's is rebuilt from the host record after any
+        # tick that is not speculative
+        self.speculative = bool(speculative) and not paged and self._per_row
+        self.spec_K = int(spec_K)
+        if self.spec_K + 1 >= 16:
+            raise ValueError("spec_K + 1 must stay below the smallest bucket")
+        self._row_greedy = [False] * slots
+        if self.speculative:
+            self.hist_len = self.max_len + self.spec_K + 1
+            self._hist = torch.zeros((slots, self.hist_len),
+                                     dtype=torch.int64, device=self.device)
+            self._h = np.zeros((slots,), np.int64)
+            self._hist_dirty = [True] * slots
+            self._in_spec = False
+            self._spec_stats = {"ticks": 0, "tokens": 0}
+
     def _resolve_window(self, g: GenerationConfig) -> int:
         """Penalty-history window for a config: -1 = context size, 0 =
         penalties disabled (the window stays all -1)."""
@@ -258,10 +307,11 @@ class ServingEngine:
                gcfg: Optional[GenerationConfig] = None,
                logprobs: Optional[int] = None,
                input_embeds=None) -> Request:
-        """Queue a request; gcfg: its own sampling parameters."""
-        if logprobs is not None or input_embeds is not None:
-            raise NotImplementedError(
-                "logprobs and input_embeds requests are not ported")
+        """Queue a request. gcfg: its own sampling parameters. logprobs: the
+        chosen token's logprob under the raw model for every emitted token,
+        and the top ``logprobs`` alternatives when > 0 (at most
+        ``logprobs_k``). input_embeds: [n, E] (or [1, n, E]) embeddings of
+        the whole prompt in place of the embedding gather."""
         if gcfg is not None:
             if not self._per_row:
                 raise ValueError(
@@ -271,11 +321,27 @@ class ServingEngine:
                 raise ValueError(
                     f"per-request logit_bias supports at most "
                     f"{sampling.RowParams.MAX_BIAS} entries")
+        if logprobs is not None and not 0 <= int(logprobs) <= self.logprobs_k:
+            raise ValueError(
+                f"logprobs must be in [0, {self.logprobs_k}] "
+                f"(engine logprobs_k); got {logprobs}")
+        ids = np.asarray(prompt_ids, np.int64).reshape(-1)
+        if input_embeds is not None:
+            if isinstance(input_embeds, torch.Tensor):
+                input_embeds = input_embeds.float().cpu().numpy()
+            input_embeds = np.asarray(input_embeds, np.float32)
+            if input_embeds.ndim == 3 and input_embeds.shape[0] == 1:
+                input_embeds = input_embeds[0]
+            if input_embeds.shape != (len(ids), self.cfg.embed_dim):
+                raise ValueError(
+                    f"input_embeds must be [{len(ids)}, "
+                    f"{self.cfg.embed_dim}]; got {input_embeds.shape}")
         req = Request(
-            prompt_ids=np.asarray(prompt_ids, np.int64).reshape(-1),
+            prompt_ids=ids, input_embeds=input_embeds,
             n_predict=n_predict or (gcfg or self.gcfg).n_predict,
             stop_token_ids=tuple(int(t) for t in stop_token_ids),
             on_token=on_token, request_id=next(self._ids), gcfg=gcfg,
+            logprobs=None if logprobs is None else int(logprobs),
             submit_t=time.perf_counter())
         self.queue.append(req)
         return req
@@ -361,6 +427,9 @@ class ServingEngine:
                     "paged KV pool cannot fit the next request's prefill "
                     f"({self.allocator.n_free} pages free)")
             return
+        if self._spec_ok():
+            self._decode_spec()
+            return
         k = self._burst_ticks()
         if k >= 2:
             self.tick_stats["bursts"] += 1
@@ -369,6 +438,82 @@ class ServingEngine:
         else:
             self.tick_stats["single_ticks"] += 1
             self._decode_once()
+
+    # -- speculative (prompt-lookup) ticks -------------------------------------
+    def _spec_ok(self) -> bool:
+        """A speculative tick needs: speculation on, no pending admission
+        and none possible now, and every active row greedy with no logprobs
+        and K + 1 positions of cache and history to spare."""
+        if not self.speculative or self._pending is not None:
+            return False
+        if self.queue and self._free_slot() is not None:
+            return False
+        act = [i for i, s in enumerate(self.slots) if s.active]
+        if not act:
+            return False
+        for i in act:
+            s = self.slots[i]
+            if not self._row_greedy[i] or s.request.logprobs is not None:
+                return False
+            if s.length + self.spec_K + 1 >= self.max_len:
+                return False
+            if self._h[i] + self.spec_K + 1 > self.hist_len:
+                return False
+        return True
+
+    def _refresh_hist(self, i: int):
+        """Rebuild slot i's device history from the host record (prompt and
+        emitted tokens): after its admission and after any tick that was
+        not speculative."""
+        req = self.slots[i].request
+        n = len(req.prompt_ids)
+        row = np.zeros((self.hist_len,), np.int64)
+        row[:n] = req.prompt_ids
+        row[n:n + len(req.output_ids)] = req.output_ids
+        self._hist[i].copy_(torch.from_numpy(row))
+        self._h[i] = n + len(req.output_ids)
+        self._hist_dirty[i] = False
+
+    def _decode_spec(self):
+        """One draft-and-verify tick over every slot (``SpecTick``: a
+        captured graph keyed on K on the card, else eager). A row emits its
+        accepted drafts and one more token; a row that stops mid-run
+        discards the rest, as in bursts."""
+        for i, s in enumerate(self.slots):
+            if s.active and self._hist_dirty[i]:
+                self._refresh_hist(i)
+        active0 = [s.active for s in self.slots]
+        if self.graphs is not None:
+            def build():
+                t = SpecTick(self)
+                return cg.Step(t.body, t)
+            step = self.graphs.step(("spec", self.spec_K, cg.routes()),
+                                    build)
+            step.state.load(self)
+            self.graphs.run(step)
+            tick = step.state
+        else:
+            tick = SpecTick(self)
+            tick.load(self)
+            tick.body()
+        seq = tick.seq.cpu().numpy()                       # [B, K+1]
+        emitted = tick.emitted.cpu().numpy()
+        self._in_spec = True
+        try:
+            for i, slot in enumerate(self.slots):
+                if not active0[i]:
+                    continue
+                self._h[i] += int(emitted[i])
+                for t in range(int(emitted[i])):
+                    if not slot.active:
+                        break              # stopped mid-run: discard the rest
+                    slot.length += 1
+                    self._emit(i, int(seq[i, t]))
+                    self._spec_stats["tokens"] += 1
+        finally:
+            self._in_spec = False
+        self._spec_stats["ticks"] += 1
+        self.tick_stats["spec_ticks"] += 1
 
     def _burst_ticks(self) -> int:
         """How many decode ticks can run as one burst without the host
@@ -422,37 +567,49 @@ class ServingEngine:
         return ctx_cap_for(max(s.length for s in self.slots) + k,
                            self.max_len)
 
-    def _tick_graph(self, k: int) -> np.ndarray:
-        """K replays of the captured tick; returns the [K, B] tokens."""
+    def _lp_k(self) -> Optional[int]:
+        """``logprobs_k`` when an active row wants logprobs (the tick then
+        takes its logprobs variant), else None."""
+        return self.logprobs_k if self._want_lp() else None
+
+    def _tick_graph(self, k: int):
+        """K replays of the captured tick; returns the [K, B] tokens and
+        their logprobs (``_host_lp``; None without)."""
         gates = self._row_features()
         cap = self._ctx_cap(k)
-        key = ("tick", tuple(sorted(gates.items())), cap, cg.routes())
+        lp_k = self._lp_k()
+        key = ("tick", tuple(sorted(gates.items())), cap, lp_k, cg.routes())
 
         def build():
-            t = Tick(self, gates, cap)
+            t = Tick(self, gates, cap, lp_k)
             return cg.Step(t.body, t)
         step = self.graphs.step(key, build)
         step.state.load(self)
         for _ in range(k):
             self.graphs.run(step)
-        return step.state.seq[:k].cpu().numpy()
+        t = step.state
+        lps = None if lp_k is None else _host_lp(t.lp[:k], t.top_i[:k],
+                                                 t.top_lp[:k])
+        return t.seq[:k].cpu().numpy(), lps
 
     def _decode_burst(self, k: int):
         """K decode+sample ticks issued back to back with no host sync; the
-        [K, B] tokens are fetched once, then emitted in order (a slot that
-        stopped mid-burst discards its overshoot)."""
+        [K, B] tokens (and logprobs) are fetched once, then emitted in
+        order (a slot that stopped mid-burst discards its overshoot)."""
         active0 = [s.active for s in self.slots]
         if self.graphs is not None:
-            seq = self._tick_graph(k)
+            seq, lps = self._tick_graph(k)
         else:
-            seq = self._eager_burst(k)
+            seq, lps = self._eager_burst(k)
         for t in range(k):
             for i, slot in enumerate(self.slots):
                 if active0[i] and slot.active:
                     slot.length += 1
-                    self._emit(i, int(seq[t, i]))
+                    self._emit(i, int(seq[t, i]),
+                               *(() if lps is None else
+                                 (lps[0][t, i], lps[1][t][i])))
 
-    def _eager_burst(self, k: int) -> np.ndarray:
+    def _eager_burst(self, k: int):
         keep_mask = torch.as_tensor(self._keep_mask(), device=self.device)
         lengths = self._lengths()
         tables = self._table_tensor() if self.paged else None
@@ -460,7 +617,8 @@ class ServingEngine:
         cap = self._ctx_cap(k)
         toks = torch.as_tensor(self._next_tok, device=self.device)
         last = torch.as_tensor(self._last, device=self.device)
-        seq = []
+        lp_k = self._lp_k()
+        seq, lps = [], []
         for _ in range(k):
             logits, _ = self._forward(
                 self.params, self.cfg, toks[:, None], self._kv(), lengths,
@@ -469,12 +627,17 @@ class ServingEngine:
                 logits, self._keys, self._row_params, last, self._mu, **gates)
             self._keys.copy_(keys)
             self._mu.copy_(mu)
+            if lp_k is not None:
+                lps.append(_token_logprobs(logits, tok, lp_k))
             toks = tok.long()
             last = torch.where(
                 keep_mask, torch.cat([last[:, 1:], toks[:, None]], 1), -1)
             lengths = lengths + 1
             seq.append(tok)
-        return torch.stack(seq).cpu().numpy()                  # [K, B]
+        seq = torch.stack(seq).cpu().numpy()                   # [K, B]
+        if lp_k is None:
+            return seq, None
+        return seq, _host_lp(*(torch.stack(a) for a in zip(*lps)))
 
     def _decode_once(self):
         if self.paged:
@@ -502,15 +665,17 @@ class ServingEngine:
                     self._preempt(victim)
                 self._add_page(i, self.allocator.alloc(1)[0])
         if self._per_row and self.graphs is not None:
-            tok_host = self._tick_graph(1)[0]
+            seq, lps = self._tick_graph(1)
         else:
-            tok_host = self._eager_tick()
+            seq, lps = self._eager_tick()
         for i, slot in enumerate(self.slots):
             if slot.active:
                 slot.length += 1
-                self._emit(i, int(tok_host[i]))
+                self._emit(i, int(seq[0, i]),
+                           *(() if lps is None else
+                             (lps[0][0, i], lps[1][0][i])))
 
-    def _eager_tick(self) -> np.ndarray:
+    def _eager_tick(self):
         toks = torch.as_tensor(self._next_tok, device=self.device)
         last = torch.as_tensor(self._last, device=self.device)
         logits, _ = self._forward(
@@ -526,7 +691,10 @@ class ServingEngine:
         else:
             tok, self._state = sampling.sample(logits, self._state,
                                                self.gcfg, last)
-        return tok.cpu().numpy()
+        lp_k = self._lp_k()
+        lps = None if lp_k is None else _host_lp(
+            *(a[None] for a in _token_logprobs(logits, tok, lp_k)))
+        return tok.cpu().numpy()[None], lps
 
     def _cancel_admission(self):
         """Abort the in-flight chunked admission: requeue its request at
@@ -549,6 +717,12 @@ class ServingEngine:
         emitted twice and greedy output is unchanged."""
         slot = self.slots[slot_idx]
         req = slot.request
+        if req.input_embeds is not None and req.output_ids:
+            # the emitted tokens are text: their table rows extend the
+            # embeds (gathered on the device, only those rows)
+            idx = torch.as_tensor(req.output_ids, device=self.device)
+            rows = self.params.embed[idx].float().cpu().numpy()
+            req.input_embeds = np.concatenate([req.input_embeds, rows])
         req.prompt_ids = np.concatenate(
             [req.prompt_ids, np.asarray(req.output_ids, np.int64)])
         slot.request = None
@@ -575,7 +749,8 @@ class ServingEngine:
         out = []
         free = sum(1 for s in self.slots if not s.active)
         for req in self.queue:
-            if len(out) >= free or len(req.prompt_ids) > cap:
+            if len(out) >= free or len(req.prompt_ids) > cap \
+                    or req.input_embeds is not None:
                 break
             if self._pfx_entries and \
                     self._prefix_match(req.prompt_ids) is not None:
@@ -624,12 +799,14 @@ class ServingEngine:
             true_len=true_lens)
         _insert_multi(self.cache, scratch,
                       torch.as_tensor(slots, device=self.device), bucket)
-        tok = self._first_tokens(logits, slots, reqs, rcfgs)
+        tok, lps = self._first_tokens(logits, slots, reqs, rcfgs)
         self._multi_scratch[n_rows] = scratch
         now = time.perf_counter()
         for r, (slot_idx, req) in enumerate(zip(slots, reqs)):
             req.first_token_t = now
-            self._emit(slot_idx, int(tok[r]))
+            self._emit(slot_idx, int(tok[r]),
+                       *(() if lps is None else (lps[0][0, r],
+                                                 lps[1][0][r])))
 
     def _begin_admission(self, slot_idx: int, req: Request):
         """Reserve a slot (and, paged, the prefill's pages, up front: decode
@@ -639,6 +816,8 @@ class ServingEngine:
         cap = self.max_len - 2
         if n > cap:
             req.prompt_ids = req.prompt_ids[-cap:]  # keep the tail
+            if req.input_embeds is not None:
+                req.input_embeds = req.input_embeds[-cap:]
             n = cap
         slot = self.slots[slot_idx]
         slot.request = req
@@ -648,7 +827,9 @@ class ServingEngine:
             self._slot_pages[slot_idx] = self.allocator.alloc(n_pg)
         self._scratch.length = 0
         done0 = 0
-        if self._pfx_entries:
+        # a multimodal prompt bypasses the prefix cache: its ids hold 0 at
+        # the image's positions, so its KV is not a function of its ids
+        if self._pfx_entries and req.input_embeds is None:
             hit = self._prefix_match(req.prompt_ids)
             if hit is not None:
                 entry, m = hit
@@ -672,7 +853,8 @@ class ServingEngine:
             self._finish_admission(slot_idx, req, done, take)
             return
         self._prefill_engine.prefill(req.prompt_ids[None, done:done + take],
-                                     self._scratch, start=done)
+                                     self._scratch, start=done,
+                                     input_embeds=_chunk(req, done, take))
         self._pending[1] = done + take
 
     def _admit_host_prep(self, slot_idx: int, req: Request):
@@ -694,6 +876,15 @@ class ServingEngine:
         self._row_window[slot_idx] = min(
             max(self._resolve_window(rcfg), 0), window)
         self._mask_row_window(slot_idx)
+        # speculation keeps greedy exact only for a pure argmax chain (the
+        # verify drops penalties and bias)
+        self._row_greedy[slot_idx] = (
+            rcfg.temp <= 0 and rcfg.repeat_penalty == 1.0
+            and rcfg.frequency_penalty == 0.0
+            and rcfg.presence_penalty == 0.0 and rcfg.mirostat == 0
+            and not rcfg.logit_bias)
+        if self.speculative:
+            self._hist_dirty[slot_idx] = True
         return rcfg
 
     def _row_key_for(self, req: Request, rcfg: GenerationConfig) -> list:
@@ -710,7 +901,8 @@ class ServingEngine:
         row's sampler state and the first token, in one function."""
         n = len(req.prompt_ids)
         logits, _ = self._prefill_engine.prefill(
-            req.prompt_ids[None, done:done + take], self._scratch, start=done)
+            req.prompt_ids[None, done:done + take], self._scratch, start=done,
+            input_embeds=_chunk(req, done, take))
         rcfg = self._admit_host_prep(slot_idx, req)
         self._row_cfgs[slot_idx] = rcfg
         insert_bucket = min(_bucket(n), self.max_len)
@@ -726,11 +918,12 @@ class ServingEngine:
                           len(pages) * self.allocator.page_size)
         else:
             _insert_slot(self.cache, self._scratch, slot_idx, insert_bucket)
-        tok = self._first_tokens(logits, [slot_idx], [req], [rcfg])
+        tok, lps = self._first_tokens(logits, [slot_idx], [req], [rcfg])
         req.first_token_t = time.perf_counter()
         if self._pfx_entries:
             self._maybe_store_prefix(req)
-        self._emit(slot_idx, int(tok[0]))
+        self._emit(slot_idx, int(tok[0]),
+                   *(() if lps is None else (lps[0][0, 0], lps[1][0][0])))
 
     # -- prefix cache ---------------------------------------------------------
     def _prefix_match(self, prompt: np.ndarray):
@@ -757,6 +950,8 @@ class ServingEngine:
     def _maybe_store_prefix(self, req: Request):
         """After an admission, store the prompt's KV head (up to the pool
         width) unless an entry already covers it; evicts the LRU entry."""
+        if req.input_embeds is not None:
+            return  # an image's KV is not a function of the 0-filled ids
         w = self._pfx_store.max_len
         keep = min(len(req.prompt_ids), w)
         if keep < self._prefix_min:
@@ -775,7 +970,8 @@ class ServingEngine:
     def _first_tokens(self, logits, slots: list, reqs, rcfgs):
         """Set the admitted rows' sampler state (params, key, mu) and draw
         their first tokens from the prefill logits [R, V]. Returns the
-        tokens on the host."""
+        tokens on the host and, when an admitted request wants them, their
+        logprobs (``_host_lp`` over one tick; else None)."""
         idx = torch.as_tensor(slots, device=self.device)
         last = torch.as_tensor(self._last[slots], device=self.device)
         mu0 = torch.tensor([2.0 * c.mirostat_tau for c in rcfgs],
@@ -784,17 +980,21 @@ class ServingEngine:
             state = sampling.SamplerState(gen=self._state.gen, mu=mu0)
             tok, state = sampling.sample(logits, state, self.gcfg, last)
             self._state.mu[idx] = state.mu
-            return tok.cpu().numpy()
-        rp = sampling.RowParams.from_configs(rcfgs, self.device)
-        keys = torch.tensor([self._row_key_for(r, c)
-                             for r, c in zip(reqs, rcfgs)],
-                            dtype=torch.int64, device=self.device)
-        tok, keys, mu = sampling.sample_rows(logits, keys, rp, last, mu0,
-                                             **_features(rcfgs))
-        self._row_params.set_rows(idx, rp)
-        self._keys[idx] = keys
-        self._mu[idx] = mu
-        return tok.cpu().numpy()
+        else:
+            rp = sampling.RowParams.from_configs(rcfgs, self.device)
+            keys = torch.tensor([self._row_key_for(r, c)
+                                 for r, c in zip(reqs, rcfgs)],
+                                dtype=torch.int64, device=self.device)
+            tok, keys, mu = sampling.sample_rows(logits, keys, rp, last, mu0,
+                                                 **_features(rcfgs))
+            self._row_params.set_rows(idx, rp)
+            self._keys[idx] = keys
+            self._mu[idx] = mu
+        lps = None
+        if any(r.logprobs is not None for r in reqs):
+            lps = _host_lp(*(a[None] for a in _token_logprobs(
+                logits, tok, self.logprobs_k)))
+        return tok.cpu().numpy(), lps
 
     # -- per-tick helpers -----------------------------------------------------
     def _kv(self):
@@ -826,6 +1026,12 @@ class ServingEngine:
         return _features([self._row_cfgs[i] for i, s in enumerate(self.slots)
                           if s.active])
 
+    def _want_lp(self) -> bool:
+        """Any active slot wants logprobs: the tick computes them for the
+        whole batch, and ``_emit`` keeps those of the rows that asked."""
+        return any(s.active and s.request.logprobs is not None
+                   for s in self.slots)
+
     def _mask_row_window(self, slot_idx: int):
         """Per-request repeat_last_n: blank history older than the row's
         window (the shared history is sized by the engine gcfg; a request
@@ -835,12 +1041,20 @@ class ServingEngine:
         if w < full:
             self._last[slot_idx, :full - w] = -1
 
-    def _emit(self, slot_idx: int, token: int):
+    def _emit(self, slot_idx: int, token: int, lp=None, top=None):
         """Record a sampled token for a slot; finish and free the slot on a
-        stop token or at its length budget."""
+        stop token or at its length budget. lp, top: the token's logprob
+        and the [(id, logprob)] alternatives of its tick, kept when the
+        request asked for them."""
         slot = self.slots[slot_idx]
         req = slot.request
         req.output_ids.append(token)
+        if req.logprobs is not None and lp is not None:
+            req.output_logprobs.append(float(lp))
+            req.output_top_logprobs.append(
+                [] if not req.logprobs else top[:req.logprobs])
+        if self.speculative and not self._in_spec:
+            self._hist_dirty[slot_idx] = True  # the device history is stale
         if req.on_token is not None:
             req.on_token(token, req)
         self._next_tok[slot_idx] = token
@@ -870,12 +1084,16 @@ class Tick:
     ``ctx_cap``, or through the page table), ``sample_rows`` with the
     server's row keys, params and mu (updated in place), the token written
     at row ``tick`` of ``seq``, the penalty window moved under ``keep``,
-    lengths + 1. ``gates``: ``sample_rows``' static stage gates. ``body``
+    lengths + 1. ``gates``: ``sample_rows``' static stage gates. With
+    ``lp_k`` (the logprobs variant) each tick also writes the tokens'
+    logprobs and top ``lp_k`` alternatives at row ``tick`` of ``lp``,
+    ``top_i`` and ``top_lp``, buffers made outside the capture. ``body``
     is what the card captures; it runs eagerly anywhere (the CPU tests).
     It holds the server's model and per-row state, not the server (no
     reference cycle through the server's graphs)."""
 
-    def __init__(self, srv: "ServingEngine", gates: dict, ctx_cap):
+    def __init__(self, srv: "ServingEngine", gates: dict, ctx_cap,
+                 lp_k: Optional[int] = None):
         dev, b = srv.device, srv.n_slots
         w = srv._last.shape[1]
         self.gates, self.ctx_cap = dict(gates), ctx_cap
@@ -890,6 +1108,14 @@ class Tick:
         self.seq = torch.zeros((srv.tick_batch, b), dtype=torch.int32,
                                device=dev)
         self.tick = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.lp_k = lp_k
+        if lp_k is not None:
+            n = srv.tick_batch
+            self.lp = torch.zeros((n, b), dtype=torch.float32, device=dev)
+            self.top_i = torch.zeros((n, b, lp_k), dtype=torch.int64,
+                                     device=dev)
+            self.top_lp = torch.zeros((n, b, lp_k), dtype=torch.float32,
+                                      device=dev)
 
     def load(self, srv: "ServingEngine") -> None:
         """A burst's start: the host's next tokens, windows, lengths and
@@ -915,12 +1141,88 @@ class Tick:
         if mu is not mu0:
             mu0.copy_(mu)
         self.seq.index_copy_(0, self.tick, tok[None])
+        if self.lp_k is not None:
+            lp, ti, tl = _token_logprobs(logits, tok, self.lp_k)
+            self.lp.index_copy_(0, self.tick, lp[None])
+            self.top_i.index_copy_(0, self.tick, ti[None])
+            self.top_lp.index_copy_(0, self.tick, tl[None])
         self.tick.add_(1)
         self.toks.copy_(tok)
         self.last.copy_(torch.where(
             self.keep, torch.cat([self.last[:, 1:], self.toks[:, None]], 1),
             -1))
         self.lengths.add_(1)
+
+
+class SpecTick:
+    """The speculative tick over static buffers (JAX ``_spec_verify``):
+    ``speculative.verify`` of every slot's next token ``last`` at its
+    ``lengths`` with its device history (the server's ``_hist``, updated in
+    place) and valid count ``h``; the argmax tokens go to ``seq``
+    [B, K+1] and each row's emitted count to ``emitted`` [B]. ``body`` is
+    what the card captures; it runs eagerly anywhere."""
+
+    def __init__(self, srv: "ServingEngine"):
+        dev, b = srv.device, srv.n_slots
+        self.model = (srv._forward, srv.params, srv.cfg, srv.cache)
+        self.hist, self.K = srv._hist, srv.spec_K
+        self.last = torch.zeros((b,), dtype=torch.int64, device=dev)
+        self.lengths = torch.zeros((b,), dtype=torch.int32, device=dev)
+        self.h = torch.zeros((b,), dtype=torch.int64, device=dev)
+        self.seq = torch.zeros((b, self.K + 1), dtype=torch.int64, device=dev)
+        self.emitted = torch.zeros((b,), dtype=torch.int64, device=dev)
+
+    def load(self, srv: "ServingEngine") -> None:
+        self.last.copy_(torch.from_numpy(srv._next_tok))
+        self.lengths.copy_(torch.tensor([s.length for s in srv.slots],
+                                        dtype=torch.int32))
+        self.h.copy_(torch.from_numpy(srv._h))
+
+    def body(self) -> None:
+        forward, params, cfg, cache = self.model
+        g, emitted = spec.verify(forward, params, cfg, self.last, cache,
+                                 self.lengths, self.hist, self.h, self.K)
+        self.seq.copy_(g)
+        self.emitted.copy_(emitted)
+
+
+def _token_logprobs(logits: torch.Tensor, tok: torch.Tensor, lp_k: int):
+    """The chosen tokens' logprobs [B] under the raw model logits [B, V]
+    (before any sampling stage, so a greedy and a sampled request over one
+    prefix report the same numbers) and, when lp_k > 0, the top lp_k ids
+    and logprobs [B, lp_k], ties ordered as ``lax.top_k`` orders them
+    (value descending, then index ascending: a stable descending sort)."""
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    lp = lg.gather(1, tok.long()[:, None])[:, 0] - lse
+    if lp_k > 0:
+        vals, idx = torch.sort(lg, dim=-1, descending=True, stable=True)
+        return lp, idx[:, :lp_k], vals[:, :lp_k] - lse[:, None]
+    b = lg.shape[0]
+    return (lp, torch.zeros((b, 0), dtype=torch.int64, device=lg.device),
+            torch.zeros((b, 0), dtype=torch.float32, device=lg.device))
+
+
+def _host_lp(lp: torch.Tensor, top_i: torch.Tensor, top_lp: torch.Tensor):
+    """[K, B] logprobs and [K, B, k] tops on the device → (lp [K, B] numpy,
+    [K][B] lists of (id, logprob) pairs), JAX's ``_zip_tops``."""
+    return lp.cpu().numpy(), _zip_tops(top_i.cpu().numpy(),
+                                       top_lp.cpu().numpy())
+
+
+def _zip_tops(top_i: np.ndarray, top_lp: np.ndarray) -> list:
+    """[K, B, k] id and logprob arrays → [K][B] lists of (id, logprob)."""
+    return [[list(zip(ti.tolist(), tl.tolist()))
+             for ti, tl in zip(top_i[t], top_lp[t])]
+            for t in range(top_i.shape[0])]
+
+
+def _chunk(req: Request, done: int, take: int):
+    """A multimodal request's embeds for prompt positions
+    [done, done + take) as [1, take, E], or None for a text request."""
+    if req.input_embeds is None:
+        return None
+    return req.input_embeds[None, done:done + take]
 
 
 _KMAX_BUCKETS = (8, 64, 256, 1024)

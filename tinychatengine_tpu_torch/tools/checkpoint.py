@@ -1,5 +1,7 @@
-"""Save and load ``tinychatengine_tpu.v1`` llama, opt and gptbigcode
-checkpoints (counterpart of the JAX package's ``tools/checkpoint.py``).
+"""Save and load ``tinychatengine_tpu.v1`` llama, opt, gptbigcode and clip
+checkpoints (counterpart of the JAX package's ``tools/checkpoint.py``); a
+VLM's vision tower is a ``clip`` checkpoint of its own in ``<ckpt>/clip``
+(``save_clip``, ``load_clip``).
 
 The format is ``meta.json`` (model and quant config, a ``dtypes`` map) plus
 ``shard_*.npz`` files of the flattened parameter tree keyed by tree path
@@ -23,7 +25,7 @@ import torch
 
 from tinychatengine_tpu_torch.core.config import (ModelConfig, QuantConfig,
                                                   get_model_config)
-from tinychatengine_tpu_torch.models import gptbigcode, llama, opt
+from tinychatengine_tpu_torch.models import clip, gptbigcode, llama, opt
 from tinychatengine_tpu_torch.quant.packing import from_bf16_bits
 
 
@@ -49,19 +51,24 @@ def read_flat(path: str) -> tuple[dict, dict]:
 
 def load_checkpoint(path: str, cfg: ModelConfig | None = None,
                     device=None):
-    """Returns (``LlamaParams``, ``OPTParams`` or ``GPTBigCodeParams`` on
-    ``device``, qcfg); ``device`` defaults to the card and raises when there
-    is none."""
+    """Returns (``LlamaParams``, ``OPTParams``, ``GPTBigCodeParams`` or
+    ``CLIPParams`` on ``device``, qcfg); ``device`` defaults to the card and
+    raises when there is none."""
     meta, flat = read_flat(path)
-    cfg = cfg or get_model_config(meta["model"])
+    if cfg is None:
+        cfg = (ModelConfig(**meta["clip_cfg"]) if "clip_cfg" in meta
+               else get_model_config(meta["model"]))
     family = meta.get("family") or cfg.family
-    models = {"llama": llama, "opt": opt, "gptbigcode": gptbigcode}
+    models = {"llama": llama, "opt": opt, "gptbigcode": gptbigcode,
+              "clip": clip}
     if family not in models:
         raise NotImplementedError(f"the port loads {sorted(models)} "
                                   f"checkpoints, not {family!r}")
     q = meta["quant"]
     qcfg = QuantConfig(scheme=q["scheme"], group_size=q["group_size"],
                        kv_cache_dtype=q.get("kv_cache_dtype", "bf16"))
+    if family == "clip":
+        return clip.params_from_numpy(flat, cfg, device), qcfg
     return models[family].params_from_numpy(flat, cfg, qcfg, device), qcfg
 
 
@@ -131,3 +138,22 @@ def save_checkpoint(path: str, params, cfg: ModelConfig, qcfg: QuantConfig,
         **(extra_meta or {}),
     }
     (Path(path) / "meta.json").write_text(json.dumps(meta, indent=1))
+
+
+def save_clip(path: str, clip_params, clip_cfg: ModelConfig) -> None:
+    """Write a VLM's vision tower as the ``clip`` checkpoint
+    ``<path>/clip`` (f32 leaves, ``clip_cfg`` in its ``meta.json``)."""
+    save_checkpoint(str(Path(path) / "clip"), clip_params, clip_cfg,
+                    QuantConfig(scheme="fp"),
+                    extra_meta={"family": "clip",
+                                "clip_cfg": dataclasses.asdict(clip_cfg)})
+
+
+def load_clip(path: str, device=None):
+    """(``CLIPParams`` on ``device``, its ModelConfig) from
+    ``<path>/clip``."""
+    sub = Path(path) / "clip"
+    meta = json.loads((sub / "meta.json").read_text())
+    cfg = ModelConfig(**meta["clip_cfg"])
+    params, _ = load_checkpoint(str(sub), cfg, device)
+    return params, cfg

@@ -156,8 +156,24 @@ Phases (any failure ends the run with a non-zero exit code):
    W4A8, a 480 x 640 image encoded at bf16, an 8 + 576 + 24-token prompt
    through ``generate_with_image``, ``generate_device`` (graphs) and an
    eager Engine (identical, 64 greedy tokens, exact launches), a second
-   image, one ServingEngine request with the embeds, 2-layer cuts of the
-   decoder and the tower against the CPU.
+   image, one ServingEngine request with the embeds, the same image and
+   prompt as an ``image_url`` chat request (a PNG data URL) to the REST
+   server over that engine, 2-layer cuts of the decoder and the tower
+   against the CPU;
+14. the text front end and the REST server (``http_serving``) on phase
+   4's llama3_8b W4A8 weights: a synthetic 128000-rank Llama-3
+   ``tokenizer.model`` through ``load_tokenizer``; ``InferenceServer``
+   over phase 5's ServingEngine, dense then paged, under
+   scripts/bench_serving.py main_http's load (24 concurrent clients, 64
+   tokens each after a 2-request warm-up): HTTP tok/s, ``engine.step()``
+   seconds against the wall, TTFT, the tick mix; served tokens equal to
+   the same requests submitted in-process; SSE equal to the non-streamed
+   text, a stop string truncating and freeing the slot, ``logprobs=5``
+   equal to the engine's, embeddings within ``EMB_CARD_TOL`` of an eager
+   forward, ``/metrics``' tokens equal to the usage fields, the kernels
+   of the mode and 0 plain calls; chat.py's ``repl`` (two greedy turns)
+   against ``Engine.generate``; serve.py as a subprocess on bytellama_5m
+   against ``Engine.generate``, ended by SIGINT without a traceback.
 
 The Engine and the server run their captured CUDA graphs
 (``generation/cuda_graph.py``): in phases 4, 4b, 4c, 4f, 7 and 10 the
@@ -2721,6 +2737,15 @@ def vlm_path(dev="cuda", n_predict=64, clip_model="clip_vit_large",
     if r.output_ids != got:
         raise SystemExit("vila_7b: the ServingEngine's embeds request parts "
                          "from the Engine")
+    served, usage = http_image_tokens(srv, cparams, ccfg, img_a, n_predict)
+    m["http_image_eq_serving"] = served == got and \
+        usage["prompt_tokens"] == ids.shape[1]
+    log(f"vila_7b image_url chat over HTTP: {len(served)} tokens, "
+        f"{usage}; equal to the ServingEngine request's: "
+        f"{m['http_image_eq_serving']}")
+    if not m["http_image_eq_serving"]:
+        raise SystemExit("vila_7b: the image_url chat request over HTTP "
+                         "parts from the ServingEngine request")
     del srv, eng, cache
 
     # 2-layer cuts at full width, the card against the CPU's plain path:
@@ -3207,6 +3232,543 @@ def opt_real_weights(dev="cuda"):
     return out
 
 
+# ---- phase 14: the text front end and the REST server ----------------------
+
+# scripts/bench_serving.py main_http's three sampling variants, in turn
+HTTP_VARIANTS = (
+    {},
+    {"temperature": 1.0, "top_p": 0.9, "seed": 11},
+    {"temperature": 0.7, "top_k": 40, "seed": 12, "repetition_penalty": 1.0,
+     "repeat_last_n": 1})
+# phase 14's embeddings against an eager forward of the unpadded ids,
+# pooled and normalised in f32 (unit vectors)
+EMB_CARD_TOL = 1e-3
+HTTP_TIMEOUT = 600.0
+
+
+def http_image_tokens(srv, cparams, ccfg, image, n_predict: int):
+    """Phase 13's prompt as an OpenAI chat request, the image a PNG data
+    URL of ``image`` between its two text parts, to an InferenceServer
+    over ``srv`` with the vision tower (the template passes the text
+    through): (the served tokens, the usage)."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    from tinychatengine_tpu_torch.generation.chat_templates import \
+        ChatTemplate
+    from tinychatengine_tpu_torch.runtime.server import InferenceServer
+    from tinychatengine_tpu_torch.tokenizers.byte_fallback import \
+        ByteTokenizer
+    buf = io.BytesIO()
+    Image.fromarray(image).save(buf, format="PNG")
+    url = "data:image/png;base64," + base64.b64encode(buf.getvalue()).decode()
+    server = InferenceServer(srv, ByteTokenizer(), model_name="vila_7b",
+                             template=ChatTemplate("{input}", "{input}"),
+                             request_timeout=HTTP_TIMEOUT,
+                             clip_params=cparams, clip_cfg=ccfg)
+    server.start(port=0)
+    try:
+        out = http_ok(server.port, "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": [
+                {"type": "text", "text": "Image: "},
+                {"type": "image_url", "image_url": {"url": url}},
+                {"type": "text", "text": " What is in this image?\n"}]}],
+            "max_tokens": n_predict, "ignore_eos": True})
+    finally:
+        server.close()
+    return list(srv.done[-1].output_ids), out["usage"]
+
+
+def llama3_tokenizer(path: Path, n_ranks: int = 128000, seed: int = 0):
+    """Writes a tiktoken-format ``tokenizer.model`` of ``n_ranks`` distinct
+    byte strings into the directory ``path``: the 256 bytes, then the
+    65536 byte pairs in an order drawn from ``default_rng(seed)``, then
+    distinct random byte triples (Llama-3's rank count; the 256 specials
+    above them are named by ``Llama3BPE.load``). Returns the file."""
+    import base64
+    rng = np.random.default_rng(seed)
+    toks = [bytes([b]) for b in range(256)]
+    toks += [int(p).to_bytes(2, "big") for p in rng.permutation(1 << 16)]
+    toks += [int(t).to_bytes(3, "big") for t in rng.choice(
+        1 << 24, size=max(n_ranks - len(toks), 0), replace=False)]
+    toks = toks[:n_ranks]
+    f = path / "tokenizer.model"
+    f.write_text("\n".join(f"{base64.b64encode(t).decode()} {r}"
+                           for r, t in enumerate(toks)) + "\n")
+    return f
+
+
+def http_call(port: int, path: str, body=None, timeout=HTTP_TIMEOUT):
+    """One request to a local server: (status, parsed JSON or text)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    if body is None:
+        conn.request("GET", path)
+    else:
+        conn.request("POST", path, json.dumps(body),
+                     {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = resp.read().decode()
+    conn.close()
+    ctype = resp.getheader("Content-Type") or ""
+    return resp.status, (json.loads(data) if "json" in ctype else data)
+
+
+def http_ok(port: int, path: str, body=None):
+    """``http_call`` that fails the run on any status but 200."""
+    st, out = http_call(port, path, body)
+    if st != 200:
+        raise SystemExit(f"{path}: HTTP {st}: {str(out)[:400]}")
+    return out
+
+
+def http_stream(port: int, path: str, body) -> list:
+    """A stream=true request's SSE payloads (which must end with [DONE])."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port,
+                                      timeout=HTTP_TIMEOUT)
+    conn.request("POST", path, json.dumps({**body, "stream": True}),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    raw = resp.read().decode()
+    conn.close()
+    if resp.status != 200 or not raw.rstrip().endswith("data: [DONE]"):
+        raise SystemExit(f"{path} stream: HTTP {resp.status}: {raw[-300:]}")
+    return [json.loads(line[len("data: "):]) for line in raw.split("\n\n")
+            if line.startswith("data: ") and line != "data: [DONE]"]
+
+
+def http_load(server, bodies) -> tuple:
+    """``bodies`` posted to /v1/completions by as many concurrent clients,
+    as scripts/bench_serving.py main_http posts them; the scheduler admits
+    nothing until every request is queued (a scheduler command waits for
+    them), so the run's schedule is a function of the order they arrived
+    in. Returns (responses, wall seconds); any failure fails the run."""
+    import threading
+    n = len(bodies)
+
+    def all_queued():
+        deadline = time.monotonic() + 60.0
+        while server._intake.qsize() < n and time.monotonic() < deadline:
+            time.sleep(0.0005)
+    outs, errors = [None] * n, []
+
+    def client(i):
+        try:
+            outs[i] = http_call(server.port, "/v1/completions", bodies[i])
+        except Exception as exc:
+            errors.append((i, repr(exc)))
+    gate = threading.Thread(target=server.run_on_scheduler,
+                            args=(all_queued,))
+    t0 = time.perf_counter()
+    gate.start()
+    time.sleep(0.01)  # the wait is the scheduler's next command
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads + [gate]:
+        t.join(timeout=HTTP_TIMEOUT)
+    wall = time.perf_counter() - t0
+    bad = [(i, o) for i, o in enumerate(outs) if o is None or o[0] != 200]
+    if errors or bad:
+        raise SystemExit(f"HTTP load: errors {errors[:3]}, non-200 "
+                         f"{[(i, str(o)[:200]) for i, o in bad[:3]]}")
+    return [o[1] for o in outs], wall
+
+
+def http_bodies(cfg, n: int, n_predict: int, seed: int = 0) -> list:
+    """main_http's pre-tokenized prompts (16-320 tokens from
+    ``default_rng(seed)``) with its sampling variants in turn."""
+    rng = np.random.default_rng(seed)
+    bodies = []
+    for i in range(n):
+        ids = rng.integers(100, cfg.vocab_size - 100,
+                           int(rng.integers(16, 320)))
+        bodies.append({"prompt": [int(t) for t in ids],
+                       "max_tokens": n_predict, "ignore_eos": True,
+                       **HTTP_VARIANTS[i % len(HTTP_VARIANTS)]})
+    return bodies
+
+
+def metrics_of(port: int) -> dict:
+    """/metrics as {sample name: value}."""
+    text = http_ok(port, "/metrics")
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, val = line.rsplit(" ", 1)
+            out[name] = float(val)
+    return out
+
+
+def replay_in_process(srv, reqs, alone: bool = False) -> list:
+    """The server's requests ``reqs`` submitted straight to its engine in
+    the order it received them (same prompts, budgets, stop ids, sampling
+    and logprobs), all queued before the first step, or each ``alone``
+    (run to its end before the next): the requests as the server should
+    have answered them."""
+    mine = []
+    for r in sorted(reqs, key=lambda r: r.request_id):
+        mine.append(srv.submit(r.prompt_ids, n_predict=r.n_predict,
+                               stop_token_ids=r.stop_token_ids, gcfg=r.gcfg,
+                               logprobs=r.logprobs))
+        if alone:
+            srv.run()
+    srv.run()
+    return mine
+
+
+def pooled_embedding(params, cfg, ids, dev) -> torch.Tensor:
+    """An eager ``llama.forward(return_hidden=True)`` over exactly ``ids``
+    (no bucket), mean-pooled and L2-normalised in f32."""
+    from tinychatengine_tpu_torch.generation import kv_cache as kvc
+    from tinychatengine_tpu_torch.models import llama
+    cache = kvc.init_cache(cfg.num_layers, 1, len(ids), cfg.num_kv_heads,
+                           cfg.head_dim, device=dev)
+    with torch.inference_mode():
+        hidden, _ = llama.forward(params, cfg, torch.as_tensor(
+            [ids], device=dev), cache, 0, return_hidden=True)
+    pooled = hidden[0].float().mean(dim=0)
+    return (pooled / pooled.norm()).cpu()
+
+
+def http_serving(model, model_params, dev="cuda", n_requests=24,
+                 n_predict=64, max_len=2048, n_ranks=128000):
+    """Phase 14 on phase 4's llama3_8b W4A8 weights (``model_params``):
+    a synthetic Llama-3 ``tokenizer.model`` (``llama3_tokenizer``) loaded
+    by ``tools.checkpoint.load_tokenizer``; the REST server
+    (``InferenceServer`` over phase 5's ServingEngine: 8 slots, max_len
+    2048, admission chunk 512, tick batch 16) dense, then paged, each
+    under main_http's load (``n_requests`` concurrent clients, 16-320
+    token pre-tokenized prompts, ``n_predict`` tokens with ``ignore_eos``)
+    after a 2-request warm-up: HTTP tok/s, ``engine.step()`` seconds
+    against the wall, the tick mix, TTFT; the served tokens equal to the
+    same requests submitted in-process (all of them, the greedy third
+    required), ``/metrics``' token count equal to the usage fields, the
+    launches (``int4_matmul_a8``, ``int4_matmul`` and ``flash_prefill`` in
+    both runs, the mode's decode kernel only) and 0 plain calls. On the
+    dense server also: a streamed chat completion equal to the
+    non-streamed one, a stop string from a greedy text truncating there
+    and freeing the slot, four ``logprobs=5`` requests equal to the
+    engine's, and /v1/embeddings within ``EMB_CARD_TOL`` of
+    ``pooled_embedding``. Then chat.py's ``repl`` (two greedy turns of 32
+    tokens from a StringIO) against ``Engine.generate``, and serve.py as a
+    subprocess on bytellama_5m against ``Engine.generate``. The arguments
+    shrink the run for a rehearsal on the CPU (tests)."""
+    import tempfile
+
+    from tinychatengine_tpu_torch.core.config import GenerationConfig
+    from tinychatengine_tpu_torch.runtime.server import InferenceServer
+    from tinychatengine_tpu_torch.runtime.serving import ServingEngine
+    from tinychatengine_tpu_torch.tools.checkpoint import load_tokenizer
+    cfg, (params, qcfg) = model_config(model), model_params
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        llama3_tokenizer(Path(tmp), n_ranks)
+        tok = load_tokenizer(tmp, cfg)
+        out["tokenizer_s"] = time.perf_counter() - t0
+    specials = {n: tok.special.get(n) for n in (
+        "<|begin_of_text|>", "<|end_of_text|>", "<|eot_id|>")}
+    log(f"phase 14 tokenizer: {type(tok).__name__}, {tok.vocab_size} ranks, "
+        f"{len(tok.pair_ranks)} pair rules, specials {json.dumps(specials)}, "
+        f"{out['tokenizer_s']:.1f} s to write and load")
+    if type(tok).__name__ != "Llama3BPE" or tok.vocab_size != n_ranks or \
+            list(specials.values()) != [n_ranks, n_ranks + 1, n_ranks + 9]:
+        raise SystemExit("phase 14: the synthetic tokenizer did not load as "
+                         "Llama-3's")
+    gcfg = GenerationConfig(temp=0.0, n_predict=n_predict, repeat_penalty=1.1,
+                            repeat_last_n=64, seed=0)
+    bodies = http_bodies(cfg, n_requests, n_predict)
+    warm = http_bodies(cfg, 2, n_predict, seed=1)
+    for mode in ("dense", "paged"):
+        srv = ServingEngine(params, cfg, qcfg, slots=8, max_len=max_len,
+                            gcfg=gcfg, admission_chunk=512, tick_batch=16,
+                            paged=mode == "paged", device=dev)
+        server = InferenceServer(srv, tok, model_name=cfg.name,
+                                 request_timeout=HTTP_TIMEOUT)
+        server.start(port=0)
+        try:
+            m, checks = _http_run(server, srv, bodies, warm, sync, dev,
+                                  extra=mode == "dense")
+        finally:
+            server.close()
+        same = replay_in_process(srv, m.pop("reqs"))
+        greedy = [(a.output_ids, b.output_ids) for a, b in
+                  zip(sorted(checks.pop("load_reqs"),
+                             key=lambda r: r.request_id), same)
+                  if a.gcfg is None]
+        m["greedy_eq_in_process"] = [sum(a == b for a, b in greedy),
+                                     len(greedy)]
+        m["all_eq_in_process"] = [
+            sum(a.output_ids == b.output_ids for a, b in zip(
+                sorted(checks.pop("all_reqs"), key=lambda r: r.request_id),
+                same)), len(same)]
+        if "lp" in checks:
+            mine = replay_in_process(srv, checks.pop("lp_reqs"), alone=True)
+            served = checks.pop("lp")
+            m["logprobs_eq"] = all(
+                s["token_logprobs"] == r.output_logprobs[:len(
+                    s["token_logprobs"])] and s["token_logprobs"]
+                for s, r in zip(served, mine))
+        if "emb" in checks:
+            errs = [float((torch.tensor(e) - pooled_embedding(
+                params, cfg, ids, dev)).abs().max())
+                for e, ids in checks.pop("emb")]
+            m["embedding_err"] = max(errs)
+        m.update(checks)
+        log(f"phase 14 {mode}:", json.dumps({k: v for k, v in m.items()
+                                              if k not in ("launches",)}))
+        log(f"phase 14 {mode} launches:", json.dumps(m["launches"]))
+        bad = [k for k in ("sse_eq", "stop_truncates", "stop_frees_slot",
+                           "logprobs_eq", "metrics_tokens_eq")
+               if k in m and not m[k]]
+        if m["greedy_eq_in_process"][0] != len(greedy) or bad:
+            raise SystemExit(f"phase 14 {mode}: served tokens part from the "
+                             f"in-process engine's "
+                             f"{m['greedy_eq_in_process']} or failed {bad}")
+        if m.get("embedding_err", 0.0) > EMB_CARD_TOL:
+            raise SystemExit(f"phase 14: embeddings {m['embedding_err']} "
+                             f"from the eager forward (tol {EMB_CARD_TOL})")
+        if dev == "cuda":
+            ran, idle = (("flash_decode_paged", "flash_decode")
+                         if mode == "paged"
+                         else ("flash_decode", "flash_decode_paged"))
+            launches = m["launches"]
+            if any(m["plain_calls"].values()) or launches[idle] or not all(
+                    launches[k] > 0 for k in ("int4_matmul_a8", "int4_matmul",
+                                              "flash_prefill", ran)):
+                raise SystemExit(f"phase 14 {mode}: launches {launches}, "
+                                 f"plain calls {m['plain_calls']}")
+        out[mode] = m
+        del srv, server
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    out["chat"] = chat_repl_check(params, cfg, qcfg, tok, dev, max_len)
+    out["serve_cli"] = serve_cli_check(dev)
+    return out
+
+
+def _http_run(server, srv, bodies, warm, sync, dev, extra: bool):
+    """One server's warm-up and timed load (``http_load``), its metrics
+    and, with ``extra``, the dense server's further checks. Returns
+    (metrics, checks)."""
+    from tinychatengine_tpu_torch.ops import _build
+    port = server.port
+    checks = {}
+    acc = [0.0, 0]
+    step = srv.step
+
+    def timed_step():
+        t = time.perf_counter()
+        step()
+        acc[0] += time.perf_counter() - t
+        acc[1] += 1
+    with plain_calls() as plain:
+        outs_w, _ = http_load(server, warm)
+        for k in srv.tick_stats:
+            srv.tick_stats[k] = 0
+        sync()
+        _build.reset_launches()
+        n_done = len(srv.done)
+        srv.step = timed_step
+        try:
+            outs, wall = http_load(server, bodies)
+        finally:
+            del srv.step
+        sync()
+        launches = dict(_build.LAUNCHES)
+    reqs = srv.done[n_done:]
+    usage = sum(o["usage"]["completion_tokens"] for o in outs + outs_w)
+    met = metrics_of(port)
+    ttft = sorted(r.first_token_t - r.submit_t for r in reqs)
+    total = sum(o["usage"]["completion_tokens"] for o in outs)
+    m = dict(http_tok_s=total / wall, wall_s=wall, tokens=total,
+             step_s=acc[0], step_calls=acc[1], step_share=acc[0] / wall,
+             ttft_p50_s=ttft[len(ttft) // 2],
+             ttft_p95_s=ttft[int(len(ttft) * 0.95)],
+             metrics_ttft_mean_s=met["tce_ttft_seconds_sum"]
+             / met["tce_ttft_seconds_count"],
+             tick_stats=dict(srv.tick_stats), launches=launches,
+             plain_calls=dict(plain),
+             metrics_tokens_eq=met["tce_generation_tokens_total"] == usage,
+             reqs=list(reqs))
+    checks["load_reqs"] = checks["all_reqs"] = list(reqs)
+    if dev == "cuda":
+        m["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if not extra:
+        return m, checks
+    tok = server.tok
+    # SSE: a chat completion streamed equals the same one not streamed
+    chat = {"messages": [{"role": "user", "content": "Tell me a story."}],
+            "max_tokens": 32}
+    want = http_ok(port, "/v1/chat/completions", chat)
+    events = http_stream(port, "/v1/chat/completions", chat)
+    streamed = "".join(e["choices"][0]["delta"].get("content", "")
+                       for e in events[1:])
+    checks["sse_eq"] = streamed == want["choices"][0]["message"]["content"]
+    checks["sse_chunks"] = len(events)
+    # a stop string from a greedy request's own text, posted alone
+    body = {**bodies[0], "max_tokens": 64}
+    full = http_ok(port, "/v1/completions", body)["choices"][0]["text"]
+    printable = [c for c in full if c.isascii() and c.isprintable()
+                 and c != " "]
+    if len(set(full)) < 2 or not printable:
+        raise SystemExit(f"phase 14: no stop character in {full!r}")
+    stop = printable[len(printable) // 2]
+    cut = http_ok(port, "/v1/completions", {**body, "stop": stop})
+    c = cut["choices"][0]
+    checks["stop"] = stop
+    checks["stop_truncates"] = (c["text"] == full[:full.index(stop)]
+                                and c["finish_reason"] == "stop")
+    deadline = time.monotonic() + 30.0
+    while srv.n_active and time.monotonic() < deadline:
+        time.sleep(0.01)
+    checks["stop_frees_slot"] = srv.n_active == 0
+    # logprobs=5 on four greedy requests, one at a time
+    greedy = [b for b in bodies if not b.keys() - {"prompt", "max_tokens",
+                                                    "ignore_eos"}][:4]
+    n_lp = len(srv.done)
+    checks["lp"] = [http_ok(port, "/v1/completions", {
+        **b, "max_tokens": 16, "logprobs": 5})["choices"][0]["logprobs"]
+        for b in greedy]
+    checks["lp_reqs"] = srv.done[n_lp:]
+    # /v1/embeddings on two inputs
+    texts = ["The quick brown fox", "jumps over the lazy dog"]
+    emb = http_ok(port, "/v1/embeddings", {"input": texts})
+    checks["emb"] = [(d["embedding"], tok.encode(t, bos=True))
+                     for d, t in zip(emb["data"], texts)]
+    return m, checks
+
+
+def chat_repl_check(params, cfg, qcfg, tok, dev, max_len: int,
+                    n_predict: int = 32) -> dict:
+    """chat.py's ``repl`` on phase 14's model and tokenizer: two greedy
+    turns of ``n_predict`` tokens from a StringIO; each turn's ids are the
+    template-rendered text and its tokens ``Engine.generate``'s on them
+    (the second turn continuing the first's cache)."""
+    import io
+
+    from tinychatengine_tpu_torch import chat
+    from tinychatengine_tpu_torch.core.config import GenerationConfig
+    from tinychatengine_tpu_torch.generation.engine import Engine
+    g = GenerationConfig(temp=0.0, n_predict=n_predict, repeat_penalty=1.0,
+                         repeat_last_n=1)
+    eng = Engine(params, cfg, qcfg, batch=1, max_len=max_len, device=dev)
+    turns = ["Hello! Who are you?", "Tell me more."]
+    seen = []
+    generate = eng.generate
+
+    def spy(ids, gc, **kw):
+        res = generate(ids, gc, **kw)
+        seen.append((np.asarray(ids).tolist(), kw, res.tokens[0]))
+        return res
+    eng.generate = spy
+    stdin, stdout, stderr = sys.stdin, io.StringIO(), io.StringIO()
+    sys.stdin = io.StringIO("".join(t + "\n" for t in turns))
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(stdout), \
+                contextlib.redirect_stderr(stderr):
+            chat.repl(eng, tok, cfg, g)
+    finally:
+        sys.stdin = stdin
+        del eng.generate
+    wall = time.perf_counter() - t0
+    tmpl = chat.template_for(cfg.name)
+    cache, start, ok = eng.new_cache(), 0, len(seen) == len(turns)
+    for i, (text, (ids, kw, toks)) in enumerate(zip(turns, seen)):
+        wrap = tmpl.first if i == 0 else tmpl.next
+        want_ids = tok.encode(wrap.replace("{image}", "").format(input=text),
+                              bos=i == 0)
+        res = eng.generate(np.asarray([want_ids], np.int32), g,
+                           stop_token_ids=kw["stop_token_ids"], cache=cache,
+                           start=start)
+        ok = ok and ids == [want_ids] and kw["start"] == start and \
+            res.tokens[0] == toks
+        cache, start = res.cache, start + len(want_ids) + len(toks)
+    m = dict(turns=len(seen), tokens=[len(s[2]) for s in seen],
+             eq_engine=ok, wall_s=wall,
+             printed=stdout.getvalue().count("ASSISTANT: "))
+    log("phase 14 chat.py repl:", json.dumps(m))
+    if not ok or m["printed"] != len(turns):
+        raise SystemExit("phase 14: chat.py's repl parts from "
+                         "Engine.generate")
+    del eng
+    return m
+
+
+def serve_cli_check(dev) -> dict:
+    """``python3 -m tinychatengine_tpu_torch.serve --model bytellama_5m
+    --checkpoint assets/bytellama_5m --port 0`` as a subprocess (on the
+    card; ``--device cpu`` in a rehearsal): the bound port read from its
+    banner, one greedy completion equal to ``Engine.generate`` in-process
+    on the same checkpoint, then SIGINT, which must end it with exit code
+    0 and no traceback."""
+    import dataclasses as dc
+    import signal
+    import threading
+
+    from tinychatengine_tpu_torch.core.config import (GenerationConfig,
+                                                      get_model_config)
+    from tinychatengine_tpu_torch.generation.engine import Engine
+    from tinychatengine_tpu_torch.tools.checkpoint import (load_checkpoint,
+                                                           load_tokenizer)
+    ckpt = ROOT / "assets" / "bytellama_5m"
+    cmd = [sys.executable, "-m", "tinychatengine_tpu_torch.serve", "--model",
+           "bytellama_5m", "--checkpoint", str(ckpt), "--port", "0"]
+    if dev != "cuda":
+        cmd += ["--device", dev]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    lines, banner = [], threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("serving ") and not banner.is_set():
+                lines.insert(0, line)  # the banner, first
+                banner.set()
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        if not banner.wait(180):
+            raise SystemExit(f"serve.py printed no banner: {lines} "
+                             f"{proc.stderr.read() if proc.poll() else ''}")
+        up_s = time.perf_counter() - t0
+        port = int(re.search(r":(\d+) \(", lines[0]).group(1))
+        body = {"prompt": "def fibonacci(n):", "max_tokens": 32,
+                "temperature": 0.0}
+        got = http_ok(port, "/v1/completions", body)
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            _, err = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _, err = proc.communicate()
+    cfg = get_model_config("bytellama_5m")
+    params, qcfg = load_checkpoint(str(ckpt), cfg, device=dev)
+    tok = load_tokenizer(str(ckpt), cfg)
+    g = dc.replace(GenerationConfig(), temp=0.0, n_predict=32)
+    eng = Engine(params, cfg, qcfg, batch=1, device=dev)
+    toks = eng.generate(np.asarray([tok.encode(body["prompt"], bos=True)],
+                                   np.int32), g,
+                        stop_token_ids=[tok.eos_id]).tokens[0]
+    want = tok.decode([t for t in toks if t != tok.eos_id])
+    m = dict(banner=lines[0].strip(), up_s=up_s, tokens=len(toks),
+             eq_engine=got["choices"][0]["text"] == want,
+             exit_code=proc.returncode, traceback="Traceback" in err)
+    log("phase 14 serve.py:", json.dumps(m))
+    if not m["eq_engine"] or m["exit_code"] != 0 or m["traceback"]:
+        raise SystemExit(f"phase 14: serve.py {m}; stderr {err[-2000:]}")
+    return m
+
+
 SUMMARY = {  # kernel -> (source, TPU kernel it replaces, summary case)
     "int4_matmul": ("tinychatengine_tpu_torch/csrc/int4_matmul.cu",
                     "tinychatengine_tpu/ops/int4_matmul.py:409",
@@ -3365,6 +3927,7 @@ def main(argv=None) -> int:
                 llama)
     spec = phase("llama logprobs and speculation", spec_logprobs_serving,
                  "llama3_8b", llama)
+    http = phase("llama http serving", http_serving, "llama3_8b", llama)
     del llama
     torch.cuda.empty_cache()
     serving = phase("llama serving", serving_path, n_predict=64)
@@ -3402,7 +3965,9 @@ def main(argv=None) -> int:
             "logprobs_dense": spec["dense"]["launches"],
             "logprobs_paged": spec["paged"]["launches"],
             "spec_serving": spec["speculative"]["speculative"]["launches"],
-            "vlm_engine": vlm_launches}
+            "vlm_engine": vlm_launches,
+            "http_dense": http["dense"]["launches"],
+            "http_paged": http["paged"]["launches"]}
     step_of = {"int8_decode": opt_step, "int4_matmul_fused": sc_ab["fused"][1],
                "int4_matmul_kouter": kouter["run"][1],
                **dict.fromkeys(INT8_KV.values(), kv8[1])}
@@ -3510,6 +4075,18 @@ def main(argv=None) -> int:
         f"{vlm['image_ttft_ms']:.1f} ms, decode {vlm['decode_tok_s']:.2f} "
         f"tok/s (CUDA graphs), weights by count {vlm['decoder_gb']:.3f} + "
         f"{vlm['tower_gb']:.3f} GB")
+    for mode in ("dense", "paged"):
+        m = http[mode]
+        log(f"llama3_8b w4a8 HTTP serving {mode} on {smi}: "
+            f"{m['http_tok_s']:.1f} tok/s over {m['wall_s']:.3f} s, "
+            f"engine.step() {m['step_s']:.3f} s in {m['step_calls']} calls "
+            f"(REST layer's share of the wall {1 - m['step_share']:.3f}), "
+            f"TTFT p50 {m['ttft_p50_s']:.3f} s p95 {m['ttft_p95_s']:.3f} s "
+            f"(/metrics mean {m['metrics_ttft_mean_s']:.3f} s), ticks "
+            f"{json.dumps(m['tick_stats'])}, greedy equal to in-process "
+            f"{m['greedy_eq_in_process']}, all {m['all_eq_in_process']}")
+    log(f"llama3_8b chat.py repl on {smi}: {json.dumps(http['chat'])}; "
+        f"serve.py bytellama_5m: {json.dumps(http['serve_cli'])}")
     log("w8a8 linears at M = 1:", json.dumps(linears))
     log("phase seconds:", json.dumps(phase_s))
     log(smi)

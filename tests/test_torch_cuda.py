@@ -1187,3 +1187,110 @@ def test_embeds_prompt_graph_equals_eager(cuda):
     assert torch.equal(graph.generate_device(ids, g, input_embeds=emb), want)
     assert graph.generate(ids, g, input_embeds=emb).tokens[0] == \
         want[0].tolist()
+
+
+def _png_url(seed: int, size: int = 40) -> str:
+    import base64
+    import io
+
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(np.random.default_rng(seed).integers(
+        0, 256, (size, size, 3), dtype=np.uint8)).save(buf, format="PNG")
+    return "data:image/png;base64," + base64.b64encode(buf.getvalue()).decode()
+
+
+def test_server_device_work_during_a_capture(cuda):
+    """The REST server's embeddings and image encodes run on its scheduler
+    thread: an embeddings request and an image chat posted while the
+    scheduler captures a new tick graph (the handler threads decode and
+    enqueue inside the capture) both return 200, with the embeddings and
+    the tokens of the same requests sent to the idle server after."""
+    import http.client
+    import json
+    import threading
+    import time
+
+    from tinychatengine_tpu_torch.core.config import (GenerationConfig,
+                                                      ModelConfig)
+    from tinychatengine_tpu_torch.generation.chat_templates import \
+        ChatTemplate
+    from tinychatengine_tpu_torch.models import clip
+    from tinychatengine_tpu_torch.runtime.server import InferenceServer
+    from tinychatengine_tpu_torch.runtime.serving import ServingEngine
+    from tinychatengine_tpu_torch.tokenizers.byte_fallback import \
+        ByteTokenizer
+    cfg, qcfg, params = _tiny_llama(cuda)
+    ccfg = ModelConfig(name="clip_tiny", family="clip", num_heads=4,
+                       num_kv_heads=4, num_layers=2, max_sqlen=0,
+                       embed_dim=64, hidden_dim=128, vocab_size=0,
+                       image_size=28, patch_size=14, mmproj_dim=cfg.embed_dim)
+    g = GenerationConfig(temp=0.0, n_predict=8, repeat_penalty=1.0,
+                         repeat_last_n=1)
+    srv = ServingEngine(params, cfg, qcfg, slots=2, gcfg=g, tick_batch=4,
+                        device=cuda)
+    server = InferenceServer(
+        srv, ByteTokenizer(), template=ChatTemplate("U: {input}\nA: ",
+                                                    "U: {input}\nA: "),
+        request_timeout=120.0,
+        clip_params=clip.init_random_params(ccfg, seed=0, device=cuda),
+        clip_cfg=ccfg)
+    port = server.start(port=0)
+
+    def post(path, body):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        conn.request("POST", path, json.dumps(body))
+        resp = conn.getresponse()
+        out = (resp.status, json.loads(resp.read()))
+        conn.close()
+        return out
+
+    emb_body = {"input": ["hello world", "a second input"]}
+    img_body = {"messages": [{"role": "user", "content": [
+        {"type": "image_url", "image_url": {"url": _png_url(0)}},
+        {"type": "text", "text": "what is this?"}]}],
+        "max_tokens": 8, "ignore_eos": True}
+    during = {}
+    clients = [threading.Thread(target=lambda k=k, p=p, b=b: during.update(
+        {k: post(p, b)})) for k, p, b in (
+            ("emb", "/v1/embeddings", emb_body),
+            ("img", "/v1/chat/completions", img_body))]
+    capture, inside = srv.graphs.capture, []
+
+    def capture_with_clients(step):
+        body = step.body
+
+        def slow_body():  # the second call of the body is the captured one
+            inside.append(1)
+            if len(inside) == 2:
+                for t in clients:
+                    t.start()
+                time.sleep(1.0)  # the handlers decode and enqueue meanwhile
+            body()
+        step.body = slow_body
+        try:
+            capture(step)
+        finally:
+            step.body = body
+    srv.graphs.capture = capture_with_clients
+    try:
+        st, out = post("/v1/completions", {"prompt": "start the ticks",
+                                           "max_tokens": 8,
+                                           "ignore_eos": True})
+        for t in clients:
+            t.join(timeout=120)
+    finally:
+        srv.graphs.capture = capture
+    try:
+        assert st == 200, out
+        assert len(inside) >= 2 and not any(t.is_alive() for t in clients)
+        assert during["emb"][0] == 200 and during["img"][0] == 200, during
+        idle_emb = post("/v1/embeddings", emb_body)
+        idle_img = post("/v1/chat/completions", img_body)
+        for a, b in zip(during["emb"][1]["data"], idle_emb[1]["data"]):
+            np.testing.assert_allclose(a["embedding"], b["embedding"],
+                                       atol=1e-6)
+        assert during["img"][1]["choices"] == idle_img[1]["choices"]
+        assert during["img"][1]["usage"] == idle_img[1]["usage"]
+    finally:
+        server.close()

@@ -1,5 +1,7 @@
 """The PyTorch/CUDA port stands alone: it imports without JAX (the machine
-with the card has none) and names nothing of the JAX package."""
+with the card has none), without ``regex`` and without Pillow (the port's
+tokenizers need neither; images are decoded with PIL only inside the
+call), and names nothing of the JAX package."""
 
 import ast
 import pkgutil
@@ -32,8 +34,19 @@ def test_every_port_module_imports_without_jax():
     assert {"tinychatengine_tpu_torch.models.clip",
             "tinychatengine_tpu_torch.generation.vlm",
             "tinychatengine_tpu_torch.generation.speculative"} <= set(mods)
+    assert {"tinychatengine_tpu_torch.tokenizers.streaming",
+            "tinychatengine_tpu_torch.tokenizers.sentencepiece_bpe",
+            "tinychatengine_tpu_torch.tokenizers.bytelevel_bpe",
+            "tinychatengine_tpu_torch.tokenizers.llama3_bpe",
+            "tinychatengine_tpu_torch.generation.chat_templates",
+            "tinychatengine_tpu_torch.core.flags",
+            "tinychatengine_tpu_torch.runtime.server",
+            "tinychatengine_tpu_torch.serve",
+            "tinychatengine_tpu_torch.tools.speech",
+            "tinychatengine_tpu_torch.chat"} <= set(mods)
     code = ("import sys\n"
-            "for name in ('jax', 'jaxlib', 'ml_dtypes', 'tinychatengine_tpu'):\n"
+            "for name in ('jax', 'jaxlib', 'ml_dtypes', 'tinychatengine_tpu',\n"
+            "             'regex', 'PIL'):\n"
             "    sys.modules[name] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n"
@@ -42,6 +55,8 @@ def test_every_port_module_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    from tinychatengine_tpu_torch.tools import checkpoint
+    assert callable(checkpoint.load_tokenizer)
 
 
 def _imports(path: Path):
@@ -151,3 +166,25 @@ def test_clip_entry_points_default_to_the_card(monkeypatch, tmp_path):
         clip.preprocess_image(np.zeros((30, 30, 3), np.uint8), 28)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load_clip(str(tmp_path))
+
+
+def test_cli_entry_points_default_to_the_card(monkeypatch):
+    """serve.py's and chat.py's builders (and so the REST server above
+    them) without device= raise when no CUDA device is present; the CLIs
+    default to --device cuda."""
+    from tinychatengine_tpu_torch import chat, serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.build_demo_serving(slots=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.build_demo_clip(64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.build_serving("bytellama_5m", "INT4",
+                            str(REPO / "assets" / "bytellama_5m"), None, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        chat.build_demo_engine()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        chat.build_engine("bytellama_5m", "INT4",
+                          str(REPO / "assets" / "bytellama_5m"), None)
+    assert serve.build_parser().parse_args([]).device == "cuda"

@@ -9,3 +9,7 @@ the same module, which runs for tensors that lie on the CPU.
 Entry points (``Engine``, ``init_random_params``, ``load_checkpoint``)
 default to ``device="cuda"`` and raise when no GPU is present.
 """
+
+from tinychatengine_tpu_torch.core.flags import warn_unknown_flags  # noqa: E402
+
+warn_unknown_flags()

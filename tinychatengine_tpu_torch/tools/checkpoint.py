@@ -1,7 +1,8 @@
 """Save and load ``tinychatengine_tpu.v1`` llama, opt, gptbigcode and clip
 checkpoints (counterpart of the JAX package's ``tools/checkpoint.py``); a
 VLM's vision tower is a ``clip`` checkpoint of its own in ``<ckpt>/clip``
-(``save_clip``, ``load_clip``).
+(``save_clip``, ``load_clip``); ``load_tokenizer`` finds the tokenizer
+beside a checkpoint.
 
 The format is ``meta.json`` (model and quant config, a ``dtypes`` map) plus
 ``shard_*.npz`` files of the flattened parameter tree keyed by tree path
@@ -157,3 +158,29 @@ def load_clip(path: str, device=None):
     cfg = ModelConfig(**meta["clip_cfg"])
     params, _ = load_checkpoint(str(sub), cfg, device)
     return params, cfg
+
+
+def load_tokenizer(path: str, cfg: ModelConfig):
+    """Best-effort tokenizer discovery in a checkpoint/tokenizer directory
+    (the JAX package's rules): a file, or the directory's ``tokenizer.*``
+    and ``*vocab*`` entries, read as Llama-3 BPE for llama3 models (or any
+    vocabulary above 100000), SentencePiece for the llama family and
+    byte-level BPE otherwise; the byte tokenizer when none loads."""
+    from tinychatengine_tpu_torch.tokenizers import (ByteLevelBPE, Llama3BPE,
+                                                     SentencePieceBPE)
+    from tinychatengine_tpu_torch.tokenizers.byte_fallback import (
+        ByteTokenizer)
+
+    p = Path(path)
+    candidates = [p] if p.is_file() else list(p.glob("tokenizer.*")) + \
+        list(p.glob("*vocab*"))
+    for c in candidates:
+        try:
+            if "llama3" in cfg.name or cfg.vocab_size > 100000:
+                return Llama3BPE.load(str(c))
+            if cfg.family == "llama":
+                return SentencePieceBPE.load(str(c))
+            return ByteLevelBPE.load(str(c if c.is_dir() else c.parent))
+        except Exception:
+            continue
+    return ByteTokenizer()

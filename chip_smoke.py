@@ -174,6 +174,28 @@ Phases (any failure ends the run with a non-zero exit code):
    of the mode and 0 plain calls; chat.py's ``repl`` (two greedy turns)
    against ``Engine.generate``; serve.py as a subprocess on bytellama_5m
    against ``Engine.generate``, ended by SIGINT without a traceback.
+15. the conversion toolchain (``convert_path``): llama3_8b at full width
+   cut to ``CONVERT_LAYERS`` layers, written as two HF safetensors shards
+   of seeded bf16 tensors with AWQ's motif (salient channels: norm weights
+   x20, their weight rows x0.05); ``convert_hf_llama`` to W4A8 (layer 0's
+   and the lm_head's packed bytes and scales equal to numpy's quantizer
+   and packer on the source weights); to fp, then
+   ``awq_scale_llama`` over 16 x 512 seeded ids (``flash_prefill`` once a
+   layer and no other kernel, no plain version; every chosen loss at most
+   RTN's, qkv and gate_up alpha > 0 at most ``AWQ_RTN_SHARE`` of it; layer
+   0's wo search against numpy's on the host, the card's int4 round trip
+   against numpy's, the folded model's logits within ``FOLD_TOL``);
+   requantized, saved, loaded, through ``Engine.generate_device`` (graph
+   == eager, the W4A8 path's kernels, no plain version), its first decode
+   step against the CPU's plain forward of the checkpoint (``CUT_TOL``),
+   and the same scaled tree requantized to W4A16, its prefill and first
+   step held to the CPU's plain forward (``CUT_TOL``); bytellama_5m
+   exported to HF and converted by the CLI with and without
+   ``--awq-calib`` (the card's corpus, 16 x 512), fp / RTN / AWQ
+   perplexity (AWQ's Delta at most RTN's + ``AWQ_PPL_SLACK`` points); the
+   native library (``read_file``, the Llama-3 tokenizer's C++ merge
+   against its Python merge under ``TINYCHAT_NO_NATIVE``). Phase 3 holds
+   ``flash_prefill`` at the calibration's shape.
 
 The Engine and the server run their captured CUDA graphs
 (``generation/cuda_graph.py``): in phases 4, 4b, 4c, 4f, 7 and 10 the
@@ -278,6 +300,30 @@ KOUTER_OWN_MEDIAN_TOL = 0.01
 INT8_KV = {"flash_decode": "flash_decode_int8",
            "flash_prefill": "flash_prefill_int8",
            "flash_decode_paged": "flash_decode_paged_int8"}
+# phase 15 (the conversion toolchain): llama3_8b at full width cut to
+# CONVERT_LAYERS layers; the AWQ calibration of the convert CLI's default,
+# AWQ_WINDOWS windows of AWQ_WINDOW tokens; AWQ_MOTIF salient channels a
+# layer in the synthetic source; qkv and gate_up must choose a loss at most
+# AWQ_RTN_SHARE of the alpha = 0 (RTN) loss; layer 0's wo search held to
+# numpy's over AWQ_HOST_ROWS rows within AWQ_HOST_RTOL, which must lie
+# between the sound search's loss gap (the card's and the host's f32
+# y_ref sum in other orders) and the gaps of the faulted searches
+# (FAULTED_SEARCHES) read in the same run (PERF.md, section 6);
+# the folded model's logits within
+# FOLD_TOL of max |logit| (tests/test_awq.py's bound); bytellama_5m's AWQ
+# Delta ppl at most AWQ_PPL_SLACK percentage points above RTN's
+CONVERT_LAYERS = 4
+AWQ_WINDOWS, AWQ_WINDOW = 16, 512
+AWQ_MOTIF = 16
+AWQ_RTN_SHARE = 0.9
+AWQ_HOST_ROWS = 256
+AWQ_HOST_RTOL = 1e-7
+FOLD_TOL = 3e-2
+AWQ_PPL_SLACK = 0.05
+# ACCURACY.md "AWQ vs round-to-nearest": the JAX package on a CPU, 32768
+# eval tokens (scripts/measure_awq.py); another machine's corpus draws other
+# calibration windows
+ACCURACY_CPU_PPL = {"fp": 2.6092, "rtn_w4a16": 2.6374, "awq_w4a16": 2.6334}
 
 
 def log(*a):
@@ -640,26 +686,34 @@ def admission_lengths(n: int, vocab: int, seed: int = 0,
 
 
 def check_prefill_cases(gen, add):
-    """``flash_prefill`` at two more main-path shapes (llama3_8b: Hq 32,
+    """``flash_prefill`` at three more main-path shapes (llama3_8b: Hq 32,
     Hkv 8, D 128, bf16, 32 layers cycled): phase 5's batched admission (8
     rows at start 0 with ragged lengths from its prompt mix, in the 512-row
-    bucket, rows past a length attending to its whole prefix) and a 512-row
+    bucket, rows past a length attending to its whole prefix), a 512-row
     chunk of a long-context prompt at start 3072 (phase 4d's admission, a
-    4608-key cache). Library: SDPA with the same mask; causal: SDPA with
-    ``is_causal`` over the ragged batch's full 512-row squares."""
+    4608-key cache) and phase 15's AWQ calibration forward (16 windows of
+    512 at start 0, scalar start and length). Library: SDPA with the same
+    mask; causal: SDPA with ``is_causal`` over each batch's full 512-row
+    squares."""
     from tinychatengine_tpu_torch.ops import attention as att
     dev = torch.device("cuda")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     L, hq, hkv, d = 32, 32, 8, 128
     lens = admission_lengths(8, model_config("llama3_8b").vocab_size)
+    calib = (AWQ_WINDOWS, AWQ_WINDOW)  # phase 15's calibration forward
     for b, s, smax, start, lengths in ((8, 512, 512, 0, lens),
-                                       (1, 512, 4608, 3072, (3584,))):
+                                       (1, 512, 4608, 3072, (3584,)),
+                                       (*calib, calib[1], 0,
+                                        (calib[1],) * calib[0])):
         ck = torch.randn((L, b, hkv, smax, d), device=dev, generator=gen).to(torch.bfloat16)
         cv = torch.randn((L, b, hkv, smax, d), device=dev, generator=gen).to(torch.bfloat16)
         q = torch.randn((b, s, hq, d), device=dev, generator=gen).to(torch.bfloat16)
-        length = (torch.tensor(lengths, dtype=torch.int32, device=dev)
-                  if b > 1 else lengths[0])
-        st = torch.zeros(b, dtype=torch.int32, device=dev) if b > 1 else start
+        # the calibration forward's scalar start and length
+        scalar = b == 1 or len(set(lengths)) == 1
+        length = (lengths[0] if scalar else
+                  torch.tensor(lengths, dtype=torch.int32, device=dev))
+        st = start if scalar else torch.zeros(b, dtype=torch.int32,
+                                               device=dev)
         err = share = 0.0
         for li in (0, L - 1):
             y = att.flash_prefill(q, ck, cv, li, st, length)
@@ -681,7 +735,10 @@ def check_prefill_cases(gen, add):
                 < torch.minimum(qpos[None] + 1, lim))[:, None]
         pairs = sum(min(start + r + 1, n) for n in lengths for r in range(s))
         keys = sum(lengths)
-        if b > 1:
+        if b > 1 and scalar:
+            case = f"B={b} S={s} start=0 Hq={hq} Hkv={hkv} D={d} " \
+                   "AWQ calibration"
+        elif b > 1:
             case = f"B={b} S={s} start=0 Hq={hq} Hkv={hkv} D={d} ragged " \
                    f"{min(lengths)}..{max(lengths)}"
         else:
@@ -3769,6 +3826,686 @@ def serve_cli_check(dev) -> dict:
     return m
 
 
+def hf_llama_specs(cfg) -> list:
+    """(name, shape) of an HF llama state dict, in the order it is drawn
+    and written: the embedding, each layer's norms and linears ([OC, IC]),
+    the final norm, then a separate lm_head."""
+    e, f, v = cfg.embed_dim, cfg.hidden_dim, cfg.vocab_size
+    kv = cfg.num_kv_heads * cfg.head_dim
+    specs = [("model.embed_tokens.weight", (v, e))]
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        specs += [(p + "input_layernorm.weight", (e,)),
+                  (p + "post_attention_layernorm.weight", (e,)),
+                  (p + "self_attn.q_proj.weight", (e, e)),
+                  (p + "self_attn.k_proj.weight", (kv, e)),
+                  (p + "self_attn.v_proj.weight", (kv, e)),
+                  (p + "self_attn.o_proj.weight", (e, e)),
+                  (p + "mlp.gate_proj.weight", (f, e)),
+                  (p + "mlp.up_proj.weight", (f, e)),
+                  (p + "mlp.down_proj.weight", (e, f))]
+    return specs + [("model.norm.weight", (e,)), ("lm_head.weight", (v, e))]
+
+
+def write_safetensors(path: Path, tensors: dict) -> None:
+    """``tensors`` (name -> CPU tensor) as one ``*.safetensors`` file: with
+    the ``safetensors`` package where it is installed, else by this writer
+    (an 8-byte little-endian header length, a JSON header padded with
+    spaces to 8 bytes, then each tensor's raw little-endian bytes)."""
+    try:
+        from safetensors.torch import save_file
+    except ImportError:
+        save_file = None
+    if save_file is not None:
+        save_file({k: v.contiguous() for k, v in tensors.items()}, str(path))
+        return
+    names = {torch.bfloat16: "BF16", torch.float32: "F32",
+             torch.float16: "F16"}
+    header, off = {}, 0
+    for k, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[k] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                     "data_offsets": [off, off + n]}
+        off += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    import struct
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for t in tensors.values():
+            f.write(memoryview(t.contiguous().view(torch.uint8).numpy()))
+
+
+def synthetic_hf_llama(cfg, root: Path, dev, seed: int = 0, keep=()):
+    """Writes ``cfg``'s HF llama into ``root`` as two ``*.safetensors``
+    shards of bf16 tensors drawn on ``dev`` from a seeded generator:
+    linears and embeddings N(0, 0.02), norms 1 + N(0, 0.05), and AWQ's
+    motif (tests/test_awq.py): in each layer AWQ_MOTIF channels whose two
+    norm weights are x20 and whose rows of q/k/v and gate/up (input
+    channels, the columns of HF's [OC, IC]) are x0.05. Returns the ``keep``
+    tensors as the reader widens them (f32 numpy)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    specs = hf_llama_specs(cfg)
+    split = next(i for i, (n, _) in enumerate(specs)
+                 if n.startswith(f"model.layers.{cfg.num_layers // 2}."))
+    kept, motif = {}, None
+    for j, part in enumerate((specs[:split], specs[split:])):
+        tensors = {}
+        for name, shape in part:
+            if name.endswith("input_layernorm.weight"):  # a layer's first
+                motif = torch.randperm(cfg.embed_dim, generator=gen,
+                                       device=dev)[:AWQ_MOTIF]
+            if name.endswith("norm.weight"):
+                t = 1 + 0.05 * torch.randn(shape, generator=gen, device=dev)
+                if "layers." in name:
+                    t[motif] *= 20.0
+            else:
+                t = 0.02 * torch.randn(shape, generator=gen, device=dev)
+                if any(k in name for k in ("q_proj", "k_proj", "v_proj",
+                                           "gate_proj", "up_proj")):
+                    t[:, motif] *= 0.05
+            t = t.to(torch.bfloat16).cpu()
+            tensors[name] = t
+            if name in keep:
+                kept[name] = t.float().numpy()
+        write_safetensors(root / f"model-{j + 1:05d}-of-00002.safetensors",
+                          tensors)
+        del tensors
+    return kept
+
+
+@contextlib.contextmanager
+def timed_calls(module, name: str, sync):
+    """Wraps ``module.name`` while open; yields a list of (args, seconds)
+    per call."""
+    fn, calls = getattr(module, name), []
+
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        sync()
+        calls.append((a, time.perf_counter() - t))
+        return out
+    setattr(module, name, timed)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def same_int4(lin, want, what: str) -> None:
+    """Fails unless the int4 linear ``lin`` holds the packed bytes and
+    scales of ``want`` (quantized in numpy on the host)."""
+    for field in ("packed", "scales"):
+        a = getattr(lin, field).cpu()
+        b = getattr(want, field)
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            raise SystemExit(f"phase 15: {what} {field} differs from "
+                             "numpy's quantizer on the source weights")
+
+
+def rtn_import_check(params, kept, cfg, qcfg):
+    """Every packed and scale array of layer 0 and of the lm_head equals
+    numpy's quantizer and packer on the host (``quantize_groupwise_int4``,
+    ``int4_linear_from_codes``: the bytes ``quantize_linear`` gives) on
+    the source weights, byte for byte: the fused qkv and gate_up as their
+    parts side by side, the lm_head padded to ``lmhead_padded``."""
+    from tinychatengine_tpu_torch.models import llama
+    from tinychatengine_tpu_torch.ops.linear import (fuse_linears,
+                                                     int4_linear_from_codes)
+    from tinychatengine_tpu_torch.quant.numerics import \
+        quantize_groupwise_int4
+    from concurrent.futures import ThreadPoolExecutor
+
+    def numpy_int4(w):
+        q, s = quantize_groupwise_int4(w, qcfg.group_size)
+        return int4_linear_from_codes(q, s, qcfg.group_size, qcfg.scale_dtype,
+                                      a8=qcfg.scheme == "w4a8")
+    p = "model.layers.0."
+    head = kept["lm_head.weight"]
+    pad = llama.lmhead_padded(cfg.vocab_size) - cfg.vocab_size
+    names = [p + f"self_attn.{x}_proj.weight" for x in "qkvo"] + [
+        p + f"mlp.{x}_proj.weight" for x in ("gate", "up", "down")]
+    srcs = [kept[n] for n in names] + [np.concatenate(
+        [head, np.zeros((pad, head.shape[1]), np.float32)])]
+    with ThreadPoolExecutor(8) as ex:  # numpy's loops release the GIL
+        host = list(ex.map(numpy_int4, srcs))
+    want = {"wqkv": fuse_linears(host[0:3]), "wo": host[3],
+            "wgate_up": fuse_linears(host[4:6]), "down": host[6]}
+    lyr = params.layers
+    for name, lin in want.items():
+        got = getattr(lyr, name)
+        got = type(got)(packed=got.packed[0], scales=got.scales[0])
+        same_int4(got, lin, f"layer 0 {name}")
+    same_int4(params.lm_head, host[7], "lm_head")
+
+
+def boundary_weight(n_groups: int = 32, seed: int = 0) -> np.ndarray:
+    """[n_groups, 128] f32 groups whose first element is the group's
+    largest |w| = m (so d = m / -8) and whose others lie within 3 f32 ulps
+    of the code boundaries x / d + 8.5 = k: where dividing by d, or one
+    fused multiply-add, would move codes (tests/test_torch_awq.py)."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(n_groups):
+        m = np.float32(rng.uniform(0.1, 1.0))
+        inv = np.float32(1.0) / (m / np.float32(-8.0))
+        x = ((rng.integers(1, 16, 127) - 8.5) / np.float64(inv)).astype(
+            np.float32)
+        x = (x.view(np.int32) + rng.integers(-3, 4, 127).astype(np.int32)
+             ).view(np.float32)
+        rows.append(np.concatenate([[m], np.clip(x, -0.999 * m, 0.999 * m)]))
+    return np.asarray(rows, np.float32)
+
+
+def faulted_rtn(form: str):
+    """The search's int4 round trip (``awq.rtn_kn``) with one cast point
+    changed, for FAULTED_SEARCHES: ``"div"`` divides by d where numpy
+    multiplies by 1 / d; ``"fma"`` rounds g * (1 / d) + 8.5 once, as a fused
+    multiply-add would."""
+    def rtn(w_kn, group_size):
+        k, n = w_kn.shape
+        g = w_kn.float().reshape(k // group_size, group_size, n)
+        d = torch.gather(g, 1, g.abs().argmax(1, keepdim=True)) / -8.0
+        x = g / d if form == "div" else g.double() * (1.0 / d).double()
+        q = torch.clamp((x + 8.5).float(), 0.0, 15.0)
+        q = torch.where(d == 0.0, torch.full_like(q, 8.0), q).to(torch.uint8)
+        return ((q.float() - 8.0) * d).reshape(k, n)
+    return rtn
+
+
+def s32_grid(grid):
+    """``awq._grid`` with each s rounded to f32 (numpy 1.x's promotion,
+    where the search's normalisation would stay in f32)."""
+    def faulted(s_base, n_grid):
+        for alpha, s in grid(s_base, n_grid):
+            yield alpha, s.astype(np.float32).astype(np.float64)
+    return faulted
+
+
+# the faulted searches whose loss gaps AWQ_HOST_RTOL must lie below:
+# form -> (the awq attribute it replaces, its maker from the sound one)
+FAULTED_SEARCHES = {"div": ("rtn_kn", lambda _: faulted_rtn("div")),
+                    "fma": ("rtn_kn", lambda _: faulted_rtn("fma")),
+                    "s32": ("_grid", s32_grid)}
+
+
+def awq_checks(fp, scaled, info, cfg, calib, dev):
+    """Phase 15's AWQ checks on the card: each chosen loss at most its
+    alpha = 0 (RTN) loss; qkv and gate_up choose alpha > 0 in every layer
+    at most AWQ_RTN_SHARE of RTN's; layer 0's wo search on AWQ_HOST_ROWS
+    rows against numpy's on the host (alphas equal, s bit-equal, losses
+    within AWQ_HOST_RTOL, which the FAULTED_SEARCHES' gaps exceed); the
+    card's int4 round trip equal to numpy's on layer 0's folded wo and on
+    code-boundary weights; the folded model's logits on 64 tokens within
+    FOLD_TOL of the unfolded model's, with the same argmax where the top
+    two lie apart. Returns what it read."""
+    from tinychatengine_tpu_torch.generation import kv_cache as kvc
+    from tinychatengine_tpu_torch.models import llama
+    from tinychatengine_tpu_torch.quant import awq
+    out = {"alpha": info["alpha"], "loss_vs_rtn": {}}
+    for site, per in info["losses"].items():
+        per = [per] if site == "lm_head" else per
+        alphas = info["alpha"][site]
+        alphas = [alphas] if site == "lm_head" else alphas
+        shares = []
+        for i, (losses, a) in enumerate(zip(per, alphas)):
+            chosen = losses[round(a * len(losses))]
+            shares.append(chosen / losses[0])
+            log(f"awq {site} layer {i}: alpha {a}, loss {chosen:.6e}, "
+                f"RTN {losses[0]:.6e} ({chosen / losses[0]:.4f} of it)")
+            if not chosen <= losses[0]:
+                raise SystemExit(f"awq {site} layer {i}: chosen loss above "
+                                 "RTN's")
+            if site in ("qkv", "gate_up") and dev != "cpu" and not (
+                    a > 0 and chosen <= AWQ_RTN_SHARE * losses[0]):
+                raise SystemExit(f"awq {site} layer {i}: alpha {a}, "
+                                 f"{chosen / losses[0]:.4f} of RTN's loss")
+        out["loss_vs_rtn"][site] = shares
+
+    x_wo = next(awq.calibration_layers(fp, cfg, calib))["wo"]
+    x_wo = x_wo[::max(1, x_wo.shape[0] // AWQ_HOST_ROWS)][:AWQ_HOST_ROWS]
+    w_wo = fp.layers.wo.weight[0].float()
+    ratio = cfg.num_heads // cfg.num_kv_heads
+    mag = np.mean(np.abs(x_wo.cpu().numpy()), axis=0).reshape(
+        -1, ratio, cfg.head_dim).mean(1)
+    s_base = np.repeat(mag[:, None, :], ratio, 1).reshape(-1)
+    t = time.perf_counter()
+    s_dev, a_dev, l_dev = awq.search_scale(x_wo, w_wo, 128, s_base=s_base,
+                                           device=dev)
+    t_dev = time.perf_counter() - t
+    t = time.perf_counter()
+    s_host, a_host, l_host = awq.search_scale(
+        x_wo.cpu().numpy(), w_wo.cpu().numpy(), 128, s_base=s_base,
+        device="cpu")
+    t_host = time.perf_counter() - t
+    l_host = np.asarray(l_host)
+
+    def gap(losses):  # the largest relative loss gap to numpy's
+        return float(np.max(np.abs(np.asarray(losses) - l_host) / l_host))
+    faulted = {}
+    for form, (attr, make) in FAULTED_SEARCHES.items():
+        sound = getattr(awq, attr)
+        setattr(awq, attr, make(sound))
+        try:
+            faulted[form] = gap(awq.search_scale(
+                x_wo, w_wo, 128, s_base=s_base, device=dev)[2])
+        finally:
+            setattr(awq, attr, sound)
+    rel = gap(l_dev)
+    out["wo_host"] = dict(alpha=a_dev, alpha_host=a_host, loss_rel=rel,
+                          faulted_loss_rel=faulted,
+                          s_equal=bool(np.array_equal(s_dev, s_host)),
+                          card_s=t_dev, host_s=t_host)
+    log(f"awq layer 0 wo on {x_wo.shape[0]} rows, card vs numpy "
+        f"(tol {AWQ_HOST_RTOL}):", json.dumps(out["wo_host"]))
+    if not (a_dev == a_host and np.array_equal(s_dev, s_host)
+            and rel <= AWQ_HOST_RTOL):
+        raise SystemExit("awq: the card's wo search parts from numpy's")
+    if dev != "cpu" and not min(faulted.values()) > AWQ_HOST_RTOL:
+        raise SystemExit("awq: a faulted search's losses lie within "
+                         "AWQ_HOST_RTOL of numpy's")
+
+    folded = scaled.layers.wo.weight[0].float()
+    bw = boundary_weight()
+    for what, w_kn in (("folded wo", folded),
+                       ("code boundaries", torch.from_numpy(bw.T.copy()))):
+        got = awq.rtn_kn(w_kn.to(dev), 128).cpu().numpy()
+        if not np.array_equal(got, awq._rtn(w_kn.cpu().numpy(), 128)):
+            raise SystemExit(f"awq: the card's int4 round trip of {what} "
+                             "differs from numpy's")
+    ids = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, 64)), device=dev)
+    logits = []
+    with torch.inference_mode():
+        for p in (fp, scaled):
+            cache = kvc.init_cache(cfg.num_layers, 1, 64, cfg.num_kv_heads,
+                                   cfg.head_dim, device=dev)
+            logits.append(llama.forward(p, cfg, ids, cache, 0,
+                                        full_logits=True)[0][0].float().cpu())
+    a, b = logits
+    tol = FOLD_TOL * float(a.abs().max())
+    top2 = a.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
+    out["fold_err"] = float((a - b).abs().max() / a.abs().max())
+    out["fold_argmax_clear"] = int(clear.sum())
+    log(f"awq folded vs unfolded fp logits: max |diff| / max |logit| = "
+        f"{out['fold_err']:.3e} (tol {FOLD_TOL}), {int(clear.sum())} of 64 "
+        "positions with a clear argmax")
+    if not (out["fold_err"] <= FOLD_TOL and torch.equal(
+            a.argmax(-1)[clear], b.argmax(-1)[clear])):
+        raise SystemExit("awq: the folded model is not the unfolded one")
+    return out
+
+
+def run_convert_cli(args: list, dev) -> None:
+    """``python -m tinychatengine_tpu_torch.tools.convert`` as a user runs
+    it: a subprocess on the card, in process for a CPU rehearsal."""
+    if dev == "cpu":
+        from tinychatengine_tpu_torch.tools import convert
+        convert.main(args + ["--device", "cpu"])
+        return
+    r = subprocess.run([sys.executable, "-m",
+                        "tinychatengine_tpu_torch.tools.convert", *args],
+                       cwd=ROOT, capture_output=True, text=True, timeout=600)
+    for line in r.stdout.splitlines():
+        log(f"  convert: {line}")
+    if r.returncode != 0:
+        raise SystemExit(f"convert CLI failed ({r.returncode}):\n{r.stderr}")
+
+
+def bytellama_hf(root: Path) -> None:
+    """``assets/bytellama_5m`` (fp, bf16 leaves) exported as an HF llama
+    directory: one ``model.safetensors`` of bf16 [OC, IC] tensors."""
+    from tinychatengine_tpu_torch.core.config import get_model_config
+    from tinychatengine_tpu_torch.tools.checkpoint import load_checkpoint
+    cfg = get_model_config("bytellama_5m")
+    p, _ = load_checkpoint(str(ROOT / "assets" / "bytellama_5m"), cfg,
+                           device="cpu")
+    d, lyr = cfg.head_dim, p.layers
+    q, kv = cfg.num_heads * d, cfg.num_kv_heads * d
+    t = {"model.embed_tokens.weight": p.embed,
+         "model.norm.weight": p.final_norm,
+         "lm_head.weight": p.lm_head.weight[:, :cfg.vocab_size].T}
+    for i in range(cfg.num_layers):
+        pre = f"model.layers.{i}."
+        wqkv, gu = lyr.wqkv.weight[i], lyr.wgate_up.weight[i]
+        f = gu.shape[1] // 2
+        t.update({pre + "input_layernorm.weight": lyr.input_norm[i],
+                  pre + "post_attention_layernorm.weight": lyr.post_norm[i],
+                  pre + "self_attn.q_proj.weight": wqkv[:, :q].T,
+                  pre + "self_attn.k_proj.weight": wqkv[:, q:q + kv].T,
+                  pre + "self_attn.v_proj.weight": wqkv[:, q + kv:].T,
+                  pre + "self_attn.o_proj.weight": lyr.wo.weight[i].T,
+                  pre + "mlp.gate_proj.weight": gu[:, :f].T,
+                  pre + "mlp.up_proj.weight": gu[:, f:].T,
+                  pre + "mlp.down_proj.weight": lyr.down.weight[i].T})
+    root.mkdir(parents=True, exist_ok=True)
+    write_safetensors(root / "model.safetensors",
+                      {k: v.contiguous() for k, v in t.items()})
+
+
+def awq_calib_windows(n: int, window: int) -> np.ndarray:
+    """``scripts/measure_awq.py``'s calibration: ``n`` windows of ``window``
+    byte tokens from this machine's ``tools/corpus.py`` train split (8 MB
+    corpus), offsets from ``default_rng(0)``."""
+    from tinychatengine_tpu_torch.tools import corpus
+    blob = corpus.build_corpus(max_bytes=8 << 20)
+    train, _ = corpus.train_eval_split(blob)
+    rng = np.random.default_rng(0)
+    return np.stack([np.frombuffer(train[o:o + window], np.uint8).astype(
+        np.int32) for o in rng.integers(0, len(train) - window, n)])
+
+
+def bytellama_cli(work: Path, dev, n_windows: int, eval_tokens: int):
+    """bytellama_5m exported to HF, converted to W4A16 by the CLI with and
+    without ``--awq-calib``; fp, RTN and AWQ perplexity on the held-out
+    sample (window 512, stride 256) through the kernels. The RTN
+    checkpoint must equal ``requantize_llama`` of the fp checkpoint, and
+    on the card AWQ's Delta ppl must be at most RTN's + AWQ_PPL_SLACK
+    points."""
+    from tinychatengine_tpu_torch.core.config import (QuantConfig,
+                                                      get_model_config)
+    from tinychatengine_tpu_torch.models import llama
+    from tinychatengine_tpu_torch.tokenizers.byte_fallback import ByteTokenizer
+    from tinychatengine_tpu_torch.tools.checkpoint import (flatten,
+                                                           load_checkpoint)
+    from tinychatengine_tpu_torch.tools.convert import requantize_llama
+    from tinychatengine_tpu_torch.tools.perplexity import perplexity
+    cfg = get_model_config("bytellama_5m")
+    ckpt = ROOT / "assets" / "bytellama_5m"
+    t = time.perf_counter()
+    bytellama_hf(work / "bytellama_hf")
+    calib = awq_calib_windows(n_windows, AWQ_WINDOW)
+    np.save(work / "calib.npy", calib)
+    base = ["--model", "bytellama_5m", "--src", str(work / "bytellama_hf"),
+            "--scheme", "w4a16"]
+    run_convert_cli(base + ["--out", str(work / "rtn")], dev)
+    run_convert_cli(base + ["--out", str(work / "awq"), "--awq-calib",
+                            str(work / "calib.npy"), "--awq-windows",
+                            str(n_windows)], dev)
+    cli_s = time.perf_counter() - t
+    fp, _ = load_checkpoint(str(ckpt), cfg, device=dev)
+    rtn, q_rtn = load_checkpoint(str(work / "rtn"), cfg, device=dev)
+    awq_p, q_awq = load_checkpoint(str(work / "awq"), cfg, device=dev)
+    if (q_rtn.scheme, q_awq.scheme) != ("w4a16", "w4a16"):
+        raise SystemExit("the CLI wrote another scheme")
+    # the asset's lm_head pads its N with trained columns, the export and
+    # the CLI with zeros: the vocabulary's columns are compared there
+    want = flatten(requantize_llama(fp, QuantConfig(scheme="w4a16")))
+    got = flatten(rtn)
+
+    def cols(k, a):
+        return a[..., :cfg.vocab_size] if k.startswith("lm_head") else a
+    if sorted(got) != sorted(want) or not all(
+            torch.equal(cols(k, got[k].cpu()), cols(k, want[k].cpu()))
+            for k in want if not k.startswith("rope")):
+        raise SystemExit("the CLI's RTN checkpoint differs from "
+                         "requantize_llama of the checkpoint it came from")
+    ids = np.asarray(ByteTokenizer().encode((ckpt / "eval_sample.txt")
+                                            .read_text(encoding="utf-8")),
+                     np.int64)[:eval_tokens]
+    ppl = {name: perplexity(llama.forward, p, cfg, ids, 512, 256)
+           for name, p in (("fp", fp), ("rtn_w4a16", rtn),
+                           ("awq_w4a16", awq_p))}
+    d_rtn = 100 * (ppl["rtn_w4a16"] / ppl["fp"] - 1)
+    d_awq = 100 * (ppl["awq_w4a16"] / ppl["fp"] - 1)
+    out = dict(ppl=ppl, dppl_rtn_pct=d_rtn, dppl_awq_pct=d_awq,
+               eval_tokens=len(ids), calib=list(calib.shape), cli_s=cli_s,
+               cpu_accuracy_md=ACCURACY_CPU_PPL)
+    log(f"bytellama_5m through the convert CLI ({dev}) beside ACCURACY.md's "
+        "CPU run (JAX package, another machine's corpus):", json.dumps(out))
+    if dev != "cpu" and not d_awq <= d_rtn + AWQ_PPL_SLACK:
+        raise SystemExit(f"AWQ Delta ppl {d_awq:.3f} % above RTN's "
+                         f"{d_rtn:.3f} % + {AWQ_PPL_SLACK}")
+    return out
+
+
+def native_checks(shard: Path, dev) -> dict:
+    """The native library on this machine: built, ``read_file`` of a
+    safetensors shard equal to ``np.fromfile``, and phase 14's synthetic
+    Llama-3 tokenizer (128000 ranks) encoding through the C++ merger with
+    the ids of its Python merge (``TINYCHAT_NO_NATIVE=1`` in a second
+    process)."""
+    import os
+    import tempfile
+    from tinychatengine_tpu_torch import native
+    from tinychatengine_tpu_torch.tokenizers import Llama3BPE
+    if not native.available():
+        raise SystemExit("the native library did not build")
+    if not np.array_equal(native.read_file(str(shard), np.uint8),
+                          np.fromfile(shard, np.uint8)):
+        raise SystemExit("native.read_file differs from np.fromfile")
+    text = (ROOT / "assets" / "bytellama_5m" / "eval_sample.txt").read_text(
+        encoding="utf-8")[:8192]
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = llama3_tokenizer(Path(tmp), 128000 if dev != "cpu" else 4096)
+        tok = Llama3BPE.load(str(path))
+        if tok._native_merger() is None:
+            raise SystemExit("Llama3BPE did not take the C++ merger")
+        ids = tok.encode(text)
+        code = ("import json, sys\n"
+                "from tinychatengine_tpu_torch.tokenizers import Llama3BPE\n"
+                f"tok = Llama3BPE.load({str(path)!r})\n"
+                "assert tok._native_merger() is None\n"
+                "print(json.dumps(tok.encode(sys.stdin.read())))\n")
+        r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, text=True,
+                           input=text, capture_output=True, timeout=300,
+                           env={**os.environ, "TINYCHAT_NO_NATIVE": "1"})
+        if r.returncode != 0:
+            raise SystemExit(f"the Python-merge tokenizer failed:\n{r.stderr}")
+        py_ids = json.loads(r.stdout)
+    out = dict(library=str(native._target().relative_to(ROOT)),
+               shard_bytes=shard.stat().st_size, text_chars=len(text),
+               ids=len(ids), ids_equal=ids == py_ids)
+    log("native:", json.dumps(out))
+    if ids != py_ids:
+        raise SystemExit("the C++ merger's ids differ from the Python "
+                         "merge's")
+    return out
+
+
+def convert_path(dev="cuda", model="llama3_8b", n_layers=CONVERT_LAYERS,
+                 n_windows=AWQ_WINDOWS, window=AWQ_WINDOW,
+                 eval_tokens=32768, n_predict=32):
+    """Phase 15: the conversion toolchain on the card.
+
+    llama3_8b at full width cut to ``n_layers`` layers, written as two HF
+    safetensors shards of seeded bf16 tensors with AWQ's motif; converted to
+    W4A8 (layer 0 and the lm_head held byte for byte to ``quantize_linear``
+    in numpy on the source weights); converted to fp and scaled by
+    ``awq_scale_llama`` over ``n_windows`` x ``window`` seeded ids
+    (``flash_prefill`` once a layer, no plain version; ``awq_checks``);
+    requantized to W4A8, saved, loaded and run through
+    ``Engine.generate_device`` (64-token prompt, ``n_predict`` greedy
+    tokens, graph == eager, a 512-token prefill for the tile route; the
+    W4A8 path's kernels launch, no plain version runs; the first decode
+    step within CUT_TOL of the CPU's plain forward of the same checkpoint,
+    the prefill's distance printed; the same scaled tree in W4A16, its
+    prefill and first step within CUT_TOL of the CPU's); bytellama_5m
+    through the convert CLI (``bytellama_cli``); the native library
+    (``native_checks``). The
+    arguments shrink the run for a rehearsal on the CPU (tests). Returns
+    the phase's numbers, its seconds split by step."""
+    import tempfile
+    from tinychatengine_tpu_torch.core.config import QuantConfig
+    from tinychatengine_tpu_torch.generation.engine import Engine
+    from tinychatengine_tpu_torch.generation import kv_cache as kvc
+    from tinychatengine_tpu_torch.models import llama
+    from tinychatengine_tpu_torch.ops import _build
+    from tinychatengine_tpu_torch.quant import awq
+    from tinychatengine_tpu_torch.tools import convert as cv
+    from tinychatengine_tpu_torch.tools.checkpoint import (load_checkpoint,
+                                                           save_checkpoint)
+    cfg = dataclasses.replace(model_config(model), num_layers=n_layers)
+    sync = torch.cuda.synchronize if dev != "cpu" else (lambda: None)
+    secs, out = {}, {"layers": n_layers}
+    w4a8 = QuantConfig(scheme="w4a8", group_size=128)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        work = Path(tmp)
+        hf = work / "hf"
+        hf.mkdir()
+        t = time.perf_counter()
+        keep = [n for n, _ in hf_llama_specs(cfg)
+                if n.startswith("model.layers.0.") and "proj" in n]
+        kept = synthetic_hf_llama(cfg, hf, dev, keep=keep + ["lm_head.weight"])
+        secs["write"] = time.perf_counter() - t
+
+        # RTN import, timed by its reads and quantizations
+        t = time.perf_counter()
+        with timed_calls(cv, "quantize_linear", sync) as quants:
+            loader = cv._hf_state_dict_loader
+            reads = []
+
+            def timed_loader(src):
+                get = loader(src)
+
+                def timed_get(name):
+                    t0 = time.perf_counter()
+                    a = get(name)
+                    reads.append((name, time.perf_counter() - t0))
+                    return a
+                return timed_get
+            cv._hf_state_dict_loader = timed_loader
+            try:
+                params = cv.convert_hf_llama(str(hf), cfg, w4a8, device=dev)
+                sync()
+            finally:
+                cv._hf_state_dict_loader = loader
+        secs["convert_w4a8"] = time.perf_counter() - t
+        secs["read"] = sum(s for _, s in reads)
+        # the lm_head is read and quantized last
+        head = sum(s for n, s in reads if n == "lm_head.weight") \
+            + quants[-1][1]
+        embed = sum(s for n, s in reads if n == "model.embed_tokens.weight")
+        secs["convert_per_layer"] = (secs["convert_w4a8"] - head
+                                     - embed) / n_layers
+        secs["convert_lm_head"] = head
+        t = time.perf_counter()
+        rtn_import_check(params, kept, cfg, w4a8)
+        secs["rtn_import_check"] = time.perf_counter() - t
+        del params, kept
+
+        # AWQ on the fp import
+        t = time.perf_counter()
+        fp = cv.convert_hf_llama(str(hf), cfg, QuantConfig(scheme="fp"),
+                                 device=dev)
+        sync()
+        secs["convert_fp"] = time.perf_counter() - t
+        calib = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                  (n_windows, window))
+        t = time.perf_counter()
+        with plain_calls() as plain, \
+                timed_calls(awq, "search_scale", sync) as searches:
+            _build.reset_launches()
+            scaled, info = awq.awq_scale_llama(fp, cfg, calib, 128)
+            sync()
+            out["awq_launches"] = dict(_build.LAUNCHES)
+        awq_launches = {k: v for k, v in out["awq_launches"].items() if v}
+        secs["awq"] = time.perf_counter() - t
+        secs["awq_search"] = sum(s for _, s in searches)
+        secs["awq_calibration"] = secs["awq"] - secs["awq_search"]
+        log(f"awq on {n_windows} x {window} ids, launches:",
+            json.dumps(awq_launches), "plain calls:", json.dumps(plain))
+        if dev != "cpu" and (awq_launches != {"flash_prefill": n_layers}
+                             or any(plain.values())):
+            raise SystemExit("awq's calibration forward did not run "
+                             "flash_prefill once a layer, and only it")
+        t = time.perf_counter()
+        out.update(awq_checks(fp, scaled, info, cfg, calib, dev))
+        secs["awq_checks"] = time.perf_counter() - t
+        del fp
+
+        # round trip through the checkpoint and the Engine; the same
+        # scaled tree in W4A16 for the comparison with the CPU below
+        t = time.perf_counter()
+        w4a16 = QuantConfig(scheme="w4a16", group_size=128)
+        for name, q in (("ckpt", w4a8), ("ckpt_w4a16", w4a16)):
+            save_checkpoint(str(work / name), cv.requantize_llama(scaled, q),
+                            cfg, q, extra_meta={"family": "llama"})
+        del scaled
+        params, qcfg = load_checkpoint(str(work / "ckpt"), cfg, device=dev)
+        sync()
+        secs["requantize_save_load"] = time.perf_counter() - t
+        t = time.perf_counter()
+        rng = np.random.default_rng(2)
+        prompt = rng.integers(0, cfg.vocab_size, (1, 64))
+        long_prompt = rng.integers(0, cfg.vocab_size, (1, 512))
+        gcfg = greedy_config(n_predict)
+        with plain_calls() as plain:
+            _build.reset_launches()
+            eng = Engine(params, cfg, qcfg, batch=1, max_len=640, device=dev)
+            toks = eng.generate_device(prompt, gcfg, n_tokens=n_predict).cpu()
+            eng.prefill(long_prompt, eng.new_cache())
+            sync()
+            out["engine_launches"] = dict(_build.LAUNCHES)
+        launches = {k: v for k, v in out["engine_launches"].items() if v}
+        eager = Engine(params, cfg, qcfg, batch=1, max_len=640, device=dev,
+                       cuda_graphs=False).generate_device(
+            prompt, gcfg, n_tokens=n_predict).cpu()
+        out["graph_eq_eager"] = bool(torch.equal(toks, eager))
+        log(f"converted {cfg.name} ({n_layers} layers) w4a8 Engine launches:",
+            json.dumps(launches), "plain calls:", json.dumps(plain),
+            "graph == eager:", out["graph_eq_eager"])
+        if not out["graph_eq_eager"]:
+            raise SystemExit("converted model: graph tokens part from eager")
+        if dev != "cpu" and (any(plain.values()) or not all(
+                launches.get(k, 0) > 0 for k in ENGINE_KERNELS)):
+            raise SystemExit("converted model: a W4A8 kernel did not launch "
+                             "or a plain version ran")
+        # the prefill and first decode step against the CPU's plain forward
+        # of the same checkpoint: held in W4A16; in W4A8 the first step is
+        # held and the prefill printed, since on this source the W4A8
+        # model's plain path alone parts by 4.5e-2 of max |logit| between
+        # the card and the CPU at the prefill (int8 activation codes
+        # flipping at .5 boundaries; PERF.md, section 6)
+
+        def vs_cpu(p, ckpt):  # max |diff| / max |ref| at prefill, step
+            steps = {}
+            with torch.inference_mode():
+                for where, pp in ((dev, p), ("cpu", load_checkpoint(
+                        str(ckpt), cfg, device="cpu")[0])):
+                    cache = kvc.init_cache(cfg.num_layers, 1, 128,
+                                           cfg.num_kv_heads, cfg.head_dim,
+                                           device=where)
+                    first = llama.forward(pp, cfg, torch.as_tensor(
+                        prompt, device=where), cache, 0)[0]
+                    step = llama.forward(pp, cfg, torch.tensor(
+                        [[int(toks[0, 0])]], device=where), cache, 64)[0]
+                    steps[where] = (first.float().cpu(), step.float().cpu())
+            return [float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(steps[dev], steps["cpu"])]
+        errs = vs_cpu(params, work / "ckpt")
+        errs16 = vs_cpu(load_checkpoint(str(work / "ckpt_w4a16"), cfg,
+                                        device=dev)[0], work / "ckpt_w4a16")
+        out["prefill_vs_cpu"], out["first_step_vs_cpu"] = errs
+        out["w4a16_prefill_vs_cpu"], out["w4a16_first_step_vs_cpu"] = errs16
+        log(f"converted model vs the CPU's plain forward: max |diff| / max "
+            f"|ref| = W4A8 {errs[0]:.3e} at the prefill (printed), "
+            f"{errs[1]:.3e} at the first decode step; W4A16 {errs16[0]:.3e} "
+            f"and {errs16[1]:.3e} (tol {CUT_TOL})")
+        if not (errs[1] <= CUT_TOL and max(errs16) <= CUT_TOL):
+            raise SystemExit("converted model: the card's logits disagree "
+                             "with the CPU's plain forward")
+        secs["engine"] = time.perf_counter() - t
+        del params, eng
+        if dev != "cpu":
+            torch.cuda.empty_cache()
+
+        t = time.perf_counter()
+        out["bytellama"] = bytellama_cli(work, dev, n_windows, eval_tokens)
+        secs["bytellama_cli_ppl"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["native"] = native_checks(next(hf.glob("*.safetensors")), dev)
+        secs["native"] = time.perf_counter() - t
+    out["seconds"] = secs
+    log(f"phase 15 seconds ({cfg.name} cut to {n_layers} layers):",
+        json.dumps(secs))
+    return out
+
+
 SUMMARY = {  # kernel -> (source, TPU kernel it replaces, summary case)
     "int4_matmul": ("tinychatengine_tpu_torch/csrc/int4_matmul.cu",
                     "tinychatengine_tpu/ops/int4_matmul.py:409",
@@ -3944,6 +4681,7 @@ def main(argv=None) -> int:
     sc_serving = phase("starcoder serving", serving_path, "starcoder_15.5b",
                        n_requests=16, n_predict=64, fused=True)
     vlm_launches, vlm = phase("vila vlm path", vlm_path)
+    conv = phase("llama3_8b conversion", convert_path)
 
     runs = {"engine": launches,  # path -> launches over its run
             "kernels": kernel_launches,
@@ -3967,7 +4705,9 @@ def main(argv=None) -> int:
             "spec_serving": spec["speculative"]["speculative"]["launches"],
             "vlm_engine": vlm_launches,
             "http_dense": http["dense"]["launches"],
-            "http_paged": http["paged"]["launches"]}
+            "http_paged": http["paged"]["launches"],
+            "convert_awq_calibration": conv["awq_launches"],
+            "convert_engine": conv["engine_launches"]}
     step_of = {"int8_decode": opt_step, "int4_matmul_fused": sc_ab["fused"][1],
                "int4_matmul_kouter": kouter["run"][1],
                **dict.fromkeys(INT8_KV.values(), kv8[1])}
@@ -4087,6 +4827,13 @@ def main(argv=None) -> int:
             f"{m['greedy_eq_in_process']}, all {m['all_eq_in_process']}")
     log(f"llama3_8b chat.py repl on {smi}: {json.dumps(http['chat'])}; "
         f"serve.py bytellama_5m: {json.dumps(http['serve_cli'])}")
+    log(f"llama3_8b conversion ({conv['layers']} layers) on {smi}: seconds "
+        f"{json.dumps(conv['seconds'])}; AWQ alphas "
+        f"{json.dumps(conv['alpha'])}; bytellama_5m ppl "
+        f"{json.dumps(conv['bytellama']['ppl'])} (Delta RTN "
+        f"{conv['bytellama']['dppl_rtn_pct']:.3f} %, AWQ "
+        f"{conv['bytellama']['dppl_awq_pct']:.3f} %; ACCURACY.md's CPU run "
+        f"{json.dumps(ACCURACY_CPU_PPL)})")
     log("w8a8 linears at M = 1:", json.dumps(linears))
     log("phase seconds:", json.dumps(phase_s))
     log(smi)

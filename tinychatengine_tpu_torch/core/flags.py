@@ -34,6 +34,14 @@ KNOWN_FLAGS: dict[str, tuple[str, str, str]] = {
         "shapes routed to the K-outer int4 kernel: 'K,N:bn,bk;...'",
         "A/B runs of the K-outer route; empty by default, as in JAX",
     ),
+    "TINYCHAT_NO_NATIVE": (
+        "(empty)",
+        "read once, at the first use of native/: any non-empty value turns "
+        "off the C++ library (the tokenizers' merges, read_file), so the "
+        "pure-Python paths run",
+        "A/B runs of the tokenizers' Python merges, or a machine whose g++ "
+        "builds a library that misbehaves",
+    ),
     "TINYCHAT_STT_CMD": (
         "(empty)",
         "speech-to-text command for voice chat (writes the transcript to "

@@ -18,11 +18,13 @@ import numpy as np
 import torch
 
 from tinychatengine_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_a8
-from tinychatengine_tpu_torch.quant.numerics import quantize_groupwise_int4
+from tinychatengine_tpu_torch.quant.numerics import quantize_groupwise_int4_kn
 from tinychatengine_tpu_torch.quant.packing import (
     from_bf16_bits,
     pack_qm_tpu,
+    pack_qm_tpu_kn,
     pack_scales,
+    pack_scales_kn,
     padded_ic,
 )
 
@@ -202,17 +204,41 @@ def random_int4_linear_fast(gen: torch.Generator, k: int, n: int,
     return Int4Linear(packed=packed, scales=scales)
 
 
+def quantized_linear_kn(w_kn: torch.Tensor, group_size: int,
+                        scale_dtype: str = "bf16", a8: bool = False,
+                        bias: Optional[torch.Tensor] = None) -> Int4Linear:
+    """float w [K, N] tensor → Int4Linear / Int4A8Linear on its device
+    through the torch quantizer and packer (``quantize_groupwise_int4_kn``,
+    ``pack_qm_tpu_kn``): the bytes of numpy's ``quantize_groupwise_int4``
+    and ``pack_qm_tpu`` on ``w.T`` (``int4_linear_from_codes``)."""
+    q, scales = quantize_groupwise_int4_kn(w_kn, group_size)
+    cls = Int4A8Linear if a8 else Int4Linear
+    return cls(packed=pack_qm_tpu_kn(q, group_size),
+               scales=pack_scales_kn(scales, scale_dtype, group_size),
+               bias=bias)
+
+
 def quantized_linear(w_oc_ic: np.ndarray, group_size: int,
                      scale_dtype: str = "bf16", a8: bool = False,
                      device=None) -> Int4Linear:
-    """float w [OC, IC] → Int4Linear / Int4A8Linear through the bit-exact
-    quantizer and the QM_TPU packer."""
-    q, scales = quantize_groupwise_int4(w_oc_ic, group_size)
+    """float w [OC, IC] → Int4Linear / Int4A8Linear on ``device`` through
+    the bit-exact quantizer and the QM_TPU packer (``quantized_linear_kn``
+    on the K-major weight: numpy's ``quantize_groupwise_int4`` bytes)."""
+    w = torch.from_numpy(np.ascontiguousarray(w_oc_ic, np.float32))
+    return quantized_linear_kn(w.to(device).T, group_size, scale_dtype, a8)
+
+
+def int4_linear_from_codes(q: np.ndarray, scales: np.ndarray,
+                           group_size: int, scale_dtype: str = "bf16",
+                           a8: bool = False, device=None,
+                           bias: Optional[torch.Tensor] = None) -> Int4Linear:
+    """Codes [OC, IC] in [0, 15] and their scales [OC, IC // group_size]
+    (numpy) → Int4Linear / Int4A8Linear packed in QM_TPU on ``device``."""
     s = pack_scales(scales, scale_dtype, group_size)
     s = from_bf16_bits(s) if scale_dtype == "bf16" else torch.from_numpy(s)
     cls = Int4A8Linear if a8 else Int4Linear
     return cls(packed=torch.from_numpy(pack_qm_tpu(q, group_size)).to(device),
-               scales=s.to(device))
+               scales=s.to(device), bias=bias)
 
 
 def random_int4_linear(rng: np.random.Generator, k: int, n: int,

@@ -111,3 +111,34 @@ def pack_scales(scales: np.ndarray, dtype: str = "f32",
         return to_bf16_bits(out)
     assert dtype == "f32", dtype
     return out
+
+
+def pack_qm_tpu_kn(q: torch.Tensor, group_size: int | None = None
+                   ) -> torch.Tensor:
+    """``pack_qm_tpu`` on K-major codes ``q [IC, OC]`` uint8 on any device:
+    ``packed [IC_pad//2, OC]``, the same bytes as ``pack_qm_tpu(q.T)``."""
+    ic, oc = q.shape
+    if group_size is not None and padded_ic(ic, group_size) != ic:
+        pad = padded_ic(ic, group_size) - ic
+        q = torch.cat([q, torch.full((pad, oc), ZERO_POINT_CODE,
+                                     dtype=q.dtype, device=q.device)])
+        ic += pad
+    assert ic % SUPERBLOCK == 0, f"IC={ic} must be a multiple of {SUPERBLOCK}"
+    qt = q.to(torch.uint8).reshape(ic // SUPERBLOCK, 2, PLANE, oc)
+    return (qt[:, 0] | (qt[:, 1] << 4)).reshape(ic // 2, oc)
+
+
+def pack_scales_kn(scales: torch.Tensor, dtype: str = "f32",
+                   group_size: int | None = None) -> torch.Tensor:
+    """``pack_scales`` on K-major scales ``[IC//G, OC]`` f32 on any device:
+    group rows padded to padded_ic//G with 0.0, then f32 or bf16 (round to
+    nearest even, as ``to_bf16_bits``)."""
+    if group_size is not None:
+        sg, oc = scales.shape
+        sgp = padded_ic(sg * group_size, group_size) // group_size
+        if sgp != sg:
+            scales = torch.cat([scales, scales.new_zeros((sgp - sg, oc))])
+    if dtype == "bf16":
+        return scales.to(torch.bfloat16).contiguous()
+    assert dtype == "f32", dtype
+    return scales.to(torch.float32).contiguous()

@@ -7,9 +7,9 @@ split → bytes mapped to printable unicode → rank-ordered pair merges →
 vocab lookup. Loads ``vocab.json`` + ``merges.txt`` (the files the reference
 ships as opt_vocab.json/opt_merges.txt) or HF ``tokenizer.json``.
 
-The merge runs in Python: the JAX package's C++ rank merger (its
-``native/``) is not ported yet, and this is the same algorithm as its
-fallback.
+The merge runs in the C++ rank merger of the port's ``native/`` when it
+is available (as the JAX package's does), else in the same loop in Python;
+a merge whose result the vocabulary lacks turns the C++ path off.
 """
 
 from __future__ import annotations
@@ -51,6 +51,48 @@ class ByteLevelBPE:
         self.bos_id, self.eos_id = bos_id, eos_id
         self.unk_id = vocab.get(unk_token, 0)
         self._cache: dict[str, list[int]] = {}
+        self._native = None
+        self._native_tried = False
+
+    def _native_merger(self):
+        """C++ rank-merge engine over vocab ids (native/src/bpe.cc); None if
+        unavailable or a merge references a token missing from the vocab."""
+        if self._native_tried:
+            return self._native
+        self._native_tried = True
+        try:
+            from tinychatengine_tpu_torch import native
+            if not native.available():
+                return None
+            # Strings the Python merge loop can create as intermediate parts:
+            producible = {a + b for (a, b) in self.ranks}
+            lefts, rights, merged, prio = [], [], [], []
+            for (a, b), rank in self.ranks.items():
+                ia, ib, iab = (self.vocab.get(a), self.vocab.get(b),
+                               self.vocab.get(a + b))
+                if iab is None:
+                    # The Python loop APPLIES this merge (creating a string
+                    # that later emits unk_id or feeds further merges); the
+                    # id-domain table cannot represent it — native would
+                    # silently diverge, so disable the native path.
+                    return None
+                if ia is None or ib is None:
+                    # A piece missing from the vocab is only reachable if
+                    # some other rule produces it; unreachable rules are
+                    # safely dropped, reachable ones force the Python path.
+                    if (ia is None and a in producible) or \
+                       (ib is None and b in producible):
+                        return None
+                    continue
+                lefts.append(ia)
+                rights.append(ib)
+                merged.append(iab)
+                prio.append(-float(rank))
+            self._native = native.NativeMerger(lefts, rights, merged, prio,
+                                               native.RANK)
+        except Exception:
+            self._native = None
+        return self._native
 
     @classmethod
     def load(cls, path: str) -> "ByteLevelBPE":
@@ -80,18 +122,28 @@ class ByteLevelBPE:
 
     def _bpe(self, word: str) -> list[int]:
         """word (byte-mapped) → token ids: the lowest-ranked adjacent pair
-        merges first, until no pair has a rank."""
+        merges first, until no pair has a rank. Native C++ merge loop when
+        available; identical pure-Python loop otherwise."""
         if word in self._cache:
             return self._cache[word]
-        parts = list(word)
-        while len(parts) > 1:
-            pairs = [(self.ranks.get((parts[i], parts[i + 1]), 1 << 60), i)
-                     for i in range(len(parts) - 1)]
-            rank, i = min(pairs)
-            if rank >= 1 << 60:
-                break
-            parts = parts[:i] + [parts[i] + parts[i + 1]] + parts[i + 2:]
-        ids = [self.vocab.get(tok, self.unk_id) for tok in parts]
+        nat = self._native_merger()
+        init_ids = None
+        if nat is not None:
+            init_ids = [self.vocab.get(c) for c in word]
+            if any(i is None for i in init_ids):
+                init_ids = None  # char outside vocab: python path handles unk
+        if init_ids is not None:
+            ids = nat.encode(init_ids)
+        else:
+            parts = list(word)
+            while len(parts) > 1:
+                pairs = [(self.ranks.get((parts[i], parts[i + 1]), 1 << 60), i)
+                         for i in range(len(parts) - 1)]
+                rank, i = min(pairs)
+                if rank >= 1 << 60:
+                    break
+                parts = parts[:i] + [parts[i] + parts[i + 1]] + parts[i + 2:]
+            ids = [self.vocab.get(tok, self.unk_id) for tok in parts]
         self._cache[word] = ids
         return ids
 

@@ -15,8 +15,8 @@ and ``\\p{N}``, which Python's ``re`` lacks (its nearest form,
 the ``regex`` package is not a dependency of the port. Letters and numbers
 are the categories ``L*`` and ``N*`` of the interpreter's Unicode tables;
 whitespace is the White_Space property (``WHITESPACE``). The merge runs in
-Python: the JAX package's C++ rank merger (its ``native/``) is not ported
-yet, and this is the same algorithm as its fallback.
+the C++ rank merger of the port's ``native/`` when it is available (as the
+JAX package's does), else in the same loop in Python.
 
 Special ids (LLaMA3Generate.cc:183-195): bos 128000 <|begin_of_text|>,
 eos 128001 <|end_of_text|>, eot 128009 <|eot_id|>.
@@ -140,6 +140,8 @@ class Llama3BPE:
                 "(" + "|".join(re.escape(s) for s in alts) + ")")
         self._cache: dict[bytes, list[int]] = {}
         self._CACHE_CAP = 1 << 16  # per-word results; cleared when full
+        self._native = None
+        self._native_tried = False
 
     def _build_pair_ranks(self, merges):
         table: dict[tuple[int, int], tuple[int, int]] = {}
@@ -169,6 +171,24 @@ class Llama3BPE:
                 if key not in table or tid < table[key][0]:
                     table[key] = (tid, tid)
         return table
+
+    def _native_merger(self):
+        if self._native_tried:
+            return self._native
+        self._native_tried = True
+        try:
+            from tinychatengine_tpu_torch import native
+            if not native.available() or not self.pair_ranks:
+                return None
+            lefts = [k[0] for k in self.pair_ranks]
+            rights = [k[1] for k in self.pair_ranks]
+            merged = [v[1] for v in self.pair_ranks.values()]
+            prio = [-float(v[0]) for v in self.pair_ranks.values()]
+            self._native = native.NativeMerger(lefts, rights, merged, prio,
+                                               native.RANK)
+        except Exception:
+            self._native = None
+        return self._native
 
     @classmethod
     def load(cls, path: str) -> "Llama3BPE":
@@ -227,16 +247,20 @@ class Llama3BPE:
             if tid is None:
                 tid = 0  # vocab without byte coverage (degenerate)
             ids.append(tid)
-        while len(ids) > 1:
-            best = None
-            for i in range(len(ids) - 1):
-                r = self.pair_ranks.get((ids[i], ids[i + 1]))
-                if r is not None and (best is None or r[0] < best[0]):
-                    best = (r[0], i, r[1])
-            if best is None:
-                break
-            _, i, m = best
-            ids[i:i + 2] = [m]
+        nat = self._native_merger()
+        if nat is not None:
+            ids = nat.encode(ids)
+        else:
+            while len(ids) > 1:
+                best = None
+                for i in range(len(ids) - 1):
+                    r = self.pair_ranks.get((ids[i], ids[i + 1]))
+                    if r is not None and (best is None or r[0] < best[0]):
+                        best = (r[0], i, r[1])
+                if best is None:
+                    break
+                _, i, m = best
+                ids[i:i + 2] = [m]
         if len(self._cache) >= self._CACHE_CAP:  # bound memory: long-running
             self._cache.clear()                  # servers see unbounded
         self._cache[word_bytes] = ids            # distinct words otherwise

@@ -11,12 +11,13 @@ Loads either the reference's ``llama_vocab.bin`` (9 ignored u32s, then
 n_vocab x {u32 len, bytes, f32 score}) or a HF ``tokenizer.json``
 (sentencepiece-exported, with ▁ word markers).
 
-The merge runs in Python: the JAX package's C++ encoder (its ``native/``)
-is not ported yet, and this is the same algorithm. A piece the vocabulary
-lacks falls back as that encoder's does (the JAX package's default): to
-byte tokens where ``<0x00>``..``<0xFF>`` hold one contiguous id range,
-else to one ``unk`` (the JAX package's Python fallback emits one token per
-byte instead, ``unk`` where a byte token is missing).
+The whole-text encode runs in the C++ encoder of the port's ``native/``
+when it is available (as the JAX package's does), else in the same
+algorithm in Python. The two differ only on a piece the vocabulary lacks,
+as JAX's two do: the C++ encoder falls back to byte tokens where
+``<0x00>``..``<0xFF>`` hold one contiguous id range, else to one ``unk``;
+the Python loop emits one token per byte, ``unk`` where a byte token is
+missing.
 """
 
 from __future__ import annotations
@@ -50,11 +51,29 @@ class SentencePieceBPE:
         self.token_to_id = {t: i for i, t in enumerate(tokens)}
         self.bos_id, self.eos_id, self.unk_id = bos_id, eos_id, unk_id
         self.sp_space = sp_space  # vocab uses ▁ (HF) vs literal space (ref bin)
-        # id of <0x00> when <0x00>..<0xFF> are contiguous, else -1
-        base = self.token_to_id.get("<0x00>", -1)
-        if base >= 0 and self.token_to_id.get("<0xFF>") != base + 255:
-            base = -1
-        self.byte_base = base
+        self._native = None        # lazily-built C++ encoder (native/)
+        self._native_tried = False
+
+    def _native_encoder(self):
+        """C++ whole-text encoder (native/src/bpe.cc tce_spm_*); None if the
+        native library is unavailable. Byte fallback uses the contiguous
+        <0x00>..<0xFF> id range when the vocab has one."""
+        if self._native_tried:
+            return self._native
+        self._native_tried = True
+        try:
+            from tinychatengine_tpu_torch import native
+            if not native.available():
+                return None
+            base = self.token_to_id.get("<0x00>", -1)
+            if base >= 0 and self.token_to_id.get("<0xFF>") != base + 255:
+                base = -1  # non-contiguous byte tokens: let unk handle it
+            self._native = native.NativeSPM(
+                [t.encode("utf-8") for t in self.id_to_token], self.scores,
+                byte_fallback_base=base, unk_id=self.unk_id)
+        except Exception:
+            self._native = None
+        return self._native
 
     # -- loading -------------------------------------------------------------
     @classmethod
@@ -103,6 +122,10 @@ class SentencePieceBPE:
         if not text:
             return out
 
+        nat = self._native_encoder()
+        if nat is not None:
+            return out + nat.encode(text.encode("utf-8"))
+
         # symbols = utf-8 characters; greedy highest-score merges via heap
         chars = []
         bs = text.encode("utf-8")
@@ -146,11 +169,10 @@ class SentencePieceBPE:
                 tid = self.token_to_id.get(chars[j])
                 if tid is not None:
                     out.append(tid)
-                elif self.byte_base >= 0:  # byte fallback: <0xXX> tokens
-                    out.extend(self.byte_base + byte
-                               for byte in chars[j].encode("utf-8"))
-                else:
-                    out.append(self.unk_id)
+                else:  # byte fallback: <0xXX> tokens (sentencepiece convention)
+                    for byte in chars[j].encode("utf-8"):
+                        out.append(self.token_to_id.get(f"<0x{byte:02X}>",
+                                                        self.unk_id))
             j = nxt[j]
         return out
 

@@ -1,5 +1,5 @@
 """OPT W8A8 static quantization with activation calibration (counterpart of
-the JAX package's ``tools/calibrate_opt.py``, without its command line).
+the JAX package's ``tools/calibrate_opt.py``).
 
 Given fp OPT params and calibration token ids, it
 
@@ -14,6 +14,10 @@ Given fp OPT params and calibration token ids, it
    operations, so the int8 weights come out bit for bit the same.
 
 Per-tensor scales, symmetric.
+
+    python -m tinychatengine_tpu_torch.tools.calibrate_opt --model opt_125m \
+        --checkpoint fp_ckpt --out w8a8_ckpt --calib-text calib.txt \
+        [--device cpu]
 """
 
 from __future__ import annotations
@@ -179,3 +183,43 @@ def quantize_opt_w8a8(params: opt.OPTParams, cfg: ModelConfig,
             # pv: probs requantized x127; v in a_v units; out in a_attn s8
             pv_alpha=dev_f32((1.0 / 127.0) * a_v / a_attn)))
     return dataclasses.replace(params, layers=opt.stack_layers(new_layers))
+
+
+def main(argv=None):
+    import argparse
+
+    from tinychatengine_tpu_torch.core.config import (QuantConfig,
+                                                      get_model_config)
+    from tinychatengine_tpu_torch.tools.checkpoint import (load_checkpoint,
+                                                           load_tokenizer,
+                                                           save_checkpoint)
+
+    ap = argparse.ArgumentParser(
+        description="calibrate + quantize an fp OPT checkpoint to W8A8")
+    ap.add_argument("--model", required=True)
+    ap.add_argument("--checkpoint", required=True, help="fp checkpoint dir")
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--calib-text", required=True,
+                    help="text file for activation calibration")
+    ap.add_argument("--calib-tokens", type=int, default=512)
+    ap.add_argument("--smooth-alpha", type=float, default=0.5)
+    ap.add_argument("--device", default="cuda",
+                    help="where the statistics pass runs: cuda or cpu")
+    args = ap.parse_args(argv)
+
+    cfg = get_model_config(args.model)
+    params, _ = load_checkpoint(args.checkpoint, cfg, device=args.device)
+    tok = load_tokenizer(args.checkpoint, cfg)
+    with open(args.calib_text) as f:
+        ids = np.asarray(tok.encode(f.read(), bos=False),
+                         np.int32)[: args.calib_tokens][None, :]
+    qparams = quantize_opt_w8a8(params, cfg, ids,
+                                smooth_alpha=args.smooth_alpha,
+                                device=args.device)
+    save_checkpoint(args.out, qparams, cfg, QuantConfig(scheme="w8a8"),
+                    extra_meta={"family": "opt"})
+    print(f"W8A8 checkpoint at {args.out}")
+
+
+if __name__ == "__main__":
+    main()

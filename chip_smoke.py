@@ -195,7 +195,29 @@ Phases (any failure ends the run with a non-zero exit code):
    perplexity (AWQ's Delta at most RTN's + ``AWQ_PPL_SLACK`` points); the
    native library (``read_file``, the Llama-3 tokenizer's C++ merge
    against its Python merge under ``TINYCHAT_NO_NATIVE``). Phase 3 holds
-   ``flash_prefill`` at the calibration's shape.
+   ``flash_prefill`` at the calibration's shape. A faulted fold (layer
+   0's input norm left undivided) must read above ``FOLD_TOL``.
+16. the byte models trained on the card (``train_path``):
+   ``tools/train_tiny.main`` trains bytellama_5m and byteopt_4m at full
+   width (``TRAIN_STEPS``, batch 16 x 512 on ``TRAIN_CORPUS_MB`` MB of
+   local source) and scores them on ``TRAIN_EVAL_TOKENS`` held-out tokens;
+   the training steps launch no kernel (llama's attention calls
+   ``flash_prefill_plain`` while autograd records, OPT's its dense
+   attention), the evaluation launches ``int4_matmul``, ``flash_prefill``
+   and ``flash_prefill_int8``; the first step's loss and every scheme's
+   ppl within ``TRAIN_RTOL`` of the CPU's; ``TWIN_STEPS`` steps on the
+   card and on the CPU from one init and one set of offsets, every loss
+   within ``TWIN_RTOL`` and every tensor within ``TWIN_SHARE`` of its
+   change (``train_twin``); the loss falls
+   below ``TRAIN_LOSS_SHARE`` of the first step's, the fp ppl below
+   ``TRAIN_PPL_SHARE`` of the untrained init's; the trained bytellama
+   through ``load_checkpoint`` and ``Engine``, fp and W4A8, against the
+   CPU (phase 9's rule); byteopt's prefill from ``input_embeds`` equal to
+   its prefill from ids bit for bit (phase 10 checks StarCoder's);
+   ``bench_op`` on phase 3's ``int4_matmul_a8`` qkv case at M = 1, less
+   the same chain on the identity op (the feed), within ``BENCH_OP_RTOL``
+   of its time there; ``device_trace`` of one W4A8
+   decode step naming its kernels.
 
 The Engine and the server run their captured CUDA graphs
 (``generation/cuda_graph.py``): in phases 4, 4b, 4c, 4f, 7 and 10 the
@@ -310,7 +332,8 @@ INT8_KV = {"flash_decode": "flash_decode_int8",
 # y_ref sum in other orders) and the gaps of the faulted searches
 # (FAULTED_SEARCHES) read in the same run (PERF.md, section 6);
 # the folded model's logits within
-# FOLD_TOL of max |logit| (tests/test_awq.py's bound); bytellama_5m's AWQ
+# FOLD_TOL of max |logit| (tests/test_awq.py's bound), which a faulted fold
+# read in the same run must exceed; bytellama_5m's AWQ
 # Delta ppl at most AWQ_PPL_SLACK percentage points above RTN's
 CONVERT_LAYERS = 4
 AWQ_WINDOWS, AWQ_WINDOW = 16, 512
@@ -1880,6 +1903,8 @@ def fused_ab(model, dev="cuda", long_len=2048, model_params=None,
            for mode in ("unfused", "fused")}
     out["first_step"] = first_step_diff(params, cfg, (qcfg, False),
                                         (qcfg, True), dev)
+    if cfg.family == "gptbigcode":  # phase 16's input_embeds check
+        out["embeds_prefill_equal"] = embeds_prefill_equal(params, cfg, dev)
     log(f"{cfg.name} first decode step, fused vs unfused: max |diff| / "
         f"max |logit| = {out['first_step']['rel_diff']:.3e} (tol "
         f"{FUSED_STEP_TOL}), same argmax {out['first_step']['same_argmax']}")
@@ -1889,6 +1914,37 @@ def fused_ab(model, dev="cuda", long_len=2048, model_params=None,
     if dev == "cuda":
         torch.cuda.empty_cache()
     return out
+
+
+def embeds_prefill_equal(params, cfg, dev, n: int = 16) -> bool:
+    """An OPT or GPTBigCode prefill of ``n`` seeded ids into a fresh cache
+    from the ids and from ``input_embeds`` (the rows the ids give, with
+    their positions): whether the logits, and the cache, are equal bit for
+    bit."""
+    from tinychatengine_tpu_torch.generation import kv_cache as kvc
+    from tinychatengine_tpu_torch.generation.engine import forward_for_family
+    from tinychatengine_tpu_torch.models.opt import POS_OFFSET
+    ids = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, n)), device=dev)
+    pos = torch.arange(n, device=dev)
+    if cfg.family == "opt":
+        embeds = (params.embed_tokens[ids].float()
+                  + params.embed_positions[pos + POS_OFFSET].float())
+    else:
+        embeds = params.wte[ids] + params.wpe[pos]
+    forward = forward_for_family(cfg.family)
+    outs = []
+    with torch.inference_mode():
+        for kw in ({}, {"input_embeds": embeds}):
+            cache = kvc.init_cache(cfg.num_layers, 1, n, cfg.num_kv_heads,
+                                   cfg.head_dim, device=dev)
+            logits, cache = forward(params, cfg, ids, cache, 0,
+                                    full_logits=True, **kw)
+            outs.append((logits, cache.k, cache.v))
+    same = all(torch.equal(a, b) for a, b in zip(*outs))
+    log(f"{cfg.name} prefill of {n} ids from input_embeds equal to the ids' "
+        f"bit for bit: {same}")
+    return same
 
 
 def first_step_diff(params, cfg, a, b, dev, prefill_table=None):
@@ -4040,7 +4096,8 @@ def awq_checks(fp, scaled, info, cfg, calib, dev):
     card's int4 round trip equal to numpy's on layer 0's folded wo and on
     code-boundary weights; the folded model's logits on 64 tokens within
     FOLD_TOL of the unfolded model's, with the same argmax where the top
-    two lie apart. Returns what it read."""
+    two lie apart, and a faulted fold's (layer 0's input norm undivided)
+    beyond it. Returns what it read."""
     from tinychatengine_tpu_torch.generation import kv_cache as kvc
     from tinychatengine_tpu_torch.models import llama
     from tinychatengine_tpu_torch.quant import awq
@@ -4117,25 +4174,35 @@ def awq_checks(fp, scaled, info, cfg, calib, dev):
                              "differs from numpy's")
     ids = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (1, 64)), device=dev)
+    # a faulted fold beside the sound one: layer 0's qkv rows carry AWQ's
+    # scales but its input norm is left undivided
+    faulted = dataclasses.replace(scaled, layers=dataclasses.replace(
+        scaled.layers, input_norm=torch.cat([fp.layers.input_norm[:1],
+                                             scaled.layers.input_norm[1:]])))
     logits = []
     with torch.inference_mode():
-        for p in (fp, scaled):
+        for p in (fp, scaled, faulted):
             cache = kvc.init_cache(cfg.num_layers, 1, 64, cfg.num_kv_heads,
                                    cfg.head_dim, device=dev)
             logits.append(llama.forward(p, cfg, ids, cache, 0,
                                         full_logits=True)[0][0].float().cpu())
-    a, b = logits
+    a, b, c = logits
     tol = FOLD_TOL * float(a.abs().max())
     top2 = a.topk(2, dim=-1).values
     clear = (top2[:, 0] - top2[:, 1]) > 2 * tol
     out["fold_err"] = float((a - b).abs().max() / a.abs().max())
+    out["faulted_fold_err"] = float((a - c).abs().max() / a.abs().max())
     out["fold_argmax_clear"] = int(clear.sum())
     log(f"awq folded vs unfolded fp logits: max |diff| / max |logit| = "
-        f"{out['fold_err']:.3e} (tol {FOLD_TOL}), {int(clear.sum())} of 64 "
-        "positions with a clear argmax")
+        f"{out['fold_err']:.3e}, faulted fold (layer 0's input norm "
+        f"undivided) {out['faulted_fold_err']:.3e} (tol {FOLD_TOL}), "
+        f"{int(clear.sum())} of 64 positions with a clear argmax")
     if not (out["fold_err"] <= FOLD_TOL and torch.equal(
             a.argmax(-1)[clear], b.argmax(-1)[clear])):
         raise SystemExit("awq: the folded model is not the unfolded one")
+    if not out["faulted_fold_err"] > FOLD_TOL:
+        raise SystemExit("awq: a faulted fold lies within FOLD_TOL of the "
+                         "unfolded model")
     return out
 
 
@@ -4506,6 +4573,376 @@ def convert_path(dev="cuda", model="llama3_8b", n_layers=CONVERT_LAYERS,
     return out
 
 
+# ---- phase 16: the byte models trained on the card -------------------------
+
+# phase 16: train_tiny.main for bytellama_5m (TRAIN_STEPS["llama"]) and
+# byteopt_4m (TRAIN_STEPS["opt"]) at full width, batch 16 x window 512, on
+# TRAIN_CORPUS_MB MB of local source, scored on TRAIN_EVAL_TOKENS held-out
+# tokens; the first step's loss and every scheme's ppl within TRAIN_RTOL of
+# the CPU's (the bytellama ppl tolerance of the CPU twins); a second,
+# TWIN_STEPS-long training on the card and on the CPU from the same init
+# and offsets (``train_twin``): every step's loss within TWIN_RTOL and
+# every trained tensor within TWIN_SHARE of its change (the limits of
+# tests/test_torch_train.py's twin against JAX; read on an NVIDIA H100
+# 80GB HBM3 at 700.00 W: 5.8e-5 and 0.029 for bytellama_5m, 2.1e-5 and
+# 0.037 for byteopt_4m); the mean of the last 16 losses below
+# TRAIN_LOSS_SHARE of the first; the trained fp ppl below TRAIN_PPL_SHARE
+# of the untrained init's; bench_op, net of the same chain on the identity
+# op (its feed), within BENCH_OP_RTOL of the kernel phase's time for the
+# same case
+TRAIN_STEPS = {"llama": 300, "opt": 200}
+TRAIN_CORPUS_MB = 4
+TRAIN_EVAL_TOKENS = 4096
+TRAIN_RTOL = 2e-3
+TWIN_STEPS = 4
+TWIN_RTOL = 5e-4
+TWIN_SHARE = 0.1
+TRAIN_LOSS_SHARE = 0.5
+TRAIN_PPL_SHARE = 0.1
+BENCH_OP_RTOL = 0.2
+# the kernels one W4A8 decode step launches (int4_matmul_a8, flash_decode),
+# by a part of their names in the device trace
+DECODE_TRACE_NAMES = ("a8_quant_kernel", "a8_mma_kernel", "split_kernel",
+                      "combine_kernel")
+
+
+def golden_prompts() -> list:
+    """The byte tokens of the bytellama golden prompts."""
+    from tinychatengine_tpu_torch.tokenizers.byte_fallback import ByteTokenizer
+    golden = ROOT / "tests" / "golden"
+    golds = [json.loads((golden / "bytellama_greedy.json").read_text())]
+    golds += json.loads((golden / "bytellama_goldens.json").read_text())
+    tok = ByteTokenizer()
+    return [np.asarray(tok.encode(g["prompt"]), np.int64) for g in golds]
+
+
+def leading_agreement(a, b) -> int:
+    """How many leading tokens two sequences share."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def train_model(model, steps, work: Path, dev, corpus_mb, eval_tokens, batch,
+                window) -> dict:
+    """``train_tiny.main`` for one model on ``dev`` (training, checkpoint,
+    eval sample, ppl.json), with the launches and plain-version calls of
+    the training steps and of the evaluation counted apart; the first
+    step's loss against the CPU's on the same init and ids; ``train_twin``;
+    the ppl of the untrained init and of the checkpoint scored on the CPU
+    beside the card's rows. Returns what it read."""
+    from tinychatengine_tpu_torch.ops import _build
+    from tinychatengine_tpu_torch.tokenizers.byte_fallback import ByteTokenizer
+    from tinychatengine_tpu_torch.tools import train_tiny as tt
+    from tinychatengine_tpu_torch.tools.checkpoint import load_checkpoint
+    from tinychatengine_tpu_torch.tools.perplexity import perplexity
+    cfg = model_config(model)
+    sync = torch.cuda.synchronize if dev != "cpu" else (lambda: None)
+    first, counts = {}, {}
+    real_train, real_loss = tt.train, tt.batch_loss
+
+    def recording_loss(forward_fn, params, cfg_, ids):
+        if not first:  # the init's compute view and the first step's ids
+            first["params"] = tree_map(params, lambda t: t.detach().cpu())
+            first["ids"] = ids.cpu()
+        return real_loss(forward_fn, params, cfg_, ids)
+
+    def counted_train(*a, **kw):
+        _build.reset_launches()
+        with plain_calls() as plain:
+            out = real_train(*a, **kw)
+            sync()
+        counts["train"] = dict(launches=dict(_build.LAUNCHES),
+                               plain={k: v for k, v in plain.items() if v})
+        _build.reset_launches()
+        return out
+    out_dir = work / model
+    tt.train, tt.batch_loss = counted_train, recording_loss
+    try:
+        res = tt.main(["--out", str(out_dir), "--model", model, "--steps",
+                       str(steps), "--batch", str(batch), "--window",
+                       str(window), "--corpus-mb", str(corpus_mb),
+                       "--eval-tokens", str(eval_tokens), "--device", dev])
+        sync()
+    finally:
+        tt.train, tt.batch_loss = real_train, real_loss
+    counts["eval"] = {k: v for k, v in _build.LAUNCHES.items() if v}
+    losses = res["losses"]
+    forward = tt._hooks(cfg.family)[1]
+    with torch.no_grad():
+        cpu_loss = float(real_loss(forward, first["params"], cfg,
+                                   first["ids"]))
+    text = (out_dir / "eval_sample.txt").read_text(encoding="utf-8")
+    ids = np.asarray(ByteTokenizer().encode(text), np.int64)[:eval_tokens]
+    init = tree_map(first["params"], lambda t: t.to(dev))
+    init_ppl = perplexity(forward, init, cfg, ids, 512, 256)
+    del init
+    train_b, _ = tt.corpus_split(corpus_mb)
+    twin = train_twin(cfg, train_b, dev, TWIN_STEPS, batch, window)
+    cpu_params, _ = load_checkpoint(str(out_dir), cfg, device="cpu")
+    cpu_rows = tt.score(cpu_params, cfg, train_b, ids, log=lambda *a: None)
+    rows = {label: (p, cpu) for (label, p), (_, cpu) in zip(res["rows"],
+                                                           cpu_rows)}
+    m = dict(model=model, steps=steps, first_loss=losses[0],
+             first_loss_cpu=cpu_loss,
+             first_loss_rel=abs(losses[0] - cpu_loss) / cpu_loss,
+             last16_loss=float(np.mean(losses[-16:])),
+             losses_every_25=losses[::25], train_s=res["train_s"],
+             train_tok_s=res["train_tok_s"], init_fp_ppl=init_ppl,
+             ppl_card_cpu=rows,
+             ppl_rel=max(abs(a - b) / b for a, b in rows.values()),
+             train_counts=counts["train"], eval_launches=counts["eval"],
+             twin=twin)
+    log(f"phase 16 {model}:", json.dumps(m))
+    fp_ppl = res["rows"][0][1]
+    if m["first_loss_rel"] > TRAIN_RTOL:
+        raise SystemExit(f"phase 16 {model}: the first step's loss on {dev} "
+                         f"parts from the CPU's by {m['first_loss_rel']:.3e}")
+    if m["ppl_rel"] > TRAIN_RTOL:
+        raise SystemExit(f"phase 16 {model}: a scheme's ppl on {dev} parts "
+                         f"from the CPU's: {rows}")
+    if twin["loss_rel"] > TWIN_RTOL or twin["share"] > TWIN_SHARE \
+            or not twin["bias_ok"]:
+        raise SystemExit(f"phase 16 {model}: {TWIN_STEPS} steps on {dev} "
+                         f"part from the CPU's: {twin}")
+    train_launches = {k: v for k, v in counts["train"]["launches"].items()
+                      if v}
+    # llama's forward calls flash_prefill_plain while autograd records,
+    # OPT's its dense attention (models.llama.records)
+    if train_launches or (cfg.family == "llama" and not counts["train"][
+            "plain"].get("flash_prefill_plain")):
+        raise SystemExit(f"phase 16 {model}: the training steps launched "
+                         f"{train_launches}, plain versions "
+                         f"{counts['train']['plain']}")
+    want = (("int4_matmul", "flash_prefill", "flash_prefill_int8")
+            if cfg.family == "llama" else ("flash_prefill",))
+    if dev != "cpu" and not all(counts["eval"].get(k) for k in want):
+        raise SystemExit(f"phase 16 {model}: the evaluation launched "
+                         f"{counts['eval']}, not all of {want}")
+    if dev != "cpu" and not (m["last16_loss"]
+                             < TRAIN_LOSS_SHARE * losses[0]
+                             and fp_ppl < TRAIN_PPL_SHARE * init_ppl):
+        raise SystemExit(f"phase 16 {model}: the loss fell from "
+                         f"{losses[0]:.4f} to {m['last16_loss']:.4f}, fp ppl "
+                         f"{fp_ppl:.4f} against the init's {init_ppl:.4f}")
+    m["ckpt"] = out_dir
+    return m
+
+
+def train_twin(cfg, corpus: bytes, dev, steps: int, batch: int,
+               window: int) -> dict:
+    """``train_tiny.train`` for ``steps`` steps on ``dev``, then on the
+    CPU from the same init (drawn with numpy) on the offsets the first run
+    drew: the worst step's loss gap (relative) and the worst trained
+    tensor's ||w_dev - w_cpu|| / ||w_cpu - w_init|| over the returned bf16
+    trees; OPT's k_proj bias, whose true gradient is zero, element by
+    element within twice the summed step sizes, as
+    tests/test_torch_train.py holds it against JAX."""
+    from tinychatengine_tpu_torch.core.config import QuantConfig
+    from tinychatengine_tpu_torch.tools import train_tiny as tt
+    from tinychatengine_tpu_torch.tools.checkpoint import flatten
+    real_draw, offsets = tt.draw_offsets, []
+
+    def recorded(gen, b, n, w):
+        offsets.append(real_draw(gen, b, n, w))
+        return offsets[-1]
+    replay = iter(offsets)
+    losses, trees = {}, {}
+    try:
+        for key, where, draw in (
+                ("dev", dev, recorded),
+                ("cpu", "cpu", lambda gen, b, n, w: next(replay).cpu())):
+            tt.draw_offsets = draw
+            losses[key] = []
+            trees[key] = flatten(tt.train(
+                cfg, corpus, steps=steps, batch=batch, window=window,
+                log=lambda *a: None, device=where, history=losses[key]))
+    finally:
+        tt.draw_offsets = real_draw
+    init = flatten(tt._hooks(cfg.family)[0](cfg, QuantConfig(scheme="fp"),
+                                            0, "cpu"))
+    lr_sum = sum(tt.lr_schedule(i, steps, 3e-3) for i in range(steps))
+    shares, bias_ok = {}, True
+    for k, w in trees["cpu"].items():
+        if k.startswith("rope_"):
+            continue
+        g, w, w0 = trees["dev"][k].cpu().float(), w.float(), init[k].float()
+        if k == "layers/k_proj/bias":
+            bias_ok = float((g - w).abs().max()) <= 2 * lr_sum
+            continue
+        shares[k] = float(torch.linalg.norm(g - w)
+                          / torch.linalg.norm(w - w0))
+    worst = max(shares, key=shares.get)
+    out = dict(steps=steps, losses_dev=losses["dev"],
+               losses_cpu=losses["cpu"],
+               loss_rel=max(abs(a - b) / b for a, b in zip(losses["dev"],
+                                                         losses["cpu"])),
+               share=shares[worst], worst_tensor=worst, bias_ok=bias_ok)
+    log(f"phase 16 {cfg.name}, {steps} steps on {dev} against the CPU:",
+        json.dumps(out))
+    return out
+
+
+def trained_engine_check(ckpt: Path, cfg, dev, n_predict: int) -> dict:
+    """The trained bytellama checkpoint through ``load_checkpoint`` and
+    ``Engine``: ``n_predict`` greedy tokens of each golden prompt on the
+    card against the same parameters on the CPU, fp and W4A8 (phase 9's
+    rule: at least 16 leading tokens agree)."""
+    from tinychatengine_tpu_torch.core.config import (GenerationConfig,
+                                                      QuantConfig)
+    from tinychatengine_tpu_torch.generation.engine import Engine
+    from tinychatengine_tpu_torch.tools.checkpoint import load_checkpoint
+    from tinychatengine_tpu_torch.tools.convert import requantize_llama
+    g = GenerationConfig(temp=0.0, n_predict=n_predict, repeat_penalty=1.0,
+                         repeat_last_n=1)
+    prompts = golden_prompts()
+    out = {}
+    for scheme in ("fp", "w4a8"):
+        qcfg = QuantConfig(scheme=scheme, group_size=128)
+        toks = []
+        for where in (dev, "cpu"):
+            params = load_checkpoint(str(ckpt), cfg, device=where)[0]
+            eng = Engine(requantize_llama(params, qcfg), cfg, qcfg,
+                         max_len=cfg.max_sqlen, device=where)
+            toks.append([eng.generate(x[None], g).tokens[0]
+                         for x in prompts])
+        out[scheme] = [leading_agreement(a, b) for a, b in zip(*toks)]
+    log(f"phase 16 trained {cfg.name}, greedy tokens agreeing card vs "
+        "CPU:", json.dumps(out))
+    if min(min(v) for v in out.values()) < min(16, n_predict):
+        raise SystemExit("phase 16: the trained model's greedy tokens on "
+                         "the card part from the CPU's within 16 tokens")
+    return out
+
+
+def bench_op_check(dev, kernel_cases, k: int = 4096, n: int = 6144) -> dict:
+    """``utils.benchmark.bench_op`` on ``int4_matmul_a8`` at llama3_8b's
+    qkv shape (K, N) with M = 1, its weights stacked and cycled as the
+    kernel phase's case (``int4_cases``), against that case's time
+    (``kernel_cases``; none on the CPU), net of the chain's feed (the
+    same chain on the identity op, printed beside); the case timed again
+    as phase 3 times it is printed beside too."""
+    from tinychatengine_tpu_torch.ops import int4_matmul as im
+    from tinychatengine_tpu_torch.utils.benchmark import bench_op
+    gen = torch.Generator(device=dev).manual_seed(16)
+    n_layers = max(2, -(-200_000_000 // (k * n // 2))) if dev != "cpu" else 2
+    packed = torch.randint(0, 256, (n_layers, k // 2, n), dtype=torch.uint8,
+                           device=dev, generator=gen)
+    scales = ((torch.rand((n_layers, k // 128, n), device=dev, generator=gen)
+               + 0.5) * 0.005).to(torch.bfloat16)
+    x = torch.randn((1, k), device=dev, generator=gen).to(torch.bfloat16)
+    state = {"li": 0}
+
+    def op(x, packed, scales):
+        state["li"] = (state["li"] + 1) % n_layers
+        return im.int4_matmul_a8(x, packed, scales, 128,
+                                 layer_idx=state["li"])
+    with torch.inference_mode():
+        ms = bench_op(op, x, packed, scales, iters=100, trials=3) * 1e3
+        # the chain's feed alone: the same chain on the identity op
+        feed = bench_op(lambda x, *w: x, x, packed, scales, iters=100,
+                        trials=3) * 1e3
+        # the same case as phase 3 times it, now (printed beside)
+        now = graph_ms(lambda: op(x, packed, scales), 50) \
+            if dev != "cpu" else None
+    case = f"qkv M=1 K={k} N={n}"
+    row = next((c for c in kernel_cases or ()
+                if c["kernel"] == "int4_matmul_a8" and c["case"] == case),
+               None)
+    out = dict(case=case, bench_op_ms=ms, feed_ms=feed, net_ms=ms - feed,
+               kernel_phase_ms=row["ms"] if row else None,
+               graph_ms_now=now)
+    if row:
+        out["rel"] = (ms - feed) / row["ms"] - 1.0
+    log("phase 16 bench_op:", json.dumps(out))
+    if dev != "cpu" and not abs(out["rel"]) <= BENCH_OP_RTOL:
+        raise SystemExit(f"phase 16: bench_op reads {ms:.4f} ms, its feed "
+                         f"{feed:.4f} ms, the kernel phase {row['ms']:.4f} "
+                         f"ms for {case}")
+    return out
+
+
+def decode_trace(ckpt: Path, cfg, dev, logdir: Path) -> dict:
+    """``utils.profiler.device_trace`` over one W4A8 decode step of the
+    trained bytellama (after a golden prompt's prefill): whether its
+    Chrome trace names the step's kernels (``DECODE_TRACE_NAMES``; on the
+    CPU an ``aten::`` op) and its top five device operations."""
+    from tinychatengine_tpu_torch.core.config import QuantConfig
+    from tinychatengine_tpu_torch.generation import kv_cache as kvc
+    from tinychatengine_tpu_torch.models import llama
+    from tinychatengine_tpu_torch.tools.checkpoint import load_checkpoint
+    from tinychatengine_tpu_torch.tools.convert import requantize_llama
+    from tinychatengine_tpu_torch.utils.profiler import device_trace
+    params = requantize_llama(load_checkpoint(str(ckpt), cfg, device=dev)[0],
+                              QuantConfig(scheme="w4a8", group_size=128))
+    prompt = torch.as_tensor(golden_prompts()[0][None], device=dev)
+    cache = kvc.init_cache(cfg.num_layers, 1, 128, cfg.num_kv_heads,
+                           cfg.head_dim, device=dev)
+    with torch.inference_mode():
+        logits, cache = llama.forward(params, cfg, prompt, cache, 0)
+        tok = logits.argmax(-1)[:, None]
+        with device_trace(str(logdir), device=dev) as prof:
+            llama.forward(params, cfg, tok, cache, cache.length)
+    text = (logdir / "trace.json").read_text()
+    names = DECODE_TRACE_NAMES if dev != "cpu" else ("aten::",)
+    top = sorted(device_ms_by_kernel(prof).items(), key=lambda kv: -kv[1])[:5]
+    out = dict(named={k: k in text for k in names},
+               top5_device_ms=dict(top) if top else "not measured")
+    log("phase 16 device_trace of one W4A8 decode step:", json.dumps(out))
+    if not all(out["named"].values()):
+        raise SystemExit("phase 16: the decode step's trace does not name "
+                         f"its kernels: {out['named']}")
+    return out
+
+
+def train_path(dev="cuda", models=("bytellama_5m", "byteopt_4m"),
+               steps=None, corpus_mb=TRAIN_CORPUS_MB,
+               eval_tokens=TRAIN_EVAL_TOKENS, batch=16, window=512,
+               n_predict=32, kernel_cases=None, bench_shape=(4096, 6144)):
+    """Phase 16: the byte models trained on the card (``train_model``:
+    llama, then OPT, through ``train_tiny.main``), the trained llama
+    through ``Engine`` against the CPU (``trained_engine_check``), the
+    trained OPT's prefill from ``input_embeds`` against its prefill from
+    ids (``embeds_prefill_equal``), ``bench_op`` (``bench_op_check``) and
+    ``device_trace`` (``decode_trace``). The arguments shrink the run for a
+    rehearsal on the CPU (tests). Returns the phase's numbers."""
+    import tempfile
+    from tinychatengine_tpu_torch.tools.checkpoint import load_checkpoint
+    steps = steps or TRAIN_STEPS
+    (ROOT / "build").mkdir(exist_ok=True)
+    out, secs = {}, {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        work = Path(tmp)
+        cfgs = {}
+        for model in models:
+            t = time.perf_counter()
+            cfg = model_config(model)
+            cfgs[cfg.family] = cfg
+            out[cfg.family] = train_model(model, steps[cfg.family], work, dev,
+                                          corpus_mb, eval_tokens, batch,
+                                          window)
+            secs[cfg.family] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["engine"] = trained_engine_check(out["llama"]["ckpt"],
+                                             cfgs["llama"], dev, n_predict)
+        opt_params = load_checkpoint(str(out["opt"]["ckpt"]), cfgs["opt"],
+                                     device=dev)[0]
+        out["opt_embeds_equal"] = embeds_prefill_equal(opt_params,
+                                                       cfgs["opt"], dev)
+        del opt_params
+        if not out["opt_embeds_equal"]:
+            raise SystemExit("phase 16: byteopt's prefill from input_embeds "
+                             "differs from its prefill from ids")
+        out["bench_op"] = bench_op_check(dev, kernel_cases, *bench_shape)
+        out["decode_trace"] = decode_trace(out["llama"]["ckpt"],
+                                           cfgs["llama"], dev, work / "trace")
+        secs["checks"] = time.perf_counter() - t
+    for fam in ("llama", "opt"):
+        out[fam]["ckpt"] = str(out[fam]["ckpt"].relative_to(work))
+    out["seconds"] = secs
+    log("phase 16 seconds:", json.dumps(secs))
+    return out
+
+
 SUMMARY = {  # kernel -> (source, TPU kernel it replaces, summary case)
     "int4_matmul": ("tinychatengine_tpu_torch/csrc/int4_matmul.cu",
                     "tinychatengine_tpu/ops/int4_matmul.py:409",
@@ -4682,6 +5119,8 @@ def main(argv=None) -> int:
                        n_requests=16, n_predict=64, fused=True)
     vlm_launches, vlm = phase("vila vlm path", vlm_path)
     conv = phase("llama3_8b conversion", convert_path)
+    trained = phase("byte models trained on the card", train_path,
+                    kernel_cases=cases)
 
     runs = {"engine": launches,  # path -> launches over its run
             "kernels": kernel_launches,
@@ -4834,6 +5273,23 @@ def main(argv=None) -> int:
         f"{conv['bytellama']['dppl_rtn_pct']:.3f} %, AWQ "
         f"{conv['bytellama']['dppl_awq_pct']:.3f} %; ACCURACY.md's CPU run "
         f"{json.dumps(ACCURACY_CPU_PPL)})")
+    for fam in ("llama", "opt"):
+        m = trained[fam]
+        log(f"{m['model']} trained on {smi}: {m['steps']} steps in "
+            f"{m['train_s']:.2f} s ({m['train_tok_s']:.0f} tok/s), loss "
+            f"{m['first_loss']:.4f} -> {m['last16_loss']:.4f} (mean of the "
+            f"last 16; CPU first step {m['first_loss_cpu']:.4f}), every 25 "
+            f"steps {json.dumps([round(v, 4) for v in m['losses_every_25']])}"
+            f"; ppl on the card and the CPU {json.dumps(m['ppl_card_cpu'])} "
+            f"(untrained init {m['init_fp_ppl']:.2f})")
+    log(f"phase 16 on {smi}: greedy agreement {json.dumps(trained['engine'])}"
+        f", byteopt input_embeds == ids {trained['opt_embeds_equal']}, "
+        f"starcoder input_embeds == ids {sc_ab['embeds_prefill_equal']}, "
+        f"bench_op {json.dumps(trained['bench_op'])}, decode trace "
+        f"{json.dumps(trained['decode_trace'])}")
+    if not sc_ab["embeds_prefill_equal"]:
+        raise SystemExit("starcoder's prefill from input_embeds differs from "
+                         "its prefill from ids")
     log("w8a8 linears at M = 1:", json.dumps(linears))
     log("phase seconds:", json.dumps(phase_s))
     log(smi)

@@ -133,6 +133,89 @@ def test_flash_prefill_plain_matches_jax(d, start, window):
     _close(got, xla, XLA_TOL)
 
 
+def _llama_attention_calls(monkeypatch, ctx, trained: bool,
+                           device="cpu") -> dict:
+    """Calls of ``flash_prefill`` (the wrapper, as llama's forward names
+    it) and of ``flash_prefill_plain`` in one tiny fp llama forward of 8
+    tokens under ``ctx``, with parameters that need grad when
+    ``trained``."""
+    from tinychatengine_tpu_torch.core.config import ModelConfig, QuantConfig
+    from tinychatengine_tpu_torch.models import llama as tllama
+    from tinychatengine_tpu_torch.tools.train_tiny import _tree_map
+    cfg = ModelConfig(name="route_llama", family="llama", num_heads=4,
+                      num_kv_heads=2, num_layers=2, max_sqlen=64,
+                      embed_dim=256, hidden_dim=512, vocab_size=258)
+    params = tllama.init_random_params(cfg, QuantConfig(scheme="fp"), seed=0,
+                                       device=device)
+    params = _tree_map(params, lambda k, t: t.detach().requires_grad_(
+        trained and not k.startswith("rope_")))
+    calls = {"flash_prefill": 0, "flash_prefill_plain": 0}
+    for mod, name in ((tllama, "flash_prefill"),
+                      (tatt, "flash_prefill_plain")):
+        def spy(*a, _fn=getattr(mod, name), _n=name, **kw):
+            calls[_n] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(mod, name, spy)
+    ids = torch.arange(8, device=device)[None]
+    cache = tkvc.init_cache(2, 1, 9, 2, 64, device=device)
+    with ctx():
+        logits, _ = tllama.forward(params, cfg, ids, cache, 0,
+                                   full_logits=True)
+    if logits.requires_grad:  # the gradient reaches the attention's input
+        logits.float().sum().backward()
+        assert params.layers.wqkv.weight.grad.abs().sum() > 0
+    monkeypatch.undo()
+    return calls
+
+
+def test_flash_prefill_under_autograd_takes_the_plain_route(monkeypatch):
+    """While autograd records (grad enabled and q needing grad) a forward
+    calls ``flash_prefill_plain`` itself (``models.llama.records``: the
+    kernels have no backward); the plain version's gradients equal JAX's
+    through ``attention_xla``, the route the JAX package trains through,
+    within 2e-2 of the largest gradient, and on the CPU ``flash_prefill``
+    gives them bit for bit. Without grad (``no_grad``, ``inference_mode``,
+    or parameters that need none) the forward calls ``flash_prefill`` as
+    before."""
+    rng = np.random.default_rng(30)
+    b, s, hq, hkv, d = 2, 16, 4, 2, 64
+    q = _t(_bf16(rng, (b, s, hq, d)))
+    k = _t(_bf16(rng, (1, b, hkv, s, d)))
+    v = _t(_bf16(rng, (1, b, hkv, s, d)))
+    w = torch.from_numpy(rng.standard_normal((b, s, hq * d)).astype(
+        np.float32))
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves, 0, 0, s)
+        (out.float() * w).sum().backward()
+        return out.detach(), [t.grad for t in leaves]
+    out, got = grads(tatt.flash_prefill)
+    plain_out, want = grads(tatt.flash_prefill_plain)
+    assert torch.equal(out, plain_out)
+    for g, p in zip(got, want):
+        assert torch.equal(g, p)
+
+    def jax_loss(q_, k_, v_):
+        pos = jnp.broadcast_to(jnp.arange(s), (b, s))
+        out = jatt.attention_xla(q_, k_[0], v_[0], pos, s)
+        return jnp.sum(out.astype(jnp.float32) * jnp.asarray(w.numpy()))
+    bf = [jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+          for t in (q, k, v)]
+    jgrads = jax.grad(jax_loss, argnums=(0, 1, 2))(*bf)
+    for g, jg in zip(want, jgrads):
+        jg = np.asarray(jg, np.float32)
+        assert np.abs(g.float().numpy() - jg).max() <= 2e-2 * np.abs(jg).max()
+
+    # the wrapper's CPU route calls the plain version once a layer too
+    assert _llama_attention_calls(monkeypatch, torch.enable_grad, True) == {
+        "flash_prefill": 0, "flash_prefill_plain": 2}
+    for ctx, trained in ((torch.no_grad, True), (torch.inference_mode, True),
+                         (torch.enable_grad, False)):
+        assert _llama_attention_calls(monkeypatch, ctx, trained) == {
+            "flash_prefill": 2, "flash_prefill_plain": 2}
+
+
 def test_flash_prefill_plain_ragged_starts():
     rng = np.random.default_rng(3)
     L, B, hq, hkv, S, D = 1, 3, 4, 2, 256, 64

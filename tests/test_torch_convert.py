@@ -593,6 +593,47 @@ def test_convert_cli_families_match_jax(tmp_path, monkeypatch, family):
     assert_ckpt_equal(tmp_path / "port" / sub, tmp_path / "jax" / sub)
 
 
+def test_vlm_import_at_clip_large_widths(tmp_path, registered, monkeypatch):
+    """The ``--vlm`` import at clip_vit_large's widths (ViT-L/14-336: E
+    1024, F 4096, 16 heads, 577 positions) with the depth cut to 1 layer:
+    a synthetic HF LLaVA source (the tiny llama's decoder beside the tower
+    under ``model.vision_tower.vision_tower.vision_model.`` and the
+    mm_projector at the decoder's width) imported through the port's and
+    JAX's ``convert_hf_clip`` leaf by leaf, then the CLI with ``--vlm``
+    writing JAX's decoder and ``clip`` sub-checkpoint file for file."""
+    import dataclasses
+
+    from test_convert_families import _write_hf_clip
+    jcfg, cfg = registered
+    jclip = dataclasses.replace(JREGISTRY["clip_vit_large"], num_layers=1)
+    clip = dataclasses.replace(MODEL_REGISTRY["clip_vit_large"], num_layers=1)
+    monkeypatch.setitem(JREGISTRY, "clip_vit_large", jclip)
+    monkeypatch.setitem(MODEL_REGISTRY, "clip_vit_large", clip)
+    jclip = dataclasses.replace(jclip, mmproj_dim=cfg.embed_dim)
+    clip = dataclasses.replace(clip, mmproj_dim=cfg.embed_dim)
+    rng = np.random.default_rng(21)
+    (tmp_path / "tower").mkdir()
+    tower = _write_hf_clip(tmp_path / "tower", jclip, rng)
+    pre = "model.vision_tower.vision_tower."
+    tensors = _hf_llama_tensors(cfg, rng, True)
+    tensors.update({(pre + k if k.startswith("vision_model.") else k): v
+                    for k, v in tower.items()})
+    src = tmp_path / "src"
+    write_hf(src, tensors, "safetensors")
+    got = tcv.convert_hf_clip(str(src), clip, mm_proj_src=str(src),
+                              prefix=pre + "vision_model.", device="cpu")
+    assert got.layers.q_proj.weight.shape[-2:] == (1024, 1024)
+    assert_tree_equal(got, jcv.convert_hf_clip(
+        str(src), jclip, mm_proj_src=str(src), prefix=pre + "vision_model."),
+        approx=())
+    args = ["--model", "convert_cli_tiny", "--src", str(src), "--scheme",
+            "w4a16", "--vlm"]
+    tcv.main(args + ["--out", str(tmp_path / "port"), "--device", "cpu"])
+    jcv.main(args + ["--out", str(tmp_path / "jax")])
+    assert_ckpt_equal(tmp_path / "port", tmp_path / "jax")
+    assert_ckpt_equal(tmp_path / "port" / "clip", tmp_path / "jax" / "clip")
+
+
 def test_convert_cli_refusals(tmp_path, registered):
     _, cfg = registered
     write_hf(tmp_path, _hf_llama_tensors(cfg, np.random.default_rng(17),
@@ -697,6 +738,7 @@ def test_chip_smoke_convert_phase_rehearses_on_cpu():
                                   n_predict=4)
     assert out["graph_eq_eager"] and out["wo_host"]["s_equal"]
     assert set(out["wo_host"]["faulted_loss_rel"]) == {"div", "fma", "s32"}
+    assert out["fold_err"] <= chip_smoke.FOLD_TOL < out["faulted_fold_err"]
     assert out["w4a16_prefill_vs_cpu"] == out["w4a16_first_step_vs_cpu"] == 0
     assert out["native"]["ids_equal"]
     assert out["awq_launches"] == dict.fromkeys(out["awq_launches"], 0)

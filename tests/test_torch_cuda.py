@@ -1294,3 +1294,67 @@ def test_server_device_work_during_a_capture(cuda):
         assert during["img"][1]["usage"] == idle_img[1]["usage"]
     finally:
         server.close()
+
+
+def test_flash_prefill_routes_plain_under_autograd(cuda):
+    """On the card ``flash_prefill`` launches its kernel unless autograd
+    records (grad enabled and q or the cache needing grad), where it
+    raises: the kernel has no backward. A training forward takes the plain
+    attention itself (``models.llama.records``): llama calls
+    ``flash_prefill_plain``, OPT its dense attention; neither launches a
+    kernel, and the gradient reaches the q projection."""
+    from tinychatengine_tpu_torch.core.config import ModelConfig, QuantConfig
+    from tinychatengine_tpu_torch.generation import kv_cache as kvc
+    from tinychatengine_tpu_torch.models import llama, opt
+    from tinychatengine_tpu_torch.tools.train_tiny import _tree_map
+    rng = np.random.default_rng(31)
+    b, s, hq, hkv, d = 2, 48, 4, 2, 64
+    q = _bf16(rng, (b, s, hq, d), cuda)
+    k = _bf16(rng, (1, b, hkv, s, d), cuda)
+    v = _bf16(rng, (1, b, hkv, s, d), cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        att.flash_prefill(q.clone().requires_grad_(), k, v, 0, 0, s)
+    with pytest.raises(RuntimeError, match="no backward"):
+        att.flash_prefill(q, k.clone().requires_grad_(), v, 0, 0, s)
+    _build.reset_launches()
+    with torch.no_grad():
+        got = att.flash_prefill(q.clone().requires_grad_(), k, v, 0, 0, s)
+    got2 = att.flash_prefill(q, k, v, 0, 0, s)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_prefill"] == 2
+    assert torch.equal(got, got2)
+    want = att.flash_prefill_plain(q, k, v, 0, 0, s)
+    assert attn_err(got.float(), want.float(), d)[1] <= 1.0
+
+    ids = torch.arange(8, device=cuda)[None]
+    for model, fam in ((llama, "llama"), (opt, "opt")):
+        cfg = ModelConfig(name=f"route_{fam}", family=fam, num_heads=4,
+                          num_kv_heads=2 if fam == "llama" else 4,
+                          num_layers=2, max_sqlen=64, embed_dim=256,
+                          hidden_dim=512, vocab_size=258)
+        params = (llama.init_random_params(cfg, QuantConfig(scheme="fp"),
+                                           seed=0, device=cuda)
+                  if fam == "llama" else
+                  opt.init_random_params(cfg, quantized=False, seed=0,
+                                         device=cuda))
+        params = _tree_map(params, lambda p, t: t.detach().requires_grad_(
+            t.is_floating_point() and not p.startswith("rope_")))
+        calls = []
+        real = att.flash_prefill_plain
+        att.flash_prefill_plain = lambda *a, **kw: (calls.append(1),
+                                                    real(*a, **kw))[1]
+        _build.reset_launches()
+        try:
+            cache = kvc.init_cache(2, 1, 9, cfg.num_kv_heads, 64,
+                                   device=cuda)
+            logits, _ = model.forward(params, cfg, ids, cache, 0,
+                                      full_logits=True)
+            logits.float().sum().backward()
+            torch.cuda.synchronize()
+        finally:
+            att.flash_prefill_plain = real
+        assert not any(_build.LAUNCHES.values()), fam
+        assert len(calls) == (2 if fam == "llama" else 0)
+        wq = (params.layers.wqkv.weight if fam == "llama"
+              else params.layers.q_proj.weight)
+        assert wq.grad.abs().sum() > 0

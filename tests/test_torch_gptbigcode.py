@@ -107,6 +107,33 @@ def _models(scheme, seed=0, base=None):
     return jcfg, cfg, jp, tp
 
 
+@pytest.mark.parametrize("scheme", ["fp", "w4a16"])
+def test_input_embeds_match_jax_and_the_ids(scheme):
+    """``input_embeds`` (position-included, cast to bf16) in place of
+    ``wte[ids] + wpe[positions]``: those rows equal the ids' forward bit
+    for bit, logits and cache; embeds of other values against JAX's
+    forward within 2e-2."""
+    jcfg, cfg, jp, tp = _models(scheme, base=NARROW)
+    ids = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (1, 9)))
+    rows = tp.wte[ids] + tp.wpe[torch.arange(9)]
+    want, wc = gptbigcode.forward(tp, cfg, ids, _caches(cfg)[1], 0,
+                                  full_logits=True)
+    got, gc = gptbigcode.forward(tp, cfg, ids, _caches(cfg)[1], 0,
+                                 full_logits=True, input_embeds=rows)
+    assert torch.equal(got, want) and torch.equal(gc.k, wc.k)
+    emb = np.random.default_rng(8).standard_normal(
+        (1, 9, cfg.embed_dim)).astype(np.float32)
+    jc, tc = _caches(cfg)
+    jl, _ = jgpt.forward(jp, jcfg, jnp.asarray(ids.numpy()), jc,
+                         jnp.int32(0), full_logits=True,
+                         input_embeds=jnp.asarray(emb))
+    tl, _ = gptbigcode.forward(tp, cfg, ids, tc, 0, full_logits=True,
+                               input_embeds=torch.from_numpy(emb))
+    jl = np.asarray(jl, np.float32)
+    np.testing.assert_allclose(tl.numpy(), jl, atol=2e-2, rtol=2e-2)
+
+
 def _count_fused(monkeypatch):
     calls = []
     real = tim.int4_matmul_fused

@@ -1,7 +1,7 @@
-"""The PyTorch/CUDA port stands alone: it imports without JAX (the machine
-with the card has none), without ``regex`` and without Pillow (the port's
-tokenizers need neither; images are decoded with PIL only inside the
-call), and names nothing of the JAX package."""
+"""The PyTorch/CUDA port stands alone: it imports without JAX or optax
+(the machine with the card has neither), without ``regex`` and without
+Pillow (the port's tokenizers need neither; images are decoded with PIL
+only inside the call), and names nothing of the JAX package."""
 
 import ast
 import pkgutil
@@ -44,9 +44,13 @@ def test_every_port_module_imports_without_jax():
             "tinychatengine_tpu_torch.serve",
             "tinychatengine_tpu_torch.tools.speech",
             "tinychatengine_tpu_torch.chat"} <= set(mods)
+    assert {"tinychatengine_tpu_torch.tools.train_tiny",
+            "tinychatengine_tpu_torch.tools.perplexity",
+            "tinychatengine_tpu_torch.utils.benchmark",
+            "tinychatengine_tpu_torch.utils.profiler"} <= set(mods)
     code = ("import sys\n"
             "for name in ('jax', 'jaxlib', 'ml_dtypes', 'tinychatengine_tpu',\n"
-            "             'regex', 'PIL'):\n"
+            "             'optax', 'regex', 'PIL'):\n"
             "    sys.modules[name] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n"
@@ -75,7 +79,7 @@ def _imports(path: Path):
 def test_no_jax_package_import(path):
     for name in _imports(path):
         top = name.split(".")[0]
-        assert top not in (JAX_PKG, "jax", "jaxlib", "ml_dtypes"), \
+        assert top not in (JAX_PKG, "jax", "jaxlib", "ml_dtypes", "optax"), \
             f"{path.relative_to(REPO)} imports {name}"
 
 
@@ -171,7 +175,8 @@ def test_clip_entry_points_default_to_the_card(monkeypatch, tmp_path):
 def test_cli_entry_points_default_to_the_card(monkeypatch):
     """serve.py's and chat.py's builders (and so the REST server above
     them) without device= raise when no CUDA device is present; the CLIs
-    default to --device cuda."""
+    default to --device cuda, and train_tiny's and perplexity's raise
+    without it."""
     from tinychatengine_tpu_torch import chat, serve
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -188,3 +193,11 @@ def test_cli_entry_points_default_to_the_card(monkeypatch):
         chat.build_engine("bytellama_5m", "INT4",
                           str(REPO / "assets" / "bytellama_5m"), None)
     assert serve.build_parser().parse_args([]).device == "cuda"
+    from tinychatengine_tpu_torch.tools import perplexity, train_tiny
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_tiny.main(["--skip-eval", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        perplexity.main(["--checkpoint", str(REPO / "assets" / "bytellama_5m"),
+                         "--model", "bytellama_5m", "--text",
+                         str(REPO / "assets" / "bytellama_5m" /
+                             "eval_sample.txt")])

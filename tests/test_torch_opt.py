@@ -134,6 +134,40 @@ def test_forward_prefill_decode_and_cache_match_jax(scheme, tol):
         np.testing.assert_allclose(tv, jv, atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("scheme,tol", [("fp", 2e-2), ("w8a8", 1e-3)])
+def test_input_embeds_match_jax_and_the_ids(scheme, tol):
+    """``input_embeds`` (position-included, f32) in place of the lookup:
+    the rows the ids give (token plus position rows) equal the ids'
+    forward bit for bit, logits and cache; embeds of other values against
+    JAX's forward (the tolerances of the prefill test above)."""
+    jcfg, cfg, jp, tp = _jax_model(scheme)
+    s8 = scheme == "w8a8"
+    shape = (2, 1, 32, 4, cfg.head_dim)
+
+    def caches():
+        return (jkvc.init_cache(*shape, dtype=jnp.int8 if s8
+                                else jnp.bfloat16),
+                tkvc.init_cache(*shape, dtype=torch.int8 if s8
+                                else torch.bfloat16, device="cpu"))
+    ids = torch.from_numpy(np.random.default_rng(5).integers(0, 300, (1, 9)))
+    rows = (tp.embed_tokens[ids].float()
+            + tp.embed_positions[torch.arange(9) + opt.POS_OFFSET].float())
+    want, wc = opt.forward(tp, cfg, ids, caches()[1], 0, full_logits=True)
+    got, gc = opt.forward(tp, cfg, ids, caches()[1], 0, full_logits=True,
+                          input_embeds=rows)
+    assert torch.equal(got, want) and torch.equal(gc.k, wc.k)
+    emb = np.random.default_rng(6).standard_normal((1, 9, cfg.embed_dim)
+                                                   ).astype(np.float32)
+    jc, tc = caches()
+    jl, _ = jopt.forward(jp, jcfg, jnp.asarray(ids.numpy()), jc,
+                         jnp.int32(0), full_logits=True,
+                         input_embeds=jnp.asarray(emb))
+    tl, _ = opt.forward(tp, cfg, ids, tc, 0, full_logits=True,
+                        input_embeds=torch.from_numpy(emb))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=tol,
+                               rtol=tol)
+
+
 def test_ragged_start_and_return_hidden_match_jax():
     """Per-row start (the serving decode) and the pre-final-LN states."""
     jcfg, cfg, jp, tp = _jax_model("w8a8", seed=3)

@@ -10,6 +10,8 @@ Entry points (``Engine``, ``init_random_params``, ``load_checkpoint``)
 default to ``device="cuda"`` and raise when no GPU is present.
 """
 
+__version__ = "0.1.0"
+
 from tinychatengine_tpu_torch.core.flags import warn_unknown_flags  # noqa: E402
 
 warn_unknown_flags()

@@ -1,7 +1,7 @@
 """GPTBigCode (StarCoder) decoder: fp and int4 (W4A16, W4A8), single device
 (counterpart of the JAX package's ``models/gptbigcode.py``, with per-row
-positions and the paged decode of the serving path; no ``tp_axis``,
-``input_embeds`` or ``return_hidden``).
+positions, the paged decode of the serving path, ``input_embeds`` (the
+pipeline-parallel stage contract) and ``return_hidden``; no ``tp_axis``).
 
 Architecture: multi-query attention (one KV head shared by every query
 head; ``flash_decode`` / ``flash_prefill`` / ``flash_decode_paged`` take
@@ -30,8 +30,9 @@ import torch
 from tinychatengine_tpu_torch.core.config import ModelConfig, QuantConfig
 from tinychatengine_tpu_torch.core.device import resolve_device
 from tinychatengine_tpu_torch.generation import kv_cache as kvc
-from tinychatengine_tpu_torch.models.llama import fusable, last_rows
+from tinychatengine_tpu_torch.models.llama import fusable, last_rows, records
 from tinychatengine_tpu_torch.models.opt import stack_layers
+from tinychatengine_tpu_torch.ops import attention as att
 from tinychatengine_tpu_torch.ops import int4_matmul as int4m
 from tinychatengine_tpu_torch.ops import ref
 from tinychatengine_tpu_torch.ops.attention import (flash_decode,
@@ -84,13 +85,17 @@ def fused_group_size(lyr: GPTBigCodeLayerParams, s: int) -> int:
 
 def forward(params: GPTBigCodeParams, cfg: ModelConfig,
             input_ids: torch.Tensor, cache, start, full_logits: bool = False,
-            true_len=None, page_table: Optional[torch.Tensor] = None,
+            true_len=None, input_embeds: Optional[torch.Tensor] = None,
+            page_table: Optional[torch.Tensor] = None,
             ctx_cap: Optional[int] = None, return_hidden: bool = False):
     """Same contract as ``models.llama.forward``: one forward pass (prefill
     S > 1 or decode S = 1) writing the new K/V into ``cache`` in place.
     ``start``: a host int or an int32 [B] tensor (per-row positions);
     ``true_len``: an int, a ragged [B] sequence or a device tensor
-    (``llama.last_rows``); ``page_table``: the paged decode (S = 1, per-row
+    (``llama.last_rows``); ``input_embeds`` [B, S, E]: the
+    position-included embeddings, cast to bf16, in place of
+    ``wte[ids] + wpe[positions]`` (input_ids then give only the shape);
+    ``page_table``: the paged decode (S = 1, per-row
     ``start``); ``ctx_cap``: ``flash_decode``'s static bound on every
     row's context; ``return_hidden``: the states before the final
     LayerNorm [B, S, E] instead of logits. Returns (logits [B, V] f32 of
@@ -117,8 +122,11 @@ def forward(params: GPTBigCodeParams, cfg: ModelConfig,
     # the JAX gather clamps out-of-range rows; only bucket padding past the
     # table reaches them
     pos_rows = positions.clamp(max=params.wpe.shape[0] - 1)
-    x = (params.wte[input_ids.to(dev)] + params.wpe[pos_rows]
-         ).to(torch.bfloat16)
+    if input_embeds is not None:
+        x = input_embeds.to(dev, torch.bfloat16)
+    else:
+        x = (params.wte[input_ids.to(dev)] + params.wpe[pos_rows]
+             ).to(torch.bfloat16)
 
     lyr = params.layers
     d = cfg.head_dim
@@ -144,7 +152,11 @@ def forward(params: GPTBigCodeParams, cfg: ModelConfig,
                                       cache.v_scale).reshape(b, 1, hq * d)
         else:
             kvc.update_layer(cache, k, v, li, start)
-            if s == 1:
+            if records(q):
+                attn = att.flash_prefill_plain(q, cache.k, cache.v, li, start,
+                                               kv_len, cache.k_scale,
+                                               cache.v_scale)
+            elif s == 1:
                 attn = flash_decode(q[:, 0], cache.k, cache.v, li, kv_len,
                                     cache.k_scale, cache.v_scale,
                                     ctx_cap=ctx_cap).reshape(b, 1, hq * d)

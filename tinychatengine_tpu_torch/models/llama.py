@@ -26,6 +26,7 @@ import torch
 from tinychatengine_tpu_torch.core.config import ModelConfig, QuantConfig
 from tinychatengine_tpu_torch.core.device import resolve_device
 from tinychatengine_tpu_torch.generation import kv_cache as kvc
+from tinychatengine_tpu_torch.ops import attention as att
 from tinychatengine_tpu_torch.ops import int4_matmul as int4m
 from tinychatengine_tpu_torch.ops import ref
 from tinychatengine_tpu_torch.ops.attention import (flash_decode,
@@ -202,7 +203,11 @@ def forward(params: LlamaParams, cfg: ModelConfig, input_ids: torch.Tensor,
             attn = attn.reshape(b, 1, hq * d)
         else:
             kvc.update_layer(cache, k, v, li, start)
-            if s == 1:
+            if records(q):
+                attn = att.flash_prefill_plain(q, cache.k, cache.v, li, start,
+                                               kv_len, cache.k_scale,
+                                               cache.v_scale, window=win)
+            elif s == 1:
                 attn = flash_decode(q[:, 0], cache.k, cache.v, li, kv_len,
                                     cache.k_scale, cache.v_scale, window=win,
                                     ctx_cap=ctx_cap).reshape(b, 1, hq * d)
@@ -240,6 +245,14 @@ def forward(params: LlamaParams, cfg: ModelConfig, input_ids: torch.Tensor,
         logits = apply_linear(head, x)
     logits = logits.float()[..., :cfg.vocab_size]
     return (logits if full_logits else logits[:, 0]), cache
+
+
+def records(q: torch.Tensor) -> bool:
+    """Whether autograd records this forward (grad enabled and q needing
+    grad: training). The attention kernels have no backward, so such a
+    forward takes the differentiable plain attention on either device, as
+    the JAX forward takes ``attention_xla`` off the TPU."""
+    return torch.is_grad_enabled() and q.requires_grad
 
 
 def last_rows(x: torch.Tensor, cache, true_len, s: int, keep_all: bool,

@@ -1,6 +1,7 @@
 """OPT decoder: fp, int4 (W4A16, W4A8) and SmoothQuant W8A8 (counterpart
 of the JAX package's ``models/opt.py``; single device, no ``tp_axis``, no
-``input_embeds``, no paged KV).
+paged KV). ``input_embeds`` (f32, positions included) replaces the
+embedding lookup, the pipeline-parallel stage contract.
 
 The W8A8 path keeps the Int8OPT dataflow exactly:
 
@@ -15,7 +16,8 @@ A decode step (S = 1) runs its attention through ``int8_decode`` (the
 kernel on the card); a prompt (S > 1) through the dense int8 dataflow in
 plain torch, as in the JAX package, which has no kernel there either. The
 fp and int4 paths run ``flash_decode`` / ``flash_prefill`` on the card for
-head_dim 64 and 128, and the dense f32 attention otherwise and on the CPU.
+head_dim 64 and 128, and the dense f32 attention otherwise, on the CPU and
+while autograd records (``llama.records``: training).
 
 Architecture: learned positions with offset 2, pre-LN LayerNorm with bias,
 ReLU FFN, tied head. Parameters are dataclasses with every layer leaf
@@ -33,7 +35,8 @@ import torch
 from tinychatengine_tpu_torch.core.config import ModelConfig, QuantConfig
 from tinychatengine_tpu_torch.core.device import resolve_device
 from tinychatengine_tpu_torch.generation import kv_cache as kvc
-from tinychatengine_tpu_torch.models.llama import last_rows, lmhead_padded
+from tinychatengine_tpu_torch.models.llama import (last_rows, lmhead_padded,
+                                                  records)
 from tinychatengine_tpu_torch.ops import ref
 from tinychatengine_tpu_torch.ops.attention import (NEG_INF,
                                                    exact_f32_products,
@@ -109,13 +112,14 @@ def forward(params: OPTParams, cfg: ModelConfig, input_ids: torch.Tensor,
     sequence or a device tensor (``llama.last_rows``). The container types
     pick the path. ``ctx_cap`` reaches ``flash_decode`` (the fp and int4
     decode; ``int8_decode`` takes none, as in JAX). ``return_hidden``
-    returns the pre-final-LN states [B, S, E] instead of logits. OPT has
-    no paged path: a ``page_table`` raises, as do ``tp_axis`` and
-    ``input_embeds``."""
-    if tp_axis is not None or input_embeds is not None \
-            or page_table is not None:
-        raise NotImplementedError("tensor parallelism, input_embeds and "
-                                  "paged KV are not ported for OPT")
+    returns the pre-final-LN states [B, S, E] instead of logits.
+    ``input_embeds`` [B, S, E]: the position-included embeddings, cast to
+    f32, in place of the token and position lookup (input_ids then give
+    only the shape). OPT has no paged path: a ``page_table`` raises, as
+    does ``tp_axis``."""
+    if tp_axis is not None or page_table is not None:
+        raise NotImplementedError("tensor parallelism and paged KV are not "
+                                  "ported for OPT")
     b, s = input_ids.shape
     dev = params.embed_tokens.device
     ragged = isinstance(start, torch.Tensor)
@@ -134,8 +138,11 @@ def forward(params: OPTParams, cfg: ModelConfig, input_ids: torch.Tensor,
     # table reaches them
     pos_rows = (positions + POS_OFFSET).clamp(
         max=params.embed_positions.shape[0] - 1)
-    x = (params.embed_tokens[input_ids.to(dev)].float()
-         + params.embed_positions[pos_rows].float())
+    if input_embeds is not None:
+        x = input_embeds.to(dev, torch.float32)
+    else:
+        x = (params.embed_tokens[input_ids.to(dev)].float()
+             + params.embed_positions[pos_rows].float())
 
     lyr = params.layers
     d = cfg.head_dim
@@ -166,7 +173,7 @@ def forward(params: OPTParams, cfg: ModelConfig, input_ids: torch.Tensor,
             ck, cv = kvc.read_layer(cache, li)  # raw int8 [B, H, S_max, D]
             attn = _s8_attention(q, ck, cv, lyr.qk_alpha[li],
                                  lyr.pv_alpha[li], positions, kv_valid)
-        elif use_flash:
+        elif use_flash and not records(q):
             qb = q.to(torch.bfloat16)
             if s == 1:
                 attn = flash_decode(qb[:, 0], cache.k, cache.v, li, kv_len,

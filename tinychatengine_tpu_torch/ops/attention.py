@@ -256,10 +256,17 @@ def flash_prefill(q, cache_k, cache_v, layer_idx, start, length,
     int8 cache: k_scale/v_scale [L, B, Hkv, S_max] f32. Returns
     [B, S, Hq*D] in q.dtype. CUDA: ``csrc/flash_prefill.cu`` (counter
     ``flash_prefill`` or ``flash_prefill_int8``); CPU:
-    ``flash_prefill_plain``."""
+    ``flash_prefill_plain``. The kernel has no backward: on the card it
+    raises while autograd records (grad enabled and q or the cache
+    needing grad); a training forward calls ``flash_prefill_plain``
+    itself, as the JAX forward takes ``attention_xla`` off the TPU."""
     if not q.is_cuda:
         return flash_prefill_plain(q, cache_k, cache_v, layer_idx, start,
                                    length, k_scale, v_scale, window=window)
+    if torch.is_grad_enabled() and (q.requires_grad or cache_k.requires_grad
+                                    or cache_v.requires_grad):
+        raise RuntimeError("flash_prefill's kernel has no backward: call "
+                           "flash_prefill_plain under autograd")
     b, s, hq, d = q.shape
     int8 = _check_cache(q, cache_k, cache_v, k_scale, v_scale, d)
     _, bc, hkv, smax, dc = cache_k.shape

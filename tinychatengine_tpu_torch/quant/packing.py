@@ -113,6 +113,16 @@ def pack_scales(scales: np.ndarray, dtype: str = "f32",
     return out
 
 
+def pad_to_superblock(w: np.ndarray) -> np.ndarray:
+    """Zero-pad the IC axis (last) of ``w [OC, IC]`` up to a SUPERBLOCK
+    multiple (tools use this for models whose dims aren't 256-aligned)."""
+    oc, ic = w.shape
+    rem = (-ic) % SUPERBLOCK
+    if rem == 0:
+        return w
+    return np.concatenate([w, np.zeros((oc, rem), dtype=w.dtype)], axis=1)
+
+
 def pack_qm_tpu_kn(q: torch.Tensor, group_size: int | None = None
                    ) -> torch.Tensor:
     """``pack_qm_tpu`` on K-major codes ``q [IC, OC]`` uint8 on any device:

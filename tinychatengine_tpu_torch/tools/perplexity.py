@@ -5,10 +5,14 @@ Windows of ``window`` tokens advance by ``stride``; only the last
 ``stride`` positions of each window (every position of the first) add
 their log-likelihood. Runs on the device the params lie on, with any
 family's forward (``llama.forward``, ``opt.forward``).
+
+    python -m tinychatengine_tpu_torch.tools.perplexity --checkpoint ckpt/ \
+        --model llama3_8b --text wikitext2_test.txt [--stride 512]
 """
 
 from __future__ import annotations
 
+import argparse
 import math
 
 import numpy as np
@@ -58,3 +62,40 @@ def perplexity(forward_fn, params, cfg, token_ids, window: int = 1024,
             break
         start += stride
     return math.exp(total_nll / max(total_cnt, 1))
+
+
+def main(argv=None):
+    from tinychatengine_tpu_torch.core.config import get_model_config
+    from tinychatengine_tpu_torch.generation.engine import forward_for_family
+    from tinychatengine_tpu_torch.tools.checkpoint import (load_checkpoint,
+                                                           load_tokenizer)
+
+    ap = argparse.ArgumentParser(description="sliding-window perplexity")
+    ap.add_argument("--checkpoint", required=True)
+    ap.add_argument("--model", required=True)
+    ap.add_argument("--text", required=True, help="raw text file (e.g. "
+                    "wikitext-2 test split concatenated)")
+    ap.add_argument("--window", type=int, default=1024)
+    ap.add_argument("--stride", type=int, default=512)
+    ap.add_argument("--max-tokens", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="where the model runs: cuda (the card) or cpu")
+    args = ap.parse_args(argv)
+
+    cfg = get_model_config(args.model)
+    params, qcfg = load_checkpoint(args.checkpoint, cfg, device=args.device)
+    tok = load_tokenizer(args.checkpoint, cfg)
+    with open(args.text, encoding="utf-8") as f:
+        ids = tok.encode(f.read(), bos=True)
+    if args.max_tokens:
+        ids = ids[:args.max_tokens]
+    print(f"{len(ids)} tokens, window {args.window}, stride {args.stride}")
+    ppl = perplexity(
+        forward_for_family(cfg.family), params, cfg, ids, args.window,
+        args.stride, progress=lambda done, n, p: print(
+            f"  {done}/{n} ppl={p:.4f}"))
+    print(f"perplexity: {ppl:.4f}  (scheme {qcfg.scheme})")
+
+
+if __name__ == "__main__":
+    main()

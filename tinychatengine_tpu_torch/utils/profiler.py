@@ -1,4 +1,5 @@
-"""Per-turn throughput reporter (copy of the JAX package's Profiler).
+"""Per-turn throughput reporter (copy of the JAX package's Profiler) and
+``device_trace``, a ``torch.profiler`` trace for deep dives.
 
 Host wall-clock sections with FLOPs accounting; callers pass
 device-synchronized boundaries (e.g. after fetching a token).
@@ -10,6 +11,9 @@ import contextlib
 import dataclasses
 import time
 from collections import defaultdict
+from pathlib import Path
+
+import torch
 
 
 @dataclasses.dataclass
@@ -63,3 +67,27 @@ class Profiler:
     def reset(self):
         self._sections.clear()
         self.ttft_s = None
+
+
+@contextlib.contextmanager
+def device_trace(logdir: str, device=None):
+    """``torch.profiler`` over the block: CPU activity, and CUDA activity
+    when ``device`` is a CUDA device (default: when a card is present).
+    Writes the Chrome trace ``logdir/trace.json`` on exit (also when the
+    block raises) and yields the profiler (``key_averages()``,
+    ``events()``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = (torch.cuda.is_available() if device is None
+            else torch.device(device).type == "cuda")
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    out = Path(logdir)
+    out.mkdir(parents=True, exist_ok=True)
+    prof = profile(activities=acts)
+    try:
+        with prof:
+            yield prof
+            if cuda:
+                torch.cuda.synchronize(device)
+    finally:  # the trace is written also when the block raises
+        prof.export_chrome_trace(str(out / "trace.json"))

@@ -217,7 +217,35 @@ Phases (any failure ends the run with a non-zero exit code):
    ``bench_op`` on phase 3's ``int4_matmul_a8`` qkv case at M = 1, less
    the same chain on the identity op (the feed), within ``BENCH_OP_RTOL``
    of its time there; ``device_trace`` of one W4A8
-   decode step naming its kernels.
+   decode step naming its kernels;
+17. tensor, sequence and pipeline parallelism, the ranks processes that
+   time-share the one card over gloo (``parallel/``; no figure of this
+   phase is a scaling figure): (a) ``shard_shape_cases``, in this process:
+   ``int4_matmul_a8`` at TP = 2's five shard shapes (``TP2_SHAPES``) at
+   M = 1, 4 and 64, ``int4_matmul``'s tile route at 1024 rows (an SP
+   rank's half of a 2048-token prompt), ``flash_decode`` /
+   ``flash_prefill`` at Hq 16 over Hkv 4 and ``flash_decode_paged`` there
+   over 4 ragged slots, each held to its plain version; (b)-(e)
+   ``parallel_path``: ``why_this_model`` (printed), the one-process runs
+   of llama3_8b W4A8 (full width and depth, random centred weights of
+   scale ``PAR_STD`` from one seed) here, then 2 ranks (``par_rank``):
+   (b) TP = 2 through ``Engine`` and ``make_tp_forward`` (64-token
+   prompt, 32 greedy tokens, eager), teacher-forced step logits within
+   ``PAR_STEP_TOL`` of the one-process run's, as one process with TP's
+   rounding (``split_rows``) must be, while rank 1 taking rank 0's wo
+   rows in one layer, and another prompt, must read above it; tokens
+   equal up to a parting at a tie (``partings``), per step tok/s,
+   all-reduces, all-gathers and host ms inside collectives, launches per
+   step; (c) 4 requests x 32 tokens through a paged ``ServingEngine`` on
+   the TP forward against one process's; (d) a 2048-token prompt through
+   ``make_sp_prefill`` over 2 seq ranks, ``sp_cache_into`` and 8 decode
+   steps, the last-token logits and every layer's spliced K/V against
+   the one-process prefill, a ring hop that hands each rank its own
+   block reading above the limit; (e) 2 rows of 64 tokens through
+   ``make_pp_forward`` (2 stages x 16 layers, 2 microbatches) and 8
+   decode steps; each part's kernels must launch on both ranks, the same
+   counts on each, no plain version on the card; (f) ``tools/scaling.py``
+   ``--configs 1x1,1x2`` (4 layers, W4A8, 8 tokens).
 
 The Engine and the server run their captured CUDA graphs
 (``generation/cuda_graph.py``): in phases 4, 4b, 4c, 4f, 7 and 10 the
@@ -241,8 +269,10 @@ Each phase prints its seconds.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import itertools
 import json
 import re
@@ -487,7 +517,6 @@ def int4_cases(gen, add, name, k, n, a8_rows, w4_rows, label=""):
 def check_kernels(gen):
     """Phase 3: every kernel against its plain version at the main path's
     shapes, timed. Returns one row per case."""
-    from tinychatengine_tpu_torch.ops import attention as att
     dev = torch.device("cuda")
     cases = []
     add = case_recorder(cases)
@@ -515,65 +544,14 @@ def check_kernels(gen):
     for d, hq, hkv in ((128, 32, 8), (64, 32, 8), (128, 48, 1)):
         ck = torch.randn((L, 1, hkv, S, d), device=dev, generator=gen).to(torch.bfloat16)
         cv = torch.randn((L, 1, hkv, S, d), device=dev, generator=gen).to(torch.bfloat16)
-        g = hq // hkv
         lengths = {(128, 32): (1, 65, 320, 2047), (64, 32): (65, 2047),
                    (128, 48): (320, 2047)}[(d, hq)]
         for length in lengths:
-            q = torch.randn((1, hq, d), device=dev, generator=gen).to(torch.bfloat16)
-            err = share = 0.0
-            for li in (0, L - 1):
-                y = att.flash_decode(q, ck, cv, li, length)
-                ref = att.flash_decode_plain(q, ck, cv, li, length)
-                e, sh = attn_err(y, ref, d)
-                err, share = max(err, e), max(share, sh)
-            state = {"li": 0}
-
-            def run():
-                state["li"] = (state["li"] + 1) % L
-                att.flash_decode(q, ck, cv, state["li"], length)
-            plain_ms = time_ms(lambda: att.flash_decode_plain(q, ck, cv, 0, length), 10)
-            kr = ck[0, :, :, :length].repeat_interleave(g, dim=1)
-            vr = cv[0, :, :, :length].repeat_interleave(g, dim=1)
-            add("flash_decode", f"B=1 Hq={hq} Hkv={hkv} D={d} length={length}",
-                err, share, ATTN_TOL_TEXT, run, 64, plain_ms,
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q[:, :, None], kr, vr),
-                2 * hq * d * 2 + 2 * hkv * length * d * 2, 4.0 * hq * length * d,
-                BF16_FLOP_S)
+            decode_case(gen, add, ck, cv, hq, length)
         for s, start in ((2048, 0), (64, S - 64)):
             if (d == 64 or hkv == 1) and s == 64:
                 continue
-            length = start + s
-            q = torch.randn((1, s, hq, d), device=dev, generator=gen).to(torch.bfloat16)
-            err = share = 0.0
-            for li in (0, L - 1):
-                y = att.flash_prefill(q, ck, cv, li, start, length)
-                ref = att.flash_prefill_plain(q, ck, cv, li, start, length)
-                assert not torch.isnan(y).any(), "NaN in flash_prefill output"
-                e, sh = attn_err(y, ref, d)
-                err, share = max(err, e), max(share, sh)
-            it = 5 if s == 2048 else 50
-            state = {"li": 0}
-
-            def run():
-                state["li"] = (state["li"] + 1) % L
-                att.flash_prefill(q, ck, cv, state["li"], start, length)
-            plain_ms = time_ms(lambda: att.flash_prefill_plain(
-                q, ck, cv, 0, start, length), 3)
-            kr = ck[0, :, :, :length].repeat_interleave(g, dim=1)
-            vr = cv[0, :, :, :length].repeat_interleave(g, dim=1)
-            qt = q.transpose(1, 2)
-            mask = (torch.arange(length, device=dev)[None, :]
-                    <= start + torch.arange(s, device=dev)[:, None])
-            pairs = sum(min(start + r + 1, length) for r in range(s))
-            add("flash_prefill", f"B=1 S={s} start={start} Hq={hq} Hkv={hkv} D={d}",
-                err, share, ATTN_TOL_TEXT, run, it, plain_ms,
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qt, kr, vr, attn_mask=mask),
-                2 * s * hq * d * 2 + 2 * hkv * length * d * 2,
-                4.0 * hq * pairs * d, BF16_FLOP_S,
-                library_causal_ms=causal_ms(qt, kr, vr, it) if start == 0
-                else None)
+            prefill_case(gen, add, ck, cv, hq, s, start)
         del ck, cv
         torch.cuda.empty_cache()
     check_prefill_cases(gen, add)
@@ -585,6 +563,80 @@ def check_kernels(gen):
     check_split_k_kernels(gen, add)
     check_vlm_spec_kernels(gen, add)
     return cases
+
+
+def decode_case(gen, add, ck, cv, hq: int, length: int, label: str = ""):
+    """``flash_decode`` of one random query row [1, hq, D] over ``length``
+    keys of the B = 1 stacked cache ``ck``/``cv`` [L, 1, Hkv, S, D] at its
+    first and last layers, held to its plain version and timed."""
+    from tinychatengine_tpu_torch.ops import attention as att
+    L, _, hkv, _, d = ck.shape
+    dev = ck.device
+    q = torch.randn((1, hq, d), device=dev, generator=gen).to(torch.bfloat16)
+    err = share = 0.0
+    for li in (0, L - 1):
+        y = att.flash_decode(q, ck, cv, li, length)
+        ref = att.flash_decode_plain(q, ck, cv, li, length)
+        e, sh = attn_err(y, ref, d)
+        err, share = max(err, e), max(share, sh)
+    state = {"li": 0}
+
+    def run():
+        state["li"] = (state["li"] + 1) % L
+        att.flash_decode(q, ck, cv, state["li"], length)
+    plain_ms = time_ms(lambda: att.flash_decode_plain(q, ck, cv, 0, length),
+                       10)
+    g = hq // hkv
+    kr = ck[0, :, :, :length].repeat_interleave(g, dim=1)
+    vr = cv[0, :, :, :length].repeat_interleave(g, dim=1)
+    add("flash_decode", f"{label}B=1 Hq={hq} Hkv={hkv} D={d} length={length}",
+        err, share, ATTN_TOL_TEXT, run, 64, plain_ms,
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], kr, vr),
+        2 * hq * d * 2 + 2 * hkv * length * d * 2, 4.0 * hq * length * d,
+        BF16_FLOP_S)
+
+
+def prefill_case(gen, add, ck, cv, hq: int, s: int, start: int,
+                 label: str = ""):
+    """``flash_prefill`` of a random [1, s, hq, D] chunk at ``start`` over
+    the B = 1 stacked cache at its first and last layers, held to its
+    plain version and timed beside masked SDPA (and causal SDPA at start
+    0)."""
+    from tinychatengine_tpu_torch.ops import attention as att
+    L, _, hkv, _, d = ck.shape
+    dev = ck.device
+    length = start + s
+    q = torch.randn((1, s, hq, d), device=dev, generator=gen).to(torch.bfloat16)
+    err = share = 0.0
+    for li in (0, L - 1):
+        y = att.flash_prefill(q, ck, cv, li, start, length)
+        ref = att.flash_prefill_plain(q, ck, cv, li, start, length)
+        assert not torch.isnan(y).any(), "NaN in flash_prefill output"
+        e, sh = attn_err(y, ref, d)
+        err, share = max(err, e), max(share, sh)
+    it = 5 if s == 2048 else 50
+    state = {"li": 0}
+
+    def run():
+        state["li"] = (state["li"] + 1) % L
+        att.flash_prefill(q, ck, cv, state["li"], start, length)
+    plain_ms = time_ms(lambda: att.flash_prefill_plain(
+        q, ck, cv, 0, start, length), 3)
+    g = hq // hkv
+    kr = ck[0, :, :, :length].repeat_interleave(g, dim=1)
+    vr = cv[0, :, :, :length].repeat_interleave(g, dim=1)
+    qt = q.transpose(1, 2)
+    mask = (torch.arange(length, device=dev)[None, :]
+            <= start + torch.arange(s, device=dev)[:, None])
+    pairs = sum(min(start + r + 1, length) for r in range(s))
+    add("flash_prefill", f"{label}B=1 S={s} start={start} Hq={hq} Hkv={hkv} "
+        f"D={d}", err, share, ATTN_TOL_TEXT, run, it, plain_ms,
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kr, vr, attn_mask=mask),
+        2 * s * hq * d * 2 + 2 * hkv * length * d * 2,
+        4.0 * hq * pairs * d, BF16_FLOP_S,
+        library_causal_ms=causal_ms(qt, kr, vr, it) if start == 0 else None)
 
 
 # phase 12's speculative verify: K drafts and the last token per slot
@@ -811,20 +863,26 @@ def check_long_decode(gen, add):
 SERVING_LENGTHS = (1, 37, 128, 129, 320, 700, 1500, 2047)
 
 
-def check_serving_kernels(gen, add):
+# (layers, D, Hq, Hkv, page, windows): llama3_8b (GQA, page 128 and a
+# window), bytellama's D = 64 at page 16, StarCoder's MQA (one KV head: 64
+# layers so the cycled keys leave L2)
+SERVING_SHAPES = ((32, 128, 32, 8, 128, (None, 256)),
+                  (32, 64, 32, 8, 16, (None,)),
+                  (64, 128, 48, 1, 128, (None,)))
+
+
+def check_serving_kernels(gen, add, shapes=SERVING_SHAPES,
+                          serving_lengths=SERVING_LENGTHS, label=""):
     """Decode attention at the serving shapes: 8 slots with ragged lengths,
     dense (``flash_decode``) and paged (``flash_decode_paged``, a shuffled
-    page table), on the same keys, over a 32-layer stack."""
+    page table), on the same keys, over a 32-layer stack (or ``shapes``
+    over ``serving_lengths``, case names prefixed by ``label``)."""
     from tinychatengine_tpu_torch.ops import attention as att
     dev = torch.device("cuda")
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    S, B = 2048, len(SERVING_LENGTHS)
-    lengths = torch.tensor(SERVING_LENGTHS, dtype=torch.int32, device=dev)
-    # llama3_8b (GQA, page 128 and a window), bytellama's D = 64 at page 16,
-    # StarCoder's MQA (one KV head: 64 layers so the cycled keys leave L2)
-    for L, d, hq, hkv, p, windows in ((32, 128, 32, 8, 128, (None, 256)),
-                                      (32, 64, 32, 8, 16, (None,)),
-                                      (64, 128, 48, 1, 128, (None,))):
+    S, B = 2048, len(serving_lengths)
+    lengths = torch.tensor(serving_lengths, dtype=torch.int32, device=dev)
+    for L, d, hq, hkv, p, windows in shapes:
         mp = S // p
         ck = torch.randn((L, B, hkv, S, d), device=dev, generator=gen).to(torch.bfloat16)
         cv = torch.randn((L, B, hkv, S, d), device=dev, generator=gen).to(torch.bfloat16)
@@ -841,7 +899,7 @@ def check_serving_kernels(gen, add):
         pk, pv = paged(ck), paged(cv)
         q = torch.randn((B, hq, d), device=dev, generator=gen).to(torch.bfloat16)
         for window in windows:
-            kept = [min(n, window or n) for n in SERVING_LENGTHS]
+            kept = [min(n, window or n) for n in serving_lengths]
             kv_bytes = 2 * hkv * sum(kept) * d * 2
             io_bytes = 2 * B * hq * d * 2 + 4 * B
             ops = 4.0 * hq * sum(kept) * d
@@ -849,7 +907,7 @@ def check_serving_kernels(gen, add):
             lo = (lengths - window).clamp(min=0) if window else 0 * lengths
             mask = ((col[None] < lengths[:, None]) & (col[None] >= lo[:, None])
                     )[:, None, None, :]
-            tag = (f"B={B} Hq={hq} Hkv={hkv} D={d} ragged"
+            tag = (f"{label}B={B} Hq={hq} Hkv={hkv} D={d} ragged"
                    + (f" window={window}" if window else ""))
             for kernel in ("flash_decode", "flash_decode_paged"):
                 if kernel == "flash_decode":
@@ -877,7 +935,7 @@ def check_serving_kernels(gen, add):
                         k, v = att.gather_pages(pk, pv, 0, table)
                         return sdpa(q[:, :, None], k, v, attn_mask=mask,
                                     enable_gqa=True)
-                    extra = 4 * sum(-(-n // p) for n in SERVING_LENGTHS)
+                    extra = 4 * sum(-(-n // p) for n in serving_lengths)
                     case = tag.replace(" ragged", f" P={p} ragged")
                 err = share = 0.0
                 for li in (0, L - 1):
@@ -1550,17 +1608,18 @@ def plain_calls():
             setattr(mod, n, fn)
 
 
-def random_model(cfg, dev, max_pos=None):
+def random_model(cfg, dev, max_pos=None, **llama_init):
     """The random full-width model of a phase, made on ``dev`` from a
     seeded generator: llama W4A8 or GPTBigCode W4A16 (packed int4) or opt
-    W8A8 (int8). Returns (params, qcfg)."""
+    W8A8 (int8). llama_init: more of ``llama.init_random_params``'s
+    options (``centered``, ``std``). Returns (params, qcfg)."""
     from tinychatengine_tpu_torch.core.config import QuantConfig
     from tinychatengine_tpu_torch.models import gptbigcode, llama, opt
     t0 = time.perf_counter()
     if cfg.family == "llama":
         qcfg = QuantConfig(scheme="w4a8", group_size=128)
         params = llama.init_random_params(cfg, qcfg, seed=0, max_pos=max_pos,
-                                          fast=True, device=dev)
+                                          fast=True, device=dev, **llama_init)
     elif cfg.family == "gptbigcode":
         qcfg = QuantConfig(scheme="w4a16", group_size=128)
         params = gptbigcode.init_random_params(cfg, seed=0, qcfg=qcfg,
@@ -2498,7 +2557,7 @@ def partings(name, got, want, logits_of):
     row = dict(request=name, step=p, got=int(got[p]), plain=int(want[p]),
                plain_margin=margin, max_abs_logit=scale,
                share=margin / (SPEC_TIE_TOL * scale))
-    log("speculation parts from plain greedy:", json.dumps(row))
+    log("greedy tokens part from the plain run:", json.dumps(row))
     if not margin <= SPEC_TIE_TOL * scale:
         raise SystemExit(f"{name}: tokens part at step {p} with a plain "
                          f"top-2 margin of {margin} (> {SPEC_TIE_TOL} of "
@@ -4943,6 +5002,519 @@ def train_path(dev="cuda", models=("bytellama_5m", "byteopt_4m"),
     return out
 
 
+# ---- phase 17: tensor, sequence and pipeline parallelism -----------------
+# The ranks are processes time-sharing the one card over gloo (every
+# collective through pinned host buffers): the collectives are real, the
+# kernels run at per-shard shapes, and no figure of the phase is a scaling
+# figure. The phase's model: llama3_8b W4A8 at full width with codes
+# centred on the zero point and weight scale PAR_STD, chosen by what the
+# phase prints as ``why_this_model``. Phase 4's uniform bytes put a common
+# offset into every output, so another prompt's logits sit within the
+# limit below of the first prompt's: no fault could show there. At the
+# init's 0.02 (each linear multiplies its input's RMS by about 1.4) a
+# 32-layer model is chaotic: one process that sums two bf16-rounded halves
+# of K in wo and down (``split_rows``: TP's rounding without TP) reads
+# 0.1-0.2 from one process, as TP = 2 does, and so a fault reads no
+# further. At 0.005 the logits depend on the prompt, TP's rounding stays
+# near 0.02 at 32 layers, and a planted fault reads ten times that.
+PAR_STD = 0.005
+# A step of a parallel run against the one-process run of the same
+# weights, max |diff| / max |logit| (``step_gap``); also each layer of the
+# SP splice's K and V. The row-parallel partials are each rounded to bf16
+# before their sum, which 32 layers carry as phase 4f's two cast points
+# (KOUTER_STEP_TOL). Every run also shows a planted fault (rank 1 taking
+# rank 0's wo rows in one layer; a ring hop that hands each rank its own
+# block) reading above it, and one process with TP's rounding
+# (``split_rows``) within it. Greedy tokens may part only where the
+# one-process run's top-2 margin is within SPEC_TIE_TOL of max |logit|
+# (``partings``).
+PAR_STEP_TOL = KOUTER_STEP_TOL
+# (b)'s teacher-forced logits: the prompt's and 4 steps'
+PAR_FORCED = 5
+# the phase's sizes: (b) a 64-token prompt and 32 greedy tokens, (c) 4
+# requests x 32 tokens paged, (d) a 2048-token SP prompt and 8 decode
+# steps, (e) 2 rows of 64 tokens over 2 stages x 2 microbatches and 8
+# decode steps
+PAR_SIZES = dict(prompt=64, decode=32, requests=4, req_tokens=32,
+                 sp_len=2048, sp_decode=8, pp_rows=2, pp_micro=2,
+                 pp_decode=8, max_len=4096)
+# llama3_8b's linears split over 2 model ranks (column: N / 2; row: K / 2;
+# the lm_head's 129024 padded columns / 2)
+TP2_SHAPES = {"qkv": (4096, 3072), "wo": (2048, 4096),
+              "gate_up": (4096, 14336), "down": (7168, 4096),
+              "lm_head": (4096, 64512)}
+# the paged decode of (c): 4 ragged slots over 2 pages of 128
+TP2_SERVING = ((32, 128, 16, 4, 128, (None,)),)
+TP2_SERVING_LENGTHS = (64, 70, 80, 95)
+
+
+def shard_shape_cases(gen, add):
+    """Phase 17a: the kernels at the per-shard shapes of the parallel
+    paths. ``int4_matmul_a8`` at TP = 2's five linears at M = 1 (decode),
+    4 (the 4-slot tick) and 64 (the prompt); ``int4_matmul``'s tile route
+    at 1024 rows (an SP rank's half of a 2048-token prompt, whole widths);
+    ``flash_decode`` and ``flash_prefill`` at Hq = 16 over Hkv = 4 (a TP
+    rank's heads), ``flash_decode_paged`` there over 4 ragged slots."""
+    for name, (k, n) in TP2_SHAPES.items():
+        int4_cases(gen, add, name, k, n, (1, 4, 64), (), label="tp2 ")
+    full = {"qkv": (4096, 6144), "wo": (4096, 4096),
+            "gate_up": (4096, 28672), "down": (14336, 4096)}
+    for name, (k, n) in full.items():
+        int4_cases(gen, add, name, k, n, (), (1024,), label="sp2 ")
+    dev = torch.device("cuda")
+    L, S, d, hq, hkv = 32, 2048, 128, 16, 4
+    ck = torch.randn((L, 1, hkv, S, d), device=dev, generator=gen).to(torch.bfloat16)
+    cv = torch.randn((L, 1, hkv, S, d), device=dev, generator=gen).to(torch.bfloat16)
+    for length in (65, 96, 2047):
+        decode_case(gen, add, ck, cv, hq, length, label="tp2 ")
+    prefill_case(gen, add, ck, cv, hq, 64, 0, label="tp2 ")
+    del ck, cv
+    torch.cuda.empty_cache()
+    check_serving_kernels(gen, add, TP2_SERVING, TP2_SERVING_LENGTHS, "tp2 ")
+
+
+def step_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / max |b| of one step's logits."""
+    a, b = a.float().cpu(), b.float().cpu()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def splice_gaps(cache, one, s: int) -> dict:
+    """``step_gap`` of each layer's K and V over the first s positions of
+    ``cache`` against ``one``."""
+    return {name: [step_gap(getattr(cache, name)[i, :, :, :s],
+                            getattr(one, name)[i, :, :, :s])
+                   for i in range(one.k.shape[0])] for name in ("k", "v")}
+
+
+def par_prompts(cfg, sizes, seed=17):
+    """The phase's prompts, from one seed: (b)'s, (c)'s requests, (d)'s,
+    (e)'s rows and another of (b)'s length (the model's input
+    dependence)."""
+    rng = np.random.default_rng(seed)
+    v = cfg.vocab_size
+
+    def draw(*shape):
+        return rng.integers(10, v - 10, shape).astype(np.int64)
+    return dict(tp=draw(sizes["prompt"]),
+                requests=[draw(n) for n in rng.integers(
+                    sizes["prompt"] // 2, sizes["prompt"] + 1,
+                    sizes["requests"])],
+                sp=draw(sizes["sp_len"]),
+                pp=draw(sizes["pp_rows"], sizes["prompt"]),
+                other=draw(sizes["prompt"]))
+
+
+def par_serving(params, cfg, qcfg, sizes, prompts, dev, forward_fn=None):
+    """(c): the requests through a paged ServingEngine, greedy."""
+    from tinychatengine_tpu_torch.core.config import GenerationConfig
+    from tinychatengine_tpu_torch.models import llama
+    from tinychatengine_tpu_torch.runtime.serving import ServingEngine
+    g = GenerationConfig(temp=0.0, n_predict=sizes["req_tokens"],
+                         repeat_penalty=1.0, repeat_last_n=1)
+    srv = ServingEngine(params, cfg, qcfg, slots=sizes["requests"],
+                        max_len=sizes["max_len"], gcfg=g, paged=True,
+                        forward_fn=forward_fn or llama.forward, device=dev)
+    reqs = [srv.submit(p) for p in prompts]
+    srv.run()
+    return [list(r.output_ids) for r in reqs], srv
+
+
+def par_model(cfg, dev, std=None):
+    """Phase 17's llama W4A8 weights: codes centred on the zero point,
+    weight scale ``std`` (PAR_STD)."""
+    return random_model(cfg, dev, centered=True,
+                        std=PAR_STD if std is None else std)
+
+
+@contextlib.contextmanager
+def split_rows(params):
+    """While open, ``llama.forward`` in this process computes wo and down
+    as a TP = 2 pair of ranks does: each half of K through the kernel,
+    rounded to bf16, the halves summed in f32 and rounded once
+    (``Axis.psum``); every other op as one process runs it. Phase 17b's
+    witness for the rounding that TP adds."""
+    from tinychatengine_tpu_torch.models import llama
+    from tinychatengine_tpu_torch.ops.linear import apply_linear
+
+    def halves(lin):
+        kp, kg = lin.packed.shape[-2] // 2, lin.scales.shape[-2] // 2
+        return [dataclasses.replace(
+            lin, packed=lin.packed.narrow(-2, r * kp, kp).contiguous(),
+            scales=lin.scales.narrow(-2, r * kg, kg).contiguous())
+            for r in (0, 1)]
+    split = {id(lin): halves(lin)
+             for lin in (params.layers.wo, params.layers.down)}
+    whole = llama.row_parallel
+
+    def row_parallel(lin, x, tp_axis, **kw):
+        k = x.shape[-1] // 2
+        y = [apply_linear(h, x[..., r * k:(r + 1) * k].contiguous(),
+                          **kw).float() for r, h in enumerate(split[id(lin)])]
+        return (y[0] + y[1]).to(x.dtype)
+    llama.row_parallel = row_parallel
+    try:
+        yield
+    finally:
+        llama.row_parallel = whole
+
+
+def _counted():
+    """The kernels' launch counts since the last call, reset after reading
+    (a rank's own process counts)."""
+    from tinychatengine_tpu_torch.ops import _build
+    out = dict(_build.LAUNCHES)
+    _build.reset_launches()
+    return out
+
+
+def par_rank(rank, world, model, dev, sizes, want):
+    """Phase 17's rank body (b)-(e), on ``dev`` (every rank of 2). ``want``:
+    the one-process run's tokens of (b) and (d), which those parts are
+    also fed (teacher-forced logits). (b) and (d) also run a planted fault
+    each, outside the counted runs. Returns what rank 0 saw and every
+    rank's launch counts and plain-version calls per part."""
+    from tinychatengine_tpu_torch.core.config import GenerationConfig
+    from tinychatengine_tpu_torch.generation import kv_cache as kvc
+    from tinychatengine_tpu_torch.generation.engine import Engine
+    from tinychatengine_tpu_torch.models import llama
+    from tinychatengine_tpu_torch.parallel import distributed, pp, sp, tp
+    from tinychatengine_tpu_torch.parallel.sharding import (make_mesh,
+                                                            shard_params)
+    from tinychatengine_tpu_torch.tools.convert import refuse_llama_tp
+    cfg = model_config(model)
+    prompts = par_prompts(cfg, sizes)
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    full, qcfg = par_model(cfg, dev)
+    out = {"launches": {}, "plain": {}}
+    with plain_calls() as plain:
+        # (b) TP = 2: the engine through make_tp_forward
+        mesh = make_mesh(1, 2)
+        p_tp = shard_params(refuse_llama_tp(full, cfg, 2), mesh)
+        fwd = tp.make_tp_forward(mesh, device=dev)
+        eng = Engine(p_tp, cfg, qcfg, batch=1, max_len=sizes["max_len"],
+                     forward_fn=fwd, device=dev)
+        g = GenerationConfig(temp=0.0, n_predict=sizes["decode"],
+                             repeat_penalty=1.0, repeat_last_n=1)
+        prompt = prompts["tp"][None]
+        steps = sizes["decode"] - 1
+
+        def run(n):  # (seconds, collectives, launches, tokens) of n tokens
+            _counted()
+            distributed.reset_stats()
+            sync()
+            t = time.perf_counter()
+            toks = eng.generate_device(prompt, g, n_tokens=n).cpu()
+            return (time.perf_counter() - t, dict(distributed.STATS),
+                    _counted(), toks)
+        run(1)  # warm the eager loop
+        t_1, stats_1, launches_1, _ = run(1)
+        t_n, stats_n, launches_n, toks = run(sizes["decode"])
+        per_step = {k: (launches_n[k] - launches_1[k]) / steps
+                    for k in launches_n}
+        out["launches"]["tp_engine"] = launches_n
+
+        def forced_run():  # teacher-forced on the one-process tokens
+            cache = eng.new_cache()
+            lg, cache = eng.prefill(prompt, cache)
+            forced = [lg[0].float().cpu()]
+            for i, tk in enumerate(want["tp"][:PAR_FORCED - 1]):
+                lg, cache = fwd(p_tp, cfg,
+                                torch.tensor([[int(tk)]], device=dev), cache,
+                                sizes["prompt"] + i)
+                forced.append(lg[0].float().cpu())
+            return torch.stack(forced)
+        forced = forced_run()
+        # the planted fault: rank 1 multiplies its heads' attention by rank
+        # 0's wo rows in the middle layer
+        li, wo = cfg.num_layers // 2, p_tp.layers.wo
+        kept = wo.packed[li].clone(), wo.scales[li].clone()
+        if rank == 1:
+            wo.packed[li].copy_(full.layers.wo.packed[li, :wo.packed.shape[-2]])
+            wo.scales[li].copy_(full.layers.wo.scales[li, :wo.scales.shape[-2]])
+        fault = forced_run()
+        wo.packed[li].copy_(kept[0])
+        wo.scales[li].copy_(kept[1])
+        out["tp"] = dict(tokens=toks[0].tolist(), forced=forced, fault=fault,
+                         step_s=(t_n - t_1) / steps,
+                         per_step={k: (stats_n[k] - stats_1[k]) / steps
+                                   for k in stats_n},
+                         launches_per_step=per_step)
+        # (c) TP paged serving
+        _counted()
+        toks_c, srv = par_serving(p_tp, cfg, qcfg, sizes,
+                                  prompts["requests"], dev, fwd)
+        out["serving"] = dict(tokens=toks_c,
+                              heads=srv.page_cache.k.shape[2])
+        out["launches"]["tp_paged_serving"] = _counted()
+        del eng, srv, p_tp, fwd
+        # (d) SP = 2 (seq): the ring prefill, the splice, 8 decode steps
+        mesh = sp.make_sp_mesh(2)
+        s = sizes["sp_len"]
+        c_sp = sp.shard_sp_cache(kvc.init_cache(
+            cfg.num_layers, 1, s, cfg.num_kv_heads, cfg.head_dim, device=dev),
+            mesh)
+        ids = torch.as_tensor(prompts["sp"][None], device=dev)
+        _counted()
+        distributed.reset_stats()
+        sync()
+        t = time.perf_counter()
+        lg, c_sp = sp.make_sp_prefill(mesh, device=dev)(full, cfg, ids, c_sp)
+        sync()
+        t_sp = time.perf_counter() - t
+        sp_stats = dict(distributed.STATS)
+        dcache = kvc.init_cache(cfg.num_layers, 1, sizes["max_len"],
+                                cfg.num_kv_heads, cfg.head_dim, device=dev)
+        sp.sp_cache_into(dcache, c_sp, mesh)
+        sp_out = dict(logits=lg[0].float().cpu(), prefill_s=t_sp,
+                      stats=sp_stats)
+        forced = [lg[0].float().cpu()]  # decode from the splice, fed the
+        # one-process run's tokens
+        for i, tk in enumerate(want["sp"][:-1]):
+            lg, dcache = llama.forward(full, cfg,
+                                       torch.tensor([[int(tk)]], device=dev),
+                                       dcache, s + i)
+            forced.append(lg[0].float().cpu())
+        sp_out["forced"] = torch.stack(forced)
+        out["launches"]["sp_prefill"] = _counted()
+        # every layer of the splice against one process's prefill of the
+        # prompt (rank 0), then the planted fault: a ring hop that hands
+        # each rank its own block
+        one = kvc.init_cache(cfg.num_layers, 1, s, cfg.num_kv_heads,
+                             cfg.head_dim, device=dev)
+        if rank == 0:
+            lg_one, one = llama.forward(full, cfg, ids, one, 0)
+            sp_out["layer_gaps"] = splice_gaps(dcache, one, s)
+        seq = mesh["seq"]
+        seq.ppermute = lambda x, shift=1: x
+        c_f = sp.shard_sp_cache(kvc.init_cache(
+            cfg.num_layers, 1, s, cfg.num_kv_heads, cfg.head_dim, device=dev),
+            mesh)
+        lg_f, c_f = sp.make_sp_prefill(mesh, device=dev)(full, cfg, ids, c_f)
+        del seq.ppermute
+        sp.sp_cache_into(dcache, c_f, mesh)
+        if rank == 0:
+            sp_out["fault_layer_gaps"] = splice_gaps(dcache, one, s)
+            sp_out["fault_logit_gap"] = step_gap(lg_f[0], lg_one[0])
+        out["sp"] = sp_out
+        del dcache, c_sp, c_f, one
+        # (e) PP = 2 stages x its layers, 2 microbatches
+        mesh = pp.make_pp_mesh(2)
+        b = sizes["pp_rows"]
+        p_pp, c_pp = pp.shard_pp(full, kvc.init_cache(
+            cfg.num_layers, b, sizes["max_len"], cfg.num_kv_heads,
+            cfg.head_dim, device=dev), mesh)
+        del full
+        fwd = pp.make_pp_forward(mesh, sizes["pp_micro"], device=dev)
+        _counted()
+        distributed.reset_stats()
+        lg, c_pp = fwd(p_pp, cfg, torch.as_tensor(prompts["pp"], device=dev),
+                       c_pp, 0)
+        pp_out = dict(logits=lg.float().cpu(), stats=dict(distributed.STATS))
+        toks_e = []
+        for i in range(sizes["pp_decode"]):
+            tk = torch.argmax(lg, -1)
+            toks_e.append(tk.tolist())
+            lg, c_pp = fwd(p_pp, cfg, tk[:, None], c_pp, sizes["prompt"] + i)
+        pp_out["tokens"] = np.asarray(toks_e).T.tolist()
+        out["pp"] = pp_out
+        out["launches"]["pp"] = _counted()
+        out["plain"] = dict(plain)
+    if rank:  # the other ranks report their counts only
+        return {"launches": out["launches"], "plain": out["plain"]}
+    return out
+
+
+def why_this_model(cfg, dev, prompts) -> dict:
+    """Phase 17's reasons for its model, printed beside (b): on phase 4's
+    uniform bytes, the first-step gap between two prompts; at weight
+    scale 0.02, one process with TP's rounding (``split_rows``) against
+    one process over PAR_FORCED teacher-forced steps."""
+    params, qcfg = random_model(cfg, dev)
+    a, b = (forced_logits(params, cfg, qcfg, dev, prompts[k], [0])[0]
+            for k in ("tp", "other"))
+    out = {"uniform_bytes_other_prompt": step_gap(b, a)}
+    del params
+    params, qcfg = par_model(cfg, dev, std=0.02)
+    toks = prompts["other"][:PAR_FORCED].tolist()
+    one = forced_logits(params, cfg, qcfg, dev, prompts["tp"], toks)
+    with split_rows(params):
+        two = forced_logits(params, cfg, qcfg, dev, prompts["tp"], toks)
+    out["std_0.02_split_rows"] = [step_gap(two[i], one[i])
+                                  for i in range(PAR_FORCED)]
+    del params, one, two
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def parallel_path(dev="cuda", model="llama3_8b", sizes=PAR_SIZES,
+                  scaling_args=("--configs", "1x1,1x2", "--num-layers", "4",
+                                "--n-decode", "8", "--scheme", "w4a8")):
+    """Phase 17 (b)-(f): ``why_this_model``, the one-process references of
+    the same weights in this process (and (b)'s split-K witness), then 2
+    ranks (``parallel.distributed.launch``) through ``par_rank``, then
+    ``tools/scaling.py``'s CLI. Every check fails the run; returns the
+    figures the summary prints."""
+    from tinychatengine_tpu_torch.core.config import GenerationConfig
+    from tinychatengine_tpu_torch.generation import kv_cache as kvc
+    from tinychatengine_tpu_torch.generation.engine import Engine
+    from tinychatengine_tpu_torch.models import llama
+    from tinychatengine_tpu_torch.parallel import distributed
+    from tinychatengine_tpu_torch.tools import scaling
+    cfg = model_config(model)
+    prompts = par_prompts(cfg, sizes)
+    with torch.inference_mode():
+        why = why_this_model(cfg, dev, prompts)
+    params, qcfg = par_model(cfg, dev)
+    g = GenerationConfig(temp=0.0, n_predict=sizes["decode"],
+                         repeat_penalty=1.0, repeat_last_n=1)
+    with torch.inference_mode():
+        eng = Engine(params, cfg, qcfg, batch=1, max_len=sizes["max_len"],
+                     device=dev)
+        want_b = eng.generate_device(prompts["tp"][None], g,
+                                     n_tokens=sizes["decode"])[0].tolist()
+        forced_b = forced_logits(params, cfg, qcfg, dev, prompts["tp"],
+                                 want_b)
+        with split_rows(params):
+            split_b = forced_logits(params, cfg, qcfg, dev, prompts["tp"],
+                                    want_b[:PAR_FORCED])
+        other_b = forced_logits(params, cfg, qcfg, dev, prompts["other"],
+                                want_b[:1])[0]
+        want_c, _ = par_serving(params, cfg, qcfg, sizes,
+                                prompts["requests"], dev)
+        s = sizes["sp_len"]
+        c1 = kvc.init_cache(cfg.num_layers, 1, sizes["max_len"],
+                            cfg.num_kv_heads, cfg.head_dim, device=dev)
+        lg, c1 = llama.forward(params, cfg, torch.as_tensor(
+            prompts["sp"][None], device=dev), c1, 0)
+        want_d, sp_steps = [], []
+        for i in range(sizes["sp_decode"]):
+            sp_steps.append(lg[0].float().cpu())
+            tk = int(torch.argmax(lg[0]))
+            want_d.append(tk)
+            lg, c1 = llama.forward(params, cfg,
+                                   torch.tensor([[tk]], device=dev), c1, s + i)
+        del c1
+        want_e = Engine(params, cfg, qcfg, batch=sizes["pp_rows"],
+                        max_len=sizes["max_len"], device=dev).generate_device(
+            prompts["pp"], g, n_tokens=sizes["pp_decode"]).tolist()
+        pp_first = [forced_logits(params, cfg, qcfg, dev, row, want_e[r])
+                    for r, row in enumerate(prompts["pp"])]
+    t = time.perf_counter()
+    ranks = distributed.launch(par_rank, 2, args=(
+        model, dev, sizes, {"tp": want_b, "sp": want_d}), device=dev)
+    ranks_s = time.perf_counter() - t
+    r0 = ranks[0]
+    res = {"why_this_model": why, "ranks_s": ranks_s,
+           "launches": r0["launches"]}
+    # no plain version ran on the card, on either rank; the TP and SP
+    # ranks launch alike (a PP stage launches its own layers, the last one
+    # the head too)
+    for r, got in enumerate(ranks):
+        if dev == "cuda" and any(got["plain"].values()):
+            raise SystemExit(f"rank {r}: a plain version ran on the card: "
+                             f"{got['plain']}")
+        for part in ("tp_engine", "tp_paged_serving", "sp_prefill"):
+            if got["launches"][part] != r0["launches"][part]:
+                raise SystemExit(f"rank {r} launched otherwise than rank 0 "
+                                 f"in {part}: {got['launches'][part]} vs "
+                                 f"{r0['launches'][part]}")
+    res["pp_launches_by_stage"] = [got["launches"]["pp"] for got in ranks]
+    # (b) TP engine: the steps, one process with TP's rounding and the
+    # planted fault against one process, and another prompt's first step
+    tpo = r0["tp"]
+    n = len(tpo["forced"])
+    gaps = [step_gap(tpo["forced"][i], forced_b[i]) for i in range(n)]
+    split = [step_gap(split_b[i], forced_b[i]) for i in range(n)]
+    fault = [step_gap(tpo["fault"][i], forced_b[i]) for i in range(n)]
+    other = step_gap(other_b, forced_b[0])
+    log(f"phase 17b TP = 2 ranks on one card vs one process: step gaps "
+        f"{json.dumps(gaps)}, split_rows {json.dumps(split)}, a wrong wo "
+        f"shard {json.dumps(fault)}, another prompt {other} (limit "
+        f"{PAR_STEP_TOL}); why this model {json.dumps(why)}")
+    if max(gaps + split) > PAR_STEP_TOL:
+        raise SystemExit(f"TP logits part from the one-process run: {gaps}, "
+                         f"split_rows {split}")
+    if min(fault) <= PAR_STEP_TOL or other <= PAR_STEP_TOL:
+        raise SystemExit(f"phase 17b cannot see a fault on its model: a "
+                         f"wrong shard {fault}, another prompt {other}")
+    res["tp_parting"] = partings("tp engine", tpo["tokens"], want_b,
+                                 lambda i: forced_b[i].cpu())
+    res["tp"] = dict(step_gaps=gaps, split_rows_gaps=split,
+                     fault_gaps=fault, other_prompt_gap=other,
+                     step_s=tpo["step_s"],
+                     tok_s=1.0 / tpo["step_s"], per_step=tpo["per_step"],
+                     launches_per_step=tpo["launches_per_step"])
+    # (c) TP paged serving
+    got_c = r0["serving"]["tokens"]
+    res["serving_partings"] = [
+        partings(f"tp paged request {i}", got_c[i], want_c[i],
+                 lambda j, i=i: forced_logits(params, cfg, qcfg, dev,
+                                              prompts["requests"][i],
+                                              want_c[i])[j].cpu())
+        for i in range(len(want_c))]
+    if r0["serving"]["heads"] != cfg.num_kv_heads // 2:
+        raise SystemExit("a TP rank's page pool holds other than its heads")
+    # (d) SP: the logits, every layer of the splice and the decode steps
+    # from it against one process; the planted fault must read above
+    spo = r0["sp"]
+    lay, flay = spo["layer_gaps"], spo["fault_layer_gaps"]
+    res["sp"] = dict(logit_gap=step_gap(spo["logits"], sp_steps[0]),
+                     prefill_s=spo["prefill_s"], stats=spo["stats"],
+                     k_layer_gaps=lay["k"], v_layer_gaps=lay["v"],
+                     step_gaps=[step_gap(spo["forced"][i], sp_steps[i])
+                                for i in range(len(sp_steps))],
+                     fault_logit_gap=spo["fault_logit_gap"],
+                     fault_k_layer_gaps=flay["k"],
+                     fault_v_layer_gaps=flay["v"])
+    log(f"phase 17d SP = 2 ranks: {json.dumps(res['sp'])}")
+    sp_gaps = ([res["sp"]["logit_gap"]] + res["sp"]["step_gaps"] + lay["k"]
+               + lay["v"])
+    if max(sp_gaps) > PAR_STEP_TOL:
+        raise SystemExit(f"SP prefill parts from the one-process prefill: "
+                         f"{res['sp']}")
+    if min(spo["fault_logit_gap"], max(flay["k"] + flay["v"])) \
+            <= PAR_STEP_TOL:
+        raise SystemExit(f"phase 17d cannot see a wrong ring hop: "
+                         f"{res['sp']}")
+    res["sp_parting"] = partings(
+        "sp decode", [int(torch.argmax(x)) for x in spo["forced"]], want_d,
+        lambda i: sp_steps[i])
+    # (e) PP
+    ppo = r0["pp"]
+    res["pp"] = dict(logit_gaps=[step_gap(ppo["logits"][r], pp_first[r][0])
+                                 for r in range(sizes["pp_rows"])],
+                     stats=ppo["stats"])
+    log(f"phase 17e PP = 2 stages: {json.dumps(res['pp'])}")
+    if max(res["pp"]["logit_gaps"]) > PAR_STEP_TOL:
+        raise SystemExit(f"PP logits part from the one-process run: "
+                         f"{res['pp']}")
+    res["pp_partings"] = [partings(f"pp row {r}", ppo["tokens"][r],
+                                   want_e[r],
+                                   lambda j, r=r: pp_first[r][j].cpu())
+                          for r in range(sizes["pp_rows"])]
+    # every kernel of the paths launched in the ranks' runs
+    need = {"tp_engine": ("int4_matmul_a8", "flash_decode", "flash_prefill"),
+            "tp_paged_serving": ("int4_matmul_a8", "flash_decode_paged",
+                                 "flash_prefill"),
+            "sp_prefill": ("int4_matmul", "int4_matmul_a8", "flash_decode"),
+            "pp": ("int4_matmul_a8", "flash_prefill", "flash_decode")}
+    if dev == "cuda":
+        for part, kernels in need.items():
+            for r, got in enumerate(ranks):
+                missing = [k for k in kernels if not got["launches"][part][k]]
+                if missing:
+                    raise SystemExit(f"phase 17 {part}, rank {r}: {missing} "
+                                     f"never launched")
+    del params
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    # (f) the scaling CLI, its ranks launched by itself
+    res["scaling"] = scaling.main([*scaling_args, "--device", dev])
+    return res
+
+
 SUMMARY = {  # kernel -> (source, TPU kernel it replaces, summary case)
     "int4_matmul": ("tinychatengine_tpu_torch/csrc/int4_matmul.cu",
                     "tinychatengine_tpu/ops/int4_matmul.py:409",
@@ -5010,14 +5582,19 @@ HOME_RUN = {"flash_decode_paged": "serving_paged", "int8_decode": "opt_engine",
             "int3_matmul": "kernels"}
 
 
-def sass_count(lib: Path, opcode: str) -> int:
-    """Instructions of ``opcode`` in the SASS of a built library
-    (``cuobjdump -sass``, beside nvcc in the CUDA toolkit)."""
+@functools.cache
+def sass(lib: Path) -> str:
+    """The SASS of a built library (``cuobjdump -sass``, beside nvcc in the
+    CUDA toolkit), dumped once."""
     from tinychatengine_tpu_torch.ops import _build
     tool = Path(_build._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+    return subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
-    return sum(opcode in line for line in sass.splitlines())
+
+
+def sass_count(lib: Path, opcode: str) -> int:
+    """Instructions of ``opcode`` in the SASS of a built library."""
+    return sum(opcode in line for line in sass(lib).splitlines())
 
 
 def main(argv=None) -> int:
@@ -5041,6 +5618,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     libs = _build.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s")
+    dumped = ("int4_matmul", "flash_prefill", "int4_matmul_kouter",
+              "int4_matmul_fused", "mlp_fused", "int3_matmul", "int4_matmul_a8")
+    with concurrent.futures.ThreadPoolExecutor(len(dumped)) as pool:
+        list(pool.map(sass, [libs[n] for n in dumped]))  # all at once
     hgmma = sass_count(libs["int4_matmul"], "HGMMA")
     log(f"int4_matmul SASS (cuobjdump -sass): {hgmma} HGMMA instructions")
     if not hgmma:
@@ -5121,6 +5702,9 @@ def main(argv=None) -> int:
     conv = phase("llama3_8b conversion", convert_path)
     trained = phase("byte models trained on the card", train_path,
                     kernel_cases=cases)
+    phase("tp2 and sp2 shard shapes", shard_shape_cases, gen,
+          case_recorder(cases))
+    par = phase("parallel paths, 2 ranks on one card", parallel_path)
 
     runs = {"engine": launches,  # path -> launches over its run
             "kernels": kernel_launches,
@@ -5146,7 +5730,8 @@ def main(argv=None) -> int:
             "http_dense": http["dense"]["launches"],
             "http_paged": http["paged"]["launches"],
             "convert_awq_calibration": conv["awq_launches"],
-            "convert_engine": conv["engine_launches"]}
+            "convert_engine": conv["engine_launches"],
+            **{f"rank0_{k}": v for k, v in par["launches"].items()}}
     step_of = {"int8_decode": opt_step, "int4_matmul_fused": sc_ab["fused"][1],
                "int4_matmul_kouter": kouter["run"][1],
                **dict.fromkeys(INT8_KV.values(), kv8[1])}
@@ -5290,6 +5875,27 @@ def main(argv=None) -> int:
     if not sc_ab["embeds_prefill_equal"]:
         raise SystemExit("starcoder's prefill from input_embeds differs from "
                          "its prefill from ids")
+    tpm = par["tp"]
+    log(f"phase 17 on {smi}, 2 ranks time-sharing one card (no scaling "
+        f"figure): TP = 2 llama3_8b w4a8 decode {tpm['tok_s']:.2f} tok/s "
+        f"(eager, gloo), per step {tpm['per_step']['all_reduce']:.1f} "
+        f"all-reduces, {tpm['per_step']['all_gather']:.1f} all-gathers, "
+        f"{tpm['per_step']['broadcast']:.1f} broadcasts, "
+        f"{1e3 * tpm['per_step']['seconds']:.3f} host ms inside "
+        f"collectives; launches per step "
+        f"{json.dumps({k: v for k, v in tpm['launches_per_step'].items() if v})}"
+        f"; step gaps against one process {json.dumps(tpm['step_gaps'])}, "
+        f"split_rows {json.dumps(tpm['split_rows_gaps'])}, wrong wo shard "
+        f"{json.dumps(tpm['fault_gaps'])}, another prompt "
+        f"{tpm['other_prompt_gap']}; why this model "
+        f"{json.dumps(par['why_this_model'])}; "
+        f"SP = 2 {json.dumps(par['sp'])}; PP = 2 {json.dumps(par['pp'])}; "
+        f"partings tp {json.dumps(par['tp_parting'])}, paged "
+        f"{json.dumps(par['serving_partings'])}, sp "
+        f"{json.dumps(par['sp_parting'])}, pp {json.dumps(par['pp_partings'])}"
+        f"; ranks' wall {par['ranks_s']:.1f} s")
+    for r in par["scaling"]:
+        log(f"phase 17f scaling on {smi}: {json.dumps(r)}")
     log("w8a8 linears at M = 1:", json.dumps(linears))
     log("phase seconds:", json.dumps(phase_s))
     log(smi)

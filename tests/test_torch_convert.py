@@ -311,15 +311,62 @@ def test_hf_llama_import_matches_jax(tmp_path, fmt, tied, bf16, scheme):
 
 
 def test_hf_llama_tp_refused(tmp_path):
-    _, cfg = _cfgs(LLAMA)
+    """A degree that does not split the fused columns is refused on both
+    sides (the degrees that do are held to JAX's layout below)."""
+    jcfg, cfg = _cfgs(LLAMA)
     write_hf(tmp_path, _hf_llama_tensors(cfg, np.random.default_rng(5),
                                          False), "safetensors")
-    with pytest.raises(NotImplementedError, match="tp_degree=2"):
-        tcv.convert_hf_llama(str(tmp_path), cfg, QuantConfig(), tp_degree=2,
+    with pytest.raises(AssertionError):
+        tcv.convert_hf_llama(str(tmp_path), cfg, QuantConfig(), tp_degree=3,
                              device="cpu")
+    with pytest.raises(AssertionError):
+        jcv.convert_hf_llama(str(tmp_path), jcfg, JQuantConfig(), tp_degree=3)
     with pytest.raises(FileNotFoundError):
         tcv.convert_hf_llama(str(tmp_path / "none"), cfg, QuantConfig(),
                              device="cpu")
+
+
+@pytest.mark.parametrize("tp_degree", [2, 4])
+@pytest.mark.parametrize("scheme", ["fp", "w4a16"])
+def test_hf_llama_tp_layout_matches_jax(tmp_path, scheme, tp_degree):
+    """convert_hf_llama(tp_degree) and refuse_llama_tp, which re-interleaves
+    a tp_degree=1 tree, equal JAX's leaf by leaf (and each other)."""
+    jcfg, cfg = _cfgs(LLAMA)
+    write_hf(tmp_path, _hf_llama_tensors(cfg, np.random.default_rng(6),
+                                         False), "safetensors")
+    q, jq = (QuantConfig(scheme=scheme, group_size=64),
+             JQuantConfig(scheme=scheme, group_size=64))
+    got = tcv.convert_hf_llama(str(tmp_path), cfg, q, tp_degree=tp_degree,
+                               device="cpu")
+    want = jcv.convert_hf_llama(str(tmp_path), jcfg, jq, tp_degree=tp_degree)
+    assert_tree_equal(got, want)
+    one = tcv.convert_hf_llama(str(tmp_path), cfg, q, device="cpu")
+    assert_tree_equal(tcv.refuse_llama_tp(one, cfg, tp_degree), want)
+    jone = jcv.convert_hf_llama(str(tmp_path), jcfg, jq)
+    assert_tree_equal(tcv.refuse_llama_tp(one, cfg, tp_degree),
+                      jcv.refuse_llama_tp(jone, jcfg, tp_degree))
+
+
+def test_padded_k_row_parallel_refused():
+    """A llama-2-style hidden width (9 groups of 128, packed K padded to
+    2048) cannot split row-parallel: _linear_spec refuses it on both
+    sides."""
+    from tinychatengine_tpu.models import llama as jllama
+    from tinychatengine_tpu.parallel.sharding import (
+        llama_param_specs as jspecs)
+    from tinychatengine_tpu_torch.models import llama as tllama
+    from tinychatengine_tpu_torch.parallel.sharding import llama_param_specs
+    d = dict(LLAMA, hidden_dim=1152)
+    jcfg, cfg = _cfgs(d)
+    jp = jllama.init_random_params(jcfg, JQuantConfig(scheme="w4a16"),
+                                   seed=0)
+    assert 2 * jp.layers.down.packed.shape[-2] == 2048
+    with pytest.raises(ValueError, match="pack-time-padded"):
+        jspecs(jp)
+    tp = tllama.params_from_numpy(jckpt._flatten(jp)[0], cfg,
+                                  QuantConfig(scheme="w4a16"), device="cpu")
+    with pytest.raises(ValueError, match="pack-time-padded"):
+        llama_param_specs(tp)
 
 
 # ---- the reference's exports (llama) ------------------------------------
@@ -546,6 +593,20 @@ def test_convert_cli_matches_jax(tmp_path, registered, scheme):
         ["--model", "m", "--src", "s", "--out", "o"]).device == "cuda"
 
 
+def test_convert_cli_tp_matches_jax(tmp_path, registered):
+    """``--tp 2``: the checkpoint of the 2-rank fused layout, file for file
+    JAX's, with tp_degree 2 in meta.json."""
+    _, cfg = registered
+    write_hf(tmp_path / "hf", _hf_llama_tensors(cfg, np.random.default_rng(14),
+                                                True), "safetensors")
+    args = ["--model", "convert_cli_tiny", "--src", str(tmp_path / "hf"),
+            "--scheme", "w4a16", "--group-size", "64", "--tp", "2"]
+    tcv.main(args + ["--out", str(tmp_path / "port"), "--device", "cpu"])
+    jcv.main(args + ["--out", str(tmp_path / "jax")])
+    assert_ckpt_equal(tmp_path / "port", tmp_path / "jax")
+    assert _read_ckpt(tmp_path / "port")[0]["tp_degree"] == 2
+
+
 def test_convert_cli_reference_export_matches_jax(tmp_path, registered):
     """The CLI on a reference INT4 export (QM_ARM) writes JAX's
     checkpoint."""
@@ -642,8 +703,8 @@ def test_convert_cli_refusals(tmp_path, registered):
             str(tmp_path / "o"), "--device", "cpu"]
     with pytest.raises(SystemExit):  # AWQ needs an int4 scheme
         tcv.main(base + ["--scheme", "fp", "--awq-calib", "x.npy"])
-    with pytest.raises(NotImplementedError, match="tp_degree"):
-        tcv.main(base + ["--tp", "2"])
+    with pytest.raises(AssertionError):  # 3 does not split the columns
+        tcv.main(base + ["--tp", "3"])
 
 
 def test_load_awq_calib_matches_jax(tmp_path):

@@ -48,6 +48,12 @@ def test_every_port_module_imports_without_jax():
             "tinychatengine_tpu_torch.tools.perplexity",
             "tinychatengine_tpu_torch.utils.benchmark",
             "tinychatengine_tpu_torch.utils.profiler"} <= set(mods)
+    assert {"tinychatengine_tpu_torch.parallel.distributed",
+            "tinychatengine_tpu_torch.parallel.sharding",
+            "tinychatengine_tpu_torch.parallel.tp",
+            "tinychatengine_tpu_torch.parallel.sp",
+            "tinychatengine_tpu_torch.parallel.pp",
+            "tinychatengine_tpu_torch.tools.scaling"} <= set(mods)
     code = ("import sys\n"
             "for name in ('jax', 'jaxlib', 'ml_dtypes', 'tinychatengine_tpu',\n"
             "             'optax', 'regex', 'PIL'):\n"
@@ -201,3 +207,42 @@ def test_cli_entry_points_default_to_the_card(monkeypatch):
                          "--model", "bytellama_5m", "--text",
                          str(REPO / "assets" / "bytellama_5m" /
                              "eval_sample.txt")])
+
+
+def test_parallel_entry_points_default_to_the_card(monkeypatch):
+    """make_tp_forward, make_sp_prefill, make_pp_forward, the rank launcher
+    and the scaling CLI without a device raise when no CUDA device is
+    present (a one-rank mesh needs no process group)."""
+    from tinychatengine_tpu_torch.parallel import distributed, pp, sp, tp
+    from tinychatengine_tpu_torch.parallel.sharding import make_mesh
+    from tinychatengine_tpu_torch.tools import scaling
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tp.make_tp_forward(make_mesh(1, 1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sp.make_sp_prefill(sp.make_sp_mesh(1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pp.make_pp_forward(pp.make_pp_mesh(1), 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distributed.launch(print, 1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        scaling.main(["--configs", "1x1"])
+
+
+def test_launched_rank_imports_no_jax():
+    """A rank spawned by the launcher starts a fresh interpreter with the
+    port alone: none of jax, jaxlib, ml_dtypes or the JAX package."""
+    import torch_ranks
+    from tinychatengine_tpu_torch.parallel import distributed
+    assert distributed.launch(torch_ranks.rank_modules, 1,
+                              device="cpu") == [[]]
+
+
+def test_launch_reports_a_failed_rank():
+    """A rank that raises fails the whole launch, with that rank's
+    traceback in the error."""
+    import torch_ranks
+    from tinychatengine_tpu_torch.parallel import distributed
+    with pytest.raises(RuntimeError, match="planted failure on rank 1"):
+        distributed.launch(torch_ranks.rank_fails, 2, device="cpu")

@@ -191,8 +191,9 @@ def test_ragged_start_and_return_hidden_match_jax():
     assert th.shape == (2, 6, 128) and hc.length == 6
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=1e-3,
                                rtol=1e-4)
-    with pytest.raises(NotImplementedError):
-        opt.forward(tp, cfg, torch.from_numpy(ids), tc, 0, tp_axis="model")
+    with pytest.raises(NotImplementedError):  # no paged path for OPT
+        opt.forward(tp, cfg, torch.from_numpy(ids), tc, 0,
+                    page_table=torch.zeros((2, 1), dtype=torch.int32))
 
 
 @pytest.mark.parametrize("scheme", ["fp", "w8a8"])

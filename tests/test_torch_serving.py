@@ -29,6 +29,7 @@ from tinychatengine_tpu_torch.core.config import (GenerationConfig,
 from tinychatengine_tpu_torch.generation import sampling as tsmp
 from tinychatengine_tpu_torch.generation.engine import Engine
 from tinychatengine_tpu_torch.models import llama
+from tinychatengine_tpu_torch.parallel.sp import make_sp_mesh
 from tinychatengine_tpu_torch.runtime.serving import ServingEngine
 from tinychatengine_tpu_torch.tokenizers.byte_fallback import ByteTokenizer
 from tinychatengine_tpu_torch.tools.checkpoint import load_checkpoint
@@ -574,8 +575,9 @@ def test_stop_tokens_streaming_and_timestamps(tiny):
 def test_engine_global_sampler_and_unported_options(tiny):
     """An engine logit_bias table past RowParams.MAX_BIAS keeps the
     engine-global sampler (no bursts, no per-request configs, speculation
-    off); sequence-parallel admission, still not ported, raises instead of
-    being ignored, and logprobs and input_embeds are checked at submit."""
+    off); a one-rank sequence-parallel mesh admits a long prompt's head
+    through the ring with the plain tokens, and logprobs and input_embeds
+    are checked at submit."""
     bias = {i: -1e9 for i in range(20, 40)}
     g = GenerationConfig(n_predict=5, logit_bias=bias, **GREEDY)
     srv = _srv(tiny, slots=2, gcfg=g, tick_batch=8)
@@ -587,8 +589,17 @@ def test_engine_global_sampler_and_unported_options(tiny):
         assert not any(20 <= t < 40 for t in r.output_ids)
     with pytest.raises(ValueError):
         srv.submit(PROMPTS[0], gcfg=GenerationConfig())
-    with pytest.raises(NotImplementedError):
-        _srv(tiny, sp_mesh=object())
+    long = np.arange(40) % 200 + 3
+    gs = GenerationConfig(n_predict=6, **GREEDY)
+    want_srv = _srv(tiny, slots=2, gcfg=gs)
+    want = want_srv.submit(long)
+    want_srv.run()
+    sp_srv = _srv(tiny, slots=2, gcfg=gs, sp_mesh=make_sp_mesh(1),
+                  sp_threshold=16)
+    got = sp_srv.submit(long)
+    sp_srv.run()
+    assert got.output_ids == want.output_ids
+    assert sp_srv.sp_stats == {"admissions": 1, "tokens": 32}
     assert not _srv(tiny, gcfg=g, speculative=True).speculative
     with pytest.raises(ValueError):
         srv.submit(PROMPTS[0], logprobs=srv.logprobs_k + 1)
@@ -730,3 +741,69 @@ def test_kmax_bucket_matches_jax():
     from tinychatengine_tpu_torch.runtime import serving as tserving
     for k in range(-3, 2100):
         assert tserving._kmax_bucket(k) == jserving._kmax_bucket(k), k
+
+
+# ---- serving through the tensor-parallel forward (twins of
+# tests/test_serving.py's TP cases; a world of 4 ranks, torch_ranks) -------
+
+TP_TINY = dict(name="tiny_tp", family="llama", num_heads=8, num_kv_heads=4,
+               num_layers=2, max_sqlen=128, embed_dim=1024, hidden_dim=1024,
+               vocab_size=512, rms_norm_eps=1e-5)
+TP_PROMPTS = [np.array([5, 9, 11]), np.array([7, 3]),
+              np.array([40, 41, 42, 43])]
+
+
+def _jtp_params(seed, tp_degree=1):
+    return jllama.init_random_params(JModelConfig(**TP_TINY),
+                                     JQuantConfig(scheme="fp"), seed=seed,
+                                     tp_degree=tp_degree)
+
+
+@pytest.fixture(scope="module")
+def tp_ranks(tmp_path_factory):
+    import torch_ranks
+    from tinychatengine_tpu_torch.quant.packing import numpy_to_torch
+
+    def inp(seed, n_predict, prompts, **kw):
+        return dict(cfg=TP_TINY, qcfg=dict(scheme="fp"), n_predict=n_predict,
+                    prompts=prompts, kw=kw, flat={
+                        k: numpy_to_torch(v) for k, v in
+                        jckpt._flatten(_jtp_params(seed, 4))[0].items()})
+    data = {"dense": inp(3, 8, TP_PROMPTS),
+            "paged": inp(4, 6, TP_PROMPTS[:2], paged=True, page_size=16)}
+    jobs = [("dense", "tp_serving"), ("paged", "tp_serving")]
+    return torch_ranks.world(tmp_path_factory.mktemp("tp_srv"), data, jobs,
+                             4).result()
+
+
+def _jax_serving_tokens(seed, n_predict, prompts, **kw):
+    """The JAX single-device server's tokens (JAX's TP server equals them
+    token for token in tests/test_serving.py)."""
+    cfg = JModelConfig(**TP_TINY)
+    g = JGen(temp=0.0, n_predict=n_predict, repeat_penalty=1.0,
+             repeat_last_n=1)
+    srv = JServing(_jtp_params(seed), cfg, JQuantConfig(scheme="fp"),
+                   slots=2, gcfg=g, **kw)
+    reqs = [srv.submit(p) for p in prompts]
+    srv.run()
+    return [r.output_ids for r in reqs]
+
+
+def test_serving_with_tensor_parallel_forward(tp_ranks):
+    """Continuous batching through the TP forward on 1 x 4 ranks: each
+    rank's slot cache holds its KV head, the ticks run eagerly, and the
+    tokens equal the single-device server's on every rank."""
+    want = _jax_serving_tokens(3, 8, TP_PROMPTS)
+    for r in tp_ranks:
+        assert r["dense"]["tokens"] == want
+        assert r["dense"]["heads"] == 1 and r["dense"]["graphs"]
+
+
+def test_paged_serving_with_tensor_parallel(tp_ranks):
+    """Paged KV, block tables and the TP forward: each rank's page pool
+    holds its KV head; tokens equal the single-device paged server's."""
+    want = _jax_serving_tokens(4, 6, TP_PROMPTS[:2], paged=True,
+                               page_size=16)
+    for r in tp_ranks:
+        assert r["paged"]["tokens"] == want
+        assert r["paged"]["heads"] == 1

@@ -18,7 +18,11 @@ is chunked alongside its ids, its last chunk zero-padded to the bucket,
 and its chunks replay graphs of their own (a bf16 [B, bucket, E] buffer
 in place of the ids).
 ``cuda_graphs=False`` keeps the eager loops on the card, for comparisons;
-on the CPU the loops are eager.
+on the CPU the loops are eager, and so they are on the card for a
+forward that declares itself not ``capturable`` (the tensor-parallel
+forward, whose collectives are host calls). A forward with an
+``init_cache`` method (``parallel.tp.TPForward``) shapes the engine's
+caches: each rank holds its own rows and KV heads.
 Sampling runs on the device in both loops (generation/sampling.py). The
 family's forward comes from ``forward_for_family`` (llama, opt,
 gptbigcode).
@@ -54,6 +58,20 @@ def forward_for_family(family: str):
     if family == "gptbigcode":
         return gptbigcode.forward
     raise ValueError(f"no generation driver for family {family!r}")
+
+
+def capturable(forward) -> bool:
+    """Whether a forward may be captured in a CUDA graph: it says so
+    itself (``capturable = False``: the tensor-parallel forward's host
+    collectives); a plain function may."""
+    return getattr(forward, "capturable", True)
+
+
+def init_cache_for(forward):
+    """The cache initializer of a forward: its own ``init_cache`` (this
+    rank's rows and heads under tensor parallelism), else
+    ``kv_cache.init_cache``."""
+    return getattr(forward, "init_cache", kvc.init_cache)
 
 
 def raw_int8_kv(cfg: ModelConfig, qcfg: QuantConfig) -> bool:
@@ -217,7 +235,9 @@ class Engine:
     run in one cache the engine owns (its storage is what they captured),
     so every call replays them: a caller's cache is copied in (the
     positions the call reads) and out (the positions it wrote), and a cache
-    handed back is the caller's or a fresh copy, never the engine's."""
+    handed back is the caller's or a fresh copy, never the engine's. A
+    ``forward_fn`` whose ``capturable`` is False runs eagerly, graphs or
+    not."""
 
     CHUNK = 2048  # long prompts prefill in chunks of this many tokens
 
@@ -237,21 +257,23 @@ class Engine:
             self.kv_dtype = torch.int8
         self.profiler = Profiler()
         self.graphs = (cg.Graphs(self.device)
-                       if cuda_graphs and self.device.type == "cuda" else None)
+                       if cuda_graphs and self.device.type == "cuda"
+                       and capturable(self._forward) else None)
         self._cache = None  # the graph path's own cache (``_own_cache``)
         self._cache_default = True  # made by new_cache, not like a caller's
 
     def new_cache(self) -> kvc.KVCache:
+        """A zeroed cache of the engine's batch and length, shaped by the
+        forward (``init_cache_for``)."""
+        init = init_cache_for(self._forward)
         if self.kv_dtype is not None:
-            return kvc.init_cache(
-                self.cfg.num_layers, self.batch, self.max_len,
-                self.cfg.num_kv_heads, self.cfg.head_dim,
-                dtype=self.kv_dtype, device=self.device)
-        return kvc.init_cache(
-            self.cfg.num_layers, self.batch, self.max_len,
-            self.cfg.num_kv_heads, self.cfg.head_dim,
-            quantized=self.qcfg.kv_cache_dtype == "int8",
-            device=self.device)
+            return init(self.cfg.num_layers, self.batch, self.max_len,
+                        self.cfg.num_kv_heads, self.cfg.head_dim,
+                        dtype=self.kv_dtype, device=self.device)
+        return init(self.cfg.num_layers, self.batch, self.max_len,
+                    self.cfg.num_kv_heads, self.cfg.head_dim,
+                    quantized=self.qcfg.kv_cache_dtype == "int8",
+                    device=self.device)
 
     def _own_cache(self, like: Optional[kvc.KVCache] = None
                    ) -> kvc.KVCache:

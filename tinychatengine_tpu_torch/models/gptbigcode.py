@@ -1,7 +1,8 @@
 """GPTBigCode (StarCoder) decoder: fp and int4 (W4A16, W4A8), single device
 (counterpart of the JAX package's ``models/gptbigcode.py``, with per-row
 positions, the paged decode of the serving path, ``input_embeds`` (the
-pipeline-parallel stage contract) and ``return_hidden``; no ``tp_axis``).
+pipeline-parallel stage contract), ``return_hidden`` and the Megatron
+``tp_axis`` hook).
 
 Architecture: multi-query attention (one KV head shared by every query
 head; ``flash_decode`` / ``flash_prefill`` / ``flash_decode_paged`` take
@@ -41,7 +42,8 @@ from tinychatengine_tpu_torch.ops.attention import (flash_decode,
 from tinychatengine_tpu_torch.ops.linear import (DenseLinear, Int4A8Linear,
                                                  Int4Linear, apply_linear,
                                                  random_int4_linear,
-                                                 random_int4_linear_fast)
+                                                 random_int4_linear_fast,
+                                                 row_parallel)
 from tinychatengine_tpu_torch.quant.packing import numpy_to_torch
 from tinychatengine_tpu_torch.runtime import paged as pg
 
@@ -87,7 +89,8 @@ def forward(params: GPTBigCodeParams, cfg: ModelConfig,
             input_ids: torch.Tensor, cache, start, full_logits: bool = False,
             true_len=None, input_embeds: Optional[torch.Tensor] = None,
             page_table: Optional[torch.Tensor] = None,
-            ctx_cap: Optional[int] = None, return_hidden: bool = False):
+            ctx_cap: Optional[int] = None, return_hidden: bool = False,
+            tp_axis=None):
     """Same contract as ``models.llama.forward``: one forward pass (prefill
     S > 1 or decode S = 1) writing the new K/V into ``cache`` in place.
     ``start``: a host int or an int32 [B] tensor (per-row positions);
@@ -98,8 +101,13 @@ def forward(params: GPTBigCodeParams, cfg: ModelConfig,
     ``page_table``: the paged decode (S = 1, per-row
     ``start``); ``ctx_cap``: ``flash_decode``'s static bound on every
     row's context; ``return_hidden``: the states before the final
-    LayerNorm [B, S, E] instead of logits. Returns (logits [B, V] f32 of
-    the last position, or [B, S, V] with full_logits, and the cache)."""
+    LayerNorm [B, S, E] instead of logits; ``tp_axis``: the model axis of
+    a tensor-parallel mesh (``parallel.distributed.Axis``): c_proj and
+    fc_out sum their partials over it before their bias and the residual
+    (``row_parallel``), the fused decode's c_proj / fc_out stay unfused,
+    and the lm_head's column shards are gathered. Returns (logits [B, V]
+    f32 of the last position, or [B, S, V] with full_logits, and the
+    cache)."""
     b, s = input_ids.shape
     dev = params.wte.device
     ragged = isinstance(start, torch.Tensor)
@@ -163,22 +171,26 @@ def forward(params: GPTBigCodeParams, cfg: ModelConfig,
             else:
                 attn = flash_prefill(q, cache.k, cache.v, li, start, kv_len,
                                      cache.k_scale, cache.v_scale)
-        if gs:  # c_proj's bias and the residual add in its epilogue
+        if gs and tp_axis is None:  # c_proj's bias and the residual add in
+            # its epilogue
             x = fused(attn.to(x.dtype), lyr.c_proj.packed, lyr.c_proj.scales,
                       gs, layer_idx=li, bias=lyr.c_proj.bias, residual=x)
+        else:  # the bias once, after the partials' sum (Megatron's rule)
+            x = x + row_parallel(lyr.c_proj, attn.to(x.dtype), tp_axis,
+                                 layer_idx=li).to(x.dtype)
+        if gs:
             f = fused(x, lyr.fc_in.packed, lyr.fc_in.scales, gs, layer_idx=li,
                       norm_w=lyr.ln2_w, norm_b=lyr.ln2_b, bias=lyr.fc_in.bias)
         else:
-            x = x + apply_linear(lyr.c_proj, attn.to(x.dtype),
-                                 layer_idx=li).to(x.dtype)
             h2 = ref.layer_norm_ref(x, lyr.ln2_w[li], lyr.ln2_b[li])
             f = apply_linear(lyr.fc_in, h2, layer_idx=li)
         f = ref.gelu_ref(f.float()).to(x.dtype)
-        if gs:
+        if gs and tp_axis is None:
             x = fused(f, lyr.fc_out.packed, lyr.fc_out.scales, gs,
                       layer_idx=li, bias=lyr.fc_out.bias, residual=x)
         else:
-            x = x + apply_linear(lyr.fc_out, f, layer_idx=li).to(x.dtype)
+            x = x + row_parallel(lyr.fc_out, f, tp_axis,
+                                 layer_idx=li).to(x.dtype)
 
     x = last_rows(x, cache, true_len, s, full_logits or return_hidden,
                   page_table is None)
@@ -193,6 +205,8 @@ def forward(params: GPTBigCodeParams, cfg: ModelConfig,
         x = ref.layer_norm_ref(x, params.lnf_w, params.lnf_b)
         logits = apply_linear(head, x)
     logits = logits.float()
+    if tp_axis is not None:  # column-parallel lm_head: the whole vocabulary
+        logits = tp_axis.all_gather(logits, dim=-1)
     return (logits if full_logits else logits[:, 0]), cache
 
 

@@ -1,7 +1,9 @@
-"""LLaMA-family decoder, single device (counterpart of the JAX package's
+"""LLaMA-family decoder (counterpart of the JAX package's
 ``models/llama.py``, with per-row positions, the paged decode of the
-serving path, the fused decode branch and ``input_embeds``, the VLM's
-spliced prompt; no tensor, sequence or pipeline parallelism).
+serving path, the fused decode branch, ``input_embeds``, the VLM's
+spliced prompt, and the multi-device hooks: ``tp_axis`` (Megatron tensor
+parallelism, ``parallel/tp.py``) and ``sp_axis`` (the sequence-parallel
+ring prefill, ``parallel/sp.py``)).
 
 Fused decode (``ops.int4_matmul.FUSED_DECODE``, off by default): a
 one-token step of a W4A16 model whose linears pass JAX's shape gate
@@ -40,6 +42,7 @@ from tinychatengine_tpu_torch.ops.linear import (
     fuse_linears,
     random_int4_linear,
     random_int4_linear_fast,
+    row_parallel,
 )
 from tinychatengine_tpu_torch.quant.packing import SUPERBLOCK, numpy_to_torch
 from tinychatengine_tpu_torch.runtime import paged as pg
@@ -112,7 +115,8 @@ def forward(params: LlamaParams, cfg: ModelConfig, input_ids: torch.Tensor,
             cache, start, full_logits: bool = False, true_len=None,
             page_table: Optional[torch.Tensor] = None,
             ctx_cap: Optional[int] = None, return_hidden: bool = False,
-            input_embeds: Optional[torch.Tensor] = None):
+            input_embeds: Optional[torch.Tensor] = None, tp_axis=None,
+            sp_axis=None):
     """One forward pass (prefill S > 1 or decode S = 1), writing the new
     K/V into ``cache`` in place.
 
@@ -136,6 +140,17 @@ def forward(params: LlamaParams, cfg: ModelConfig, input_ids: torch.Tensor,
     place of the embedding gather (a VLM prompt: text rows of the table
     with the image's embeddings spliced in); input_ids then give only the
     shape.
+    tp_axis: the model axis of a tensor-parallel mesh
+    (``parallel.distributed.Axis``): params and cache hold this rank's
+    column / row shards and KV heads, the wo and down partials are summed
+    over the axis before the residual add and the lm_head's column shards
+    gathered before the vocabulary slice; head counts come from the local
+    projection widths. sp_axis: the seq axis of a fresh sequence-parallel
+    prefill: input_ids and the cache hold this rank's S/n slice (scalar
+    ``start`` 0), attention runs as a ring over the axis
+    (``ops.attention.ring_attention``), ``true_len`` is the global prompt
+    length, and the last-token logits are summed from the rank that owns
+    position true_len - 1, so every rank returns them.
     Returns (logits [B, V] f32 of the last position, or [B, S, V] with
     full_logits, and the cache)."""
     b, s = input_ids.shape
@@ -157,6 +172,11 @@ def forward(params: LlamaParams, cfg: ModelConfig, input_ids: torch.Tensor,
     else:
         x = params.embed[input_ids.to(dev)].to(torch.bfloat16)
     positions = (st_col + torch.arange(s, device=dev)).expand(b, s)
+    if sp_axis is not None:  # this rank's slice of the global sequence
+        if ragged or start != 0:
+            raise ValueError("a sequence-parallel forward is a fresh "
+                             "prefill: scalar start 0")
+        positions = positions + sp_axis.index * s
     # the JAX gather clamps out-of-range indices; so does this one (only
     # bucket padding past the table can reach it)
     rope_pos = positions.clamp(max=params.rope_cos.shape[0] - 1)
@@ -203,7 +223,11 @@ def forward(params: LlamaParams, cfg: ModelConfig, input_ids: torch.Tensor,
             attn = attn.reshape(b, 1, hq * d)
         else:
             kvc.update_layer(cache, k, v, li, start)
-            if records(q):
+            if sp_axis is not None:  # the ring over the freshly projected
+                # q/k/v (a fresh prefill: the cache holds nothing before)
+                attn = att.ring_attention(q, k, v, positions, sp_axis,
+                                          window=win)
+            elif records(q):
                 attn = att.flash_prefill_plain(q, cache.k, cache.v, li, start,
                                                kv_len, cache.k_scale,
                                                cache.v_scale, window=win)
@@ -214,26 +238,38 @@ def forward(params: LlamaParams, cfg: ModelConfig, input_ids: torch.Tensor,
             else:
                 attn = flash_prefill(q, cache.k, cache.v, li, start, kv_len,
                                      cache.k_scale, cache.v_scale, window=win)
-        if gs:  # residual in wo's epilogue, the post-norm in gate_up's prologue
+        if gs and tp_axis is None:  # residual in wo's epilogue, the
+            # post-norm in gate_up's prologue
             x = fused(attn.to(x.dtype), lyr.wo.packed, lyr.wo.scales, gs,
                       layer_idx=li, residual=x)
             gu = fused(x, lyr.wgate_up.packed, lyr.wgate_up.scales, gs,
                        layer_idx=li, norm_w=lyr.post_norm, norm_eps=eps)
-        else:
-            x = x + apply_linear(lyr.wo, attn.to(x.dtype), layer_idx=li)
-            h2 = ref.rms_norm_ref(x, lyr.post_norm[li], eps)
-            gu = apply_linear(lyr.wgate_up, h2, layer_idx=li)
+        else:  # under TP the partials are summed before the residual add
+            x = x + row_parallel(lyr.wo, attn.to(x.dtype), tp_axis,
+                                 layer_idx=li)
+            if gs and page_table is None:  # as in JAX: the paged decode
+                # leaves gate_up unfused under TP, the contiguous one not
+                gu = fused(x, lyr.wgate_up.packed, lyr.wgate_up.scales, gs,
+                           layer_idx=li, norm_w=lyr.post_norm, norm_eps=eps)
+            else:
+                h2 = ref.rms_norm_ref(x, lyr.post_norm[li], eps)
+                gu = apply_linear(lyr.wgate_up, h2, layer_idx=li)
         f = gu.shape[-1] // 2
         act = (ref.silu_ref(gu[..., :f].float())
                * gu[..., f:].float()).to(x.dtype)
-        if gs:
+        if gs and tp_axis is None:
             x = fused(act, lyr.down.packed, lyr.down.scales, gs, layer_idx=li,
                       residual=x)
         else:
-            x = x + apply_linear(lyr.down, act, layer_idx=li)
+            x = x + row_parallel(lyr.down, act, tp_axis, layer_idx=li)
 
-    x = last_rows(x, cache, true_len, s, full_logits or return_hidden,
-                  page_table is None)
+    owner = None
+    if sp_axis is not None:
+        x, owner = _sp_last_rows(x, cache, true_len, s, sp_axis,
+                                 full_logits or return_hidden)
+    else:
+        x = last_rows(x, cache, true_len, s, full_logits or return_hidden,
+                      page_table is None)
     if return_hidden:
         return x, cache
     head = params.lm_head
@@ -243,8 +279,28 @@ def forward(params: LlamaParams, cfg: ModelConfig, input_ids: torch.Tensor,
     else:
         x = ref.rms_norm_ref(x, params.final_norm, eps)
         logits = apply_linear(head, x)
-    logits = logits.float()[..., :cfg.vocab_size]
+    logits = logits.float()
+    if tp_axis is not None:  # column-parallel lm_head: the whole vocabulary
+        logits = tp_axis.all_gather(logits, dim=-1)
+    logits = logits[..., :cfg.vocab_size]
+    if owner is not None:  # every rank gets the owner's last-token logits
+        mine = owner == sp_axis.index
+        logits = sp_axis.psum(logits if mine else torch.zeros_like(logits))
     return (logits if full_logits else logits[:, 0]), cache
+
+
+def _sp_last_rows(x, cache, true_len, s: int, sp_axis, keep_all: bool):
+    """``last_rows`` of a sequence-parallel prefill: the cache advances by
+    the global prompt length (true_len, or s times the axis size) and,
+    unless ``keep_all``, each rank keeps its candidate for the global last
+    token, which rank ``owner`` holds. Returns (x, owner or None)."""
+    n_new = s * sp_axis.size if true_len is None else int(true_len)
+    kvc.advance(cache, n_new)
+    if keep_all:
+        return x, None
+    owner = (n_new - 1) // s
+    local = min(max(n_new - 1 - owner * s, 0), s - 1)
+    return x[:, local:local + 1], owner
 
 
 def records(q: torch.Tensor) -> bool:
@@ -319,7 +375,8 @@ def params_from_numpy(flat: dict, cfg: ModelConfig, qcfg: QuantConfig,
 
 def init_random_params(cfg: ModelConfig, qcfg: QuantConfig, seed: int = 0,
                        max_pos: Optional[int] = None, fast: bool = False,
-                       device=None, centered: bool = False) -> LlamaParams:
+                       device=None, centered: bool = False,
+                       tp_degree: int = 1, std: float = 0.02) -> LlamaParams:
     """Random weights in the right structure (benchmarks and tests).
     fast=True makes packed bytes and scales directly on the device from a
     seeded ``torch.Generator`` (layout-only fidelity, for full-size models),
@@ -327,7 +384,13 @@ def init_random_params(cfg: ModelConfig, qcfg: QuantConfig, seed: int = 0,
     (``random_int4_linear_fast``; uniform bytes put a common offset into
     every output, and a deep model's greedy tokens then barely depend on
     its input); otherwise weights are drawn on the host with numpy and
-    quantized."""
+    quantized. tp_degree: the fused qkv / gate_up columns interleaved for a
+    tensor-parallel mesh of that many ranks (``fuse_linears``), drawn in
+    the same order at any degree, so one seed gives the same projections
+    at every degree. std: the linears' weight scale (the embedding keeps
+    0.02); at 0.02 a linear over K = 4096 multiplies its input's RMS by
+    about 1.4, so a deep centred model amplifies a change of rounding
+    (chip_smoke.py ``PAR_STD``)."""
     dev = resolve_device(device)
     e, f, v = cfg.embed_dim, cfg.hidden_dim, cfg.vocab_size
     hq, hkv, d, nl = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
@@ -342,18 +405,19 @@ def init_random_params(cfg: ModelConfig, qcfg: QuantConfig, seed: int = 0,
     def lin(k, n, n_layers=None):
         if quant and fast:
             return as_kind(random_int4_linear_fast(
-                gen, k, n, qcfg.group_size, scale_dtype=qcfg.scale_dtype,
-                device=dev, n_layers=n_layers, centered=centered))
+                gen, k, n, qcfg.group_size, std=std,
+                scale_dtype=qcfg.scale_dtype, device=dev, n_layers=n_layers,
+                centered=centered))
         count = 1 if n_layers is None else n_layers
         if quant:
-            ps = [random_int4_linear(rng, k, n, qcfg.group_size,
+            ps = [random_int4_linear(rng, k, n, qcfg.group_size, std=std,
                                      scale_dtype=qcfg.scale_dtype, device=dev)
                   for _ in range(count)]
             p = Int4Linear(torch.stack([p.packed for p in ps]),
                            torch.stack([p.scales for p in ps]))
         else:
             w = torch.from_numpy(rng.standard_normal((count, k, n),
-                                                     dtype=np.float32) * 0.02)
+                                                     dtype=np.float32) * std)
             p = DenseLinear(weight=w.to(torch.bfloat16).to(dev))
         if n_layers is None:
             p = dataclasses.replace(
@@ -366,10 +430,10 @@ def init_random_params(cfg: ModelConfig, qcfg: QuantConfig, seed: int = 0,
     layers = LlamaLayerParams(
         input_norm=ones.clone(),
         wqkv=fuse_linears([lin(e, hq * d, nl), lin(e, hkv * d, nl),
-                           lin(e, hkv * d, nl)]),
+                           lin(e, hkv * d, nl)], tp_degree),
         wo=lin(hq * d, e, nl),
         post_norm=ones.clone(),
-        wgate_up=fuse_linears([lin(e, f, nl), lin(e, f, nl)]),
+        wgate_up=fuse_linears([lin(e, f, nl), lin(e, f, nl)], tp_degree),
         down=lin(f, e, nl))
     cos, sin = ref.make_rope_cache(d, max_pos or cfg.max_sqlen,
                                    cfg.rope_theta, device=dev)

@@ -1,6 +1,6 @@
 """OPT decoder: fp, int4 (W4A16, W4A8) and SmoothQuant W8A8 (counterpart
-of the JAX package's ``models/opt.py``; single device, no ``tp_axis``, no
-paged KV). ``input_embeds`` (f32, positions included) replaces the
+of the JAX package's ``models/opt.py``; Megatron tensor parallelism through
+``tp_axis``, no paged KV). ``input_embeds (f32, positions included) replaces the
 embedding lookup, the pipeline-parallel stage contract.
 
 The W8A8 path keeps the Int8OPT dataflow exactly:
@@ -45,7 +45,8 @@ from tinychatengine_tpu_torch.ops.attention import (NEG_INF,
 from tinychatengine_tpu_torch.ops.linear import (DenseLinear, Int4A8Linear,
                                                  Int4Linear, W8A8Linear,
                                                  apply_linear,
-                                                 random_int4_linear)
+                                                 random_int4_linear,
+                                                 row_parallel)
 from tinychatengine_tpu_torch.quant.packing import numpy_to_torch
 
 POS_OFFSET = 2  # OPT's learned positions start at row 2
@@ -115,11 +116,13 @@ def forward(params: OPTParams, cfg: ModelConfig, input_ids: torch.Tensor,
     returns the pre-final-LN states [B, S, E] instead of logits.
     ``input_embeds`` [B, S, E]: the position-included embeddings, cast to
     f32, in place of the token and position lookup (input_ids then give
-    only the shape). OPT has no paged path: a ``page_table`` raises, as
-    does ``tp_axis``."""
-    if tp_axis is not None or page_table is not None:
-        raise NotImplementedError("tensor parallelism and paged KV are not "
-                                  "ported for OPT")
+    only the shape). ``tp_axis``: the model axis of a tensor-parallel mesh
+    (``parallel.distributed.Axis``): params and cache hold this rank's
+    heads and columns, out_proj and fc2 sum their partials over it before
+    their bias (``row_parallel``), and the lm_head's column shards are
+    gathered. OPT has no paged path: a ``page_table`` raises."""
+    if page_table is not None:
+        raise NotImplementedError("paged KV is not ported for OPT")
     b, s = input_ids.shape
     dev = params.embed_tokens.device
     ragged = isinstance(start, torch.Tensor)
@@ -191,7 +194,8 @@ def forward(params: OPTParams, cfg: ModelConfig, input_ids: torch.Tensor,
                              positions, kv_valid)
             attn = torch.einsum("bhst,bhtd->bshd", torch.softmax(logits, -1),
                                 cv.float()).reshape(b, s, hq * d)
-        x = x + apply_linear(lyr.out_proj, attn, layer_idx=li).float()
+        x = x + row_parallel(lyr.out_proj, attn, tp_axis,
+                             layer_idx=li).float()
 
         if int8_path:
             h2 = ref.layer_norm_q_ref(x, lyr.final_ln_w[li],
@@ -202,14 +206,16 @@ def forward(params: OPTParams, cfg: ModelConfig, input_ids: torch.Tensor,
             h2 = ref.layer_norm_ref(x, lyr.final_ln_w[li], lyr.final_ln_b[li])
             f = torch.clamp_min(
                 apply_linear(lyr.fc1, h2, layer_idx=li).float(), 0.0)
-        x = x + apply_linear(lyr.fc2, f, layer_idx=li).float()
+        x = x + row_parallel(lyr.fc2, f, tp_axis, layer_idx=li).float()
 
     x = last_rows(x, cache, true_len, s, full_logits or return_hidden, True)
     if return_hidden:
         return x, cache
     x = ref.layer_norm_ref(x, params.final_ln_w, params.final_ln_b)
-    logits = apply_linear(params.lm_head,
-                          x.to(torch.bfloat16)).float()[..., :cfg.vocab_size]
+    logits = apply_linear(params.lm_head, x.to(torch.bfloat16)).float()
+    if tp_axis is not None:  # column-parallel lm_head: the whole vocabulary
+        logits = tp_axis.all_gather(logits, dim=-1)
+    logits = logits[..., :cfg.vocab_size]
     return (logits if full_logits else logits[:, 0]), cache
 
 

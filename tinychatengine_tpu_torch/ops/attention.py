@@ -494,3 +494,98 @@ def int8_decode(q_s8, cache_k, cache_v, layer_idx, lengths, qk_alpha,
                  "int8_decode")
     _build.LAUNCHES["int8_decode"] += 1
     return out
+
+
+# -- the sequence-parallel ring (XLA in JAX; plain PyTorch here) ---------
+
+def _fit_block(size: int, want: int) -> int:
+    """Largest power-of-two-ish divisor of ``size`` that is <= ``want``."""
+    blk = min(want, size)
+    while size % blk:
+        blk //= 2
+    return max(blk, 1)
+
+
+def _ring_hop_blocked(qh, q_pos, kh, vh, kv_pos, m, l, acc, *, scale,
+                      window, block_q: int, block_k: int):
+    """Fold one ring hop's KV slice into the online-softmax state (m, l,
+    acc; updated in place) tile by tile: scores exist only per
+    [block_q, block_k] tile. qh [B, Hkv, G, S, D] bf16; kh / vh
+    [B, Hkv, T, D]; q_pos [B, S]; kv_pos [B, T]; m / l [B, Hkv, G, S] f32;
+    acc [B, Hkv, G, S, D] f32. A chunk wholly masked for a query block
+    (every key after the block's last query, or below its window) is
+    skipped, which skips the whole hop where the slice lies in this
+    rank's causal future. JAX's recurrence and casts: f32 scores of bf16
+    operands, probabilities rounded to V's dtype for the PV product."""
+    s_loc, t_len = qh.shape[3], kh.shape[2]
+    bq, bk = _fit_block(s_loc, block_q), _fit_block(t_len, block_k)
+    for q0 in range(0, s_loc, bq):
+        qs = slice(q0, q0 + bq)
+        qb, qp = qh[..., qs, :].float(), q_pos[:, qs]
+        qp_max, qp_min = int(qp.max()), int(qp.min())
+        mb, lb, accb = m[..., qs], l[..., qs], acc[..., qs, :]
+        for k0 in range(0, t_len, bk):
+            ks = slice(k0, k0 + bk)
+            kp = kv_pos[:, ks]
+            live = int(kp.min()) <= qp_max
+            if window is not None:
+                live = live and int(kp.max()) > qp_min - window
+            if not live:
+                continue
+            kc, vc = kh[:, :, ks], vh[:, :, ks]
+            sc = torch.einsum("bhgsd,bhtd->bhgst", qb, kc.float()) * scale
+            ok = kp[:, None, :] <= qp[:, :, None]            # [B, Bq, Bk]
+            if window is not None:
+                ok = ok & (kp[:, None, :] > qp[:, :, None] - window)
+            okx = ok[:, None, None]
+            sc = torch.where(okx, sc, NEG_INF)
+            m_new = torch.maximum(mb, sc.amax(-1))
+            # a row can still be wholly masked: its exp terms are zeroed
+            # rather than trusting exp(NEG_INF - NEG_INF)
+            corr = torch.where(mb <= NEG_INF / 2, 0.0, torch.exp(mb - m_new))
+            p = torch.where(okx, torch.exp(sc - m_new[..., None]), 0.0)
+            lb.mul_(corr).add_(p.sum(-1))
+            accb.mul_(corr[..., None]).add_(torch.einsum(
+                "bhgst,bhtd->bhgsd", p.to(vc.dtype).float(), vc.float()))
+            mb.copy_(m_new)
+
+
+def ring_attention(q, k, v, q_positions, axis, window=None,
+                   block_q: int = 512, block_k: int = 512):
+    """Exact causal GQA attention with sequence-sharded Q/K/V (Ring
+    Attention): each rank holds one S/n slice of the freshly projected
+    q/k/v; the KV slice and its absolute positions travel round the ring
+    (``axis.ppermute``, n - 1 hops) while an online-softmax accumulator
+    folds in one slice per hop (``_ring_hop_blocked``), so every query sees
+    every key once. Masking is positional (key position <= query position,
+    an optional sliding ``window``), so right-padded prompt buckets work
+    unchanged. The JAX package runs this in XLA; here it is plain PyTorch
+    on either device.
+
+    q [B, S_loc, Hq, D]; k / v [B, S_loc, H_kv, D]; q_positions [B, S_loc]
+    (the keys' too: Q and KV share the sharding); axis: the seq
+    ``parallel.distributed.Axis``. Returns [B, S_loc, Hq * D] in q.dtype."""
+    b, s_loc, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    scale = 1.0 / (d ** 0.5)
+    qh = q.transpose(1, 2).reshape(b, hkv, g, s_loc, d).to(torch.bfloat16)
+    q_pos = q_positions.to(torch.int64)
+    m = torch.full((b, hkv, g, s_loc), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, hkv, g, s_loc), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hkv, g, s_loc, d), dtype=torch.float32,
+                      device=q.device)
+    k_t, v_t, pos_t = k, v, q_pos
+    for t in range(axis.size):
+        kh = k_t.transpose(1, 2).to(torch.bfloat16)   # [B, Hkv, T, D]
+        vh = v_t.transpose(1, 2)
+        _ring_hop_blocked(qh, q_pos, kh, vh, pos_t, m, l, acc, scale=scale,
+                          window=window, block_q=block_q, block_k=block_k)
+        if t < axis.size - 1:  # the left neighbour's slice comes in
+            k_t = axis.ppermute(k_t)
+            v_t = axis.ppermute(v_t)
+            pos_t = axis.ppermute(pos_t)
+    out = acc / torch.clamp_min(l[..., None], 1e-20)
+    return (out.to(q.dtype).reshape(b, hq, s_loc, d).transpose(1, 2)
+            .reshape(b, s_loc, hq * d))

@@ -146,9 +146,30 @@ def apply_linear(p, x: torch.Tensor, *, out_int8: bool = False,
     return y
 
 
-def fuse_linears(parts):
+def row_parallel(p, x: torch.Tensor, tp_axis, **kw) -> torch.Tensor:
+    """Row-parallel linear: the bias-less matmul summed over the TP axis
+    (``parallel.distributed.Axis``), then the bias added once (a bias per
+    shard would be summed tp_degree times: the Megatron bias rule). No
+    reduction when tp_axis is None."""
+    if tp_axis is None:
+        return apply_linear(p, x, **kw)
+    bias = getattr(p, "bias", None)
+    if bias is None:
+        return tp_axis.psum(apply_linear(p, x, **kw))
+    y = tp_axis.psum(apply_linear(dataclasses.replace(p, bias=None), x,
+                                  **kw))
+    return y + _at(bias, kw.get("layer_idx")).to(y.dtype)
+
+
+def fuse_linears(parts, tp_degree: int = 1):
     """Concatenate same-K linears along N into one weight (the offline QKV /
-    gate-up merge): one kernel launch streams all projections."""
+    gate-up merge): one kernel launch streams all projections.
+
+    ``tp_degree``: the columns are laid out [p0_shard0 | p1_shard0 | ...
+    | p0_shard1 | ...], so a column split over ``tp_degree`` ranks gives
+    every rank its own contiguous [q_s | k_s | v_s] block, which the model
+    code slices by local widths. 1 is the plain concatenation. The layout
+    is specific to the degree; checkpoints record it."""
     assert len({type(p) for p in parts}) == 1, "mixed linear kinds"
 
     def cat(field):
@@ -156,7 +177,14 @@ def fuse_linears(parts):
         if any(a is None for a in arrs):
             assert all(a is None for a in arrs), f"partial {field}"
             return None
-        return torch.cat(arrs, dim=-1)
+        pieces = []
+        for s in range(tp_degree):
+            for a in arrs:
+                w = a.shape[-1]
+                assert w % tp_degree == 0, (field, tuple(a.shape), tp_degree)
+                wl = w // tp_degree
+                pieces.append(a[..., s * wl:(s + 1) * wl])
+        return torch.cat(pieces, dim=-1)
 
     p0 = parts[0]
     if isinstance(p0, DenseLinear):

@@ -57,8 +57,17 @@ StarCoder, dense or paged, with single admissions). OPT W8A8 serves from a
 dense slot cache of raw int8 K/V; it has no paged path (``paged=True``
 raises ``NotImplementedError``, as in JAX).
 
-Not ported: sequence-parallel admission (``sp_mesh`` raises
-``NotImplementedError``).
+Multi-device: ``forward_fn`` may be a tensor-parallel forward
+(``parallel.tp.make_tp_forward``); it shapes the slot cache, the page pool
+and the scratch (each rank holds its KV heads) and runs eagerly, since its
+collectives cannot be captured. ``sp_mesh`` (a ("seq", "model") mesh,
+``parallel.sp.make_sp_mesh``) admits long prompts through the
+sequence-parallel ring prefill: the largest power-of-two head of a prompt
+of at least ``sp_threshold`` tokens runs as one ring prefill over the
+mesh, its KV is gathered into the scratch (``sp.sp_cache_into``), and the
+chunked admission finishes the tail. Every rank of ``sp_mesh`` runs this
+host program; ranks outside the decode mesh follow it
+(``make_tp_forward(..., followers=sp_mesh)``).
 """
 
 from __future__ import annotations
@@ -80,7 +89,9 @@ from tinychatengine_tpu_torch.generation import kv_cache as kvc
 from tinychatengine_tpu_torch.generation import sampling
 from tinychatengine_tpu_torch.generation import speculative as spec
 from tinychatengine_tpu_torch.generation.engine import (Engine, _bucket,
+                                                        capturable,
                                                         ctx_cap_for,
+                                                        init_cache_for,
                                                         raw_int8_kv)
 from tinychatengine_tpu_torch.models import llama
 from tinychatengine_tpu_torch.runtime import paged as pg
@@ -157,7 +168,16 @@ class ServingEngine:
 
     cuda_graphs: on the card, the per-row decode tick and the speculative
     tick replay captured graphs (``Tick``, ``SpecTick``; ``graphs`` holds
-    them); False keeps them eager, for comparisons."""
+    them); False keeps them eager, for comparisons, and so does a
+    ``forward_fn`` that is not ``capturable``.
+
+    sp_mesh: a ("seq", "model") mesh (``parallel.sp.make_sp_mesh``): a
+    prompt of at least ``sp_threshold`` tokens has its largest
+    power-of-two head that leaves one token over ring-prefilled across the
+    mesh in one call (llama family), spliced into the scratch, and the
+    ordinary chunked admission finishes it; counters in ``sp_stats``.
+    sp_params: the parameters laid out for sp_mesh (its model-axis shards)
+    when they differ from the decode ``params``."""
 
     def __init__(self, params, cfg: ModelConfig,
                  qcfg: Optional[QuantConfig] = None, slots: int = 8,
@@ -170,10 +190,8 @@ class ServingEngine:
                  spec_K: int = 7, prefix_cache_entries: int = 0,
                  prefix_cache_len: Optional[int] = None,
                  prefix_min: int = 64, logprobs_k: int = 8, sp_mesh=None,
+                 sp_threshold: int = 512, sp_params=None,
                  device=None, cuda_graphs: bool = True):
-        if sp_mesh is not None:
-            raise NotImplementedError(
-                "sequence-parallel admission is not ported")
         if cfg.family not in ("llama", "opt", "gptbigcode"):
             raise ValueError(f"ServingEngine serves the llama, opt and "
                              f"gptbigcode families, not {cfg.family!r}")
@@ -198,7 +216,9 @@ class ServingEngine:
         if paged:
             self.max_pages = -(-self.max_len // page_size)
             n_pages = n_pages or slots * self.max_pages
-            self.page_cache = pg.init_paged_cache(
+            init_paged = getattr(forward_fn, "init_paged_cache",
+                                 pg.init_paged_cache)
+            self.page_cache = init_paged(
                 cfg.num_layers, n_pages, cfg.num_kv_heads, page_size,
                 cfg.head_dim, quantized=quantized, device=self.device)
             self.allocator = pg.PageAllocator(n_pages, page_size,
@@ -211,7 +231,7 @@ class ServingEngine:
             self._slot_pages: list[list[int]] = [[] for _ in range(slots)]
             self.cache = None
         else:
-            self.cache = kvc.init_cache(
+            self.cache = init_cache_for(forward_fn)(
                 cfg.num_layers, slots, self.max_len, cfg.num_kv_heads,
                 cfg.head_dim, dtype=torch.int8 if raw_int8 else torch.bfloat16,
                 quantized=quantized, device=self.device)
@@ -255,11 +275,13 @@ class ServingEngine:
             self.gcfg.seed, slots, self.gcfg.mirostat_tau, self.device)
         self.tick_batch = max(int(tick_batch), 1)
         self.graphs = (cg.Graphs(self.device)
-                       if cuda_graphs and self.device.type == "cuda" else None)
+                       if cuda_graphs and self.device.type == "cuda"
+                       and capturable(forward_fn) else None)
         # batched admission: R queue-head single-chunk prompts in one ragged
         # prefill (dense cache, per-row sampler and llama only, as in JAX)
         self._batch_admit = (self._per_row and not paged
-                             and forward_fn is llama.forward)
+                             and forward_fn is llama.forward
+                             and sp_mesh is None)
         self._multi_scratch: dict[int, kvc.KVCache] = {}
 
         # prefix cache: a KVCache whose batch axis is the entry pool, in
@@ -268,7 +290,7 @@ class ServingEngine:
         self._prefix_min = int(prefix_min)
         if self._pfx_entries:
             w = min(prefix_cache_len or self.max_len, self.max_len)
-            self._pfx_store = kvc.init_cache(
+            self._pfx_store = init_cache_for(forward_fn)(
                 cfg.num_layers, self._pfx_entries, w, cfg.num_kv_heads,
                 cfg.head_dim, dtype=self._scratch.k.dtype,
                 quantized=self._scratch.quantized, device=self.device)
@@ -276,6 +298,11 @@ class ServingEngine:
                 [None] * self._pfx_entries
             self._pfx_lru: list[int] = list(range(self._pfx_entries))
             self.prefix_stats = {"hits": 0, "hit_tokens": 0, "stores": 0}
+
+        self._sp_mesh = sp_mesh
+        self.sp_threshold = int(sp_threshold)
+        if sp_mesh is not None:
+            self._sp_setup(sp_mesh, sp_params)
 
         self.logprobs_k = int(logprobs_k)
         # speculative (prompt-lookup) ticks: each row's lookup history lives
@@ -837,8 +864,84 @@ class ServingEngine:
                 done0 = m
                 self.prefix_stats["hits"] += 1
                 self.prefix_stats["hit_tokens"] += m
+        # the ring sees no prior KV: a fresh prompt only, and not a
+        # multimodal one (the ring prefill embeds ids itself)
+        if self._sp_mesh is not None and done0 == 0 \
+                and req.input_embeds is None:
+            done0 = self._sp_admit_head(req)
         self._pending = [slot_idx, done0]
         self._admit_chunk()
+
+    # -- sequence-parallel admission ----------------------------------------
+    def _sp_setup(self, sp_mesh, sp_params) -> None:
+        from tinychatengine_tpu_torch.parallel.sp import make_sp_prefill
+        if self.sp_threshold % sp_mesh.shape["seq"]:
+            raise ValueError(f"sp_threshold {self.sp_threshold} does not "
+                             f"split over {sp_mesh.shape['seq']} seq ranks")
+        if self.cfg.family != "llama":
+            raise ValueError("SP admission rides llama.forward's sp_axis "
+                             "hook (llama family only)")
+        if not sp_mesh.member:
+            raise ValueError("every rank of a server with SP admission lies "
+                             "in its sp_mesh")
+        decode = getattr(self._forward, "mesh", None)
+        if decode is not None and set(sp_mesh.ranks) - set(decode.ranks) \
+                and self._forward.followers is None:
+            raise ValueError("ranks of sp_mesh outside the decode mesh must "
+                             "follow its decode: make_tp_forward(..., "
+                             "followers=sp_mesh)")
+        self._sp_prefill = make_sp_prefill(sp_mesh, device=self.device)
+        self._sp_caches: dict[int, kvc.KVCache] = {}
+        self._sp_params = self.params if sp_params is None else sp_params
+        self.sp_stats = {"admissions": 0, "tokens": 0}
+
+    def _sp_len_for(self, n: int) -> int:
+        """Largest power-of-two prompt head >= sp_threshold that leaves at
+        least one token for the ordinary final chunk (which gives the
+        first-token logits; the ring prefill's own logits go unused)."""
+        best, b = 0, self.sp_threshold
+        while b <= min(n - 1, self.max_len):
+            best, b = b, b * 2
+        return best
+
+    def _sp_cache_for(self, sp_len: int) -> kvc.KVCache:
+        """This rank's shard of a prompt-sized prefill cache per head
+        length (each ring prefill overwrites every position, so it is
+        reused as it is)."""
+        from tinychatengine_tpu_torch.parallel.sp import shard_sp_cache
+        c = self._sp_caches.get(sp_len)
+        if c is None:
+            c = shard_sp_cache(
+                kvc.init_cache(self.cfg.num_layers, 1, sp_len,
+                               self.cfg.num_kv_heads, self.cfg.head_dim,
+                               dtype=self._scratch.k.dtype,
+                               quantized=self._scratch.quantized,
+                               device=self.device),
+                self._sp_mesh)
+            self._sp_caches[sp_len] = c
+        return c
+
+    def _sp_admit_head(self, req: Request) -> int:
+        """Ring-prefill the prompt's power-of-two head in one call over the
+        SP mesh and gather its KV into the scratch (the heads this rank's
+        decode holds); returns the tokens covered (the chunked admission
+        goes on from there)."""
+        from tinychatengine_tpu_torch.parallel.sp import sp_cache_into
+        sp_len = self._sp_len_for(len(req.prompt_ids))
+        if not sp_len:
+            return 0
+        ids = torch.as_tensor(np.asarray(req.prompt_ids[:sp_len],
+                                         np.int64)[None], device=self.device)
+        cache = self._sp_cache_for(sp_len)
+        cache.length = 0
+        _, filled = self._sp_prefill(self._sp_params, self.cfg, ids, cache)
+        heads = getattr(self._forward, "head_range", None)
+        sp_cache_into(self._scratch, filled, self._sp_mesh,
+                      heads=None if heads is None
+                      else heads(self.cfg.num_kv_heads))
+        self.sp_stats["admissions"] += 1
+        self.sp_stats["tokens"] += sp_len
+        return sp_len
 
     def _admit_chunk(self):
         """Prefill ONE chunk of the pending admission; the last chunk also

@@ -27,6 +27,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import struct
@@ -65,13 +66,6 @@ def _kmajor(w_oc_ic: np.ndarray, dev, dtype=torch.float32) -> torch.Tensor:
     return _tensor(w_oc_ic, dev, dtype).T.contiguous()
 
 
-def _single_device(tp_degree: int) -> None:
-    if tp_degree != 1:
-        raise NotImplementedError(
-            f"tp_degree={tp_degree}: the port fuses qkv / gate_up for one "
-            "device only (its parallel layer is not ported)")
-
-
 def quantize_linear(w_oc_ic: np.ndarray, qcfg: QuantConfig,
                     bias: np.ndarray | None = None, device=None):
     """w [OC, IC] float → ``DenseLinear`` (scheme fp: the bf16 weight stored
@@ -88,6 +82,39 @@ def quantize_linear(w_oc_ic: np.ndarray, qcfg: QuantConfig,
                            a8=qcfg.scheme == "w4a8", device=dev)
     lin.bias = None if bias is None else _tensor(bias, dev)
     return lin
+
+
+def refuse_llama_tp(params: LlamaParams, cfg: ModelConfig,
+                    tp_degree: int) -> LlamaParams:
+    """Re-interleave a tp_degree=1 llama tree's column-fused qkv / gate_up
+    for ``tp_degree`` shards (``fuse_linears``: shard s owns the contiguous
+    [q_s | k_s | v_s] block), since a fused layout is specific to its
+    degree. Column slices are exact for every container (int4 groups run
+    along K, so N cuts cleanly). The row-parallel wo / down and the
+    unfused lm_head are untouched: they split contiguously at any
+    degree."""
+    def split_cols(lin, widths):
+        parts, off = [], 0
+        for w in widths:
+            parts.append(type(lin)(**{
+                f.name: (None if getattr(lin, f.name) is None
+                         else getattr(lin, f.name)[..., off:off + w])
+                for f in dataclasses.fields(lin)}))
+            off += w
+        return parts
+
+    lay = params.layers
+    d = cfg.head_dim
+    qw, kvw = cfg.num_heads * d, cfg.num_kv_heads * d
+    colw = (lay.wqkv.weight if isinstance(lay.wqkv, DenseLinear)
+            else lay.wqkv.packed).shape[-1]
+    if colw != qw + 2 * kvw:
+        raise ValueError("wqkv is not a tp_degree=1 fused layout")
+    f = cfg.hidden_dim
+    return dataclasses.replace(params, layers=dataclasses.replace(
+        lay, wqkv=fuse_linears(split_cols(lay.wqkv, [qw, kvw, kvw]),
+                               tp_degree),
+        wgate_up=fuse_linears(split_cols(lay.wgate_up, [f, f]), tp_degree)))
 
 
 def requantize_llama(params: LlamaParams, qcfg: QuantConfig) -> LlamaParams:
@@ -223,7 +250,6 @@ def convert_hf_llama(src: str, cfg: ModelConfig, qcfg: QuantConfig,
     """HF LlamaForCausalLM/MistralForCausalLM state dict → LlamaParams on
     ``device``. Tensors are read lazily, one at a time; the lm_head falls
     back to the embedding when the checkpoint ties them."""
-    _single_device(tp_degree)
     dev = resolve_device(device)
     sd = _hf_state_dict_loader(src)
 
@@ -238,12 +264,14 @@ def convert_hf_llama(src: str, cfg: ModelConfig, qcfg: QuantConfig,
                                torch.bfloat16),
             wqkv=fuse_linears([lin(p + "self_attn.q_proj.weight"),
                                lin(p + "self_attn.k_proj.weight"),
-                               lin(p + "self_attn.v_proj.weight")]),
+                               lin(p + "self_attn.v_proj.weight")],
+                              tp_degree),
             wo=lin(p + "self_attn.o_proj.weight"),
             post_norm=_tensor(sd(p + "post_attention_layernorm.weight"), dev,
                               torch.bfloat16),
             wgate_up=fuse_linears([lin(p + "mlp.gate_proj.weight"),
-                                   lin(p + "mlp.up_proj.weight")]),
+                                   lin(p + "mlp.up_proj.weight")],
+                                  tp_degree),
             down=lin(p + "mlp.down_proj.weight")))
         gc.collect()
     stacked = stack_layers(layers)
@@ -374,7 +402,6 @@ def convert_reference_llama(src: str, cfg: ModelConfig, qcfg: QuantConfig,
     (the quantizer's own output: zp=8, offsets=0) import bit-exactly;
     offset-bearing ones are dequantized+requantized with a warning
     (read_reference_int4). ``ref_layout`` names the source QM packing."""
-    _single_device(tp_degree)
     dev = resolve_device(device)
     root = Path(src)
     is_int4 = (root / "decoder/layer0/self_attn/q_proj/weight_int4.bin"
@@ -409,12 +436,12 @@ def convert_reference_llama(src: str, cfg: ModelConfig, qcfg: QuantConfig,
             wqkv=fuse_linears(
                 [lin(f"{d}/self_attn/q_proj", e, e),
                  lin(f"{d}/self_attn/k_proj", kvdim, e),
-                 lin(f"{d}/self_attn/v_proj", kvdim, e)]),
+                 lin(f"{d}/self_attn/v_proj", kvdim, e)], tp_degree),
             wo=lin(f"{d}/self_attn/o_proj", e, e),
             post_norm=norm(f"{d}/post_attention_layernorm/weight.bin"),
             wgate_up=fuse_linears(
                 [lin(f"{d}/mlp/gate_proj", f, e),
-                 lin(f"{d}/mlp/up_proj", f, e)]),
+                 lin(f"{d}/mlp/up_proj", f, e)], tp_degree),
             down=lin(f"{d}/mlp/down_proj", e, f)))
     stacked = stack_layers(layers)
 
@@ -502,9 +529,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "trees with weight_int4.bin import through "
                          "read_reference_int4")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel degree of the fused qkv/gate-up "
-                         "column layout (llama family); the port builds 1 "
-                         "only")
+                    help="tensor-parallel degree the fused qkv/gate-up "
+                         "column layout is built for (llama family)")
     ap.add_argument("--vlm", action="store_true",
                     help="also convert the CLIP vision tower + mm_projector "
                          "from the same checkpoint (LLaVA/VILA)")

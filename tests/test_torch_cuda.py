@@ -9,6 +9,8 @@ are absent (the machine with the card):
 
 (``chip_smoke.py`` makes the same checks at full size.)"""
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -1027,13 +1029,17 @@ def test_plain_call_captured_in_a_step_counts_at_each_replay(cuda,
     def body():
         y.copy_(att.flash_decode_plain(x))
         x.add_(1)
+    from tinychatengine_tpu_torch.utils import tracing
+    t0 = time.perf_counter_ns()
     graphs = cg.Graphs(cuda)
     with chip_smoke.plain_calls() as plain:
         step = graphs.step("planted", lambda: cg.Step(body, None))
         for _ in range(4):  # the eager run and the capture, 3 replays
             graphs.run(step)
         torch.cuda.synchronize()
-    assert graphs.captures == 1 and graphs.capture_s > 0
+    captures = [s for s in tracing.snapshot(t0) if s.name == "graph.capture"]
+    assert graphs.captures == 1 and len(captures) == 1
+    assert captures[0].end > captures[0].start
     assert plain["flash_decode_plain"] == 4
     assert float(x[0]) == 5.0 and float(y[0]) == 8.0
 

@@ -221,8 +221,19 @@ def repl(engine: Engine, tok, cfg: ModelConfig, gcfg: GenerationConfig,
                 cache, start, history = shift_context(engine, history,
                                                       gcfg.n_keep)
         if result is not None:
-            print(engine.profiler.report_turn(n_gen), file=sys.stderr)
-            engine.profiler.reset()
+            print(turn_line(n_gen, result.decode_s, result.ttft_s),
+                  file=sys.stderr)
+
+
+def turn_line(n_tokens: int, decode_s: float, ttft_s: float) -> str:
+    """The per-turn latency line (``llm/include/profiler.h``'s demo-mode
+    summary) from a ``GenerationResult``'s decode seconds and TTFT."""
+    if decode_s == 0 or n_tokens == 0:
+        return "Inference latency: n/a"
+    ms_per_tok = decode_s * 1e3 / n_tokens
+    return (f"Inference latency: total {decode_s:.2f}s, "
+            f"{ms_per_tok:.1f} ms/token, {1e3 / ms_per_tok:.1f} token/s, "
+            f"{n_tokens} tokens, TTFT {ttft_s * 1e3:.0f} ms")
 
 
 def main(argv=None):

@@ -19,9 +19,9 @@ and the server each keep one cache for their graphs, so the keys stay
 few and a step holds no cache but that one. A body keeps nothing alive
 in the pool: its results are copied into buffers made outside the
 capture, so the pool holds temporaries only and the graphs may replay in
-any order on one stream. ``captures`` counts the captures and
-``capture_s`` the host seconds they took (the eager first step's issue,
-the capture and the graph's instantiation).
+any order on one stream. ``captures`` counts the captures; each is a
+``graph.capture`` span of ``utils/tracing.py``, over the eager first
+step's launches, the capture and the graph's instantiation.
 
 Kernel launches: a wrapper counts its launch when Python calls it, which a
 replay skips. So the capture records what the body added to every counter
@@ -33,13 +33,13 @@ from __future__ import annotations
 
 import collections
 import gc
-import time
 from typing import Callable
 
 import torch
 
 from tinychatengine_tpu_torch.ops import _build
 from tinychatengine_tpu_torch.ops import int4_matmul as int4m
+from tinychatengine_tpu_torch.utils import tracing
 
 
 def routes() -> tuple:
@@ -84,7 +84,6 @@ class Graphs:
     def __init__(self, device):
         self.device = torch.device(device)
         self.captures = 0
-        self.capture_s = 0.0
         self.steps: collections.OrderedDict = collections.OrderedDict()
         self._pool = None
         self._stream = None
@@ -121,7 +120,7 @@ class Graphs:
     def capture(self, step: Step) -> None:
         """Run ``step``'s body once eagerly on the side stream, then capture
         it (``record_launches`` keeps the counters to the eager run)."""
-        t0 = time.perf_counter()
+        span = tracing.begin(tracing.CAPTURE)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
             self._stream = torch.cuda.Stream(self.device)
@@ -153,4 +152,4 @@ class Graphs:
         cur.wait_stream(side)
         step.graph, step.launches = graph, launches
         self.captures += 1
-        self.capture_s += time.perf_counter() - t0
+        tracing.end(span)

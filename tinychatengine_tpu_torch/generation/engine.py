@@ -44,7 +44,7 @@ from tinychatengine_tpu_torch.generation import cuda_graph as cg
 from tinychatengine_tpu_torch.generation import kv_cache as kvc
 from tinychatengine_tpu_torch.generation import sampling
 from tinychatengine_tpu_torch.models import gptbigcode, llama, opt
-from tinychatengine_tpu_torch.utils.profiler import Profiler
+from tinychatengine_tpu_torch.utils import tracing
 
 PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
 
@@ -86,6 +86,12 @@ def _bucket(n: int) -> int:
         if n <= b:
             return b
     raise ValueError(f"prompt length {n} exceeds largest bucket")
+
+
+def prefill_positions(n: int, chunk: int) -> int:
+    """Positions a prefill of ``n`` tokens computes: whole chunks of
+    ``chunk``, then the rest padded to its bucket."""
+    return (n - 1) // chunk * chunk + _bucket((n - 1) % chunk + 1)
 
 
 def ctx_cap_for(needed: int, max_len: int) -> int:
@@ -255,7 +261,6 @@ class Engine:
         self.kv_dtype = kv_dtype
         if kv_dtype is None and raw_int8_kv(cfg, self.qcfg):
             self.kv_dtype = torch.int8
-        self.profiler = Profiler()
         self.graphs = (cg.Graphs(self.device)
                        if cuda_graphs and self.device.type == "cuda"
                        and capturable(self._forward) else None)
@@ -323,6 +328,7 @@ class Engine:
         """The chunks of ``prefill`` in ``cache``: through their graphs
         (the engine's cache only) or eager. ``embeds`` [B, L, E] bf16 are
         cut into the same chunks, the last zero-padded to its bucket."""
+        span = tracing.begin(tracing.GEN_PREFILL)
         b, n = input_ids.shape
         while n > self.CHUNK:
             head, input_ids = input_ids[:, :self.CHUNK], input_ids[:, self.CHUNK:]
@@ -343,9 +349,12 @@ class Engine:
         if embeds is not None:
             embeds = torch.nn.functional.pad(embeds, (0, 0, 0, bucket - n))
         if self.graphs is not None:
-            return self._prefill_graph(ids, cache, start, n, embeds), cache
-        return self._forward(self.params, self.cfg, self._ids(ids), cache,
-                             start, true_len=n, **_embeds_kw(embeds))
+            out = self._prefill_graph(ids, cache, start, n, embeds), cache
+        else:
+            out = self._forward(self.params, self.cfg, self._ids(ids), cache,
+                                start, true_len=n, **_embeds_kw(embeds))
+        tracing.end(span)
+        return out
 
     def _prefill_graph(self, ids: np.ndarray, cache: kvc.KVCache, start: int,
                        n: int, embeds: Optional[torch.Tensor] = None
@@ -411,7 +420,6 @@ class Engine:
                                      self._ids(last_np))
         tok_host = tok.cpu().numpy()
         ttft = time.perf_counter() - t0
-        self.profiler.ttft_s = ttft
 
         out = [[] for _ in range(b)]
         stop = set(int(t) for t in stop_token_ids)
@@ -431,13 +439,12 @@ class Engine:
             if gcfg.repeat_last_n != 0:
                 last_np = np.roll(last_np, -1, axis=1)
                 last_np[:, -1] = tok_host
-            with self.profiler.section("decode"):
-                logits, cache = self._forward(
-                    self.params, self.cfg, self._ids(tok_host[:, None]),
-                    cache, pos)
-                tok, state = sampling.sample(logits, state, gcfg,
-                                             self._ids(last_np))
-                tok_host = tok.cpu().numpy()  # waits for the step
+            logits, cache = self._forward(
+                self.params, self.cfg, self._ids(tok_host[:, None]),
+                cache, pos)
+            tok, state = sampling.sample(logits, state, gcfg,
+                                         self._ids(last_np))
+            tok_host = tok.cpu().numpy()  # waits for the step
             pos += 1
         decode_s = time.perf_counter() - t_decode0
         return GenerationResult(tokens=out, n_prompt=n_prompt, ttft_s=ttft,
@@ -493,6 +500,7 @@ class Engine:
         last = self._ids(window)
         pos = n_prompt
         toks = []
+        span = tracing.begin(tracing.GEN_DECODE)
         for _ in range(n_tokens):
             tok, state = sampling.sample(logits, state, gcfg, last)
             toks.append(tok)
@@ -502,6 +510,7 @@ class Engine:
                                           tok[:, None].long(), cache, pos,
                                           ctx_cap=ctx_cap)
             pos += 1
+        tracing.end(span)
         tokens = torch.stack(toks, dim=1)
         return (tokens, cache) if return_cache else tokens
 
@@ -523,7 +532,9 @@ class Engine:
         step = self.graphs.step(key, build)
         step.state.reset(logits, window, n_prompt, gcfg.seed)
         length = cache.length
+        span = tracing.begin(tracing.GEN_DECODE)
         for _ in range(n_tokens):
             self.graphs.run(step)
+        tracing.end(span)
         cache.length = length + n_tokens
         return step.state.out[:, :n_tokens].clone()

@@ -43,7 +43,10 @@ the JAX package's ``runtime/serving.py``).
   [n, E] embeddings replace the embedding gather for the whole prompt;
   such a request takes the single admission, its chunks carry their
   embeds, it bypasses the prefix cache, and a preempted one resumes with
-  the table rows of its emitted tokens appended.
+  the table rows of its emitted tokens appended;
+- **spans** (``utils/tracing.py``): each step, admission, decode, token
+  fetch and emit loop is one, and so is a request's wait in the queue and
+  its admission, under its ``trace_id``.
 
 Sampling is per request (``sampling.sample_rows``): every parameter rides
 as a [slots] tensor, and each request carries its own (key, step) random
@@ -92,9 +95,11 @@ from tinychatengine_tpu_torch.generation.engine import (Engine, _bucket,
                                                         capturable,
                                                         ctx_cap_for,
                                                         init_cache_for,
+                                                        prefill_positions,
                                                         raw_int8_kv)
 from tinychatengine_tpu_torch.models import llama
 from tinychatengine_tpu_torch.runtime import paged as pg
+from tinychatengine_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass(eq=False)  # identity equality: two requests with
@@ -123,6 +128,10 @@ class Request:
     submit_t: float = 0.0
     first_token_t: float = 0.0
     done_t: float = 0.0
+    # the tracer's: the request's key in the spans, and when its current
+    # phase (queued, admission) began
+    trace_id: int = 0
+    phase_t: float = 0.0
 
 
 @dataclasses.dataclass
@@ -244,6 +253,9 @@ class ServingEngine:
         self._scratch = self._prefill_engine.new_cache()
 
         self.slots = [_Slot() for _ in range(slots)]
+        t = time.perf_counter_ns()
+        tracing.record(tracing.ENGINE, t, t, a=slots)
+        self._step_span = 0  # the step in flight (0: none)
         # what the scheduler spent its ticks on
         self.tick_stats = {"bursts": 0, "burst_ticks": 0, "single_ticks": 0,
                            "admit_chunks": 0, "batch_admits": 0,
@@ -369,7 +381,8 @@ class ServingEngine:
             stop_token_ids=tuple(int(t) for t in stop_token_ids),
             on_token=on_token, request_id=next(self._ids), gcfg=gcfg,
             logprobs=None if logprobs is None else int(logprobs),
-            submit_t=time.perf_counter())
+            submit_t=time.perf_counter(), trace_id=next(tracing.REQUESTS))
+        req.phase_t = req.submit_t
         self.queue.append(req)
         return req
 
@@ -390,7 +403,7 @@ class ServingEngine:
         already finished."""
         if req.finished:
             return False
-        done = False
+        done, phase = False, tracing.REQ_QUEUED
         try:  # still queued (or requeued by preemption)
             self.queue.remove(req)
             done = True
@@ -398,6 +411,7 @@ class ServingEngine:
             pass
         if not done and self._pending is not None \
                 and self.slots[self._pending[0]].request is req:
+            phase = tracing.REQ_ADMIT
             # in-flight chunked admission: only prefill work is lost
             slot_idx = self._pending[0]
             self._pending = None
@@ -411,6 +425,7 @@ class ServingEngine:
         if not done:
             for i, slot in enumerate(self.slots):
                 if slot.request is req:  # active: free the slot mid-stream
+                    phase = None
                     slot.request = None
                     slot.length = 0
                     if self.paged:
@@ -422,8 +437,17 @@ class ServingEngine:
         req.finished = True
         req.finish_reason = reason
         req.done_t = time.perf_counter()
+        if phase is not None:
+            self._phase(req, phase, req.done_t)
         self.done.append(req)
         return True
+
+    def _phase(self, req: Request, name: int, t: float):
+        """End ``req``'s current phase at ``t`` (host seconds) as a span
+        ``name`` under the step in flight; the next phase starts there."""
+        tracing.record(name, tracing.ns(req.phase_t), tracing.ns(t),
+                       self._step_span, req.trace_id)
+        req.phase_t = t
 
     # -- scheduler core --------------------------------------------------------
     @torch.inference_mode()
@@ -431,7 +455,20 @@ class ServingEngine:
         """One scheduler tick: advance at most one admission prefill chunk,
         then one batched decode step (or a burst) for every active slot.
         Page-pool exhaustion applies backpressure: admission waits, decode
-        growth preempts (the preempted request resumes with its progress)."""
+        growth preempts (the preempted request resumes with its progress).
+        A ``serve.step`` span counts the chunks and the batch-admitted
+        requests it ran."""
+        ts = self.tick_stats
+        chunks, batched = ts["admit_chunks"], ts["batch_admit_reqs"]
+        self._step_span = span = tracing.begin(tracing.STEP)
+        try:
+            self._schedule()
+        finally:
+            self._step_span = 0
+            tracing.end(span, ts["admit_chunks"] - chunks,
+                        ts["batch_admit_reqs"] - batched)
+
+    def _schedule(self):
         if self._pending is not None:
             self._admit_chunk()
         while (self._pending is None and self.queue
@@ -510,6 +547,7 @@ class ServingEngine:
             if s.active and self._hist_dirty[i]:
                 self._refresh_hist(i)
         active0 = [s.active for s in self.slots]
+        span = tracing.begin(tracing.DECODE)
         if self.graphs is not None:
             def build():
                 t = SpecTick(self)
@@ -523,8 +561,11 @@ class ServingEngine:
             tick = SpecTick(self)
             tick.load(self)
             tick.body()
+        wait = tracing.begin(tracing.SYNC)
         seq = tick.seq.cpu().numpy()                       # [B, K+1]
         emitted = tick.emitted.cpu().numpy()
+        tracing.end(wait)
+        emit = tracing.begin(tracing.EMIT)
         self._in_spec = True
         try:
             for i, slot in enumerate(self.slots):
@@ -539,6 +580,8 @@ class ServingEngine:
                     self._spec_stats["tokens"] += 1
         finally:
             self._in_spec = False
+        tracing.end(emit)
+        tracing.end(span, 1, sum(active0))
         self._spec_stats["ticks"] += 1
         self.tick_stats["spec_ticks"] += 1
 
@@ -615,19 +658,24 @@ class ServingEngine:
         for _ in range(k):
             self.graphs.run(step)
         t = step.state
+        wait = tracing.begin(tracing.SYNC)
+        seq = t.seq[:k].cpu().numpy()
+        tracing.end(wait)
         lps = None if lp_k is None else _host_lp(t.lp[:k], t.top_i[:k],
                                                  t.top_lp[:k])
-        return t.seq[:k].cpu().numpy(), lps
+        return seq, lps
 
     def _decode_burst(self, k: int):
         """K decode+sample ticks issued back to back with no host sync; the
         [K, B] tokens (and logprobs) are fetched once, then emitted in
         order (a slot that stopped mid-burst discards its overshoot)."""
         active0 = [s.active for s in self.slots]
+        span = tracing.begin(tracing.DECODE)
         if self.graphs is not None:
             seq, lps = self._tick_graph(k)
         else:
             seq, lps = self._eager_burst(k)
+        emit = tracing.begin(tracing.EMIT)
         for t in range(k):
             for i, slot in enumerate(self.slots):
                 if active0[i] and slot.active:
@@ -635,6 +683,8 @@ class ServingEngine:
                     self._emit(i, int(seq[t, i]),
                                *(() if lps is None else
                                  (lps[0][t, i], lps[1][t][i])))
+        tracing.end(emit)
+        tracing.end(span, k, sum(active0))
 
     def _eager_burst(self, k: int):
         keep_mask = torch.as_tensor(self._keep_mask(), device=self.device)
@@ -661,7 +711,9 @@ class ServingEngine:
                 keep_mask, torch.cat([last[:, 1:], toks[:, None]], 1), -1)
             lengths = lengths + 1
             seq.append(tok)
+        wait = tracing.begin(tracing.SYNC)
         seq = torch.stack(seq).cpu().numpy()                   # [K, B]
+        tracing.end(wait)
         if lp_k is None:
             return seq, None
         return seq, _host_lp(*(torch.stack(a) for a in zip(*lps)))
@@ -691,16 +743,21 @@ class ServingEngine:
                             "paged KV pool exhausted with one sequence")
                     self._preempt(victim)
                 self._add_page(i, self.allocator.alloc(1)[0])
+        active0 = [s.active for s in self.slots]
+        span = tracing.begin(tracing.DECODE)
         if self._per_row and self.graphs is not None:
             seq, lps = self._tick_graph(1)
         else:
             seq, lps = self._eager_tick()
+        emit = tracing.begin(tracing.EMIT)
         for i, slot in enumerate(self.slots):
             if slot.active:
                 slot.length += 1
                 self._emit(i, int(seq[0, i]),
                            *(() if lps is None else
                              (lps[0][0, i], lps[1][0][i])))
+        tracing.end(emit)
+        tracing.end(span, 1, sum(active0))
 
     def _eager_tick(self):
         toks = torch.as_tensor(self._next_tok, device=self.device)
@@ -718,10 +775,13 @@ class ServingEngine:
         else:
             tok, self._state = sampling.sample(logits, self._state,
                                                self.gcfg, last)
+        wait = tracing.begin(tracing.SYNC)
+        seq = tok.cpu().numpy()[None]
+        tracing.end(wait)
         lp_k = self._lp_k()
         lps = None if lp_k is None else _host_lp(
             *(a[None] for a in _token_logprobs(logits, tok, lp_k)))
-        return tok.cpu().numpy()[None], lps
+        return seq, lps
 
     def _cancel_admission(self):
         """Abort the in-flight chunked admission: requeue its request at
@@ -735,6 +795,7 @@ class ServingEngine:
         if self.paged:
             self.allocator.free(self._slot_pages[slot_idx])
             self._slot_pages[slot_idx] = []
+        self._phase(req, tracing.REQ_ADMIT, time.perf_counter())
         self.queue.appendleft(req)
 
     def _preempt(self, slot_idx: int):
@@ -756,6 +817,7 @@ class ServingEngine:
         slot.length = 0
         if self.paged:
             self._release_pages(slot_idx)
+        req.phase_t = time.perf_counter()  # requeued: queued from here
         self.queue.appendleft(req)
 
     def _free_slot(self) -> Optional[int]:
@@ -792,11 +854,14 @@ class ServingEngine:
         and R first-token samples. Per request this is the same math as
         the single path. It stores no prefix (as in the JAX package: the
         store copies scratch row 0 of a single admission)."""
+        span = tracing.begin(tracing.ADMIT_BATCH)
+        taken = time.perf_counter()
         slots = []
         for req in reqs:
             self.queue.remove(req)
             slots.append(self._free_slot())
             self.slots[slots[-1]].request = req
+            self._phase(req, tracing.REQ_QUEUED, taken)
         n_rows = len(reqs)
         self.tick_stats["batch_admits"] += 1
         self.tick_stats["batch_admit_reqs"] += n_rows
@@ -829,11 +894,15 @@ class ServingEngine:
         tok, lps = self._first_tokens(logits, slots, reqs, rcfgs)
         self._multi_scratch[n_rows] = scratch
         now = time.perf_counter()
+        emit = tracing.begin(tracing.EMIT)
         for r, (slot_idx, req) in enumerate(zip(slots, reqs)):
             req.first_token_t = now
+            self._phase(req, tracing.REQ_ADMIT, now)
             self._emit(slot_idx, int(tok[r]),
                        *(() if lps is None else (lps[0][0, r],
                                                  lps[1][0][r])))
+        tracing.end(emit)
+        tracing.end(span, n_rows * bucket, int(true_lens.sum()))
 
     def _begin_admission(self, slot_idx: int, req: Request):
         """Reserve a slot (and, paged, the prefill's pages, up front: decode
@@ -849,6 +918,7 @@ class ServingEngine:
         slot = self.slots[slot_idx]
         slot.request = req
         slot.admitting = True
+        self._phase(req, tracing.REQ_QUEUED, time.perf_counter())
         if self.paged:
             n_pg = self.allocator.pages_needed(min(_bucket(n), self.max_len))
             self._slot_pages[slot_idx] = self.allocator.alloc(n_pg)
@@ -949,16 +1019,18 @@ class ServingEngine:
         slot_idx, done = self._pending
         self.tick_stats["admit_chunks"] += 1
         req = self.slots[slot_idx].request
+        span = tracing.begin(tracing.ADMIT_CHUNK, req.trace_id)
         n = len(req.prompt_ids)
         take = min(self.admission_chunk, n - done)
         if done + take >= n:
             self._pending = None
             self._finish_admission(slot_idx, req, done, take)
-            return
-        self._prefill_engine.prefill(req.prompt_ids[None, done:done + take],
-                                     self._scratch, start=done,
-                                     input_embeds=_chunk(req, done, take))
-        self._pending[1] = done + take
+        else:
+            self._prefill_engine.prefill(
+                req.prompt_ids[None, done:done + take], self._scratch,
+                start=done, input_embeds=_chunk(req, done, take))
+            self._pending[1] = done + take
+        tracing.end(span, prefill_positions(take, Engine.CHUNK), take)
 
     def _admit_host_prep(self, slot_idx: int, req: Request):
         """Host-side bookkeeping of an admission: slot budget, penalty
@@ -1023,10 +1095,13 @@ class ServingEngine:
             _insert_slot(self.cache, self._scratch, slot_idx, insert_bucket)
         tok, lps = self._first_tokens(logits, [slot_idx], [req], [rcfg])
         req.first_token_t = time.perf_counter()
+        self._phase(req, tracing.REQ_ADMIT, req.first_token_t)
         if self._pfx_entries:
             self._maybe_store_prefix(req)
+        emit = tracing.begin(tracing.EMIT)
         self._emit(slot_idx, int(tok[0]),
                    *(() if lps is None else (lps[0][0, 0], lps[1][0][0])))
+        tracing.end(emit)
 
     # -- prefix cache ---------------------------------------------------------
     def _prefix_match(self, prompt: np.ndarray):
@@ -1093,11 +1168,14 @@ class ServingEngine:
             self._row_params.set_rows(idx, rp)
             self._keys[idx] = keys
             self._mu[idx] = mu
+        wait = tracing.begin(tracing.SYNC)
+        toks = tok.cpu().numpy()
+        tracing.end(wait)
         lps = None
         if any(r.logprobs is not None for r in reqs):
             lps = _host_lp(*(a[None] for a in _token_logprobs(
                 logits, tok, self.logprobs_k)))
-        return tok.cpu().numpy(), lps
+        return toks, lps
 
     # -- per-tick helpers -----------------------------------------------------
     def _kv(self):

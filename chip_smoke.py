@@ -253,7 +253,8 @@ prompt chunks and the decode step of ``generate_device`` replay graphs
 (TTFT and the 2048-token prefill replay their prompt graphs, each timed
 once captured), and an eager Engine (``cuda_graphs=False``) on the same
 weights must choose the same greedy token at every step; phase 4 also
-times the eager loop's decode rate. ``decode_profile`` replays the
+times the eager loop's decode rate (over ``EAGER_RATE_TOKENS``-token
+trials). ``decode_profile`` replays the
 captured step: its device ms by CUDA events and by kernel, busy share and
 graph nodes a step. The serving phases replay the captured tick (bursts
 and single ticks; admission stays eager); phase 6b runs each server again
@@ -261,7 +262,9 @@ with ``cuda_graphs=False`` and needs identical tokens, dense and paged.
 Launch counts and plain-version counts are per replay
 (``_build.record_launches``), so every exact count keeps its meaning.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+The line before the last is ``{"kernels": [...]}`` (``int4_matmul``'s row
+adds the tile route's launches by token-tile width in phase 3, which must
+run each width, and in the timed runs of phases 5 and 11); the last line is
 ``{"ok": true, "device": {...}}``. ``--kernels-only`` stops after phase 3.
 Each phase prints its seconds.
 """
@@ -514,6 +517,12 @@ def int4_cases(gen, add, name, k, n, a8_rows, w4_rows, label=""):
     torch.cuda.empty_cache()
 
 
+# starcoder_15.5b's linears: (K, N)
+STARCODER_LINEARS = {"c_attn": (6144, 6400), "c_proj": (6144, 6144),
+                     "fc_in": (6144, 24576), "fc_out": (24576, 6144),
+                     "lm_head": (6144, 49152)}
+
+
 def check_kernels(gen):
     """Phase 3: every kernel against its plain version at the main path's
     shapes, timed. Returns one row per case."""
@@ -537,6 +546,16 @@ def check_kernels(gen):
         w4 = {"lm_head": (1,), "gate_up": (2048, 512, 64, 1),
               "down": (2048, 64, 1)}.get(name, (2048, 1))
         int4_cases(gen, add, name, k, n, a8_rows, w4)
+    # the tile route at StarCoder-15.5B W4A16's widths: the five linears
+    # of a 16-row decode tick (16 paged slots with FUSED_DECODE off; K
+    # split 4 at c_attn, c_proj and fc_out) and the layer's four at a
+    # 512-row admission chunk (two 256-row tiles); the 32- and 128-row
+    # tiles at a ragged 24-row tick and a 100-row batch
+    for name, (k, n) in STARCODER_LINEARS.items():
+        w4 = (16,) if name == "lm_head" else (16, 512)
+        int4_cases(gen, add, name, k, n, (),
+                   w4 + {"c_attn": (24,), "fc_out": (100,)}.get(name, ()),
+                   label="starcoder ")
 
     # ---- attention over a 32-layer stacked cache (B=1, Hkv=8, S=2048)
     # (and StarCoder's MQA: 48 query heads on one KV head, 6 blocks a row)
@@ -1748,6 +1767,7 @@ def greedy_config(n_predict):
 
 
 DECODE_TRIALS = 3  # decode_rate's trials: each time is their median
+EAGER_RATE_TOKENS = 64  # phase 4's eager decode rate: tokens a trial
 
 
 def decode_rate(eng, prompt, gcfg, n_predict, sync):
@@ -1834,13 +1854,12 @@ def _engine_run(cfg, dev, long_len, model_params, n_predict, eager_rate):
     # step (and, for phase 4, its decode rate beside the graphs')
     eager = Engine(params, cfg, qcfg, batch=1, max_len=long_len, device=dev,
                    cuda_graphs=False)
-    if eager_rate:
+    if eager_rate:  # over EAGER_RATE_TOKENS (the loop runs ~25 tok/s)
         eager.generate_device(prompt, gcfg, n_tokens=2)
-        eager_tok_s, eager_toks, _, _ = decode_rate(eager, prompt, gcfg,
-                                                    n_predict, sync)
-    else:
-        eager_toks = eager.generate_device(prompt, gcfg,
-                                           n_tokens=n_predict).cpu()
+        eager_tok_s = decode_rate(eager, prompt, gcfg, EAGER_RATE_TOKENS,
+                                  sync)[0]
+    eager_toks = eager.generate_device(prompt, gcfg,
+                                       n_tokens=n_predict).cpu()
     del eager
     same = next((i for i, (a, b) in enumerate(
         zip(toks[0].tolist(), eager_toks[0].tolist())) if a != b), None)
@@ -2358,8 +2377,9 @@ def timed_run(srv, submit, dev, warmup=None):
     """Drain the requests ``warmup()`` queues (untimed), then those
     ``submit()`` queues, through ``srv``, the second from zeroed tick
     counters and launch counts: wall clock, tokens/s, TTFT p50 / p95
-    (first token - submit), decode ticks, the tick mix, kernel launches,
-    and the plain-version calls of both (the warm-up captures the ticks
+    (first token - submit), decode ticks, the tick mix, kernel launches
+    (and the tile route's by token-tile width), and the plain-version
+    calls of both (the warm-up captures the ticks
     that the timed run replays). Returns (requests, metrics)."""
     from tinychatengine_tpu_torch.ops import _build
     sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
@@ -2378,6 +2398,7 @@ def timed_run(srv, submit, dev, warmup=None):
         sync()
         wall = time.perf_counter() - t0
         launches = dict(_build.LAUNCHES)
+        tile = dict(_build.TILE_LAUNCHES)
     ttft = sorted(r.first_token_t - r.submit_t for r in reqs)
     total = sum(len(r.output_ids) for r in reqs)
     ticks = srv.tick_stats["burst_ticks"] + srv.tick_stats["single_ticks"]
@@ -2385,7 +2406,8 @@ def timed_run(srv, submit, dev, warmup=None):
              ttft_p50_s=ttft[len(ttft) // 2],
              ttft_p95_s=ttft[int(len(ttft) * 0.95)],
              decode_ticks=ticks, tick_stats=dict(srv.tick_stats),
-             launches=launches, plain_calls=dict(plain))
+             launches=launches, tile_launches_by_width=tile,
+             plain_calls=dict(plain))
     if dev == "cuda":
         m["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     return reqs, m
@@ -5610,6 +5632,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from tinychatengine_tpu_torch.ops import _build
+    from tinychatengine_tpu_torch.ops import int4_matmul as im
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5665,6 +5688,11 @@ def main(argv=None) -> int:
     _build.reset_launches()
     cases = phase("kernels", check_kernels, gen)
     kernel_launches = dict(_build.LAUNCHES)
+    tile_widths = {"kernels": dict(_build.TILE_LAUNCHES)}  # by token tile
+    if set(tile_widths["kernels"]) != set(im.TILE_WIDTHS):
+        raise SystemExit("phase 3 ran the tile route at token tiles "
+                         f"{tile_widths['kernels']}, not at each of "
+                         f"{im.TILE_WIDTHS}")
     linears = phase("w8a8 linears", w8a8_linear_times, gen)
     if args.kernels_only:
         return 0
@@ -5744,6 +5772,12 @@ def main(argv=None) -> int:
                "flash_decode_int8": long_ctx["int8 dense"],
                "flash_prefill_int8": long_ctx["int8 dense"],
                "flash_decode_paged_int8": long_ctx["int8 paged"]}
+    tile_widths.update({f"{model} serving {mode}": run[mode]
+                        ["tile_launches_by_width"]
+                        for model, run in (("llama3_8b w4a8", serving),
+                                           ("starcoder_15.5b w4a16",
+                                            sc_serving))
+                        for mode in ("dense", "paged")})
     rows = []
     for name in _build.KERNELS:
         source, replaces, case = SUMMARY[name]
@@ -5761,7 +5795,9 @@ def main(argv=None) -> int:
             max_abs_err=max(c["max_abs_err"] for c in mine), case=row["case"],
             ms=row["ms"], eager_ms=row["eager_ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], library_ms=row["library_ms"]))
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            **({"tile_launches_by_width": tile_widths}
+               if name == "int4_matmul" else {})))
     engine_runs = [("llama3_8b w4a8", metrics),
                    ("llama3_8b w4a8 int8 KV", kv8[2]),
                    ("llama3_8b w4a16 K-outer", kouter["run"][2]),

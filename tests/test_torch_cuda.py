@@ -828,17 +828,21 @@ def test_split_decode_scalar_equals_tensor_lengths(cuda, int8):
             q, pk, pv, 0, lens, table, pks, pvs))
 
 
+@pytest.mark.parametrize("n", [392, 400])
 @pytest.mark.parametrize("g", [32, 128])
 @pytest.mark.parametrize("scale_dtype", ["bf16", "f32"])
-@pytest.mark.parametrize("m", [1, 8, 9, 64, 65, 130, 497])
-def test_int4_matmul_routes_match_plain(cuda, m, scale_dtype, g):
+@pytest.mark.parametrize("m", [1, 8, 9, 16, 17, 64, 65, 130, 256, 497, 512])
+def test_int4_matmul_routes_match_plain(cuda, m, scale_dtype, g, n):
     """Both routes of int4_matmul against the plain version: the band
-    route at M <= 8, the tile route (wgmma) from 9 rows; K = 1280 (five
-    superblocks: ten pipeline stages, the 4-stage ring wraps) and
-    N = 392 (not a multiple of 128: the last tile's columns are masked);
-    stacked layers 0 and last (a pointer offset), and one unstacked."""
+    route at M <= 8, the tile route (wgmma) from 9 rows, at every token
+    tile (16 to 256 rows, two 256-row tiles from 257); K = 1280 (five
+    superblocks: ten stages, split over a cluster of four blocks) and
+    N = 392 or 400 (not a multiple of 128: the last tile's columns are
+    masked; 392 is not a multiple of 16 either, so the tile route copies
+    its weights and scales 4 bytes at a time, 400 takes TMA); stacked
+    layers 0 and last (a pointer offset), and one unstacked."""
     rng = np.random.default_rng(m + g)
-    k, n, layers = 1280, 392, 3
+    k, layers = 1280, 3
     lins = [quantized_linear(rng.standard_normal((n, k)).astype(np.float32)
                              * 0.02, g, scale_dtype) for _ in range(layers)]
     packed = torch.stack([p.packed for p in lins]).to(cuda)
@@ -856,11 +860,13 @@ def test_int4_matmul_routes_match_plain(cuda, m, scale_dtype, g):
 
 
 @pytest.mark.parametrize("m,rows", [(8, (1, 2, 7)),
-                                    (497, (9, 64, 65, 130, 200))])
+                                    (497, (9, 64, 65, 130, 200)),
+                                    (512, (16, 256, 257))])
 def test_int4_matmul_rows_are_independent(cuda, m, rows):
     """Within a route an output row's bits depend on its x row alone:
     int4_matmul(x)[:r] equals int4_matmul(x[:r]) bit for bit (band route
-    from 8 rows, tile route from 497)."""
+    from 8 rows, tile route from 497 and 512: token tiles of 16 to 256
+    rows, one or two 256-row tiles, against each other)."""
     rng = np.random.default_rng(m)
     packed, scales = _int4_stack(rng, 1024, 640, "bf16", cuda)
     x = _bf16(rng, (m, 1024), cuda)
@@ -870,6 +876,52 @@ def test_int4_matmul_rows_are_independent(cuda, m, rows):
             == im.int4_route(m, 1024, 640, True)[0]
         part = im.int4_matmul(x[:r], packed, scales, 128, layer_idx=1)
         assert torch.equal(part, full[:r]), r
+
+
+@pytest.mark.parametrize("m,k,n,scale_dtype",
+                         [(16, 24576, 6144, "bf16"), (100, 4096, 6160, "f32")])
+def test_int4_matmul_tile_route_wide_shapes(cuda, m, k, n, scale_dtype):
+    """The tile route at StarCoder's fc_out (a 16-row decode tick: K split
+    over a 4-block cluster, 192 stages) and at N = 6160 (a multiple of 16,
+    not of 64: the last block's 128 columns hold 16), against the plain
+    version, stacked at the last layer and unstacked."""
+    gen = torch.Generator(device=cuda).manual_seed(m + n)
+    packed = torch.randint(0, 256, (2, k // 2, n), dtype=torch.uint8,
+                           device=cuda, generator=gen)
+    scales = (torch.rand((2, k // 128, n), device=cuda, generator=gen)
+              * 0.02 + 0.005).to(getattr(torch, {"bf16": "bfloat16",
+                                                  "f32": "float32"}[scale_dtype]))
+    x = torch.randn((m, k), device=cuda, generator=gen).to(torch.bfloat16)
+    assert im.int4_route(m, k, n, True)[0] == "tile"
+    _build.reset_launches()
+    got = im.int4_matmul(x, packed, scales, 128, layer_idx=1)
+    assert _mat_ok(got, im.int4_matmul_plain(x, packed, scales, 128,
+                                             layer_idx=1))
+    got = im.int4_matmul(x, packed[1], scales[1], 128)
+    assert _mat_ok(got, im.int4_matmul_plain(x, packed[1], scales[1], 128))
+    assert _build.TILE_LAUNCHES == {im.tile_width(m): 2}
+
+
+@pytest.mark.parametrize("m", [16, 512])
+def test_int4_matmul_tile_route_replays_in_a_graph(cuda, m):
+    """The tile route captured in a CUDA graph (no host sync, no
+    allocation in the kernel) replays its eager result bit for bit, with
+    the input rewritten between replays."""
+    rng = np.random.default_rng(m)
+    packed, scales = _int4_stack(rng, 1280, 392, "bf16", cuda)
+    xs = [_bf16(rng, (m, 1280), cuda) for _ in range(2)]
+    want = [im.int4_matmul(x, packed, scales, 128, layer_idx=1) for x in xs]
+    x = xs[0].clone()
+    im.int4_matmul(x, packed, scales, 128, layer_idx=1)  # warm, eager
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        y = im.int4_matmul(x, packed, scales, 128, layer_idx=1)
+    for i in (0, 1, 0):
+        x.copy_(xs[i])
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, want[i]), i
 
 
 @pytest.mark.parametrize("m", [1, 8])

@@ -222,9 +222,60 @@ def test_int4_matmul_route_choice(monkeypatch, stacked):
             assert per * bands >= nsb > per * (bands - 1)
             assert bands == nsb or -(-n // 128) * bands >= 264
         for m in (9, 64, 65, 130, 497, 2048):
-            assert tim.int4_route(m, kw, n, stacked) == ("tile", None)
+            assert tim.int4_route(m, kw, n, stacked) == (
+                "tile", (tim.tile_width(m), tim.tile_split(kw, n)))
     monkeypatch.setattr(tim, "DECODE_KOUTER", {(4096, 28672): (2048, 1024)})
     for m in (1, 8, 9, 496):
         assert tim.int4_route(m, 4096, 28672, stacked)[0] == (
             "kouter" if stacked else "band" if m <= 8 else "tile")
-    assert tim.int4_route(497, 4096, 28672, stacked) == ("tile", None)
+    assert tim.int4_route(497, 4096, 28672, stacked) == ("tile", (256, 1))
+
+
+# StarCoder-15.5B's linears (packed K, N) and the tile route's K split
+STARCODER_SPLITS = {"c_attn": ((6144, 6400), 4), "c_proj": ((6144, 6144), 4),
+                    "fc_in": ((6144, 24576), 1), "fc_out": ((24576, 6144), 4),
+                    "lm_head": ((6144, 49152), 1)}
+
+
+@pytest.mark.parametrize("name", list(STARCODER_SPLITS))
+def test_int4_matmul_tile_geometry(name):
+    """The tile route's launch geometry, from the shape alone: the token
+    tile is the smallest of 16 / 32 / 64 / 128 / 256 rows that holds M
+    (256-row tiles above), the K split comes from K and N alone (the same
+    at every M; a power of two, one cluster of at most 8 blocks, at least
+    two 128-k stages a block, at most about two blocks an SM over the
+    column tiles)."""
+    widths = {9: 16, 16: 16, 17: 32, 33: 64, 64: 64, 65: 128, 128: 128,
+              129: 256, 256: 256, 257: 256, 512: 256}
+    assert {m: tim.tile_width(m) for m in widths} == widths
+    (kw, n), split = STARCODER_SPLITS[name]
+    assert tim.tile_split(kw, n) == split
+    tiles = -(-n // tim.TILE_COLS)
+    assert split & (split - 1) == 0
+    assert split == 1 or split * tiles <= 264 < 2 * split * tiles
+    for m in (9, 16, 64, 256, 257, 512):
+        assert tim.int4_route(m, kw, n, True) == ("tile",
+                                                  (widths[m], split))
+    assert tim.tile_split(4096, 28672) == 1  # gate_up: 224 column tiles
+    assert tim.tile_split(256, 392) == 1  # two stages: no split
+    assert tim.tile_split(1280, 392) == 4  # 2-3 stages a block
+    assert tim.tile_split(4096, 4096) == 8  # llama3_8b's wo: one full cluster
+
+
+def test_int4_matmul_tile_width_counter():
+    """The tile route's launches by token-tile width sit beside LAUNCHES:
+    reset with it, and a captured graph adds its body's widths at every
+    replay; a counter registered while a graph is captured leaves it
+    registered, also when both are empty (equal dicts)."""
+    _build.reset_launches()
+    with _build.counting({}):
+        with _build.record_launches() as delta:
+            tim._count_tile(16)
+    assert _build.TILE_LAUNCHES == {}
+    assert any(c is _build.TILE_LAUNCHES for c in _build.COUNTERS)
+    delta.add()
+    delta.add()
+    tim._count_tile(256)
+    assert _build.TILE_LAUNCHES == {16: 2, 256: 1}
+    _build.reset_launches()
+    assert _build.TILE_LAUNCHES == {}

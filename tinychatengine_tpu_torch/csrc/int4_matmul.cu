@@ -10,7 +10,8 @@
 // the wrapper computes, so no per-layer copy is made.
 //
 // Two routes; the wrapper's ``int4_route`` picks one from M alone and
-// passes it as ``bands`` (0 for the tile route):
+// passes it as ``bands`` (negative for the tile route: minus its token
+// tile):
 //
 // M <= 8, the band route: memory-bound (the N * K / 2 weight bytes over
 // 3.35 TB/s; a weight byte feeds at most 16 multiply-adds). The split-K
@@ -22,32 +23,71 @@
 // bytes) is one layer at offset 0. The TPU kernel's cast point: the exact
 // codes, times the f32 scale once per 16 rows.
 //
-// M >= 9, the tile route: bound by operations (2 * M * N * K) from some
-// hundred rows up. Hopper tensor cores: a 128 x 128 output tile per block,
-// two consumer warpgroups of 64 rows each issuing wgmma.mma_async
-// m64n128k16 (bf16 x bf16 -> f32 in registers) and a producer warp that
-// brings x in by TMA (128-byte swizzle; rows past M are zero-filled) into a
-// ring of 4 stages guarded by mbarriers. A stage is 64 packed byte rows:
-// superblock s, half h, holding both nibble planes, k = 256 s + 64 h + i
-// (low) and k + 128 (high). Each byte is read from device memory once per
-// block (the first version read it once per plane), straight into
-// registers a stage ahead, and the 256 consumer threads dequantize it into
-// two bf16 B tiles ([128 n][64 k], K-major, written in the swizzled layout
-// that wgmma reads), double-buffered so that the tensor cores run stage i
-// while the CUDA cores dequantize stage i + 1. The B operand is
-// bf16((q - 8) * d) in f32, the plain version's cast point
-// (int4_matmul_xla): one accumulator set, the dequantization spread over
-// the tile's 128 rows. The TPU kernel's per-group fold (exact codes, then
-// (dot - 8 sum x) * d once per group) would need a second accumulator set
-// and a wgmma wait per group, halving the tile and stalling the pipe. A
-// 128 x 256 tile (m64n256k16) was tried and dropped: at the 168 registers
-// a thread of this block gets, its 128 accumulators spilled and it ran
-// slower than 128 x 128 at every shape timed.
+// M >= 9, the tile route: wgmma with the weights as the register-fed A
+// operand. The product is computed transposed, y^T = W^T x^T: a block owns
+// 128 weight columns, two consumer warpgroups of 64 (wgmma's m64), and a
+// token tile of T rows of x as wgmma's n (T = 16, 32, 64, 128 or 256, the
+// smallest that holds M, 256-row tiles above; the wrapper's
+// ``tile_width`` chooses it and passes it, so the launch counter and the
+// launch read one choice), so a 16-row decode tick computes 16 rows, not
+// 128, and a 512-row chunk dequantizes each weight once per 256 rows.
+// Each consumer thread dequantizes its packed bytes from shared memory
+// straight into wgmma.mma_async m64nTk16's A fragments (rows 16 w + g and
+// + 8 of a warpgroup are the adjacent columns 2 g and 2 g + 1 of the
+// warp's 16, so a thread reads two bytes of each of its four packed rows
+// of a k16 step, and each byte feeds both nibble planes); x's rows are the
+// B operand, K-major from shared memory. One producer warp keeps a ring
+// of stages in flight, each 64 packed rows (k: 64 low, 64 high) of the
+// block's 128 columns, the stage's scale rows and x's two [T][64] tiles,
+// all by TMA (128-byte swizzle for the weights and x, so a warp's loads
+// hit 32 distinct banks; rows past M and columns past N zero-filled) on one
+// mbarrier; where N % 16 != 0 (a row stride TMA cannot take) the weights
+// and scales come by 4-byte cp.async into the same layout. The consumers
+// only wait, dequantize and issue wgmma, one k16 step of both planes (8
+// A registers) at a time, double-buffered so the tensor cores run step j
+// while the CUDA cores dequantize step j + 1 (the A registers are fenced
+// before each wgmma.fence, else ptxas serializes every product, C7513);
+// no barrier spans the two warpgroups inside a stage (each warp gives its
+// slot back once its products of the slot are done). The ring is as deep
+// as fits: 7 stages at T = 16, two blocks an SM up to T = 64, one above.
+// setmaxnreg gives the consumers 232 registers (104 at two blocks an SM)
+// for the 128 accumulators of a 256-row tile.
+//
+// To fill the card at decode widths (StarCoder's c_proj, fc_out and
+// c_attn have 48-50 column tiles) K is split over a power of two, up to 8,
+// of blocks of one cluster (the wrapper's ``tile_split``: from K and N
+// alone, never from M, so it applies at every M of the route: 4 at those
+// three, which a 512-row chunk pays for; none at fc_in and the lm_head);
+// each block leaves its f32 sums in its shared memory and, after a
+// cluster barrier, sums a share of the tile over the cluster's blocks in
+// K order (distributed shared memory) and rounds to bf16, in one launch
+// with no scratch in device memory.
+//
+// Cast point, the plain version's (int4_matmul_xla): A = bf16((q - 8) * d)
+// with f32 sums. With bf16 scales, 128 + q is built as a bf16 by a mask
+// and an or, q - 8 is exact in bf16 and its product with the scale exact
+// in f32, so one bf16x2 fma (the subtraction) and one bf16x2 multiply
+// give exactly bf16((q - 8) * d); with f32 scales the product is taken
+// in f32 and rounded once, as before.
+//
+// Bounds on the H100: at 16 rows the weight and scale bytes over 3.35
+// TB/s (StarCoder's fc_out, 77.9 MB: 0.0232 ms); dequantization costs
+// about four instructions per A register (two weights), which 16
+// consumer warps an SM issue at about twice the byte rate, but each k16
+// step waits for the previous step's products, and at 16 rows that
+// latency, not the issue rate, holds the kernel: fc_out runs 0.0545 ms
+// where the ring alone streams its bytes in 0.045 (PERF.md). At 512 rows
+// the operations (2 M N K over 989 TFLOP/s; gate_up 0.122 ms): per stage
+// a 256-row tile runs 8 m64n256k16 products a warpgroup against ~150
+// instructions of dequantization, and x streams from L2 at ~32 bytes a
+// cycle an SM; gate_up runs 0.21 ms.
 //
 // Determinism, within a route only: an output row's bits depend on its x
 // row (and the weights) alone, not on M, on the tile the row falls in or on
-// the other rows: rows never mix in the tile route's accumulators, and the
-// band route's partition depends on K and N only. The two routes compute
+// the other rows: rows never mix in wgmma (a row is a column of B), the
+// dequantized weights and the k order do not depend on T, and the K split
+// depends on K and N only, its band sums added in K order; the band
+// route's partition depends on K and N only. The two routes compute
 // at different cast points, so a row's bits change where M crosses from 8
 // to 9. The chunked prefills that must give the same tokens with and
 // without a prefix-cache hit rely on this within a route; a hit whose
@@ -56,24 +96,83 @@
 
 #include <cuda.h>
 
+#include <cooperative_groups.h>
+
 #include "int4_band.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int BM = 128, BN = 128;  // output tile
-constexpr int BK = 64;             // k of one bf16 B tile (one nibble plane)
-constexpr int STAGES = 4;
-constexpr int CONSUMERS = 256;     // two warpgroups
-constexpr int THREADS = CONSUMERS + 32;  // + the producer's warp
+constexpr int BN = 128;        // weight columns a block: two warpgroups of 64
+constexpr int ROWS = 64;       // packed rows a stage (64 low-plane k, 64 high)
+constexpr int CONSUMERS = 256;  // two warpgroups
+// + the producer's warpgroup: one warp copies, all four give registers
+// back (setmaxnreg) to the consumers' accumulators
+constexpr int THREADS = CONSUMERS + 128;
+constexpr int MAX_SPLIT = 8;   // the portable cluster size
+constexpr int PSTRIDE = BN + 4;  // floats in a row of the block's f32 sums
 
-struct alignas(1024) TileSmem {
-  // x tiles [stage][plane][128 rows][64 k], 128-byte swizzle (TMA)
-  __nv_bfloat16 a[STAGES][2][BM * BK];
-  // dequantized weights [buffer][plane][128 n][64 k], the same swizzle
-  __nv_bfloat16 b[2][2][BN * BK];
-  uint64_t full[STAGES], empty[STAGES];
+// by token-tile width T: the ring's depth (as many stages as fit in about
+// 110 KB, two blocks an SM, up to T = 64; in 227 KB, one block, above) and
+// the registers of a consumer and a producer thread after setmaxnreg (a
+// consumer holds T / 2 accumulators and two k16 steps' 16 A registers)
+template <int T>
+struct Cfg {
+  static constexpr int STAGES =
+      T == 16 ? 7 : T == 32 ? 6 : T == 64 ? 4 : T == 128 ? 5 : 3;
+  static constexpr int MIN_BLOCKS = T <= 64 ? 2 : 1;
+  static constexpr int CONSUMER_REGS = T <= 64 ? 104 : 232;
+  static constexpr int PRODUCER_REGS = T <= 64 ? 32 : 40;
+  // a thread's registers at launch (the launch bound's share, in units of
+  // 8); setmaxnreg moves registers only inside a block, so what the two
+  // consumer warpgroups gain the producer warpgroup must give up, or the
+  // second consumer warpgroup waits for ever
+  static constexpr int LAUNCH_REGS = 65536 / (THREADS * MIN_BLOCKS) / 8 * 8;
+  static_assert(2 * (CONSUMER_REGS - LAUNCH_REGS) <=
+                    LAUNCH_REGS - PRODUCER_REGS,
+                "the consumers' registers come from the producer's");
 };
-constexpr int SMEM_BYTES = sizeof(TileSmem) + 1024;  // + base alignment
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(R));
+}
+
+template <int T>
+struct alignas(1024) Slot {
+  // x rows [plane][T][64 k], 128-byte swizzle (TMA)
+  __nv_bfloat16 x[2][T * 64];
+  // packed rows [64][128 columns]; 16-byte chunk q of row r stored at chunk
+  // q ^ (r % 8) (TMA's 128-byte swizzle)
+  uint8_t w[ROWS * BN];
+  // scales [plane][group row][128 columns], bf16 or f32 (two group rows of
+  // a plane at G = 32, one above)
+  uint8_t sc[2][2 * BN * 4];
+};
+
+// x [M][K] bf16 (boxes of 64 k by T rows); where N % 16 == 0 also the
+// layer's packed weights [K/2][N] (boxes of 128 columns by 64 rows) and
+// scales [K/G][N] (boxes of 128 columns by a plane's group rows)
+struct Maps {
+  CUtensorMap x, w, s;
+};
+
+template <int T>
+struct Ring {
+  Slot<T> slot[Cfg<T>::STAGES];
+  uint64_t full[Cfg<T>::STAGES], empty[Cfg<T>::STAGES];
+};
+
+template <int T>
+constexpr int smem_bytes() {
+  return (int)sizeof(Ring<T>) + 1024;  // + base alignment
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -85,12 +184,19 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
                : "memory");
 }
 
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
 // waits for the phase of ``parity`` to complete; a pipeline fault that
-// would wait forever traps (a launch error) after some seconds instead
+// would wait for ever traps (a launch error) after two seconds instead
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
   uint32_t done = 0;
-  for (uint32_t spins = 0; !done; ++spins) {
+  uint64_t t0 = 0;
+  for (uint32_t spins = 1; !done; ++spins) {
     asm volatile(
         "{\n .reg .pred p;\n"
         " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
@@ -98,7 +204,11 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "=r"(done)
         : "r"(addr), "r"(parity)
         : "memory");
-    if (spins == (1u << 26)) __trap();
+    if (!done && spins % 1024 == 0) {
+      const uint64_t now = global_ns();
+      if (t0 == 0) t0 = now;
+      else if (now - t0 > 2000000000ull) __trap();
+    }
   }
 }
 
@@ -125,6 +235,29 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// BYTES of src into shared dst; valid < BYTES zero-fills the rest
+template <int BYTES>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         int valid) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+                 "l"(src), "r"(valid)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(dst),
+                 "l"(src), "n"(BYTES), "r"(valid)
+                 : "memory");
+}
+
+// an arrival on bar once this thread's earlier cp.async copies have landed
+// (counted in the barrier's arrival count)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile(
+      "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+          smem_u32(bar))
+      : "memory");
+}
+
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
@@ -135,16 +268,82 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
          (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
 }
 
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+template <int NA>
+__device__ __forceinline__ void fence_acc(float (&d)[NA]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < NA; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d[64 x 128] += A[64 x 16] * B[16 x 128], both K-major in shared memory
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db) {
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// d[64 x T] += A[64 x 16] * B[16 x T]: A from registers (the m16n8k16 A
+// fragment of each warp's 16 rows), B K-major in shared memory
+template <int T>
+__device__ __forceinline__ void wgmma_rs(float (&d)[T / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
   asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15, "
@@ -153,8 +352,8 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
       "%32, %33, %34, %35, %36, %37, %38, %39, "
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -168,187 +367,363 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// four scales of consecutive columns as f32
-__device__ __forceinline__ void load_scales(const __nv_bfloat16* p,
-                                            float (&d)[4]) {
-  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-  d[0] = __uint_as_float(v.x << 16);
-  d[1] = __uint_as_float(v.x & 0xffff0000u);
-  d[2] = __uint_as_float(v.y << 16);
-  d[3] = __uint_as_float(v.y & 0xffff0000u);
-}
-__device__ __forceinline__ void load_scales(const float* p, float (&d)[4]) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-  d[0] = v.x;
-  d[1] = v.y;
-  d[2] = v.z;
-  d[3] = v.w;
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ float pick4(const float (&d)[4], int c) {
-  return c == 0 ? d[0] : c == 1 ? d[1] : c == 2 ? d[2] : d[3];
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b,
+                                         uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
 }
 
-// (code - 8) * d in f32, code in 0..15: 2^23 + code holds the code in its
-// low mantissa bits, so the subtraction is exact
-__device__ __forceinline__ float dequant(uint32_t code, float d) {
-  return __fmul_rn(__fsub_rn(__uint_as_float(0x4B000000u | code), 8388616.f),
-                   d);
+__device__ __forceinline__ uint32_t bf16x2_fma(uint32_t a, uint32_t b,
+                                               uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
+// the codes of bits 0-3 and 16-19 of v as bf16x2 q - 8, exact: the mask
+// and or (one lop3) make 128 + q, the fma subtracts 136
+__device__ __forceinline__ uint32_t codes(uint32_t v) {
+  uint32_t b;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;"
+      : "=r"(b)
+      : "r"(v), "r"(0x000F000Fu), "r"(0x43004300u));
+  return bf16x2_fma(b, 0x3F803F80u, 0xC308C308u);  // b * 1 - 136
 }
 
-// One consumer thread's share of a stage: 4 columns x 8 packed rows, the
-// 32 bytes loaded a stage ahead, and the scales of its low and high plane
-struct StageRegs {
-  uint32_t w[8];
-  float dlo[4], dhi[4];
+// the scales of a thread's columns (cl, cl + 1) for the low and high plane
+template <typename ST>
+struct Scales;
+
+template <>
+struct Scales<__nv_bfloat16> {
+  uint32_t lo[2], hi[2];  // {d, d} bf16x2 of each column
+  __device__ __forceinline__ void load(const uint8_t* lo_row,
+                                       const uint8_t* hi_row, int cl) {
+    const uint32_t l = *reinterpret_cast<const uint32_t*>(lo_row + 2 * cl);
+    const uint32_t h = *reinterpret_cast<const uint32_t*>(hi_row + 2 * cl);
+    lo[0] = prmt(l, l, 0x1010);
+    lo[1] = prmt(l, l, 0x3232);
+    hi[0] = prmt(h, h, 0x1010);
+    hi[1] = prmt(h, h, 0x3232);
+  }
+  // bf16((q - 8) * d): the product is exact, so one rounding (the -0 keeps
+  // a -0 product's sign)
+  __device__ __forceinline__ static uint32_t apply(uint32_t e, uint32_t d) {
+    return bf16x2_fma(e, d, 0x80008000u);
+  }
 };
 
-template <typename ST>
-__device__ __forceinline__ void load_stage(StageRegs& r, int i,
-                                           const uint8_t* __restrict__ w,
-                                           const ST* __restrict__ s, int N,
-                                           int G, int ncol, int j, bool ok) {
-  const int sb = i >> 1, half = i & 1;
-  const int prow = 128 * sb + 64 * half + 8 * j;  // the first packed row
-  const int klo = 256 * sb + 64 * half + 8 * j;   // its low-plane k
-  if (!ok) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) r.w[e] = 0u;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) r.dlo[c] = r.dhi[c] = 0.f;
-    return;
+template <>
+struct Scales<float> {
+  float lo[2], hi[2];
+  __device__ __forceinline__ void load(const uint8_t* lo_row,
+                                       const uint8_t* hi_row, int cl) {
+    const float2 l = *reinterpret_cast<const float2*>(lo_row + 4 * cl);
+    const float2 h = *reinterpret_cast<const float2*>(hi_row + 4 * cl);
+    lo[0] = l.x;
+    lo[1] = l.y;
+    hi[0] = h.x;
+    hi[1] = h.y;
   }
-#pragma unroll
-  for (int e = 0; e < 8; ++e)
-    r.w[e] = __ldg(reinterpret_cast<const uint32_t*>(
-        w + (size_t)(prow + e) * N + ncol));
-  load_scales(s + (size_t)(klo / G) * N + ncol, r.dlo);
-  load_scales(s + (size_t)((klo + 128) / G) * N + ncol, r.dhi);
+  // bf16((q - 8) * d) with the product in f32, rounded once
+  __device__ __forceinline__ static uint32_t apply(uint32_t e, float d) {
+    const float a = __fmul_rn(__uint_as_float(e << 16), d);
+    const float b = __fmul_rn(__uint_as_float(e & 0xFFFF0000u), d);
+    const __nv_bfloat162 p = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&p);
+  }
+};
+
+// A fragments of one k16 step of both planes, a[plane][i]: from the two
+// bytes (columns cl, cl + 1) of packed rows 2t, 2t + 1 (r0, r1) and 2t + 8,
+// 2t + 9 (r8, r9) of the step. Register i holds column cl + (i & 1) at k
+// 2t, 2t + 1 (+ 8 for i >= 2) of the plane, the lower k in its low half.
+template <typename ST>
+__device__ __forceinline__ void dequant(uint32_t (&a)[2][4], uint32_t r0,
+                                        uint32_t r1, uint32_t r8, uint32_t r9,
+                                        const Scales<ST>& d) {
+  // bytes (row, column): (2t, cl), (2t, cl + 1), (2t + 1, cl), (2t + 1, cl + 1)
+  const uint32_t w01 = prmt(r0, r1, 0x5410), w89 = prmt(r8, r9, 0x5410);
+  a[0][0] = Scales<ST>::apply(codes(w01), d.lo[0]);
+  a[1][0] = Scales<ST>::apply(codes(w01 >> 4), d.hi[0]);
+  a[0][1] = Scales<ST>::apply(codes(w01 >> 8), d.lo[1]);
+  a[1][1] = Scales<ST>::apply(codes(w01 >> 12), d.hi[1]);
+  a[0][2] = Scales<ST>::apply(codes(w89), d.lo[0]);
+  a[1][2] = Scales<ST>::apply(codes(w89 >> 4), d.hi[0]);
+  a[0][3] = Scales<ST>::apply(codes(w89 >> 8), d.lo[1]);
+  a[1][3] = Scales<ST>::apply(codes(w89 >> 12), d.hi[1]);
 }
 
-template <typename ST>
-__global__ void __launch_bounds__(THREADS, 1) tile_kernel(
-    const __grid_constant__ CUtensorMap xmap, const uint8_t* __restrict__ w,
+__device__ __forceinline__ uint32_t ld_u16(const uint8_t* p) {
+  return *reinterpret_cast<const uint16_t*>(p);
+}
+
+// The producer warp: stages st0 .. st0 + count - 1 of K into the ring. By
+// TMA where N % 16 == 0 (one thread, the stage's bytes on the barrier's
+// transaction count); else the weights and scales by 4-byte cp.async from
+// every lane (N % 4 == 0; columns past N zero-filled), each lane's copies
+// one arrival, into the same layout.
+template <int T, typename ST>
+__device__ __forceinline__ void produce(Ring<T>& rg, const Maps& maps,
+                                        const uint8_t* __restrict__ w,
+                                        const ST* __restrict__ s, int N,
+                                        int G, int m0, int n0, int st0,
+                                        int count, bool tma) {
+  constexpr int STAGES = Cfg<T>::STAGES;
+  constexpr int SV = 4 * (int)sizeof(ST);  // 4 scale columns a copy
+  const int lane = threadIdx.x % 32;
+  const int g_rows = G == 32 ? 2 : 1;  // group rows of a plane a stage
+  const uint32_t bytes =
+      2 * T * 128 + (tma ? ROWS * BN + 2 * g_rows * BN * (int)sizeof(ST) : 0);
+  for (int it = 0; it < count; ++it) {
+    const int slot = it % STAGES;
+    if (it >= STAGES) mbar_wait(&rg.empty[slot], (it / STAGES - 1) & 1);
+    Slot<T>& sl = rg.slot[slot];
+    uint64_t* full = &rg.full[slot];
+    const int i = st0 + it, sb = i >> 1, h = i & 1;
+    const int k0 = 256 * sb + 64 * h;  // the stage's first low-plane k
+    const int prow = 128 * sb + 64 * h;  // its first packed row
+    if (lane == 0) {
+      mbar_expect_tx(full, bytes);
+      tma_load(sl.x[0], &maps.x, full, k0, m0);
+      tma_load(sl.x[1], &maps.x, full, k0 + 128, m0);
+      if (tma) {
+        tma_load(sl.w, &maps.w, full, n0, prow);
+        tma_load(sl.sc[0], &maps.s, full, n0, k0 / G);
+        tma_load(sl.sc[1], &maps.s, full, n0, (k0 + 128) / G);
+      }
+    }
+    if (tma) continue;
+    const uint8_t* wr = w + (size_t)prow * N + n0;
+    const uint32_t wd = smem_u32(sl.w);
+#pragma unroll 4
+    for (int c = lane; c < ROWS * BN / 4; c += 32) {
+      const int r = c / (BN / 4), b = 4 * (c % (BN / 4));
+      const bool ok = n0 + b < N;
+      cp_async<4>(wd + r * BN + (((b >> 4) ^ (r & 7)) << 4) + (b & 15),
+                  ok ? wr + (size_t)r * N + b : w, ok ? 4 : 0);
+    }
+    const bool s_ok = n0 + 4 * lane < N;
+    for (int p = 0; p < 2; ++p)
+      for (int rr = 0; rr < g_rows; ++rr) {
+        const int row = (k0 + 128 * p) / G + rr;
+        cp_async<SV>(smem_u32(sl.sc[p]) + rr * BN * (int)sizeof(ST) + SV * lane,
+                     s_ok ? s + (size_t)row * N + n0 + 4 * lane : s,
+                     s_ok ? SV : 0);
+      }
+    cp_async_arrive(full);
+  }
+  __syncwarp();
+}
+
+// pins the A fragments' definitions before the next wgmma.fence (else
+// ptxas may sink them past it and serialize the products, C7513)
+__device__ __forceinline__ void fence_a(uint32_t (&a)[2][4]) {
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[p][i])::"memory");
+}
+
+// A consumer warpgroup's share of the block's stages: acc += its 64
+// columns' products over the block's K range, one k16 step of both planes
+// at a time, double-buffered: the CUDA cores dequantize step j + 1 while
+// the tensor cores run step j.
+template <int T, typename ST>
+__device__ __forceinline__ void consume(Ring<T>& rg, float (&acc)[T / 2],
+                                        int G, int count) {
+  constexpr int STAGES = Cfg<T>::STAGES;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int wg = tid / 128, warp = (tid / 32) % 4, g = lane / 4, t = lane % 4;
+  const int cl = 64 * wg + 16 * warp + 2 * g;  // columns cl, cl + 1
+  // (packed rows 2t and 2t + 1, column cl) in a stage; rows 16 j + 2t (+ 8)
+  // swizzle their chunk by 2t, rows 16 j + 2t + 1 (+ 8) by 2t + 1
+  const int we = 2 * t * BN + ((((cl >> 4) ^ (2 * t)) << 4) | (cl & 15));
+  const int wo = (2 * t + 1) * BN +
+                 ((((cl >> 4) ^ (2 * t + 1)) << 4) | (cl & 15));
+  uint32_t a[2][2][4];  // [buffer][plane][register]
+  Scales<ST> d;
+  for (int it = 0; it < count; ++it) {
+    const int slot = it % STAGES;
+    mbar_wait(&rg.full[slot], (it / STAGES) & 1);
+    const Slot<T>& sl = rg.slot[slot];
+    const uint32_t xlo = smem_u32(sl.x[0]), xhi = smem_u32(sl.x[1]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j == 0 || (j == 2 && G == 32)) {
+        const int rr = G == 32 ? j / 2 : 0;
+        d.load(sl.sc[0] + rr * BN * sizeof(ST), sl.sc[1] + rr * BN * sizeof(ST),
+               cl);
+      }
+      const uint8_t* re = sl.w + we + 16 * j * BN;
+      const uint8_t* ro = sl.w + wo + 16 * j * BN;
+      dequant<ST>(a[j & 1], ld_u16(re), ld_u16(ro), ld_u16(re + 8 * BN),
+                  ld_u16(ro + 8 * BN), d);
+      fence_a(a[j & 1]);
+      fence_acc(acc);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+      wgmma_rs<T>(acc, a[j & 1][0], sw128_desc(xlo + 32 * j));
+      wgmma_rs<T>(acc, a[j & 1][1], sw128_desc(xhi + 32 * j));
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      wgmma_wait<1>();  // step j - 1 is done: its A fragments are free
+      fence_acc(acc);
+      // the previous stage's last products are done: its slot goes back
+      if (j == 0 && it > 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&rg.empty[(it - 1) % STAGES]);
+      }
+    }
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+}
+
+__device__ __forceinline__ void store_bf16x4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// one (K split, T rows, 128 columns) item of a [split, M/T, N/128] grid; a
+// tile's K splits form one cluster
+template <int T, typename ST>
+__global__ void __launch_bounds__(THREADS, Cfg<T>::MIN_BLOCKS) tile_kernel(
+    const __grid_constant__ Maps maps, const uint8_t* __restrict__ w,
     const ST* __restrict__ s, __nv_bfloat16* __restrict__ y, int M, int K,
-    int N, int G) {
+    int N, int G, int tma) {
+  constexpr int STAGES = Cfg<T>::STAGES;
+  static_assert(T * PSTRIDE * 4 <= STAGES * (int)sizeof(Slot<T>),
+                "the block's sums overlay the ring");
   extern __shared__ uint8_t smem_raw[];
-  TileSmem& sm = *reinterpret_cast<TileSmem*>(
+  Ring<T>& rg = *reinterpret_cast<Ring<T>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int n_stages = K / 128;  // 64 packed rows, both planes, a stage
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = gridDim.x, rank = (int)cluster.block_rank();
+  const int m0 = blockIdx.y * T, n0 = blockIdx.z * BN;
+  const int n_st = K / 128;  // stages of K
+  const int st0 = rank * n_st / split;
+  const int count = (rank + 1) * n_st / split - st0;
   if (threadIdx.x == 0) {
     for (int i = 0; i < STAGES; ++i) {
-      mbar_init(&sm.full[i], 1);
-      mbar_init(&sm.empty[i], 2);  // one arrival per consumer warpgroup
+      // the TMA's arrival (+ 32 lanes' copies without TMA for the weights)
+      mbar_init(&rg.full[i], tma ? 1 : 33);
+      mbar_init(&rg.empty[i], CONSUMERS / 32);  // one arrival a warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  if (threadIdx.x >= CONSUMERS) {  // the producer: one thread issues TMA
-    if (threadIdx.x == CONSUMERS) {
-      for (int i = 0; i < n_stages; ++i) {
-        const int slot = i % STAGES;
-        if (i >= STAGES) mbar_wait(&sm.empty[slot], (i / STAGES - 1) & 1);
-        mbar_expect_tx(&sm.full[slot], 2 * BM * BK * 2);
-        const int k0 = 256 * (i >> 1) + 64 * (i & 1);
-        tma_load(sm.a[slot][0], &xmap, &sm.full[slot], k0, m0);
-        tma_load(sm.a[slot][1], &xmap, &sm.full[slot], k0 + 128, m0);
+  // the roles split here and never rejoin (setmaxnreg's rule): each ends
+  // with the two cluster barriers around the reduction
+  float* part = reinterpret_cast<float*>(&rg);  // [T][PSTRIDE] over the ring
+  if (threadIdx.x >= CONSUMERS) {
+    setmaxnreg_dec<Cfg<T>::PRODUCER_REGS>();
+    if (threadIdx.x / 32 == CONSUMERS / 32)
+      produce<T, ST>(rg, maps, w, s, N, G, m0, n0, st0, count, tma != 0);
+    cluster.sync();
+    cluster.sync();
+  } else {
+    setmaxnreg_inc<Cfg<T>::CONSUMER_REGS>();
+    float acc[T / 2];
+#pragma unroll
+    for (int e = 0; e < T / 2; ++e) acc[e] = 0.f;
+    consume<T, ST>(rg, acc, G, count);
+    named_sync(1, CONSUMERS);  // both warpgroups are done with the ring
+    // thread (warp, g, t) holds tile rows 8 c + 2t (+ 1) of columns cl
+    // (acc[4c], acc[4c + 1]) and cl + 1 (acc[4c + 2], acc[4c + 3])
+    const int lane = threadIdx.x % 32;
+    const int cl = 64 * (threadIdx.x / 128) + 16 * ((threadIdx.x / 32) % 4) +
+                   2 * (lane / 4);
+#pragma unroll
+    for (int c = 0; c < T / 8; ++c) {
+      const int r = 8 * c + 2 * (lane % 4);
+      *reinterpret_cast<float2*>(part + r * PSTRIDE + cl) =
+          make_float2(acc[4 * c], acc[4 * c + 2]);
+      *reinterpret_cast<float2*>(part + (r + 1) * PSTRIDE + cl) =
+          make_float2(acc[4 * c + 1], acc[4 * c + 3]);
+    }
+    cluster.sync();  // every split's sums are in its shared memory
+    // block `rank` sums every split-th float4 of the tile over the splits
+    // in K order and rounds it to bf16
+    for (int i = rank * CONSUMERS + threadIdx.x; i < T * (BN / 4);
+         i += split * CONSUMERS) {
+      const int r = i / (BN / 4), c = 4 * (i % (BN / 4));
+      const int m = m0 + r, n = n0 + c;
+      if (m >= M || n >= N) continue;
+      float4 v = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(part, 0) + r * PSTRIDE + c);
+      for (int z = 1; z < split; ++z) {
+        const float4 u = *reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(part, z) + r * PSTRIDE + c);
+        v.x = __fadd_rn(v.x, u.x);
+        v.y = __fadd_rn(v.y, u.y);
+        v.z = __fadd_rn(v.z, u.z);
+        v.w = __fadd_rn(v.w, u.w);
       }
+      store_bf16x4(y + (size_t)m * N + n, v);
     }
-    return;
-  }
-
-  // consumers: thread t dequantizes columns 4 (t % 32) .. + 3 of packed
-  // rows 8 (t / 32) .. + 7 of each stage; warpgroup wg owns tile rows
-  // 64 wg .. 64 wg + 63
-  const int t = threadIdx.x, wg = t / 128;
-  const int nq = t % 32, j = t / 32;
-  const int ncol = n0 + 4 * nq;
-  const bool col_ok = ncol < N;
-  float acc[64];
-#pragma unroll
-  for (int e = 0; e < 64; ++e) acc[e] = 0.f;
-  StageRegs cur, nxt;
-  load_stage(cur, 0, w, s, N, G, ncol, j, col_ok);
-
-  for (int i = 0; i < n_stages; ++i) {
-    const int slot = i % STAGES, buf = i & 1;
-    if (i + 1 < n_stages) load_stage(nxt, i + 1, w, s, N, G, ncol, j, col_ok);
-    uint8_t* blo = reinterpret_cast<uint8_t*>(sm.b[buf][0]);
-    uint8_t* bhi = reinterpret_cast<uint8_t*>(sm.b[buf][1]);
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      // rotated so that 8 neighbouring threads store to 8 distinct
-      // 16-byte chunks of the swizzle (no bank conflicts)
-      const int c = (cc + (nq >> 1)) & 3;
-      const int nl = 4 * nq + c;  // the column within the tile
-      const float dlo = pick4(cur.dlo, c), dhi = pick4(cur.dhi, c);
-      uint32_t plo[4], phi[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const uint32_t b0 = cur.w[2 * e] >> (8 * c);
-        const uint32_t b1 = cur.w[2 * e + 1] >> (8 * c);
-        plo[e] = pack_bf16(dequant(b0 & 15u, dlo), dequant(b1 & 15u, dlo));
-        phi[e] = pack_bf16(dequant((b0 >> 4) & 15u, dhi),
-                           dequant((b1 >> 4) & 15u, dhi));
-      }
-      const int off = nl * 128 + ((j ^ (nl & 7)) << 4);
-      *reinterpret_cast<uint4*>(blo + off) =
-          make_uint4(plo[0], plo[1], plo[2], plo[3]);
-      *reinterpret_cast<uint4*>(bhi + off) =
-          make_uint4(phi[0], phi[1], phi[2], phi[3]);
-    }
-    // the B tiles, written by the generic proxy, are read by wgmma's
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    named_sync(1, CONSUMERS);
-    mbar_wait(&sm.full[slot], (i / STAGES) & 1);
-
-    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-    fence_acc(acc);
-#pragma unroll
-    for (int plane = 0; plane < 2; ++plane) {
-      const uint32_t a0 = smem_u32(sm.a[slot][plane]) + wg * 64 * 128;
-      const uint32_t b0 = smem_u32(sm.b[buf][plane]);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_m64n128k16(acc, sw128_desc(a0 + 32 * kk),
-                         sw128_desc(b0 + 32 * kk));
-    }
-    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-    asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
-    fence_acc(acc);
-    // stage i - 1's products are done: its x tiles go back to the
-    // producer, and (after both warpgroups pass) its B buffer to stage i + 1
-    if (i > 0 && t % 128 == 0) mbar_arrive(&sm.empty[(i - 1) % STAGES]);
-    named_sync(2, CONSUMERS);
-    cur = nxt;
-  }
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-  fence_acc(acc);
-
-  // the accumulator fragment: row 16 warp + lane / 4 (+ 8), columns
-  // 8 c + 2 (lane % 4) (+ 1) for c = 0..15
-  const int lane = t % 32, warp = (t % 128) / 32;
-  const int row = m0 + 64 * wg + 16 * warp + lane / 4;
-#pragma unroll
-  for (int c = 0; c < 16; ++c) {
-    const int col = n0 + 8 * c + 2 * (lane % 4);
-    if (col >= N) continue;
-    if (row < M)
-      *reinterpret_cast<__nv_bfloat162*>(y + (size_t)row * N + col) =
-          __floats2bfloat162_rn(acc[4 * c], acc[4 * c + 1]);
-    if (row + 8 < M)
-      *reinterpret_cast<__nv_bfloat162*>(y + (size_t)(row + 8) * N + col) =
-          __floats2bfloat162_rn(acc[4 * c + 2], acc[4 * c + 3]);
+    cluster.sync();  // no block leaves while another reads its sums
   }
 }
 
@@ -373,41 +748,97 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-template <typename ST>
-int launch_tile(const void* x, const void* w, const void* s, void* y, int M,
-                int K, int N, int G, cudaStream_t st) {
+
+// a 2-D tensor map of rows x cols elements (row stride in bytes) read in
+// boxes of box_cols x box_rows; true on success
+bool encode_2d(EncodeTiled encode, CUtensorMap* map, CUtensorMapDataType type,
+               const void* base, uint64_t cols, uint64_t rows,
+               uint64_t stride, uint32_t box_cols, uint32_t box_rows,
+               CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {stride};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int T, typename ST>
+int launch_tile_t(const void* x, const void* w, const void* s, void* y, int M,
+                  int K, int N, int G, int split, cudaStream_t st) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorNotSupported;
-  CUtensorMap map;
-  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
-  const cuuint64_t strides[1] = {(cuuint64_t)K * 2};
-  const cuuint32_t box[2] = {BK, BM};
-  const cuuint32_t unit[2] = {1, 1};
-  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x),
-             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+  // TMA reads rows whose stride and base are multiples of 16 bytes
+  const int tma = N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(s) % 16 == 0;
+  Maps maps = {};
+  if (!encode_2d(encode, &maps.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M,
+                 (uint64_t)K * 2, 64, T, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      (tma && !encode_2d(encode, &maps.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N,
+                         K / 2, N, BN, ROWS, CU_TENSOR_MAP_SWIZZLE_128B)) ||
+      (tma && !encode_2d(encode, &maps.s,
+                         sizeof(ST) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                         : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                         s, N, K / G, (uint64_t)N * sizeof(ST), BN,
+                         G == 32 ? 2 : 1, CU_TENSOR_MAP_SWIZZLE_NONE)))
     return (int)cudaErrorInvalidValue;
+  auto kernel = tile_kernel<T, ST>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      tile_kernel<ST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<T>());
   if (attr != cudaSuccess) return (int)attr;
-  // M tiles fastest: the blocks in flight share a few weight tiles in L2
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  tile_kernel<ST><<<grid, THREADS, SMEM_BYTES, st>>>(
-      map, static_cast<const uint8_t*>(w), static_cast<const ST*>(s),
-      static_cast<__nv_bfloat16*>(y), M, K, N, G);
-  return (int)cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  // the splits of a tile fastest, then the row tiles: the blocks in flight
+  // share a few weight tiles in L2
+  cfg.gridDim = dim3(split, (M + T - 1) / T, (N + BN - 1) / BN);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem_bytes<T>();
+  cfg.stream = st;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = split;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kernel, maps, static_cast<const uint8_t*>(w),
+      static_cast<const ST*>(s), static_cast<__nv_bfloat16*>(y), M, K, N, G,
+      tma);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// T: the token-tile width the wrapper chose (``tile_width``)
+template <typename ST>
+int launch_tile(const void* x, const void* w, const void* s, void* y, int M,
+                int K, int N, int G, int split, int T, cudaStream_t st) {
+  switch (T) {
+    case 16:
+      return launch_tile_t<16, ST>(x, w, s, y, M, K, N, G, split, st);
+    case 32:
+      return launch_tile_t<32, ST>(x, w, s, y, M, K, N, G, split, st);
+    case 64:
+      return launch_tile_t<64, ST>(x, w, s, y, M, K, N, G, split, st);
+    case 128:
+      return launch_tile_t<128, ST>(x, w, s, y, M, K, N, G, split, st);
+    case 256:
+      return launch_tile_t<256, ST>(x, w, s, y, M, K, N, G, split, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // x [M, K] bf16, 16-byte aligned (K already padded to the packed K); w
-// [K/2, N] uint8; s [K/G, N] (bf16 when scale_bf16 != 0, else f32); y
-// [M, N] bf16. bands > 0 takes the band route: part is f32 scratch of
-// bands * M * N, K split into bands of sb_per_band superblocks; bands == 0
-// the tile route (part unused). Needs K % 256 == 0, N % 4 == 0, G in
-// {32, 64, 128}.
+// [K/2, N] uint8, 4-byte aligned; s [K/G, N] (bf16 when scale_bf16 != 0,
+// 8-byte aligned, else f32, 16-byte aligned); y [M, N] bf16. bands > 0
+// takes the band route: part is f32 scratch of bands * M * N, K split into
+// bands of sb_per_band superblocks; bands < 0 the tile route (part
+// unused) at a token tile of -bands rows (16, 32, 64, 128 or 256), K split
+// over sb_per_band blocks of one cluster (1 to 8, at most K / 128). Needs
+// K % 256 == 0, N % 4 == 0, G in {32, 64, 128}.
 extern "C" int tce_int4_matmul(const void* x, const void* w, const void* s,
                                void* y, int M, int K, int N, int G,
                                int scale_bf16, void* part, int sb_per_band,
@@ -423,6 +854,13 @@ extern "C" int tce_int4_matmul(const void* x, const void* w, const void* s,
                : tce::band::launch_bands<float>(x, w, s, p, y, M, K, N, G,
                                                 sb_per_band, bands, st);
   }
-  return scale_bf16 ? launch_tile<__nv_bfloat16>(x, w, s, y, M, K, N, G, st)
-                    : launch_tile<float>(x, w, s, y, M, K, N, G, st);
+  const int split = sb_per_band, T = -bands;
+  if (split < 1 || split > MAX_SPLIT || split > K / 128 ||
+      reinterpret_cast<uintptr_t>(w) % 4 ||
+      reinterpret_cast<uintptr_t>(s) % (scale_bf16 ? 8 : 16))
+    return (int)cudaErrorInvalidValue;
+  return scale_bf16
+             ? launch_tile<__nv_bfloat16>(x, w, s, y, M, K, N, G, split, T,
+                                          st)
+             : launch_tile<float>(x, w, s, y, M, K, N, G, split, T, st);
 }

@@ -44,14 +44,18 @@ BUILD_LOG: dict[str, str] = {}  # source -> nvcc's output (ptxas register use)
 
 # launches per kernel: each wrapper adds one where it launches its kernel
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
-# the counters a captured CUDA graph adds to at every replay: LAUNCHES and
-# any that ``counting`` registers (name -> count dicts)
-COUNTERS: list[dict] = [LAUNCHES]
+# launches of int4_matmul's tile route by token-tile width (rows a block
+# computes: 16, 32, 64, 128 or 256), a part of LAUNCHES["int4_matmul"]
+TILE_LAUNCHES: dict[int, int] = {}
+# the counters a captured CUDA graph adds to at every replay: LAUNCHES,
+# TILE_LAUNCHES and any that ``counting`` registers (name -> count dicts)
+COUNTERS: list[dict] = [LAUNCHES, TILE_LAUNCHES]
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    TILE_LAUNCHES.clear()
 
 
 @contextlib.contextmanager
@@ -61,8 +65,8 @@ def counting(counter: dict):
     COUNTERS.append(counter)
     try:
         yield counter
-    finally:
-        COUNTERS.remove(counter)
+    finally:  # by identity: an equal dict (say, two empty ones) stays
+        del COUNTERS[next(i for i, c in enumerate(COUNTERS) if c is counter)]
 
 
 class LaunchDelta:

@@ -19,9 +19,14 @@ the plain version. ``int4_matmul`` on the card takes one of three routes
 (``int4_route``): the K-outer kernel where ``DECODE_KOUTER`` lists the
 call; else, from M alone, the band route at M <= 8 (the split-K band
 contraction the K-outer kernel runs, memory-bound) or the tile route at
-M >= 9 (wgmma tensor-core tiles fed by TMA). Within a route an output
-row's bits depend on its x row alone; the routes' cast points differ, so
-across M = 8 / 9 they do not. The plain versions keep the JAX
+M >= 9: wgmma with the dequantized weights as its register-fed A operand
+and a token tile of x's rows (16 to 256, ``tile_width``) as its n, so it
+is bound by the weight bytes at a 16-row decode tick and by the
+operations at a 512-row chunk (two 256-row tiles), K split over a
+cluster from K and N alone (``tile_split``); the cast point is
+bf16((q - 8) * d) with f32 sums, the plain version's. Within a route an
+output row's bits depend on its x row alone; the routes' cast points
+differ, so across M = 8 / 9 they do not. The plain versions keep the JAX
 fallbacks' cast points (``int4_matmul_xla`` / ``int4_matmul_a8_xla``); the
 fused one follows the TPU kernel's body (``_fused_kernel``) instead.
 
@@ -147,18 +152,49 @@ def band_split(kw: int, n: int) -> tuple[int, int]:
     return per, -(-nsb // per)
 
 
+# the tile route's token-tile widths (wgmma's n, rows of x a block
+# computes; rows past M are zero-filled), the weight columns a block (two
+# warpgroups of wgmma's 64), the most blocks a K split spans (one cluster)
+# and the blocks its split aims at at decode widths (two per SM)
+TILE_WIDTHS = (16, 32, 64, 128, 256)
+TILE_COLS = 128
+TILE_MAX_SPLIT = 8
+_TILE_TARGET_BLOCKS = 264
+
+
+def tile_width(m: int) -> int:
+    """Rows a block of the tile route computes at ``m`` rows, passed to the
+    kernel (which makes no choice of its own): the smallest of
+    ``TILE_WIDTHS`` that holds them, and 256-row tiles above."""
+    return next((w for w in TILE_WIDTHS if w >= m), TILE_WIDTHS[-1])
+
+
+def tile_split(kw: int, n: int) -> int:
+    """Blocks (one cluster) the tile route splits packed K ``kw`` over at
+    ``n`` columns: the largest power of two that keeps the blocks over
+    the column tiles within ``_TILE_TARGET_BLOCKS``, at most
+    ``TILE_MAX_SPLIT``, at least two 128-k stages a block (on the H100,
+    StarCoder's c_proj and fc_out at 16 rows ran 0.0173 and 0.0545 ms
+    split 4, 0.0236 and 0.0696 split 5, 0.0372 and 0.1368 unsplit).
+    From K and N alone, never from M, so that a row's bits do not depend
+    on how many rows ride along."""
+    tiles = -(-n // TILE_COLS)
+    most = min(TILE_MAX_SPLIT, kw // 256, _TILE_TARGET_BLOCKS // tiles)
+    return 1 << (max(1, most).bit_length() - 1)
+
+
 def int4_route(m: int, kw: int, n: int, stacked: bool):
     """The route a CUDA call of ``int4_matmul`` at ``m`` rows, packed K
     ``kw`` and ``n`` columns takes: ``("kouter", (block_n, block_k))``
     where ``kouter_route`` lists it; else ``("band", (superblocks per band,
     bands))`` at M <= ``BAND_MAX_ROWS``, stacked or not; else
-    ``("tile", None)``."""
+    ``("tile", (token-tile width, K split))``."""
     blocks = kouter_route(m, kw, n, stacked)
     if blocks is not None:
         return "kouter", blocks
     if m <= BAND_MAX_ROWS:
         return "band", band_split(kw, n)
-    return "tile", None
+    return "tile", (tile_width(m), tile_split(kw, n))
 
 
 def _check_layout(x, packed, scales, group_size, layer_idx):
@@ -256,8 +292,11 @@ def int4_matmul(x, packed, scales, group_size: int = 128, *,
     (``int4_route``): the K-outer kernel where ``kouter_route`` lists the
     call, else ``csrc/int4_matmul.cu``: the band route at M <= 8 (split-K
     bands of whole superblocks, exact codes times f32 scales, band sums in
-    K order), the tile route at M >= 9 (wgmma on bf16((q - 8) * d) tiles,
-    x by TMA); CPU: ``int4_matmul_plain``."""
+    K order), the tile route at M >= 9 (wgmma with bf16((q - 8) * d) as
+    the register A operand over ``tile_width(M)`` rows of x, K split over
+    ``tile_split`` blocks of a cluster, split sums in K order; each launch
+    counted by width in ``_build.TILE_LAUNCHES``); CPU:
+    ``int4_matmul_plain``."""
     if not x.is_cuda:
         return int4_matmul_plain(x, packed, scales, group_size,
                                  layer_idx=layer_idx)
@@ -272,9 +311,13 @@ def int4_matmul(x, packed, scales, group_size: int = 128, *,
     if x2.data_ptr() % 16:  # TMA reads x from a 16-byte aligned address
         x2 = x2.clone()
     m = x2.shape[0]
-    per, bands = arg if route == "band" else (0, 0)
-    part = torch.empty((bands, m, n) if bands else (1,), dtype=torch.float32,
-                       device=x.device)
+    # the tile route passes its K split where the band route passes its
+    # superblocks per band, and minus its token tile as the bands (a
+    # negative count selects the route; the kernel launched is the one
+    # counted)
+    per, bands = arg if route == "band" else (arg[1], -arg[0])
+    part = torch.empty((bands, m, n) if bands > 0 else (1,),
+                       dtype=torch.float32, device=x.device)
     y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     fn = _build.bind("int4_matmul", "tce_int4_matmul",
                      [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P])
@@ -284,7 +327,14 @@ def int4_matmul(x, packed, scales, group_size: int = 128, *,
                     torch.cuda.current_stream(x.device).cuda_stream),
                  "int4_matmul")
     _build.LAUNCHES["int4_matmul"] += 1
+    if route == "tile":
+        _count_tile(arg[0])
     return y.reshape(*x.shape[:-1], n)
+
+
+def _count_tile(width: int) -> None:
+    """One launch of the tile route at token-tile ``width``."""
+    _build.TILE_LAUNCHES[width] = _build.TILE_LAUNCHES.get(width, 0) + 1
 
 
 def a8_quantize_plain(x2: torch.Tensor, group_size: int):

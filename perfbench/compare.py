@@ -52,7 +52,7 @@ import re
 import numpy as np
 import torch
 
-from perfbench import reference, work
+from perfbench import spec, work
 from perfbench.reference.common import FULL, INT8, PRECISIONS, Seq, strict_f32
 from perfbench.weights import Weights
 
@@ -155,7 +155,7 @@ def readings(m, samples: list, seed: int, device,
     if not samples:
         return dict(summary([]), tokens=0, requests=0)
     w = Weights(m, seed, device)
-    fam = reference.family(m.family)
+    fam = spec.reference(m.family, m.root)
     ref = fam.logits(w, sequences(m, samples), device)
     ctxs, poss = [], []
     for s in samples:

@@ -55,11 +55,12 @@ def mfu(rec, keep) -> float:
 
 def roofline(rec, cls: str) -> float:
     """Bound of class ``cls``'s work in the profiled slice over the device
-    time of the class's kernels there, in %."""
+    time of the class's kernels there, in %; a class no call counted
+    reads None."""
     t = rec.trace
     if t is None or not t.class_s.get(cls):
         return None
-    bound = sum(getattr(c.bound, cls) for c in rec.traced_calls)
+    bound = sum(c.bound[cls] for c in rec.traced_calls)
     return 100.0 * bound / t.class_s[cls] if bound else None
 
 

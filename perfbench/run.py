@@ -83,7 +83,8 @@ def execute(bench: dict, cell: dict, seed: int, seconds: float, trace: bool,
     from perfbench.record import Record
     from perfbench.model import model_from_config
     root = root or spec.HERE
-    model = model_from_config(cell["config"], spec.config(cell["config"], root))
+    model = model_from_config(cell["config"],
+                              spec.config(cell["config"], root), root)
     mix = spec.traffic(cell["traffic"], root)
     lim = spec.limits(cell["name"], root)
     drv = drivers.KINDS[mix["kind"]](model, mix, seed, device,

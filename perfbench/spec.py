@@ -9,14 +9,21 @@ to read). A kernel class of the rooflines is every
 (each a list of regular expressions matched against the profiler's kernel
 names), so a later kernel joins a class through a file of its own. The
 limits of a cell's comparison are ``limits/<cell>.json``. ``peaks.json``
-holds the card's published rates.
+holds the card's published rates. A model family is two modules found by
+the configuration's ``family``: ``families/<family>.py`` (its sizes, the
+tensors its weights are made as, its work counts and the port's build of
+it) and ``reference/<family>.py`` (its plain reference), each loaded from
+the run's root.
 """
 
 from __future__ import annotations
 
+import functools
+import hashlib
 import importlib.util
 import json
 import re
+import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -66,17 +73,50 @@ def kernel_classes(root: Path = HERE) -> dict:
     return out
 
 
+def _load(name: str, path: Path):
+    """The module at ``path``, registered in ``sys.modules`` as ``name``
+    (a dataclass looks its module up there)."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    try:
+        spec.loader.exec_module(mod)
+    except BaseException:
+        del sys.modules[name]
+        raise
+    return mod
+
+
 def reader(metric: str, root: Path = HERE):
     """``read`` of ``metrics/<metric>.py``, else of the reader named by
     the metric's name before its first dot."""
     path = root / "metrics" / f"{metric}.py"
     if not path.exists():
         path = root / "metrics" / f"{metric.split('.', 1)[0]}.py"
-    spec = importlib.util.spec_from_file_location(
-        "perfbench_metric_" + re.sub(r"\W", "_", metric), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load("perfbench_metric_" + re.sub(r"\W", "_", metric), path).read
+
+
+@functools.cache
+def _family_part(part: str, name: str, root: Path):
+    """Named after its path, so two roots' modules of a family stay
+    apart."""
+    path = Path(root).resolve() / part / f"{name}.py"
+    if not path.is_file():
+        raise ValueError(f"no model family {name!r}: {path} does not exist")
+    key = hashlib.blake2b(str(path).encode(), digest_size=6).hexdigest()
+    return _load(f"perfbench_{part}_{name}_{key}", path)
+
+
+def family(name: str, root: Path = HERE):
+    """The module ``families/<name>.py`` under ``root``, loaded once a
+    process."""
+    return _family_part("families", name, root)
+
+
+def reference(name: str, root: Path = HERE):
+    """The plain reference ``reference/<name>.py`` under ``root``, loaded
+    once a process."""
+    return _family_part("reference", name, root)
 
 
 def cell_metrics(bench: dict, cell: str, trace: bool) -> list:

@@ -59,6 +59,71 @@ def test_the_reference_side_loads_nothing_of_the_port():
     assert not loaded & set(run.FORBIDDEN)
 
 
+FAMILIES = sorted(p.stem for p in (BENCH_DIR / "families").glob("*.py"))
+
+
+def _module_level_imports(path: Path) -> set:
+    """Top-level names imported outside every function and class."""
+    names = set()
+    todo = list(ast.parse(path.read_text()).body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            continue
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+        else:
+            todo.extend(ast.iter_child_nodes(node))
+    return names
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_a_family_imports_the_port_only_inside_functions(family):
+    path = BENCH_DIR / "families" / f"{family}.py"
+    assert PORT not in _module_level_imports(path)
+    assert not _top_level_imports(path) & set(run.FORBIDDEN)
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_a_familys_sizes_weights_and_work_load_nothing_of_the_port(family):
+    """Each configuration of the family sized, its weights' shapes and one
+    decode and one prefill call counted, its reference loaded: the port
+    stays unloaded."""
+    loaded = _loaded(
+        "import json\n"
+        "from perfbench import spec, work\n"
+        "from perfbench.model import model_from_config\n"
+        "from perfbench.weights import Weights\n"
+        "n = 0\n"
+        "for p in sorted((spec.HERE / 'configs').glob('*.json')):\n"
+        "    c = json.loads(p.read_text())\n"
+        f"    if c['family'] != {family!r}:\n"
+        "        continue\n"
+        "    m = model_from_config(p.stem, c)\n"
+        "    w = Weights(m, 1, 'cpu')\n"
+        "    assert all(w.model.shape(x[0]) for x in m.linears())\n"
+        "    work.decode_call(m, [7, 9], spec.peaks(), 2)\n"
+        "    work.prefill_call(m, [(0, 40)], 1, spec.peaks(), 64)\n"
+        f"    spec.reference({family!r})\n"
+        "    n += 1\n"
+        "assert n\n")
+    assert PORT not in loaded
+    assert not loaded & set(run.FORBIDDEN)
+
+
+def test_an_unknown_family_names_the_file_it_looked_for():
+    from perfbench import spec
+    from perfbench.model import model_from_config
+    c = dict(spec.config("mistral_7b-w4a8"), family="no_such_family")
+    with pytest.raises(ValueError, match=r"families/no_such_family\.py"):
+        model_from_config("x", c)
+    with pytest.raises(ValueError, match=r"reference/no_such_family\.py"):
+        spec.reference("no_such_family")
+
+
 @pytest.mark.parametrize("cell", ["tiny_llama.chat",
                                   "tiny_starcoder.complete"])
 def test_a_whole_rehearsal_loads_no_jax(tiny, cell):

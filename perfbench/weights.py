@@ -2,7 +2,10 @@
 
 Every tensor (one layer of one linear, a table, a norm) has a generator of
 its own, seeded from (seed, name, layer), so the set-up and the reference
-each make exactly the tensors they need and make the same ones.
+each make exactly the tensors they need and make the same ones. The
+linears' names and shapes are the family's (``Model.shape``); ``layer`` is
+any key that tells a family's tensors of one name apart, such as
+(layer, expert).
 
 An int4 linear is made as it is stored, in the port's checkpoint layout
 (QM_TPU: ``packed [K/2, N]`` uint8, K-major, nibbles paired along K in
@@ -54,19 +57,10 @@ class Weights:
         g.manual_seed(subseed(self.seed, name, layer))
         return g
 
-    def _shape(self, name: str):
-        m = self.model
-        if name == "lm_head":
-            return m.hidden, m.lm_head_cols, False
-        for n, k, cols, bias in m.linears():
-            if n == name:
-                return k, cols, bias
-        raise KeyError(name)
-
     def planes(self, name: str, layer=None):
         """The low and high nibble planes [K/2, N] uint8 and the scales
         [K/G, N] bf16 of one linear (one layer of it)."""
-        k, n, _ = self._shape(name)
+        k, n, _ = self.model.shape(name)
         if k % SUPERBLOCK or k % self.model.group:
             raise ValueError(f"{name}: K = {k} is not a whole number of "
                              f"superblocks and groups")
@@ -106,7 +100,7 @@ class Weights:
 
     def bias(self, name: str) -> torch.Tensor:
         """[L, N] f32 bias of a layer linear."""
-        _, n, _ = self._shape(name)
+        _, n, _ = self.model.shape(name)
         return torch.randn((self.model.layers, n), device=self.device,
                            generator=self._gen(name + "/bias")) \
             * self.model.bias_std

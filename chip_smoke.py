@@ -54,6 +54,18 @@ Phases (any failure ends the run with a non-zero exit code):
    and down at 1024 rows;
    then opt_6.7b's W8A8 linears at M = 1, timed beside their bound, their
    int32 products checked against the CPU's;
+3e. the expert layer (``check_experts``) at Mellum2-12B-A2.5B's widths
+   (64 experts, top-8, E 2304, F 896 stored at K 1024): its five kernels
+   (route, plan, the grouped int4 matmul, act, combine) against their
+   plain versions at a 32-slot tick and a 512-row chunk (x 8 pairs), one
+   expert given no row; the grouped matmul timed beside its bound over
+   the experts read and ``torch.matmul`` an expert at a time, and held
+   within ``MOE_BOUND_X`` of the bound; then mellum2_12b_a2.5b W4A16 at
+   full width and depth served (8 slots) and one step counted from zeroed
+   counters: per tick each expert kernel once a layer (``int4_moe``
+   twice), ``flash_decode`` once a layer, ``int4_matmul`` twice a layer
+   and once for the head, nothing else, no plain version, and 8 pairs a
+   slot's row a layer in the expert counters;
 4. main path: llama3_8b W4A8 at full width (all 32 layers, random packed
    weights from a seed) through ``Engine.generate_device`` (64-token
    prompt, 256 greedy tokens with repeat_penalty 1.1 over the last 64) and
@@ -265,7 +277,8 @@ Launch counts and plain-version counts are per replay
 The line before the last is ``{"kernels": [...]}`` (``int4_matmul``'s row
 adds the tile route's launches by token-tile width in phase 3, which must
 run each width, and in the timed runs of phases 5 and 11); the last line is
-``{"ok": true, "device": {...}}``. ``--kernels-only`` stops after phase 3.
+``{"ok": true, "device": {...}}``. ``--kernels-only`` stops after phase
+3e; ``--experts-only`` builds, then runs phase 3e alone.
 Each phase prints its seconds.
 """
 
@@ -1546,6 +1559,206 @@ def check_split_k_kernels(gen, add):
         torch.cuda.empty_cache()
 
 
+# phase 3e: Mellum2-12B-A2.5B's expert layer (64 experts, top-8, E 2304, F
+# 896 stored at K 1024) at a decode tick of 32 slots and a 512-row chunk;
+# no row is routed to expert MOE_EMPTY
+MOE_LAYERS, MOE_EXPERTS, MOE_TOPK = 28, 64, 8
+MOE_E, MOE_F, MOE_FP = 2304, 896, 1024
+MOE_ROWS = (32, 512)
+MOE_EMPTY = 17
+# the grouped kernel must run within this many times its bound (it ran at
+# 1.9-2.9x on H100 80GB HBM3 at 700 W)
+MOE_BOUND_X = 4.0
+
+
+def check_expert_kernels(gen) -> list:
+    """Phase 3e: the five kernels of the expert layer (``ops/int4_moe.py``)
+    against their plain versions on the card at Mellum's widths, for rows
+    x 8 pairs at each of ``MOE_ROWS``, expert ``MOE_EMPTY`` given no row:
+    route (ids equal, weights within 1e-6 relative), plan (bit for bit,
+    the counters too), grouped gate | up and down (``mat_err`` within
+    MAT_TOL, layer 27's experts), act (within MAT_TOL) and combine (bit
+    for bit). The grouped kernel is timed by graph replay cycling through
+    the 28 layers' stacks (no layer's weights in L2 from the launch
+    before), beside its bound over the experts the routing read
+    (``bound``; the down projection at its true K 896) and bf16
+    ``torch.matmul`` an expert at a time on the layer's dequantized
+    weights; it must run within ``MOE_BOUND_X`` of its bound. Returns the
+    rows printed."""
+    from tinychatengine_tpu_torch.ops import int4_moe as mo
+    from tinychatengine_tpu_torch.ops.ref import dequantize_int4
+    ne, k, sets = MOE_EXPERTS, MOE_TOPK, MOE_LAYERS * MOE_EXPERTS
+    stacks = {"gate_up": int4_stack(gen, MOE_E, 2 * MOE_F, n_layers=sets),
+              "down": int4_stack(gen, MOE_FP, MOE_E, n_layers=sets)}
+    last = (MOE_LAYERS - 1) * ne
+    rows_out = []
+
+    def fail(what):
+        raise SystemExit(f"phase 3e: {what}")
+    for rows in MOE_ROWS:
+        logits = torch.randn((rows, ne), device="cuda", generator=gen)
+        logits[:, MOE_EMPTY] = -1e4
+        ids, w = mo.route(logits, k)
+        pid, pw = mo.route_plain(logits, k, True)
+        if not torch.equal(ids, pid) or not torch.allclose(
+                w, pw, rtol=1e-6, atol=0):
+            fail(f"route at {rows} rows differs from route_plain")
+        t = mo.tile_rows(rows * k, ne)
+        got_n = torch.zeros(2, dtype=torch.int64, device="cuda")
+        want_n = torch.zeros(2, dtype=torch.int64, device="cuda")
+        got = mo.plan(ids, ne, t, got_n)
+        want = mo.plan_plain(ids, ne, t, want_n)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)) \
+                or not torch.equal(got_n, want_n):
+            fail(f"plan at {rows} rows differs from plan_plain")
+        src, slot_of, offsets, tiles = got
+        if int(offsets[MOE_EMPTY]) != int(offsets[MOE_EMPTY + 1]):
+            fail(f"expert {MOE_EMPTY} was given rows")
+        read, pairs = (int(v) for v in got_n)
+        x = (torch.randn((rows, MOE_E), device="cuda", generator=gen)
+             ).to(torch.bfloat16)
+        xs = x.index_select(0, src)
+        ins = {}
+
+        def grouped(name, inp, e0):
+            pk, sc = stacks[name]
+            return mo.grouped_int4_matmul(inp, pk, sc, 128, e0, offsets,
+                                          tiles, ne, t)
+        errs = {}
+        ins["gate_up"] = xs
+        gu = grouped("gate_up", xs, last)
+        errs["gate_up"] = mat_err(gu, mo.grouped_int4_matmul_plain(
+            xs, *stacks["gate_up"], 128, last, offsets, ne))
+        act = mo.expert_act(gu, MOE_FP)
+        errs["act"] = mat_err(act, mo.expert_act_plain(gu, MOE_FP))
+        ins["down"] = act
+        yd = grouped("down", act, last)
+        errs["down"] = mat_err(yd, mo.grouped_int4_matmul_plain(
+            act, *stacks["down"], 128, last, offsets, ne))
+        if not torch.equal(mo.combine(yd, slot_of, w, x),
+                           mo.combine_plain(yd, slot_of, w, x)):
+            fail(f"combine at {rows} rows differs from combine_plain")
+        off = offsets.tolist()
+        for name, kk, n in (("gate_up", MOE_E, 2 * MOE_F),
+                            ("down", MOE_F, MOE_E)):
+            inp = ins[name]
+            pk, sc = stacks[name]
+            step = itertools.count()
+
+            def run():
+                return grouped(name, inp, (next(step) % MOE_LAYERS) * ne)
+            ms = graph_ms(run, 4 * MOE_LAYERS)
+            eager_ms = time_ms(run, 4 * MOE_LAYERS)
+            plain_ms = time_ms(lambda: mo.grouped_int4_matmul_plain(
+                inp, pk, sc, 128, last, offsets, ne), 2, warmup=1)
+            wd = [dequantize_int4(pk[last + e], sc[last + e], 128)
+                  for e in range(ne)]
+
+            def lib():
+                for e in range(ne):
+                    if off[e + 1] > off[e]:
+                        torch.matmul(inp[off[e]:off[e + 1]], wd[e])
+            lib_ms = time_ms(lib, 8)
+            del wd
+            wbytes = kk * n / 2 + (kk // 128) * n * 2
+            bms, by = bound(read * wbytes + pairs * (kk + n) * 2,
+                            2.0 * pairs * kk * n, BF16_FLOP_S)
+            row = dict(kernel="int4_moe", case=f"{name} rows={rows}",
+                       pairs=pairs, experts_read=read, tile_rows=t,
+                       max_abs_err=errs[name][0], err_share=errs[name][1],
+                       act_err_share=errs["act"][1], ms=ms,
+                       eager_ms=eager_ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                       roofline_pct=100.0 * bms / ms)
+            log(json.dumps(row))
+            rows_out.append(row)
+            if not max(errs[name][1], errs["act"][1]) <= 1.0:
+                fail(f"{name} at {rows} rows: error share "
+                     f"{errs[name][1]:.3f}, act {errs['act'][1]:.3f}")
+            if ms > MOE_BOUND_X * bms:
+                fail(f"{name} at {rows} rows ran {ms / bms:.2f}x its bound")
+    del stacks
+    torch.cuda.empty_cache()
+    return rows_out
+
+
+def mellum_tick(model="mellum2_12b_a2.5b", dev="cuda", slots=8,
+                n_predict=48, max_len=2048) -> dict:
+    """Phase 3e's served tick: ``model`` (a registry name or a
+    ``ModelConfig``; mellum2_12b_a2.5b W4A16 at full width and depth,
+    random int4 weights from a seed) through ``ServingEngine`` (dense,
+    ``slots`` slots, phase 5's load); once every request is admitted, the
+    launch counters, the tick counts and the expert counters are zeroed
+    and one ``step()`` runs: every slot's row routes k pairs a layer a
+    tick, and on the card each tick must launch each expert kernel once a
+    layer (``int4_moe`` twice), ``flash_decode`` once a layer,
+    ``int4_matmul`` for qkv and wo a layer and the head, nothing else and
+    no plain version. Returns the step's counts. The arguments shrink the
+    run for a rehearsal on the CPU (tests)."""
+    from tinychatengine_tpu_torch.core.config import (GenerationConfig,
+                                                      QuantConfig)
+    from tinychatengine_tpu_torch.models import llama, moe
+    from tinychatengine_tpu_torch.ops import _build
+    from tinychatengine_tpu_torch.runtime.serving import ServingEngine
+    cfg = model_config(model)
+    qcfg = QuantConfig(scheme="w4a16", group_size=128)
+    params = llama.init_random_params(cfg, qcfg, seed=0, max_pos=max_len,
+                                      fast=True, device=dev)
+    srv = ServingEngine(params, cfg, qcfg, slots=slots, max_len=max_len,
+                        gcfg=GenerationConfig(temp=0.0, n_predict=n_predict,
+                                              seed=0),
+                        admission_chunk=512, tick_batch=16, device=dev)
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    serving_load(srv, cfg, slots, n_predict, seed=1)
+    srv.run()  # captures the ticks the counted step replays
+    reqs = serving_load(srv, cfg, slots, n_predict)
+    while srv.queue or srv._pending is not None:
+        srv.step()
+    with plain_calls() as plain:
+        sync()
+        for key in srv.tick_stats:
+            srv.tick_stats[key] = 0
+        _build.reset_launches()
+        stats0 = moe.stats(dev).clone()
+        t0 = time.perf_counter()
+        srv.step()
+        sync()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        counted = (moe.stats(dev) - stats0).tolist()
+        ticks = srv.tick_stats["burst_ticks"] + srv.tick_stats["single_ticks"]
+    srv.run()
+    check_lengths(reqs, n_predict, "mellum serving")
+    nl = cfg.num_layers
+    ran = {n: v for n, v in launches.items() if v}
+    out = dict(ticks=ticks, tick_ms=1e3 * wall / max(ticks, 1),
+               launches=launches, plain_calls=dict(plain),
+               expert_sets=counted[0], expert_pairs=counted[1])
+    log("mellum served tick:", json.dumps(dict(out, launches=ran)))
+    if not ticks or counted[1] != nl * slots * cfg.experts_per_tok * ticks \
+            or not 0 < counted[0] <= nl * cfg.num_experts * ticks:
+        raise SystemExit(f"mellum tick: expert counters {counted} over "
+                         f"{ticks} ticks")
+    if dev == "cuda":  # the CPU rehearsal runs the plain versions
+        want = {"int4_moe": 2 * nl, "moe_route": nl, "moe_plan": nl,
+                "moe_act": nl, "moe_combine": nl, "flash_decode": nl,
+                "int4_matmul": 2 * nl + 1}
+        if ran != {n: v * ticks for n, v in want.items()}:
+            raise SystemExit(f"mellum tick: launches {ran} over {ticks} "
+                             f"ticks, want {want} a tick")
+        if any(plain.values()):
+            raise SystemExit(f"mellum tick: plain versions ran: {plain}")
+    del srv, params
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_experts(gen) -> dict:
+    """Phase 3e: ``check_expert_kernels``, then ``mellum_tick``."""
+    return dict(kernels=check_expert_kernels(gen), tick=mellum_tick())
+
+
 def w8a8_linear_times(gen):
     """opt_6.7b's W8A8 linears at M = 1 (a decode step; ``s8_matmul`` pads
     the rows for ``torch._int_mm``) through ``apply_linear``, timed beside
@@ -1604,13 +1817,16 @@ def plain_calls():
     from tinychatengine_tpu_torch.ops import attention as att
     from tinychatengine_tpu_torch.ops import int3_matmul as i3
     from tinychatengine_tpu_torch.ops import int4_matmul as im
+    from tinychatengine_tpu_torch.ops import int4_moe as mo
     from tinychatengine_tpu_torch.ops import mlp_fused as mf
     names = [(att, "flash_decode_plain"), (att, "flash_prefill_plain"),
              (att, "flash_decode_paged_plain"), (att, "int8_decode_plain"),
              (im, "int4_matmul_plain"), (im, "int4_matmul_a8_plain"),
              (im, "int4_matmul_fused_plain"), (im, "int4_matmul_kouter_plain"),
              (im, "int4_matmul_glu_plain"), (mf, "mlp_fused_plain"),
-             (i3, "int3_matmul_plain")]
+             (i3, "int3_matmul_plain"), (mo, "route_plain"),
+             (mo, "plan_plain"), (mo, "grouped_int4_matmul_plain"),
+             (mo, "expert_act_plain"), (mo, "combine_plain")]
     from tinychatengine_tpu_torch.ops import _build
     counts = dict.fromkeys((n for _, n in names), 0)
     saved = [(mod, n, getattr(mod, n)) for mod, n in names]
@@ -5586,6 +5802,9 @@ SUMMARY = {  # kernel -> (source, TPU kernel it replaces, summary case)
     "int3_matmul": ("tinychatengine_tpu_torch/csrc/int3_matmul.cu",
                     "tinychatengine_tpu/ops/int3_matmul.py:134",
                     "gate_up M=1 K=4096 N=28672"),
+    "int4_moe": ("tinychatengine_tpu_torch/csrc/int4_moe.cu",
+                 "none (the JAX package has no expert layer)",
+                 "gate_up rows=512"),
 }
 # the run each kernel's launches count comes from: phase 4's Engine path,
 # phase 5's paged serving run for the paged kernel, phase 7's OPT Engine
@@ -5597,7 +5816,9 @@ SUMMARY = {  # kernel -> (source, TPU kernel it replaces, summary case)
 # int4_matmul_fused and phase 4d's int8 runs (dense, paged) for the int8
 # kernels; phase 4f's K-outer Engine path for int4_matmul_kouter, and phase
 # 3's calls for the three kernels no path of the JAX package runs (the GLU
-# down projection, the fused MLP, int3)
+# down projection, the fused MLP, int3); phase 3e's served Mellum tick for
+# int4_moe, per step and per tick alike (its route, plan, act and combine
+# kernels are counted in that phase's line, not in the table)
 HOME_RUN = {"flash_decode_paged": "serving_paged", "int8_decode": "opt_engine",
             "int4_matmul_fused": "starcoder_fused",
             "flash_decode_int8": "llama_int8kv_engine",
@@ -5605,7 +5826,7 @@ HOME_RUN = {"flash_decode_paged": "serving_paged", "int8_decode": "opt_engine",
             "flash_decode_paged_int8": "long_int8_paged",
             "int4_matmul_kouter": "llama_w4a16_kouter",
             "int4_matmul_glu": "kernels", "mlp_fused": "kernels",
-            "int3_matmul": "kernels"}
+            "int3_matmul": "kernels", "int4_moe": "mellum_tick"}
 
 
 @functools.cache
@@ -5627,6 +5848,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks (no main path)")
+    ap.add_argument("--experts-only", action="store_true",
+                    help="build, then phase 3e alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5686,6 +5909,9 @@ def main(argv=None) -> int:
         log(f"phase {name}: {phase_s[name]:.1f} s")
         return out
     _build.reset_launches()
+    if args.experts_only:
+        phase("mellum experts", check_experts, gen)
+        return 0
     cases = phase("kernels", check_kernels, gen)
     kernel_launches = dict(_build.LAUNCHES)
     tile_widths = {"kernels": dict(_build.TILE_LAUNCHES)}  # by token tile
@@ -5694,6 +5920,8 @@ def main(argv=None) -> int:
                          f"{tile_widths['kernels']}, not at each of "
                          f"{im.TILE_WIDTHS}")
     linears = phase("w8a8 linears", w8a8_linear_times, gen)
+    _build.reset_launches()
+    experts = phase("mellum experts", check_experts, gen)
     if args.kernels_only:
         return 0
     from tinychatengine_tpu_torch.core.config import (QuantConfig,
@@ -5738,8 +5966,10 @@ def main(argv=None) -> int:
           case_recorder(cases))
     par = phase("parallel paths, 2 ranks on one card", parallel_path)
 
+    tick = experts["tick"]
     runs = {"engine": launches,  # path -> launches over its run
             "kernels": kernel_launches,
+            "mellum_tick": tick["launches"],
             "llama_w4a16_kouter": kouter["run"][0],
             "serving_dense": serving["dense"]["launches"],
             "serving_paged": serving["paged"]["launches"],
@@ -5764,14 +5994,18 @@ def main(argv=None) -> int:
             "convert_awq_calibration": conv["awq_launches"],
             "convert_engine": conv["engine_launches"],
             **{f"rank0_{k}": v for k, v in par["launches"].items()}}
+    mellum_tick = {k: v / tick["ticks"] for k, v in tick["launches"].items()}
     step_of = {"int8_decode": opt_step, "int4_matmul_fused": sc_ab["fused"][1],
+               "int4_moe": mellum_tick,
                "int4_matmul_kouter": kouter["run"][1],
                **dict.fromkeys(INT8_KV.values(), kv8[1])}
     tick_of = {"int8_decode": opt_serving,
                "int4_matmul_fused": sc_serving["paged"],
                "flash_decode_int8": long_ctx["int8 dense"],
                "flash_prefill_int8": long_ctx["int8 dense"],
-               "flash_decode_paged_int8": long_ctx["int8 paged"]}
+               "flash_decode_paged_int8": long_ctx["int8 paged"],
+               "int4_moe": {"launches": tick["launches"],
+                            "decode_ticks": tick["ticks"]}}
     tile_widths.update({f"{model} serving {mode}": run[mode]
                         ["tile_launches_by_width"]
                         for model, run in (("llama3_8b w4a8", serving),
@@ -5779,8 +6013,8 @@ def main(argv=None) -> int:
                                             sc_serving))
                         for mode in ("dense", "paged")})
     rows = []
-    for name in _build.KERNELS:
-        source, replaces, case = SUMMARY[name]
+    cases += experts["kernels"]
+    for name, (source, replaces, case) in SUMMARY.items():
         mine = [c for c in cases if c["kernel"] == name]
         row = next(c for c in mine if c["case"] == case
                    or c["case"].startswith(case + " "))

@@ -1416,3 +1416,156 @@ def test_flash_prefill_routes_plain_under_autograd(cuda):
         wq = (params.layers.wqkv.weight if fam == "llama"
               else params.layers.q_proj.weight)
         assert wq.grad.abs().sum() > 0
+
+
+# ---- the sparse-expert layer (ops/int4_moe.py, models/moe.py) --------------
+
+def _expert_stack(cuda, sets, k, n, seed):
+    """Random int4 expert weights [sets, K/2, N] and bf16 scales."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    lo, hi = (torch.randint(1, 16, (sets, k // 2, n), dtype=torch.uint8,
+                            device=cuda, generator=gen) for _ in range(2))
+    scales = (torch.rand((sets, k // 128, n), device=cuda, generator=gen)
+              * 0.02 + 0.005).to(torch.bfloat16)
+    return lo | (hi << 4), scales
+
+
+def _routing(kind, rows, n_experts, k, rng):
+    """ids [rows, k] of distinct experts a row: ``uneven`` (skewed, expert
+    3 empty) or ``one`` (expert 5 in every row)."""
+    if kind == "one":
+        others = [e for e in range(n_experts) if e != 5]
+        ids = [[5] + list(rng.choice(others, k - 1, replace=False))
+               for _ in range(rows)]
+    else:
+        p = np.array([8, 4, 2, 0, 1, 1, 6, 3], np.float64)[:n_experts]
+        ids = [list(rng.choice(n_experts, k, replace=False, p=p / p.sum()))
+               for _ in range(rows)]
+    return np.asarray(ids, np.int32)
+
+
+@pytest.mark.parametrize("kind", ["uneven", "one"])
+@pytest.mark.parametrize("rows", [1, 8, 64, 512])
+def test_grouped_expert_matmul_matches_plain(cuda, rows, kind):
+    """The route, plan, grouped matmul, act and combine kernels against
+    their plain versions: the plan bit for bit (a stable sort by expert),
+    the grouped matmul within MAT_TOL of each expert's plain int4 matmul
+    (an empty expert and one taking every row included), the combine bit
+    for bit given the same inputs."""
+    from tinychatengine_tpu_torch.ops import int4_moe as mo
+    rng = np.random.default_rng(rows)
+    ne, k, e, f = 8, 2, 512, 256
+    ids = torch.from_numpy(_routing(kind, rows, ne, k, rng)).to(cuda)
+    t = mo.tile_rows(rows * k, ne)
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    stats_plain = torch.zeros(2, dtype=torch.int64, device=cuda)
+    got = mo.plan(ids, ne, t, stats)
+    want = mo.plan_plain(ids, ne, t, stats_plain)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(stats, stats_plain)
+    if kind == "uneven":
+        assert int(got[2][3]) == int(got[2][4])  # expert 3 has no rows
+    src, slot_of, offsets, tiles = got
+    gu_p, gu_s = _expert_stack(cuda, 2 * ne, e, 2 * f, 1)
+    dn_p, dn_s = _expert_stack(cuda, 2 * ne, f, e, 2)
+    x = _bf16(rng, (rows, e), cuda)
+    xs = x.index_select(0, src)
+    gu = mo.grouped_int4_matmul(xs, gu_p, gu_s, 128, ne, offsets, tiles, ne, t)
+    gu_ref = mo.grouped_int4_matmul_plain(xs, gu_p, gu_s, 128, ne, offsets,
+                                          ne)
+    assert _mat_ok(gu, gu_ref)
+    act = mo.expert_act(gu, f)
+    assert _mat_ok(act, mo.expert_act_plain(gu, f))
+    yd = mo.grouped_int4_matmul(act, dn_p, dn_s, 128, ne, offsets, tiles, ne,
+                                t)
+    assert _mat_ok(yd, mo.grouped_int4_matmul_plain(act, dn_p, dn_s, 128, ne,
+                                                    offsets, ne))
+    logits = torch.randn((rows, ne), device=cuda)
+    rid, rw = mo.route(logits, k)
+    pid, pw = mo.route_plain(logits, k, True)
+    assert torch.equal(rid, pid)
+    torch.testing.assert_close(rw, pw, rtol=1e-6, atol=0)
+    w = torch.rand((rows, k), device=cuda)
+    assert torch.equal(mo.combine(yd, slot_of, w, x),
+                       mo.combine_plain(yd, slot_of, w, x))
+
+
+def test_grouped_expert_rows_are_independent(cuda):
+    """A row's bits do not depend on the rows routed beside it or on the
+    token tile: 8 rows alone and among 512 (tiles of 16 and 64)."""
+    from tinychatengine_tpu_torch.ops import int4_moe as mo
+    rng = np.random.default_rng(7)
+    ne, k, e, n = 8, 2, 512, 256
+    ids = torch.from_numpy(_routing("uneven", 512, ne, k, rng)).to(cuda)
+    w_p, w_s = _expert_stack(cuda, ne, e, n, 3)
+    x = _bf16(rng, (512, e), cuda)
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    outs = []
+    for rows in (8, 512):
+        t = mo.tile_rows(rows * k, ne)
+        src, slot_of, offsets, tiles = mo.plan(ids[:rows], ne, t, stats)
+        y = mo.grouped_int4_matmul(x[:rows].index_select(0, src), w_p, w_s,
+                                   128, 0, offsets, tiles, ne, t)
+        outs.append(y[slot_of.long()][:8 * k])
+    assert torch.equal(outs[0], outs[1])
+
+
+GRAPH_MOE = dict(name="tiny_moe", family="llama", num_heads=2,
+                 num_kv_heads=1, num_layers=2, max_sqlen=256, embed_dim=256,
+                 hidden_dim=512, vocab_size=512, head_dim=128,
+                 layer_windows=(16, None), layer_rope=("default", "yarn"),
+                 num_experts=8, experts_per_tok=2, expert_dim=256)
+
+
+def _tiny_moe(cuda):
+    from tinychatengine_tpu_torch.core.config import (ModelConfig,
+                                                      QuantConfig, YarnRope)
+    from tinychatengine_tpu_torch.models import llama
+    cfg = ModelConfig(**GRAPH_MOE, yarn=YarnRope(4.0, 64, 32.0, 1.0, 1.14))
+    qcfg = QuantConfig(scheme="w4a16", group_size=128)
+    return cfg, qcfg, llama.init_random_params(cfg, qcfg, seed=0,
+                                               device=cuda, centered=True,
+                                               fast=True)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_moe_tick_graph_equals_eager_and_never_syncs(cuda, paged):
+    """A small sparse-expert model: the serving tick replayed from its
+    captured graph gives the eager server's tokens, and a decode forward
+    at per-row positions runs under ``set_sync_debug_mode("error")`` (no
+    host sync inside the expert layer)."""
+    from tinychatengine_tpu_torch.core.config import GenerationConfig
+    from tinychatengine_tpu_torch.generation import kv_cache as kvc
+    from tinychatengine_tpu_torch.models import llama
+    from tinychatengine_tpu_torch.runtime.serving import ServingEngine
+    from tinychatengine_tpu_torch.utils import tracing
+    cfg, qcfg, params = _tiny_moe(cuda)
+    g = GenerationConfig(temp=0.0, n_predict=24, repeat_penalty=1.0)
+    t0 = time.perf_counter_ns()
+    outs = []
+    for graphs in (True, False):
+        srv = ServingEngine(params, cfg, qcfg, slots=4, gcfg=g, tick_batch=8,
+                            paged=paged, page_size=64, device=cuda,
+                            cuda_graphs=graphs)
+        reqs = [srv.submit(GRAPH_PROMPT[0, :5 + 3 * i]) for i in range(6)]
+        srv.run()
+        outs.append([r.output_ids for r in reqs])
+        if graphs:
+            assert srv.graphs.captures >= 1
+    assert outs[0] == outs[1]
+    assert _build.LAUNCHES["int4_moe"] > 0
+    # the expert counts ride on the token fetches of a server on "cuda"
+    dec = [s for s in tracing.snapshot(t0) if s.name == "serve.experts"]
+    assert dec and all(0 < s.a <= s.b for s in dec)
+    cache = kvc.init_cache(cfg.num_layers, 4, 64, cfg.num_kv_heads,
+                           cfg.head_dim, device=cuda)
+    start = torch.tensor([3, 9, 0, 30], dtype=torch.int32, device=cuda)
+    toks = torch.tensor([[1], [2], [3], [4]], device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        llama.forward(params, cfg, toks, cache, start, ctx_cap=64)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()

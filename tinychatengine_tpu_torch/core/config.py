@@ -13,12 +13,38 @@ from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
+class YarnRope:
+    """Hugging Face's ``rope_type: "yarn"`` parameters
+    (``_compute_yarn_parameters``): inverse frequencies interpolated by
+    ``factor`` below the correction range of ``beta_fast`` / ``beta_slow``
+    rotations over ``original_max_position_embeddings`` positions, kept
+    above it, and cos / sin scaled by ``attention_factor``."""
+
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    attention_factor: float = 1.0
+    truncate: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Hyperparameters for one model (reference: llm/include/model.h:5-83).
 
     Extends the reference struct with fields it hard-codes elsewhere:
     ``head_dim``, ``rope_theta`` (rotary_emb_exporter.py:77-81), activation
     type, and the architecture family tag used to pick the decoder.
+
+    Per-layer attention (llama family): ``layer_windows`` gives each
+    layer's window (None: full), else every layer takes ``sliding_window``;
+    ``layer_rope`` names each layer's RoPE table, ``"default"`` (θ
+    ``rope_theta``) or ``"yarn"`` (``yarn``'s parameters at the same θ).
+    Sparse experts (llama family): ``num_experts`` > 0 replaces every
+    layer's SwiGLU by ``models/moe.py``'s layer of that many experts of
+    width ``expert_dim``, ``experts_per_tok`` routed a token, their weights
+    renormalised over the chosen ones when ``norm_topk_prob``. Each
+    default leaves a model without them as it was.
     """
 
     name: str
@@ -41,14 +67,61 @@ class ModelConfig:
     tie_word_embeddings: bool = False
     sliding_window: int | None = None  # Mistral attention window (the
     # reference ignores it — SURVEY.md §5 long-context audit)
+    head_dim: int = 0  # 0: embed_dim // num_heads
+    layer_windows: Optional[tuple] = None
+    layer_rope: Optional[tuple] = None
+    yarn: Optional[YarnRope] = None
+    num_experts: int = 0
+    experts_per_tok: int = 0
+    expert_dim: int = 0
+    norm_topk_prob: bool = True
 
-    @property
-    def head_dim(self) -> int:
-        return self.embed_dim // self.num_heads
+    def __post_init__(self):
+        if isinstance(self.yarn, dict):  # read back from a saved dict
+            object.__setattr__(self, "yarn", YarnRope(**self.yarn))
+        if not self.head_dim and self.num_heads:
+            object.__setattr__(self, "head_dim",
+                               self.embed_dim // self.num_heads)
+        for name in ("layer_windows", "layer_rope"):
+            v = getattr(self, name)
+            if v is not None and len(v) != self.num_layers:
+                raise ValueError(f"{name} gives {len(v)} layers, not "
+                                 f"{self.num_layers}")
+        if self.layer_rope is not None and "yarn" in self.layer_rope \
+                and self.yarn is None:
+            raise ValueError("a yarn layer needs the yarn parameters")
 
     @property
     def gqa_groups(self) -> int:
         return self.num_heads // self.num_kv_heads
+
+    def window(self, layer: int) -> Optional[int]:
+        """Layer ``layer``'s attention window (None: full)."""
+        if self.layer_windows is None:
+            return self.sliding_window
+        return self.layer_windows[layer]
+
+    def rope_kind(self, layer: int) -> str:
+        return "default" if self.layer_rope is None \
+            else self.layer_rope[layer]
+
+
+# the fields beyond the JAX package's ModelConfig: a saved configuration
+# leaves them out where they hold their defaults, so its metadata stays the
+# JAX package's
+EXTENSIONS = ("head_dim", "layer_windows", "layer_rope", "yarn",
+              "num_experts", "experts_per_tok", "expert_dim",
+              "norm_topk_prob")
+
+
+def config_dict(cfg: ModelConfig) -> dict:
+    """``dataclasses.asdict(cfg)`` without the extensions at their
+    defaults (``ModelConfig(**config_dict(cfg)) == cfg``)."""
+    d = dataclasses.asdict(cfg)
+    plain = ModelConfig(**{k: v for k, v in d.items()
+                           if k not in EXTENSIONS})
+    return {k: v for k, v in d.items()
+            if k not in EXTENSIONS or v != dataclasses.asdict(plain)[k]}
 
 
 def _llama(name, heads, kv_heads, layers, embed, hidden, vocab, eps,
@@ -107,6 +180,21 @@ MODEL_REGISTRY: dict[str, ModelConfig] = {
         num_layers=40, max_sqlen=2048, embed_dim=6144, hidden_dim=24576,
         vocab_size=49152,
     ),
+    # JetBrains' Mellum2-12B-A2.5B-Instruct (its config.json): every layer
+    # 64 experts of width 896, top-8; layers sliding x3 then full, the
+    # sliding ones a 1024 window at RoPE θ 5e5, the full ones YaRN
+    "mellum2_12b_a2.5b": ModelConfig(
+        name="mellum2_12b_a2.5b", family="llama", num_heads=32,
+        num_kv_heads=4, num_layers=28, max_sqlen=131072, embed_dim=2304,
+        hidden_dim=7168, vocab_size=98304, rms_norm_eps=1e-6,
+        rope_theta=500000.0, head_dim=128,
+        layer_windows=(1024, 1024, 1024, None) * 7,
+        layer_rope=("default", "default", "default", "yarn") * 7,
+        yarn=YarnRope(factor=16.0, original_max_position_embeddings=8192,
+                      beta_fast=32.0, beta_slow=1.0,
+                      attention_factor=1.2772588722239782),
+        num_experts=64, experts_per_tok=8, expert_dim=896,
+        norm_topk_prob=True),
     # llava's/vila's CLIP uses 23 of 24 layers (model.h:81)
     "clip_vit_large": ModelConfig(
         name="clip_vit_large", family="clip", num_heads=16, num_kv_heads=16,

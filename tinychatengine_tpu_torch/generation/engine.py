@@ -88,6 +88,14 @@ def _bucket(n: int) -> int:
     raise ValueError(f"prompt length {n} exceeds largest bucket")
 
 
+def prompt_bucket(n: int) -> int:
+    """``_bucket`` of a whole prompt, which admission prefills in chunks:
+    above the largest bucket, n rounded up to a multiple of it (the span
+    spliced from the scratch cache, or the pages reserved)."""
+    top = PREFILL_BUCKETS[-1]
+    return _bucket(n) if n <= top else -(-n // top) * top
+
+
 def prefill_positions(n: int, chunk: int) -> int:
     """Positions a prefill of ``n`` tokens computes: whole chunks of
     ``chunk``, then the rest padded to its bucket."""

@@ -15,6 +15,14 @@ Parameters are dataclasses of tensors with every layer leaf stacked [L, ...]
 as in the JAX package; the forward walks the layers in a Python loop and
 hands ``layer_idx`` to the kernels, which read the layer straight from the
 stacked buffers. q/k/v and gate/up are fused column-wise.
+
+Per-layer attention and sparse experts (``ModelConfig``; Mellum2): each
+layer takes its own window (``cfg.window(li)``, passed to the attention
+kernels) and its own RoPE table (``cfg.rope_kind(li)``: ``rope_cos`` /
+``rope_sin``, or YaRN's ``rope_cos_yarn`` / ``rope_sin_yarn``, the fused
+decode's epilogue included), and a model with ``num_experts`` runs
+``models/moe.py``'s expert layer in place of every SwiGLU (the fused
+decode then covers the attention half).
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import torch
 from tinychatengine_tpu_torch.core.config import ModelConfig, QuantConfig
 from tinychatengine_tpu_torch.core.device import resolve_device
 from tinychatengine_tpu_torch.generation import kv_cache as kvc
+from tinychatengine_tpu_torch.models import moe
 from tinychatengine_tpu_torch.ops import attention as att
 from tinychatengine_tpu_torch.ops import int4_matmul as int4m
 from tinychatengine_tpu_torch.ops import ref
@@ -77,13 +86,16 @@ def fused_group_size(lyr: "LlamaLayerParams", cfg: ModelConfig,
     A static shape gate, as in JAX: the switch is on, S == 1, head_dim in
     (64, 128, 256) (the RoPE epilogue's tiling there), and every layer
     linear is fusable at the qkv group size with its K unpadded (the norm
-    runs over the whole row)."""
+    runs over the whole row); a sparse-expert model's are its attention
+    projections."""
     if not (int4m.FUSED_DECODE and s == 1 and cfg.head_dim in (64, 128, 256)
             and fusable(lyr.wqkv)):
         return 0
     gs = lyr.wqkv.group_size
     e, f = cfg.embed_dim, cfg.hidden_dim
-    lins = ((lyr.wqkv, e), (lyr.wo, e), (lyr.wgate_up, e), (lyr.down, f))
+    lins = ((lyr.wqkv, e), (lyr.wo, cfg.num_heads * cfg.head_dim))
+    if not cfg.num_experts:
+        lins += ((lyr.wgate_up, e), (lyr.down, f))
     ok = all(fusable(p, gs) and 2 * p.packed.shape[-2] == k_in
              for p, k_in in lins)
     return gs if ok else 0
@@ -97,8 +109,13 @@ class LlamaLayerParams:
     wqkv: object              # E -> (Hq + 2*Hkv)*D
     wo: object                # Hq*D -> E
     post_norm: torch.Tensor   # [L, E]
-    wgate_up: object          # E -> 2F (SiLU gate | up)
-    down: object              # F -> E
+    wgate_up: object = None   # E -> 2F (SiLU gate | up); None with experts
+    down: object = None       # F -> E
+    # sparse experts (models/moe.py): the router [L, E, X] bf16, and the
+    # experts' gate | up and down as Int4Linear stacks [L X, K/2, N]
+    router: Optional[torch.Tensor] = None
+    experts_gate_up: object = None
+    experts_down: object = None
 
 
 @dataclasses.dataclass
@@ -109,6 +126,8 @@ class LlamaParams:
     lm_head: object           # E -> V (N possibly padded, see lmhead_padded)
     rope_cos: torch.Tensor    # [max_pos, D] f32
     rope_sin: torch.Tensor
+    rope_cos_yarn: Optional[torch.Tensor] = None  # YaRN layers' tables
+    rope_sin_yarn: Optional[torch.Tensor] = None
 
 
 def forward(params: LlamaParams, cfg: ModelConfig, input_ids: torch.Tensor,
@@ -156,6 +175,8 @@ def forward(params: LlamaParams, cfg: ModelConfig, input_ids: torch.Tensor,
     b, s = input_ids.shape
     dev = params.embed.device
     ragged = isinstance(start, torch.Tensor)
+    if tp_axis is not None or sp_axis is not None:
+        moe.refuse_parallel(cfg, "tensor- or sequence-parallel")
     if page_table is not None and (s != 1 or not ragged):
         raise ValueError("a paged forward is a decode step: S = 1 and a "
                          "per-row start tensor")
@@ -180,8 +201,13 @@ def forward(params: LlamaParams, cfg: ModelConfig, input_ids: torch.Tensor,
     # the JAX gather clamps out-of-range indices; so does this one (only
     # bucket padding past the table can reach it)
     rope_pos = positions.clamp(max=params.rope_cos.shape[0] - 1)
-    cos = params.rope_cos[rope_pos].float()  # [B, S, D]
-    sin = params.rope_sin[rope_pos].float()
+    tables = {"default": (params.rope_cos, params.rope_sin),
+              "yarn": (params.rope_cos_yarn, params.rope_sin_yarn)}
+    rope = {}  # each kind the layers use: cos, sin [B, S, D]
+    for kind in dict.fromkeys(map(cfg.rope_kind, range(cfg.num_layers))):
+        if tables[kind][0] is None:
+            raise ValueError(f"{cfg.name}: no {kind} RoPE table in params")
+        rope[kind] = tuple(t[rope_pos].float() for t in tables[kind])
     if ragged:  # per-row attention lengths (int32), built once
         kv_len = start + s
         if page_table is None:  # bucket padding may reach past the cache
@@ -194,11 +220,12 @@ def forward(params: LlamaParams, cfg: ModelConfig, input_ids: torch.Tensor,
     lyr = params.layers
     d = cfg.head_dim
     ratio = cfg.num_heads // cfg.num_kv_heads
-    win = cfg.sliding_window
     eps = cfg.rms_norm_eps
     gs = fused_group_size(lyr, cfg, s)
     fused = int4m.int4_matmul_fused
     for li in range(cfg.num_layers):
+        win = cfg.window(li)
+        cos, sin = rope[cfg.rope_kind(li)]
         if gs:  # RMSNorm in the qkv matmul's prologue, RoPE in its epilogue
             hkv = lyr.wqkv.packed.shape[-1] // (d * (ratio + 2))
             qkv = fused(x, lyr.wqkv.packed, lyr.wqkv.scales, gs, layer_idx=li,
@@ -238,22 +265,24 @@ def forward(params: LlamaParams, cfg: ModelConfig, input_ids: torch.Tensor,
             else:
                 attn = flash_prefill(q, cache.k, cache.v, li, start, kv_len,
                                      cache.k_scale, cache.v_scale, window=win)
-        if gs and tp_axis is None:  # residual in wo's epilogue, the
-            # post-norm in gate_up's prologue
+        if gs and tp_axis is None:  # residual in wo's epilogue
             x = fused(attn.to(x.dtype), lyr.wo.packed, lyr.wo.scales, gs,
                       layer_idx=li, residual=x)
-            gu = fused(x, lyr.wgate_up.packed, lyr.wgate_up.scales, gs,
-                       layer_idx=li, norm_w=lyr.post_norm, norm_eps=eps)
         else:  # under TP the partials are summed before the residual add
             x = x + row_parallel(lyr.wo, attn.to(x.dtype), tp_axis,
                                  layer_idx=li)
-            if gs and page_table is None:  # as in JAX: the paged decode
-                # leaves gate_up unfused under TP, the contiguous one not
-                gu = fused(x, lyr.wgate_up.packed, lyr.wgate_up.scales, gs,
-                           layer_idx=li, norm_w=lyr.post_norm, norm_eps=eps)
-            else:
-                h2 = ref.rms_norm_ref(x, lyr.post_norm[li], eps)
-                gu = apply_linear(lyr.wgate_up, h2, layer_idx=li)
+        if cfg.num_experts:
+            x = moe.forward(lyr, cfg, ref.rms_norm_ref(x, lyr.post_norm[li],
+                                                       eps), x, li)
+            continue
+        if gs and (tp_axis is None or page_table is None):  # the
+            # post-norm in gate_up's prologue; as in JAX, the paged decode
+            # leaves gate_up unfused under TP, the contiguous one not
+            gu = fused(x, lyr.wgate_up.packed, lyr.wgate_up.scales, gs,
+                       layer_idx=li, norm_w=lyr.post_norm, norm_eps=eps)
+        else:
+            h2 = ref.rms_norm_ref(x, lyr.post_norm[li], eps)
+            gu = apply_linear(lyr.wgate_up, h2, layer_idx=li)
         f = gu.shape[-1] // 2
         act = (ref.silu_ref(gu[..., :f].float())
                * gu[..., f:].float()).to(x.dtype)
@@ -362,15 +391,25 @@ def params_from_numpy(flat: dict, cfg: ModelConfig, qcfg: QuantConfig,
         return cls(packed=leaf(f"{prefix}/packed"),
                    scales=leaf(f"{prefix}/scales"), bias=bias)
 
+    def opt(key, make):  # a leaf or linear only some models have
+        held = key in flat or any(k.startswith(key + "/") for k in flat)
+        return make(key) if held else None
+
     return LlamaParams(
         embed=leaf("embed"),
         layers=LlamaLayerParams(
             input_norm=leaf("layers/input_norm"), wqkv=lin("layers/wqkv"),
             wo=lin("layers/wo"), post_norm=leaf("layers/post_norm"),
-            wgate_up=lin("layers/wgate_up"), down=lin("layers/down")),
+            wgate_up=opt("layers/wgate_up", lin),
+            down=opt("layers/down", lin),
+            router=opt("layers/router", leaf),
+            experts_gate_up=opt("layers/experts_gate_up", lin),
+            experts_down=opt("layers/experts_down", lin)),
         final_norm=leaf("final_norm"),
         lm_head=lin("lm_head"),
-        rope_cos=leaf("rope_cos"), rope_sin=leaf("rope_sin"))
+        rope_cos=leaf("rope_cos"), rope_sin=leaf("rope_sin"),
+        rope_cos_yarn=opt("rope_cos_yarn", leaf),
+        rope_sin_yarn=opt("rope_sin_yarn", leaf))
 
 
 def init_random_params(cfg: ModelConfig, qcfg: QuantConfig, seed: int = 0,
@@ -432,11 +471,24 @@ def init_random_params(cfg: ModelConfig, qcfg: QuantConfig, seed: int = 0,
         wqkv=fuse_linears([lin(e, hq * d, nl), lin(e, hkv * d, nl),
                            lin(e, hkv * d, nl)], tp_degree),
         wo=lin(hq * d, e, nl),
-        post_norm=ones.clone(),
-        wgate_up=fuse_linears([lin(e, f, nl), lin(e, f, nl)], tp_degree),
-        down=lin(f, e, nl))
-    cos, sin = ref.make_rope_cache(d, max_pos or cfg.max_sqlen,
-                                   cfg.rope_theta, device=dev)
+        post_norm=ones.clone())
+    if cfg.num_experts:  # every (layer, expert) a set of one stack
+        ne, fe = cfg.num_experts, cfg.expert_dim
+        sets = nl * ne
+        layers.router = (torch.randn((nl, e, ne), generator=gen, device=dev)
+                         * std).to(torch.bfloat16)
+        layers.experts_gate_up = fuse_linears([lin(e, fe, sets),
+                                               lin(e, fe, sets)])
+        layers.experts_down = lin(fe, e, sets)
+    else:
+        layers.wgate_up = fuse_linears([lin(e, f, nl), lin(e, f, nl)],
+                                       tp_degree)
+        layers.down = lin(f, e, nl)
+    n_pos = max_pos or cfg.max_sqlen
+    cos, sin = ref.make_rope_cache(d, n_pos, cfg.rope_theta, device=dev)
+    yarn = (ref.make_yarn_cache(d, n_pos, cfg.rope_theta, cfg.yarn,
+                                device=dev)
+            if cfg.yarn is not None else (None, None))
     if fast:
         embed = (torch.randn((v, e), generator=gen, device=dev) * 0.02
                  ).to(torch.bfloat16)
@@ -447,4 +499,5 @@ def init_random_params(cfg: ModelConfig, qcfg: QuantConfig, seed: int = 0,
         embed=embed, layers=layers,
         final_norm=torch.ones((e,), dtype=torch.bfloat16, device=dev),
         lm_head=lin(e, lmhead_padded(v)),
-        rope_cos=cos, rope_sin=sin)
+        rope_cos=cos, rope_sin=sin, rope_cos_yarn=yarn[0],
+        rope_sin_yarn=yarn[1])

@@ -5,7 +5,9 @@ compiled at first use for ``sm_90a`` into ``build/tce_torch/`` at the root
 of the checkout (listed in ``.gitignore``) under a name keyed by a hash of
 its source and flags, and loaded with ``ctypes``. A kernel is named by its
 launch counter; the int8-KV attention kernels live in their bf16 kernels'
-sources and the GLU kernel in the K-outer kernel's (``SOURCES``).
+sources, the GLU kernel in the K-outer kernel's and the expert layer's
+small kernels in the grouped expert matmul's (``int4_moe``;
+``SOURCES``).
 ``build_all`` starts one ``nvcc`` per source at once and waits for all of
 them. Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` raises on a non-zero code. ``LAUNCHES`` counts the launches that
@@ -29,12 +31,15 @@ KERNELS = ("int4_matmul", "int4_matmul_a8", "flash_decode", "flash_prefill",
            "flash_decode_paged", "int8_decode", "int4_matmul_fused",
            "flash_decode_int8", "flash_prefill_int8",
            "flash_decode_paged_int8", "int4_matmul_kouter", "int4_matmul_glu",
-           "mlp_fused", "int3_matmul")
+           "mlp_fused", "int3_matmul", "int4_moe", "moe_route", "moe_plan",
+           "moe_act", "moe_combine")
 # kernel -> its source under csrc/ where the two names differ
 SOURCES = {"flash_decode_int8": "flash_decode",
            "flash_prefill_int8": "flash_prefill",
            "flash_decode_paged_int8": "flash_decode_paged",
-           "int4_matmul_glu": "int4_matmul_kouter"}
+           "int4_matmul_glu": "int4_matmul_kouter",
+           "moe_route": "int4_moe", "moe_plan": "int4_moe",
+           "moe_act": "int4_moe", "moe_combine": "int4_moe"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

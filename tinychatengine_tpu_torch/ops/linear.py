@@ -25,8 +25,10 @@ from tinychatengine_tpu_torch.quant.packing import (
     pack_qm_tpu_kn,
     pack_scales,
     pack_scales_kn,
+    pad_to_superblock,
     padded_ic,
 )
+from tinychatengine_tpu_torch.quant.packing import SUPERBLOCK
 
 # M above which W4A8 runs the W4A16 kernel (the reference's own W4A8
 # dispatch switches to a dequant + fp GEMM for m > 100)
@@ -210,8 +212,9 @@ def random_int4_linear_fast(gen: torch.Generator, k: int, n: int,
     uniform over 1..15, symmetric about the zero point as a quantized
     zero-mean weight's codes are, instead of uniform bytes, whose codes
     average 7.5 and so put a common -0.5 * d * sum(x) into every output
-    (GPTBigCode's init needs it; the llama init keeps uniform bytes)."""
-    kp = padded_ic(k, group_size)
+    (GPTBigCode's init needs it; the llama init keeps uniform bytes). K is
+    padded to whole superblocks (a sparse-expert down projection's 896)."""
+    kp = -(-padded_ic(k, group_size) // SUPERBLOCK) * SUPERBLOCK
     lead = () if n_layers is None else (n_layers,)
     packed = torch.empty(lead + (kp // 2, n), dtype=torch.uint8, device=device)
     scales = torch.empty(lead + (kp // group_size, n),
@@ -273,6 +276,8 @@ def random_int4_linear(rng: np.random.Generator, k: int, n: int,
                        group_size: int = 128, std: float = 0.02,
                        scale_dtype: str = "f32", device=None) -> Int4Linear:
     """Random normal weights quantized on the host (tests and small
-    models; real checkpoints come from tools.convert)."""
+    models; real checkpoints come from tools.convert), K zero-padded to
+    whole superblocks (``pad_to_superblock``)."""
     w = (rng.standard_normal((n, k)) * std).astype(np.float32)
-    return quantized_linear(w, group_size, scale_dtype, device=device)
+    return quantized_linear(pad_to_superblock(w), group_size, scale_dtype,
+                            device=device)

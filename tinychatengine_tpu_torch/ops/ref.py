@@ -6,6 +6,8 @@ results back in the input dtype.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -115,6 +117,49 @@ def make_rope_cache(head_dim: int, max_pos: int, theta: float = 10000.0,
     freqs = torch.outer(t, inv_freq)
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.cos(emb), torch.sin(emb)
+
+
+def yarn_inv_freq(head_dim: int, theta: float, yarn,
+                  device=None) -> torch.Tensor:
+    """YaRN's inverse frequencies [head_dim / 2] f32 (Hugging Face's
+    ``_compute_yarn_parameters``): the extrapolated 1 / θ^(2i/D) and the
+    interpolated ones divided by ``yarn.factor``, blended by a linear ramp
+    over the D / 2 entries between the correction dims of ``beta_fast``
+    and ``beta_slow`` rotations over the original context (floored and
+    ceiled with ``truncate``, clamped to [0, D - 1])."""
+    d = head_dim
+
+    def corr(rot):
+        return (d * math.log(yarn.original_max_position_embeddings
+                             / (rot * 2 * math.pi))) / (2 * math.log(theta))
+
+    low, high = corr(yarn.beta_fast), corr(yarn.beta_slow)
+    if yarn.truncate:
+        low, high = math.floor(low), math.ceil(high)
+    low, high = max(low, 0), min(high, d - 1)
+    if low == high:
+        high += 0.001
+    pos = theta ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                 device=device) / d)
+    extra, inter = 1.0 / pos, 1.0 / (yarn.factor * pos)
+    ramp = torch.clamp((torch.arange(d // 2, dtype=torch.float32,
+                                     device=device) - low) / (high - low),
+                       0, 1)
+    keep = 1 - ramp  # the extrapolated share
+    return inter * (1 - keep) + extra * keep
+
+
+def make_yarn_cache(head_dim: int, max_pos: int, theta: float, yarn,
+                    device=None):
+    """YaRN's cos/sin tables [max_pos, head_dim] f32, each times
+    ``yarn.attention_factor`` (so the scores scale by its square), laid
+    out as ``make_rope_cache``'s."""
+    inv_freq = yarn_inv_freq(head_dim, theta, yarn, device)
+    t = torch.arange(max_pos, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, inv_freq)
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return (torch.cos(emb) * yarn.attention_factor,
+            torch.sin(emb) * yarn.attention_factor)
 
 
 def silu_ref(x: torch.Tensor) -> torch.Tensor:

@@ -31,7 +31,7 @@ import torch
 
 from tinychatengine_tpu_torch.core.device import resolve_device
 from tinychatengine_tpu_torch.generation import kv_cache as kvc
-from tinychatengine_tpu_torch.models import llama
+from tinychatengine_tpu_torch.models import llama, moe
 from tinychatengine_tpu_torch.ops import ref
 from tinychatengine_tpu_torch.ops.linear import apply_linear
 from tinychatengine_tpu_torch.parallel.distributed import Mesh
@@ -68,7 +68,8 @@ def llama_pp_param_specs(params: llama.LlamaParams, tp: bool = False) -> dict:
             "lm_head": (tp_specs["lm_head"] if tp
                         else spec_tree(params.lm_head, _replicated)),
             "rope_cos": _replicated(params.rope_cos),
-            "rope_sin": _replicated(params.rope_sin)}
+            "rope_sin": _replicated(params.rope_sin),
+            "rope_cos_yarn": None, "rope_sin_yarn": None}
 
 
 def generic_pp_param_specs(params) -> dict:
@@ -184,6 +185,7 @@ class PPForward:
     def __call__(self, params, cfg, input_ids, cache, start,
                  input_embeds=None, full_logits: bool = False,
                  true_len=None, page_table=None, ctx_cap=None):
+        moe.refuse_parallel(cfg, "pipeline-parallel")
         if full_logits:
             raise ValueError("PP forward returns last-position logits only")
         if page_table is not None:

@@ -95,11 +95,14 @@ def llama_param_specs(params: LlamaParams) -> dict:
             "wo": _linear_spec(ly.wo, "row", logical_k=embed_dim),
             "post_norm": _replicated(ly.post_norm),
             "wgate_up": _linear_spec(ly.wgate_up, "col"),
-            "down": _linear_spec(ly.down, "row", logical_k=hidden)},
+            "down": _linear_spec(ly.down, "row", logical_k=hidden),
+            # a sparse-expert model has no TP path (models/moe.py)
+            "router": None, "experts_gate_up": None, "experts_down": None},
         "final_norm": _replicated(params.final_norm),
         "lm_head": _linear_spec(params.lm_head, "col"),
         "rope_cos": _replicated(params.rope_cos),
-        "rope_sin": _replicated(params.rope_sin)}
+        "rope_sin": _replicated(params.rope_sin),
+        "rope_cos_yarn": None, "rope_sin_yarn": None}
 
 
 def opt_param_specs(params) -> dict:

@@ -20,7 +20,7 @@ from typing import Optional, Sequence
 
 from tinychatengine_tpu_torch.core.device import resolve_device
 from tinychatengine_tpu_torch.generation.kv_cache import KVCache
-from tinychatengine_tpu_torch.models import llama
+from tinychatengine_tpu_torch.models import llama, moe
 from tinychatengine_tpu_torch.parallel.distributed import Mesh
 from tinychatengine_tpu_torch.parallel.sharding import P, shard_kv
 
@@ -57,6 +57,7 @@ def make_sp_prefill(mesh: Mesh, forward=llama.forward, device=None):
 
     def sp_prefill(params, cfg, input_ids, cache, true_len=None,
                    full_logits: bool = False):
+        moe.refuse_parallel(cfg, "sequence-parallel")
         b, s = input_ids.shape
         if s % n_seq:
             raise ValueError(f"prompt of {s} does not split over {n_seq} "

@@ -28,7 +28,7 @@ import torch
 
 from tinychatengine_tpu_torch.core.device import resolve_device
 from tinychatengine_tpu_torch.generation import kv_cache as kvc
-from tinychatengine_tpu_torch.models import llama
+from tinychatengine_tpu_torch.models import llama, moe
 from tinychatengine_tpu_torch.parallel.distributed import Mesh
 from tinychatengine_tpu_torch.runtime import paged as pg
 
@@ -113,6 +113,7 @@ class TPForward:
     def __call__(self, params, cfg, input_ids, cache, start,
                  input_embeds=None, full_logits: bool = False,
                  true_len=None, page_table=None, ctx_cap=None):
+        moe.refuse_parallel(cfg, "tensor-parallel")
         b, s = input_ids.shape
         if not self.mesh.member:
             return self._follow(cfg, b, s, cache, full_logits, true_len,

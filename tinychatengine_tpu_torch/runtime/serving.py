@@ -96,8 +96,9 @@ from tinychatengine_tpu_torch.generation.engine import (Engine, _bucket,
                                                         ctx_cap_for,
                                                         init_cache_for,
                                                         prefill_positions,
+                                                        prompt_bucket,
                                                         raw_int8_kv)
-from tinychatengine_tpu_torch.models import llama
+from tinychatengine_tpu_torch.models import llama, moe
 from tinychatengine_tpu_torch.runtime import paged as pg
 from tinychatengine_tpu_torch.utils import tracing
 
@@ -254,7 +255,8 @@ class ServingEngine:
 
         self.slots = [_Slot() for _ in range(slots)]
         t = time.perf_counter_ns()
-        tracing.record(tracing.ENGINE, t, t, a=slots)
+        tracing.record(tracing.ENGINE, t, t, a=slots,
+                       b=cfg.num_layers * cfg.num_experts)
         self._step_span = 0  # the step in flight (0: none)
         # what the scheduler spent its ticks on
         self.tick_stats = {"bursts": 0, "burst_ticks": 0, "single_ticks": 0,
@@ -475,8 +477,8 @@ class ServingEngine:
                and self._free_slot() is not None):
             if self.paged and self.allocator.n_free < \
                     self.allocator.pages_needed(
-                        _bucket(min(len(self.queue[0].prompt_ids),
-                                    self.max_len - 2))):
+                        prompt_bucket(min(len(self.queue[0].prompt_ids),
+                                          self.max_len - 2))):
                 break  # not enough pages: hold the queue until some free
             batch = self._eligible_batch()
             if len(batch) >= 2:
@@ -561,10 +563,7 @@ class ServingEngine:
             tick = SpecTick(self)
             tick.load(self)
             tick.body()
-        wait = tracing.begin(tracing.SYNC)
-        seq = tick.seq.cpu().numpy()                       # [B, K+1]
-        emitted = tick.emitted.cpu().numpy()
-        tracing.end(wait)
+        seq, emitted = self._fetch(tick.seq, tick.emitted)  # [B, K+1], [B]
         emit = tracing.begin(tracing.EMIT)
         self._in_spec = True
         try:
@@ -658,9 +657,7 @@ class ServingEngine:
         for _ in range(k):
             self.graphs.run(step)
         t = step.state
-        wait = tracing.begin(tracing.SYNC)
-        seq = t.seq[:k].cpu().numpy()
-        tracing.end(wait)
+        seq, = self._fetch(t.seq[:k])
         lps = None if lp_k is None else _host_lp(t.lp[:k], t.top_i[:k],
                                                  t.top_lp[:k])
         return seq, lps
@@ -711,9 +708,7 @@ class ServingEngine:
                 keep_mask, torch.cat([last[:, 1:], toks[:, None]], 1), -1)
             lengths = lengths + 1
             seq.append(tok)
-        wait = tracing.begin(tracing.SYNC)
-        seq = torch.stack(seq).cpu().numpy()                   # [K, B]
-        tracing.end(wait)
+        seq, = self._fetch(torch.stack(seq))                   # [K, B]
         if lp_k is None:
             return seq, None
         return seq, _host_lp(*(torch.stack(a) for a in zip(*lps)))
@@ -775,9 +770,7 @@ class ServingEngine:
         else:
             tok, self._state = sampling.sample(logits, self._state,
                                                self.gcfg, last)
-        wait = tracing.begin(tracing.SYNC)
-        seq = tok.cpu().numpy()[None]
-        tracing.end(wait)
+        seq, = self._fetch(tok[None])
         lp_k = self._lp_k()
         lps = None if lp_k is None else _host_lp(
             *(a[None] for a in _token_logprobs(logits, tok, lp_k)))
@@ -920,7 +913,8 @@ class ServingEngine:
         slot.admitting = True
         self._phase(req, tracing.REQ_QUEUED, time.perf_counter())
         if self.paged:
-            n_pg = self.allocator.pages_needed(min(_bucket(n), self.max_len))
+            n_pg = self.allocator.pages_needed(min(prompt_bucket(n),
+                                                   self.max_len))
             self._slot_pages[slot_idx] = self.allocator.alloc(n_pg)
         self._scratch.length = 0
         done0 = 0
@@ -1080,7 +1074,7 @@ class ServingEngine:
             input_embeds=_chunk(req, done, take))
         rcfg = self._admit_host_prep(slot_idx, req)
         self._row_cfgs[slot_idx] = rcfg
-        insert_bucket = min(_bucket(n), self.max_len)
+        insert_bucket = min(prompt_bucket(n), self.max_len)
         if self.paged:
             pages = self._slot_pages[slot_idx]  # reserved at the start
             if len(pages) != self.allocator.pages_needed(insert_bucket):
@@ -1168,9 +1162,7 @@ class ServingEngine:
             self._row_params.set_rows(idx, rp)
             self._keys[idx] = keys
             self._mu[idx] = mu
-        wait = tracing.begin(tracing.SYNC)
-        toks = tok.cpu().numpy()
-        tracing.end(wait)
+        toks, = self._fetch(tok)
         lps = None
         if any(r.logprobs is not None for r in reqs):
             lps = _host_lp(*(a[None] for a in _token_logprobs(
@@ -1178,6 +1170,17 @@ class ServingEngine:
         return toks, lps
 
     # -- per-tick helpers -----------------------------------------------------
+    def _fetch(self, *tensors) -> list:
+        """The tensors on the host as numpy arrays, in one wait (a
+        ``serve.sync`` span); the expert counters ride along
+        (``models/moe.py``: ``serve.experts`` spans)."""
+        wait = tracing.begin(tracing.SYNC)
+        staged = moe.stage_counts(self.device)
+        out = [t.cpu().numpy() for t in tensors]
+        tracing.end(wait)
+        moe.record_counts(staged)
+        return out
+
     def _kv(self):
         return self.page_cache if self.paged else self.cache
 

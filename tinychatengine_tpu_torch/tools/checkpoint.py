@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from tinychatengine_tpu_torch.core.config import (ModelConfig, QuantConfig,
+                                                  config_dict,
                                                   get_model_config)
 from tinychatengine_tpu_torch.models import clip, gptbigcode, llama, opt
 from tinychatengine_tpu_torch.quant.packing import from_bf16_bits
@@ -147,7 +148,7 @@ def save_clip(path: str, clip_params, clip_cfg: ModelConfig) -> None:
     save_checkpoint(str(Path(path) / "clip"), clip_params, clip_cfg,
                     QuantConfig(scheme="fp"),
                     extra_meta={"family": "clip",
-                                "clip_cfg": dataclasses.asdict(clip_cfg)})
+                                "clip_cfg": config_dict(clip_cfg)})
 
 
 def load_clip(path: str, device=None):

@@ -12,7 +12,11 @@ name gives:
 =====================  ==================================  ==============
 name                   where                               a, b
 =====================  ==================================  ==============
-``serve.engine``       a ``ServingEngine`` made (instant)  slots, 0
+``serve.engine``       a ``ServingEngine`` made (instant)  slots, expert
+                                                           weight sets
+                                                           (layers x
+                                                           experts; 0
+                                                           without)
 ``serve.step``         ``ServingEngine.step()``            chunks run,
                                                            requests
                                                            batch-admitted
@@ -26,6 +30,13 @@ name                   where                               a, b
 ``serve.decode``       a burst, a single or a speculative  ticks, live
                        tick                                rows
 ``serve.sync``         a host wait on a token fetch        --
+``serve.experts``      after a token fetch (instant): the  (layer, expert)
+                       one-token forwards (decode ticks)   weight sets
+                       since the last fetch                read, routed
+                                                           (row, expert)
+                                                           pairs
+``serve.experts.       the same, of the longer forwards    as above
+prefill``              (admissions, verify)
 ``serve.emit``         the emit loop of one decode or      --
                        admission
 ``req.queued``         submit (or requeue) to slot taken   --
@@ -38,6 +49,9 @@ name                   where                               a, b
 
 A request's phases (``req.*``) are recorded when they end, from the
 timestamps the scheduler keeps, under the step span in flight then.
+The expert counts (``models/moe.py``) are kept on the device, added
+inside captured graphs, and copied with the token fetch the scheduler
+makes anyway; they are filed under the span open then.
 
 Recording is always on: a span is a tuple appended to a bounded deque
 (``CAPACITY`` spans; ``dropped`` counts what it pushed out). While
@@ -68,9 +82,10 @@ import torch
 NAMES = ("serve.engine", "serve.step", "serve.admit.batch",
          "serve.admit.chunk", "serve.decode", "serve.sync", "serve.emit",
          "req.queued", "req.admit", "graph.capture", "gen.prefill",
-         "gen.decode")
+         "gen.decode", "serve.experts", "serve.experts.prefill")
 (ENGINE, STEP, ADMIT_BATCH, ADMIT_CHUNK, DECODE, SYNC, EMIT, REQ_QUEUED,
- REQ_ADMIT, CAPTURE, GEN_PREFILL, GEN_DECODE) = range(len(NAMES))
+ REQ_ADMIT, CAPTURE, GEN_PREFILL, GEN_DECODE, EXPERTS,
+ EXPERTS_PREFILL) = range(len(NAMES))
 TWINS = tuple("tce." + n for n in NAMES)
 TWIN = torch._C._profiler._RecordFunctionFast
 
@@ -141,6 +156,11 @@ class Recorder:
                                    b))
                 self.filed += 1
                 return
+
+    def current(self) -> int:
+        """The id of the innermost span open on this thread (0: none)."""
+        stack = self._stack.open
+        return stack[-1][0] if stack else 0
 
     def record(self, name: int, start: int, end: int, parent: int = 0,
                request: int = 0, a: int = 0, b: int = 0) -> None:
